@@ -1,0 +1,693 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Drives the port's serving path (``llm_d_kv_cache_manager_tpu_torch``)
+at the full width of Llama-3-8B with random weights from a seed: a
+prompt is hashed into block keys, scored against the in-memory block
+index, and served on the chosen pod by prefill (index miss) or by
+continuation over the cached prefix (index hit), then decoded.  Before
+that, it builds both hand-written kernels from ``csrc/`` with nvcc and
+holds each one against its plain PyTorch version at the shapes the
+serving path gives it.  It imports nothing of JAX or the JAX package.
+
+Phases (any failure exits non-zero):
+  1. environment: card name and power limit, versions, kernel build;
+  2. prefill kernel vs its plain version (full prefill, continuation,
+     small edge cases), element by element within ``LIMITS``, with
+     kernel, plain and library times and the card's bound; at the
+     serving shapes the same limit must reject a planted fault (one
+     key tile skipped);
+  3. decode kernel vs its plain version (the serving batch, B=4, B=16,
+     shuffled tables, ragged contexts down to 1), likewise, the planted
+     fault being one dropped partial;
+  4. serving: two simulated pods, a miss, a hit, 8 decode steps, which
+     must launch the prefill kernel once per layer per request and the
+     decode kernel once per layer per step; then the prefix-hit
+     contract, chunked prefill and decode are checked against fresh
+     full passes and the device time of each step is broken down by
+     kernel category;
+  5. one JSON line listing each kernel's numbers;
+  6. last line: {"ok": true, "device": {...}}.
+
+Usage, from the repository root:  python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import math
+import subprocess
+import sys
+import time
+
+SEED = 0
+LAYERS = 32  # Llama-3-8B's full depth
+PREFIX_TOKENS = 8192
+SUFFIX_TOKENS = 256
+DECODE_STEPS = 8
+MODEL_NAME = "meta-llama/Llama-3.1-8B"
+POOL_BLOCKS = 640  # per pod: A's 528 blocks + B's 16 suffix blocks + 2 decode
+
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
+# bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores,
+# device memory bytes/s.
+H100_SXM_PEAKS = (989e12, 67e12, 3.35e12)
+
+# Per-element limits of a kernel against its plain version:
+#   |got - ref| <= rel * |ref| + floor * rms(ref's row),
+# a row being the D outputs of one query and head.  ``rel`` covers the
+# output's last rounding: both sides round to bf16, so an element may
+# differ by one bf16 ulp, 2^-8 to 2^-7 of its value, and 2^-6 allows
+# twice that.  ``floor`` covers the error the kernel adds inside a row,
+# which spreads with the row's scale, not with each element's.
+LIMITS = {
+    # The prefill kernel rounds its probabilities to bf16 for the P.V
+    # product: each term's relative error is at most 2^-8, and their sum
+    # spreads as about 2^-9 of the row's rms, so 2^-6 is ~8 sigma.
+    ("prefill", "bfloat16"): (2.0**-6, 2.0**-6),
+    # The decode kernel keeps its probabilities in float32.
+    ("decode", "bfloat16"): (2.0**-6, 2.0**-10),
+    # float32 in and out: the same sums taken in another order.
+    ("prefill", "float32"): (2.0**-14, 2.0**-14),
+    ("decode", "float32"): (2.0**-14, 2.0**-14),
+}
+
+
+def port(name):
+    """A module of the port, imported by name."""
+    return importlib.import_module("llm_d_kv_cache_manager_tpu_torch." + name)
+
+
+def card_peaks(name: str):
+    """The peaks for this card's bounds.  "NVIDIA H100 80GB HBM3" is the
+    SXM part, the only card the port has run on."""
+    if "H100" in name and "HBM3" in name:
+        return H100_SXM_PEAKS
+    raise RuntimeError(f"no peak table for card {name!r}")
+
+
+def phase(title: str) -> None:
+    print(f"\n== {title}", flush=True)
+
+
+def timed_ms(torch, fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, CUDA events,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def limit_text(rel: float, floor: float) -> str:
+    return f"2^{math.log2(rel):.0f}*|ref| + 2^{math.log2(floor):.0f}*rms(row of ref)"
+
+
+def err_over_limit(got, ref, rel: float, floor: float):
+    """(max |got - ref|, max of |got - ref| over its element's limit)."""
+    ref = ref.float()
+    diff = (got.float() - ref).abs()
+    limit = rel * ref.abs() + floor * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    ratio = (diff / limit).masked_fill(diff == 0, 0.0)
+    return float(diff.max()), float(ratio.max())
+
+
+def check_close(what: str, got, ref, rel: float, floor: float) -> dict:
+    """Fail unless every element of ``got`` is finite and within its limit."""
+    err, worst = err_over_limit(got, ref, rel, floor)
+    finite = bool(got.float().isfinite().all())
+    print(f"  {what}: max_abs_err {err:.6g}, worst err/limit {worst:.4g} (limit "
+          f"{limit_text(rel, floor)}){'' if finite else ' NOT FINITE'}", flush=True)
+    if not finite or not worst <= 1.0:
+        raise AssertionError(f"{what}: an element is past its limit ({worst}) or not finite")
+    return {"max_abs_err": err, "worst_err_over_limit": worst,
+            "limit": limit_text(rel, floor)}
+
+
+def check_logits(what: str, got, ref) -> float:
+    """Model-level agreement after 32 bf16 layers whose products are
+    tiled differently: within 2^-4 of the largest logit."""
+    err = float((got.float() - ref.float()).abs().max())
+    tol = 2.0**-4 * max(1.0, float(ref.float().abs().max()))
+    print(f"  {what}: max_abs_err {err:.6g} (tolerance {tol:.4g})", flush=True)
+    if not bool(got.float().isfinite().all()) or not err <= tol:
+        raise AssertionError(f"{what}: max_abs_err {err} > {tol} or not finite")
+    return err
+
+
+def reject_fault(what: str, faulty, ref, rel: float, floor: float) -> dict:
+    """Fail unless the limit rejects ``faulty``, the output a kernel with
+    a planted fault gives: the check's power at this shape."""
+    err, worst = err_over_limit(faulty, ref, rel, floor)
+    print(f"  planted fault, {what}: max_abs_err {err:.6g}, worst err/limit "
+          f"{worst:.4g} -> {'rejected' if worst > 1.0 else 'NOT rejected'}", flush=True)
+    if not worst > 1.0:
+        raise AssertionError(f"the limit does not reject the planted fault: {what}")
+    return {"fault": what, "max_abs_err": err, "worst_err_over_limit": worst}
+
+
+# --------------------------------------------------------------- phase 2
+
+
+def causal_pairs(Tq: int, Tk: int, q_offset: int) -> int:
+    """(query, key) pairs the causal mask keeps."""
+    return sum(min(q_offset + i + 1, Tk) for i in range(Tq))
+
+
+def prefill_case(torch, peaks, B, Tq, Tk, H, Hkv, D, q_offset, dtype, timing):
+    fc = port("ops.flash_cuda")
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(SEED + Tq + Tk)
+    q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Tk, Hkv, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Tk, Hkv, D, generator=g, device="cuda").to(dtype)
+    got = fc.flash_gqa_attention_cuda(q, k, v, q_offset=q_offset)
+    ref = fc.flash_gqa_attention_plain(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    limits = LIMITS["prefill", str(dtype)[6:]]
+    shape = f"B={B} Tq={Tq} Tk={Tk} H={H} Hkv={Hkv} D={D} q_offset={q_offset} {str(dtype)[6:]}"
+    row = {"shape": shape, **check_close(f"prefill {shape}", got, ref, *limits)}
+    if not timing:
+        return row
+    # Planted fault: a kernel that skips the middle key tile.  Its output
+    # is this kernel's over the keys without that tile, for every query
+    # row past the tile (rows before it do not see it).
+    tile = fc.KV_TILE
+    t = -(-min(q_offset + Tq, Tk) // tile) // 2
+    r0 = max(0, (t + 1) * tile - q_offset)
+    faulty = got.clone()
+    faulty[:, r0:] = fc.flash_gqa_attention_cuda(
+        q[:, r0:].contiguous(), torch.cat((k[:, : t * tile], k[:, (t + 1) * tile:]), 1),
+        torch.cat((v[:, : t * tile], v[:, (t + 1) * tile:]), 1),
+        q_offset=q_offset + r0 - tile)
+    row["planted"] = reject_fault(
+        f"key tile {t} of {-(-Tk // tile)} skipped", faulty, ref, *limits)
+    del faulty
+    item = q.element_size()
+    flops = 4.0 * B * H * D * causal_pairs(Tq, Tk, q_offset)
+    nbytes = (2 * B * Tq * H * D + 2 * B * Tk * Hkv * D) * item
+    t_ops = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1])
+    t_bytes = nbytes / peaks[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's [B, H, T, D]
+    if Tq == Tk and q_offset == 0:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        mask = (torch.arange(Tk, device="cuda")[None, :]
+                <= q_offset + torch.arange(Tq, device="cuda")[:, None])
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    kernel = lambda: fc.flash_gqa_attention_cuda(q, k, v, q_offset=q_offset)  # noqa: E731
+    plain = lambda: fc.flash_gqa_attention_plain(q, k, v, q_offset=q_offset)  # noqa: E731
+    row.update(
+        ms=timed_ms(torch, kernel, 10),
+        plain_ms=timed_ms(torch, plain, 2),
+        library_ms=timed_ms(torch, lib, 10),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+    )
+    print(f"  ms {row['ms']:.4f}  plain_ms {row['plain_ms']:.3f}  library_ms "
+          f"{row['library_ms']:.4f}  bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
+          flush=True)
+    return row
+
+
+# --------------------------------------------------------------- phase 3
+
+
+def decode_case(torch, peaks, B, H, Hkv, D, max_blocks, ctx, dtype, timing):
+    pc = port("ops.paged_decode_cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + B + max_blocks)
+    num_blocks = B * max_blocks + 7
+    kv = torch.randn(num_blocks, 2, 16, Hkv, D, generator=g, device="cuda").to(dtype)
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(num_blocks, generator=torch.Generator().manual_seed(SEED))
+    table = perm[: B * max_blocks].reshape(B, max_blocks).to(torch.int32).cuda()
+    # Past each context the table holds junk the kernel must never read.
+    for b, n in enumerate(ctx):
+        table[b, -(-n // 16):] = -12345
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    safe = table.clamp(min=0)  # the plain gather reads every column
+    got = pc.paged_decode_attention_cuda(q, kv, table, ctx_t)
+    ref = pc.paged_decode_attention_plain(q, kv, safe, ctx_t)
+    torch.cuda.synchronize()
+    limits = LIMITS["decode", str(dtype)[6:]]
+    shape = f"B={B} H={H} Hkv={Hkv} D={D} max_blocks={max_blocks} ctx={ctx} {str(dtype)[6:]}"
+    row = {"shape": shape, **check_close(f"decode {shape}", got, ref, *limits)}
+    if not timing:
+        return row
+    # Planted fault: a merge that drops the middle chunk's partial.  Its
+    # output is this kernel's over the table without that chunk's blocks.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_chunk, chunks = pc.split_plan(B, Hkv, max_blocks, sms)
+    lo, hi = chunks // 2 * per_chunk, (chunks // 2 + 1) * per_chunk
+    ctx_faulty = [n - (hi - lo) * 16 if n >= hi * 16 else min(n, lo * 16) for n in ctx]
+    faulty = pc.paged_decode_attention_cuda(
+        q, kv, torch.cat((table[:, :lo], table[:, hi:]), 1).contiguous(),
+        torch.tensor(ctx_faulty, dtype=torch.int32, device="cuda"))
+    row["planted"] = reject_fault(
+        f"partial {chunks // 2} of {chunks} (blocks {lo}-{hi - 1}) dropped", faulty, ref,
+        *limits)
+    item = q.element_size()
+    tokens = sum(ctx)
+    flops = 4.0 * tokens * H * D
+    nbytes = (2 * tokens * Hkv * D + 2 * B * H * D) * item + 4 * (
+        sum(-(-n // 16) for n in ctx) + B)
+    t_ops = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1])
+    t_bytes = nbytes / peaks[2]
+    row.update(
+        ms=timed_ms(torch, lambda: pc.paged_decode_attention_cuda(q, kv, table, ctx_t), 20),
+        plain_ms=timed_ms(torch, lambda: pc.paged_decode_attention_plain(q, kv, safe, ctx_t), 3),
+        library_ms=None,  # no single PyTorch call reads a paged pool
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+    )
+    print(f"  ms {row['ms']:.4f}  plain_ms {row['plain_ms']:.3f}  bound_ms "
+          f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    return row
+
+
+# --------------------------------------------------------------- phase 4
+
+
+# Kernel-name fragments -> the breakdown's categories (first match wins).
+KERNEL_GROUPS = (
+    ("prefill_attention", ("flash_bf16_kernel", "flash_merge_kernel")),
+    ("decode_attention", ("decode_partial_kernel", "decode_merge_kernel")),
+    ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitKreduce")),
+)
+
+
+def device_breakdown(torch, step, steps: int):
+    """Where ``step``'s device time goes, per call, from a torch.profiler
+    window of ``steps`` calls: the device self time of the kernels
+    themselves (not of the host ops that launched them, which would
+    count each kernel twice), grouped by ``KERNEL_GROUPS`` with the rest
+    as ``other`` (elementwise, copies, gathers, reductions); overlap
+    between streams is not subtracted.  Also the window's wall time,
+    which the profiler inflates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        group = next((name for name, keys in KERNEL_GROUPS
+                      if any(key in event.key for key in keys)), "other")
+        groups[group] += event.self_device_time_total / 1e3 / steps
+    device = sum(groups.values())
+    if device <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return {"device_ms": device, "kernels_ms": groups, "profiled_wall_ms": wall}
+
+
+def show_breakdown(what: str, wall_ms: float, busy) -> dict:
+    """Print and return a breakdown with the device's idle share of the
+    unprofiled wall time ``wall_ms``."""
+    idle = max(0.0, 1 - busy["device_ms"] / wall_ms)
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in busy["kernels_ms"].items())
+    print(f"  {what}: {busy['device_ms']:.2f} ms of device kernels ({parts}); device idle "
+          f"share {idle:.2f} of the unprofiled {wall_ms:.2f} ms (profiled window "
+          f"{busy['profiled_wall_ms']:.2f} ms)", flush=True)
+    return dict(busy, wall_ms=wall_ms, idle_share=idle)
+
+
+class SimPod:
+    """One simulated serving pod: paged pool + local prefix cache (the
+    fleet benchmark's pod loop, over the port's ``KVCachePool``)."""
+
+    def __init__(self, name: str, cfg, pool_blocks: int) -> None:
+        pool_mod = port("models.kv_cache_pool")
+        self.name = name
+        self.pool_blocks = pool_blocks
+        self.pool = pool_mod.KVCachePool(
+            pool_mod.KVCachePoolConfig(
+                cfg.n_layers, pool_blocks, cfg.block_size, cfg.n_kv_heads,
+                cfg.head_dim, cfg.dtype,
+            ),
+            device="cuda",
+        )
+        self._next_block = 0
+        # Engine-side prefix cache: chained block hash -> pool block id,
+        # plus the reverse map so reuse evicts the old resident.
+        self.cached = {}
+        self._block_owner = {}
+
+    def alloc(self, n: int):
+        """Bump-allocate n blocks; returns (ids, evicted block hashes)."""
+        ids = [(self._next_block + i) % self.pool_blocks for i in range(n)]
+        self._next_block = (self._next_block + n) % self.pool_blocks
+        evicted = []
+        for bid in ids:
+            old = self._block_owner.pop(bid, None)
+            if old is not None and self.cached.get(old) == bid:
+                del self.cached[old]
+                evicted.append(old)
+        return ids, evicted
+
+    def cached_prefix_blocks(self, block_hashes):
+        """Pool ids of the longest cached consecutive prefix."""
+        ids = []
+        for h in block_hashes:
+            if h not in self.cached:
+                break
+            ids.append(self.cached[h])
+        return ids
+
+    def commit(self, block_hashes, block_ids) -> None:
+        for h, bid in zip(block_hashes, block_ids):
+            self.cached[h] = bid
+            self._block_owner[bid] = h
+
+
+def serving(torch, layers: int):
+    llama = port("models.llama")
+    index_mod = port("kvcache.kvblock.index")
+    tp_mod = port("kvcache.kvblock.token_processor")
+    scorer_mod = port("kvcache.scorer")
+    fc = port("ops.flash_cuda")
+    pc = port("ops.paged_decode_cuda")
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    cfg.n_layers = layers
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    print(f"  Llama-3-8B widths, {layers} of 32 layers, bf16 random weights "
+          f"(seed {SEED}): {time.perf_counter() - t0:.1f} s to init", flush=True)
+    pods = [SimPod(f"pod-{n}", cfg, POOL_BLOCKS) for n in ("a", "b")]
+    index = index_mod.new_index()
+    hasher = tp_mod.ChunkedTokenDatabase(
+        tp_mod.TokenProcessorConfig(block_size=cfg.block_size, hash_seed="0"))
+    scorer = scorer_mod.new_scorer(scorer_mod.ScorerConfig())
+    bs = cfg.block_size
+
+    rng = torch.Generator().manual_seed(SEED)
+    draw = lambda n: torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()  # noqa: E731
+    prefix = draw(PREFIX_TOKENS)
+    prompt_a = prefix + draw(SUFFIX_TOKENS)
+    prompt_b = prefix + draw(SUFFIX_TOKENS)
+
+    def route(tokens):
+        keys = hasher.tokens_to_kv_block_keys(
+            index_mod.EMPTY_BLOCK_HASH, tokens, MODEL_NAME)
+        scores = scorer.score(keys, index.lookup(keys))
+        return keys, scores
+
+    def serve(tokens, fallback):
+        """Route and prefill one prompt: hash, look up and score it, then
+        continue over the chosen pod's cached prefix (hit) or prefill the
+        whole prompt (miss), and register the new blocks."""
+        t_start = time.perf_counter()
+        keys, scores = route(tokens)
+        t_routed = time.perf_counter()
+        if scores:
+            pod = next(p for p in pods if p.name == max(sorted(scores), key=scores.get))
+        else:
+            pod = fallback
+        cached = pod.cached_prefix_blocks(keys)
+        if cached:  # hit: continue over the cached prefix
+            new_ids, _ = pod.alloc(len(keys) - len(cached))
+            ids = cached + new_ids
+            prefix_len = len(cached) * bs
+            logits, _ = llama.prefill_continue(
+                params, torch.tensor([tokens[prefix_len:]]), pod.pool.kv,
+                torch.tensor([ids], dtype=torch.int32), prefix_len, cfg)
+        else:  # miss: prefill the whole prompt
+            new_ids, _ = pod.alloc(len(keys))
+            ids = new_ids
+            logits, _ = llama.prefill_paged(
+                params, torch.tensor([tokens]), pod.pool.kv,
+                torch.tensor([ids], dtype=torch.int32), cfg)
+        first = int(logits[0, -1].argmax())
+        ttft = time.perf_counter() - t_start
+        fresh = len(cached)
+        pod.commit(keys[fresh:], ids[fresh:])
+        index.add(keys[fresh:], keys[fresh:], [index_mod.PodEntry(pod.name, "gpu")])
+        return dict(pod=pod, keys=keys, ids=ids, logits=logits, first=first,
+                    ttft_ms=ttft * 1e3, route_ms=(t_routed - t_start) * 1e3,
+                    reused=len(cached), scores=scores)
+
+    # Warm-up outside the measured run, at every shape it will use (a
+    # full prefill, a continuation, a batch-2 decode) on pod-b's pool
+    # and without touching the index, so cuBLAS has picked its
+    # algorithms before anything is timed.
+    n_prefix = PREFIX_TOKENS // bs
+    warm_ids, _ = pods[1].alloc(len(prompt_a) // bs)
+    llama.prefill_paged(params, torch.tensor([draw(len(prompt_a))]), pods[1].pool.kv,
+                        torch.tensor([warm_ids], dtype=torch.int32), cfg)
+    warm_suffix, _ = pods[1].alloc(SUFFIX_TOKENS // bs)
+    warm_hit = warm_ids[:n_prefix] + warm_suffix
+    llama.prefill_continue(params, torch.tensor([draw(SUFFIX_TOKENS)]), pods[1].pool.kv,
+                           torch.tensor([warm_hit], dtype=torch.int32), PREFIX_TOKENS, cfg)
+    warm_extra, _ = pods[1].alloc(2)
+    llama.decode_step(
+        params, torch.tensor([1, 2]), pods[1].pool.kv,
+        torch.tensor([warm_ids + warm_extra[:1], warm_hit + warm_extra[1:]], dtype=torch.int32),
+        torch.full((2,), len(prompt_a) + 1, dtype=torch.int32), cfg)
+    torch.cuda.synchronize()
+
+    fc.flash_gqa_attention_cuda.launches = 0
+    pc.paged_decode_attention_cuda.launches = 0
+
+    a = serve(prompt_a, pods[0])
+    print(f"  request A: scores {a['scores']} -> {a['pod'].name}, reused {a['reused']} "
+          f"blocks (miss: prefill_paged over {len(prompt_a)} tokens), TTFT "
+          f"{a['ttft_ms']:.1f} ms (routing {a['route_ms']:.1f} ms)", flush=True)
+    b = serve(prompt_b, pods[1])
+    print(f"  request B: scores {b['scores']} -> {b['pod'].name}, reused {b['reused']} "
+          f"blocks (hit: prefill_continue over {len(prompt_b) - b['reused'] * bs} tokens), "
+          f"TTFT {b['ttft_ms']:.1f} ms (routing {b['route_ms']:.1f} ms)", flush=True)
+    pod_a, ids_a, ids_b, logits_b = a["pod"], a["ids"], b["ids"], b["logits"]
+    first_a, first_b = a["first"], b["first"]
+    if a["scores"] or a["reused"]:
+        raise AssertionError("request A must be an index miss")
+    if b["pod"] is not pod_a or b["reused"] != PREFIX_TOKENS // bs:
+        raise AssertionError("request B must hit A's pod on the whole prefix")
+    if b["scores"] != {pod_a.name: float(PREFIX_TOKENS // bs)}:
+        raise AssertionError(f"unexpected scores for B: {b['scores']}")
+    if a["logits"].shape != (1, len(prompt_a), cfg.vocab_size) or logits_b.shape != (
+            1, SUFFIX_TOKENS, cfg.vocab_size):
+        raise AssertionError("unexpected logits shapes")
+    del a["logits"]  # 4.3 GB of float32 logits
+
+    # Decode both requests in one batch of 2 on their pod.
+    extra, _ = pod_a.alloc(2)
+    table = torch.tensor([ids_a + [extra[0]], ids_b + [extra[1]]], dtype=torch.int32)
+    tokens = torch.tensor([first_a, first_b], device="cuda")
+    generated = [tokens]
+    ctx = torch.full((2,), len(prompt_a), dtype=torch.int32, device="cuda")
+    step_logits = []
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        ctx = ctx + 1
+        logits, _ = llama.decode_step(params, tokens, pod_a.pool.kv, table, ctx, cfg)
+        step_logits.append(logits)
+        tokens = logits.argmax(-1)
+        generated.append(tokens)
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t_dec) * 1e3 / DECODE_STEPS
+    # The main path's launches: counted from request A to here, before
+    # the profiler windows and the checks below launch the kernels again.
+    launches = {
+        "flash_prefill": fc.flash_gqa_attention_cuda.launches,
+        "paged_decode": pc.paged_decode_attention_cuda.launches,
+    }
+    expected = {"flash_prefill": 2 * layers, "paged_decode": DECODE_STEPS * layers}
+    print(f"  kernel launches on the main path (2 prefills, {DECODE_STEPS} decode steps, "
+          f"{layers} layers): {launches}", flush=True)
+    if launches != expected:
+        raise AssertionError(f"main-path launches {launches}, expected {expected}")
+    out_tokens = torch.stack(generated, 1).tolist()
+    print(f"  decode: {DECODE_STEPS} steps at batch 2, {ms_per_step:.2f} ms/step; "
+          f"tokens {out_tokens}", flush=True)
+    if not all(bool(x.isfinite().all()) for x in step_logits):
+        raise AssertionError("decode logits not finite")
+    decode_split = show_breakdown(
+        "decode step under torch.profiler", ms_per_step,
+        device_breakdown(torch, lambda: llama.decode_step(
+            params, tokens, pod_a.pool.kv, table, ctx + 1, cfg), steps=2))
+    # The same for the two prefills, re-run on pod-b's warm-up blocks
+    # (the index and pod-a are not touched).
+    miss_split = show_breakdown(
+        "miss prefill under torch.profiler", a["ttft_ms"] - a["route_ms"],
+        device_breakdown(torch, lambda: llama.prefill_paged(
+            params, torch.tensor([prompt_a]), pods[1].pool.kv,
+            torch.tensor([warm_ids], dtype=torch.int32), cfg), steps=1))
+    hit_split = show_breakdown(
+        "hit continuation under torch.profiler", b["ttft_ms"] - b["route_ms"],
+        device_breakdown(torch, lambda: llama.prefill_continue(
+            params, torch.tensor([prompt_b[PREFIX_TOKENS:]]), pods[1].pool.kv,
+            torch.tensor([warm_hit], dtype=torch.int32), PREFIX_TOKENS, cfg), steps=1))
+
+    # Prefix-hit contract: B's continuation equals a fresh full prefill
+    # of B (on the other pod's pool).
+    full_ids, _ = pods[1].alloc(len(b["keys"]))
+    full_b, _ = llama.prefill_paged(
+        params, torch.tensor([prompt_b]), pods[1].pool.kv,
+        torch.tensor([full_ids], dtype=torch.int32), cfg)
+    ref = full_b[:, PREFIX_TOKENS:]
+    hit_err = check_logits("prefix-hit contract: continuation vs full prefill_paged",
+                           logits_b, ref)
+    if int(ref[0, -1].argmax()) != first_b:
+        raise AssertionError("continuation and full prefill disagree on the next token")
+    full_last = full_b[:, -1].clone()
+    del full_b, ref
+    # Chunked prefill of B (4 chunks, each attending over the pool with
+    # its q_offset) ends on the full prefill's last-position logits.
+    chunk_ids, _ = pods[1].alloc(len(b["keys"]))
+    chunked, _ = llama.prefill_chunked(
+        params, torch.tensor([prompt_b]), pods[1].pool.kv,
+        torch.tensor([chunk_ids], dtype=torch.int32), cfg,
+        chunk_tokens=len(prompt_b) // 4)
+    chunk_err = check_logits("prefill_chunked vs full prefill_paged (last position)",
+                             chunked, full_last)
+    # Decode step 1 of B equals the dense forward over B + its first token.
+    dense = llama.forward(params, torch.tensor([prompt_b + [first_b]]), cfg)[:, -1]
+    dec_err = check_logits("decode step 1 vs dense forward", step_logits[0][1:2], dense)
+    del dense
+    # The pool's offload staging on the card: a pinned copy made on a
+    # side stream, read after its event, holds the block-major gather.
+    staged, event = pod_a.pool.stage_gather_pinned(ids_b[:4])
+    event.synchronize()
+    if not staged.is_pinned() or staged.view(torch.uint16).numpy().tobytes() != (
+            pod_a.pool.gather_block_major(ids_b[:4]).tobytes()):
+        raise AssertionError("stage_gather_pinned differs from gather_block_major")
+    print("  KVCachePool.stage_gather_pinned: pinned side-stream copy of 4 blocks equals "
+          "gather_block_major", flush=True)
+    return {
+        "launches": launches,
+        "ttft_miss_ms": a["ttft_ms"],
+        "ttft_hit_ms": b["ttft_ms"],
+        "route_miss_ms": a["route_ms"],
+        "route_hit_ms": b["route_ms"],
+        "decode_ms_per_step": ms_per_step,
+        "breakdown_ms": {"miss": miss_split, "hit": hit_split, "decode_step": decode_split},
+        "prefix_hit_max_abs_err": hit_err,
+        "chunked_max_abs_err": chunk_err,
+        "decode_max_abs_err": dec_err,
+    }
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    t_all = time.perf_counter()
+
+    phase("1. environment")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    peaks = card_peaks(name)
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+          f"{sys.version.split()[0]}; bounds from the H100 SXM peaks "
+          f"(bf16 {peaks[0] / 1e12:.0f} TFLOP/s, f32 {peaks[1] / 1e12:.0f} TFLOP/s, "
+          f"{peaks[2] / 1e12:.2f} TB/s)", flush=True)
+    build = port("ops._build")
+    t0 = time.perf_counter()
+    logs = build.build_all(["flash_prefill", "paged_decode"])
+    print(f"  kernel build (nvcc, sm_90a, both sources at once): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for src, log in logs.items():
+        regs = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
+                if "registers" in ln]
+        print(f"  {src}: {len(regs)} kernels; {'; '.join(sorted(set(regs)))}", flush=True)
+
+    phase("2. prefill kernel (csrc/flash_prefill.cu) vs plain tiled op")
+    bf16, f32 = torch.bfloat16, torch.float32
+    prefill_full = prefill_case(torch, peaks, 1, 8448, 8448, 32, 8, 128, 0, bf16, True)
+    prefill_hit = prefill_case(torch, peaks, 1, 256, 8448, 32, 8, 128, 8192, bf16, True)
+    prefill_edge = [
+        prefill_case(torch, peaks, *case, False)
+        for case in [
+            (2, 100, 100, 32, 8, 128, 0, bf16),
+            (1, 40, 300, 8, 2, 64, 260, bf16),
+            (1, 1, 77, 4, 1, 128, 76, bf16),
+            (2, 100, 100, 4, 2, 128, 0, f32),
+            (1, 40, 300, 8, 2, 64, 260, f32),
+        ]
+    ]
+    torch.cuda.empty_cache()
+
+    phase("3. decode kernel (csrc/paged_decode.cu) vs plain paged_attention")
+    serving_ctx = PREFIX_TOKENS + SUFFIX_TOKENS + DECODE_STEPS
+    decode_serving = decode_case(torch, peaks, 2, 32, 8, 128, serving_ctx // 16 + 1,
+                                 [serving_ctx, serving_ctx], bf16, True)
+    decode_b4 = decode_case(torch, peaks, 4, 32, 8, 128, 528, [8448, 1, 5000, 8447],
+                            bf16, True)
+    ragged16 = [8448 - 523 * i for i in range(15)] + [1]
+    decode_b16 = decode_case(torch, peaks, 16, 32, 8, 128, 528, ragged16, bf16, True)
+    decode_edge = [
+        decode_case(torch, peaks, *case, False)
+        for case in [
+            (3, 8, 2, 64, 8, [16, 7, 128], bf16),
+            (2, 32, 8, 128, 7, [97, 1], f32),
+            (1, 8, 8, 128, 4, [33], f32),
+        ]
+    ]
+    torch.cuda.empty_cache()
+
+    phase("4. serving: index-routed miss, hit and decode on two pods")
+    serve = serving(torch, LAYERS)
+
+    phase("5. kernels")
+    kernels = [
+        dict(
+            name="flash_prefill",
+            route="cuda",
+            source="llm_d_kv_cache_manager_tpu_torch/csrc/flash_prefill.cu",
+            replaces="llm_d_kv_cache_manager_tpu/ops/flash_pallas.py:49",
+            launches=serve["launches"]["flash_prefill"],
+            **{k: prefill_full[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms", "shape", "limit",
+                                            "worst_err_over_limit", "planted")},
+            cases=[prefill_hit] + prefill_edge,
+        ),
+        dict(
+            name="paged_decode",
+            route="cuda",
+            source="llm_d_kv_cache_manager_tpu_torch/csrc/paged_decode.cu",
+            replaces="llm_d_kv_cache_manager_tpu/ops/paged_decode_pallas.py:40",
+            launches=serve["launches"]["paged_decode"],
+            **{k: decode_serving[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms", "shape", "limit",
+                                              "worst_err_over_limit", "planted")},
+            cases=[decode_b4, decode_b16] + decode_edge,
+        ),
+    ]
+    summary = {k: v for k, v in serve.items() if k != "launches"}
+    print(json.dumps({"serving": summary, "layers": LAYERS,
+                      "seconds": round(time.perf_counter() - t_all, 1)}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

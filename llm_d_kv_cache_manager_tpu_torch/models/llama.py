@@ -1,0 +1,466 @@
+"""Llama-family decoder, serving part, in PyTorch.
+
+Port of the reference's ``models/llama.py`` serving path: the same
+stacked-layer params tree (``embed``, ``layers.{ln1, ln2, wq, wk, wv,
+wo, w_gate, w_up, w_down}`` with a leading layer axis, ``ln_f``), the
+same layouts, bf16 matmuls with f32 norm/softmax/logits, and the paged
+pool ``[L, num_blocks, 2, block_size, Hkv, Dh]`` of
+``models/kv_cache_pool.py``.
+
+Attention routing follows the tensors' device, not a backend probe:
+
+- CUDA tensors: every prefill attention (``forward``,
+  ``prefill_paged``, ``prefill_continue`` with ``q_offset=prefix_len``,
+  ``prefill_chunked`` with ``q_offset=start``) runs the hand-written
+  kernel of ``ops/flash_cuda.py`` and every ``decode_step`` attention
+  the one of ``ops/paged_decode_cuda.py``.
+- CPU tensors: the reference's routing off the TPU, exactly — dense
+  attention below ``flash_attention_min_len`` keys, the tiled op at or
+  above it, the gather op at decode.
+
+The reference's arrays are immutable; here ``prefill_*`` and
+``decode_step`` write the new K/V into ``kv_pool`` IN PLACE and return
+``(logits, kv_pool)`` with that same tensor, so callers that compare
+pools clone them first.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from llm_d_kv_cache_manager_tpu_torch.ops.attention import causal_gqa_attention
+from llm_d_kv_cache_manager_tpu_torch.ops.flash_attention import (
+    flash_gqa_attention,
+)
+from llm_d_kv_cache_manager_tpu_torch.ops.flash_cuda import (
+    flash_gqa_attention_cuda,
+)
+from llm_d_kv_cache_manager_tpu_torch.ops.paged_decode_cuda import (
+    paged_decode_attention_cuda,
+)
+from llm_d_kv_cache_manager_tpu_torch.utils.device import (
+    from_numpy,
+    resolve_device,
+    torch_dtype,
+)
+
+Params = Dict[str, Any]
+
+_LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    d_ff: int = 1408
+    rope_theta: float = 500000.0
+    block_size: int = 16  # paged-KV block, matches the index block size
+    dtype: str = "bfloat16"
+    # Key-axis length at/above which CPU prefill attention switches from
+    # the dense op to the tiled op (the reference's routing off the TPU).
+    # CUDA tensors always take the prefill kernel.
+    flash_attention_min_len: int = 1024
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=128256,
+            d_model=4096,
+            n_layers=32,
+            n_heads=32,
+            n_kv_heads=8,
+            d_ff=14336,
+        )
+
+
+def _param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
+    """{layer key: (shape, fan_in)} of the stacked weight tensors."""
+    L, D, H, Hkv, Dh, F_ = (
+        cfg.n_layers,
+        cfg.d_model,
+        cfg.n_heads,
+        cfg.n_kv_heads,
+        cfg.head_dim,
+        cfg.d_ff,
+    )
+    return {
+        "wq": ((L, D, H, Dh), D),
+        "wk": ((L, D, Hkv, Dh), D),
+        "wv": ((L, D, Hkv, Dh), D),
+        "wo": ((L, H, Dh, D), H * Dh),
+        "w_gate": ((L, D, F_), D),
+        "w_up": ((L, D, F_), D),
+        "w_down": ((L, F_, D), F_),
+    }
+
+
+def init_params(
+    cfg: LlamaConfig,
+    generator: torch.Generator,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """Random params in the reference's layout: normal(0, fan_in^-1/2)
+    weights drawn in float32 from ``generator`` (which must live on
+    ``device``), norms at 1.  Drawn in slices along the leading axis of
+    at most 2^26 elements (one layer of the largest weight), so the
+    float32 scratch stays a fraction of the stack.  ``jax.random`` and
+    torch give different numbers from one seed; tests that compare with
+    the reference load its weights through :func:`params_from_numpy`
+    instead."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    D = cfg.d_model
+
+    def normal(shape, fan_in):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        rows = max(1, (1 << 26) // math.prod(shape[1:]))
+        for i in range(0, shape[0], rows):
+            n = min(rows, shape[0] - i)
+            draw = torch.randn(
+                (n,) + shape[1:], generator=generator, device=dev,
+                dtype=torch.float32,
+            )
+            out[i : i + n] = (draw * fan_in**-0.5).to(dtype)
+        return out
+
+    layers = {
+        "ln1": torch.ones((cfg.n_layers, D), dtype=dtype, device=dev),
+        "ln2": torch.ones((cfg.n_layers, D), dtype=dtype, device=dev),
+    }
+    for key, (shape, fan_in) in _param_shapes(cfg).items():
+        layers[key] = normal(shape, fan_in)
+    return {
+        "embed": normal((cfg.vocab_size, D), D),
+        "layers": layers,
+        "ln_f": torch.ones((D,), dtype=dtype, device=dev),
+    }
+
+
+def params_from_numpy(
+    tree: Params, cfg: LlamaConfig, device: Union[str, torch.device] = "cuda"
+) -> Params:
+    """The reference's ``init_params`` pytree, as numpy arrays, in the
+    port's layout (which is the same one): bf16 weights are carried bit
+    for bit through their ``uint16`` view, others by value in
+    ``cfg.dtype``."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+
+    def conv(array) -> torch.Tensor:
+        return from_numpy(np.asarray(array), dtype).to(dev)
+
+    shapes = _param_shapes(cfg)
+    layers = {}
+    for key in _LAYER_KEYS:
+        layers[key] = conv(tree["layers"][key])
+        want = shapes[key][0] if key in shapes else (cfg.n_layers, cfg.d_model)
+        if tuple(layers[key].shape) != want:
+            raise ValueError(
+                f"layers.{key} has shape {tuple(layers[key].shape)}, "
+                f"config wants {want}"
+            )
+    return {
+        "embed": conv(tree["embed"]),
+        "layers": layers,
+        "ln_f": conv(tree["ln_f"]),
+    }
+
+
+def _layer(params: Params, i: int) -> Params:
+    return {key: params["layers"][key][i] for key in _LAYER_KEYS}
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    norm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+    return (norm * w.float()).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, T, H, D] (D even); positions: [B, T].  Angles in float32,
+    as in the reference."""
+    D = x.shape[-1]
+    freqs = theta ** (
+        -torch.arange(0, D // 2, dtype=torch.float32, device=x.device) / (D // 2)
+    )
+    angles = positions[..., None].float() * freqs  # [B, T, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1).to(
+        x.dtype
+    )
+
+
+def _mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
+    gate = torch.einsum("btd,df->btf", x, lp["w_gate"])
+    up = torch.einsum("btd,df->btf", x, lp["w_up"])
+    hidden = F.silu(gate.float()).to(x.dtype) * up
+    return torch.einsum("btf,fd->btd", hidden, lp["w_down"])
+
+
+def _qkv(x: torch.Tensor, lp: Params, positions: torch.Tensor, theta: float):
+    q = torch.einsum("btd,dhk->bthk", x, lp["wq"])
+    k = torch.einsum("btd,dhk->bthk", x, lp["wk"])
+    v = torch.einsum("btd,dhk->bthk", x, lp["wv"]).contiguous()
+    return _rope(q, positions, theta), _rope(k, positions, theta), v
+
+
+def _logits(x: torch.Tensor, params: Params) -> torch.Tensor:
+    """Shared epilogue: final norm + tied-embedding head, f32 logits."""
+    x = _rms_norm(x, params["ln_f"])
+    return torch.einsum("...d,vd->...v", x.float(), params["embed"].float())
+
+
+def _attn_out(attn: torch.Tensor, lp: Params) -> torch.Tensor:
+    return torch.einsum("bthk,hkd->btd", attn, lp["wo"])
+
+
+def _prefill_attention(q, k, v, cfg: LlamaConfig, q_offset: int = 0, use_flash=True):
+    """Prefill attention routed by device: the prefill kernel on CUDA;
+    on the CPU dense below ``flash_attention_min_len`` keys and the
+    tiled op at or above it (``use_flash=False`` forces dense there)."""
+    if q.is_cuda:
+        return flash_gqa_attention_cuda(q, k, v, q_offset=q_offset)
+    if use_flash and k.shape[1] >= cfg.flash_attention_min_len:
+        return flash_gqa_attention(q, k, v, q_offset=q_offset)
+    return causal_gqa_attention(q, k, v, q_offset=q_offset)
+
+
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    positions: Optional[torch.Tensor] = None,
+    use_flash: bool = True,
+) -> torch.Tensor:
+    """Dense forward: tokens [B, T] -> logits [B, T, V] (no ring
+    attention in this port yet)."""
+    B, T = tokens.shape
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    if positions is None:
+        positions = torch.arange(T, device=dev).expand(B, T)
+    x = _embed(params, tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = _rms_norm(x, lp["ln1"])
+        q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
+        attn = _prefill_attention(q, k, v, cfg, use_flash=use_flash)
+        x = x + _attn_out(attn, lp)
+        x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
+    return _logits(x, params)
+
+
+def _scatter_kv_blocks(kv_layer, k, v, block_ids, block_size) -> None:
+    """Write per-token K/V ([B, T, Hkv, Dh] each, T a multiple of
+    ``block_size``) IN PLACE into the pool blocks named by ``block_ids``
+    ([B, T/block_size]).  ONE layout for every prefill path."""
+    B, T = k.shape[:2]
+    kv = torch.stack((k, v), dim=2)  # [B, T, 2, Hkv, Dh]
+    kv = kv.reshape(
+        B, T // block_size, block_size, 2, kv.shape[-2], kv.shape[-1]
+    ).permute(0, 1, 3, 2, 4, 5)  # [B, nb, 2, block, Hkv, Dh]
+    kv_layer[block_ids.reshape(-1).long()] = kv.reshape(
+        (-1,) + tuple(kv.shape[2:])
+    ).to(kv_layer.dtype)
+
+
+def prefill_paged(
+    params: Params,
+    tokens: torch.Tensor,
+    kv_pool: torch.Tensor,
+    block_table: torch.Tensor,
+    cfg: LlamaConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill writing per-layer K/V into the paged pool, in place.
+
+    tokens: [B, T] with T % block_size == 0; kv_pool:
+    [L, num_blocks, 2, block_size, Hkv, Dh] (``KVCachePool.kv``);
+    block_table: [B, T/block_size] pool block ids for each sequence.
+    Returns (logits [B, T, V], kv_pool) — the same pool tensor, updated.
+    """
+    dev = kv_pool.device
+    tokens, block_table = tokens.to(dev), block_table.to(dev)
+    B, T = tokens.shape
+    positions = torch.arange(T, device=dev).expand(B, T)
+    x = _embed(params, tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = _rms_norm(x, lp["ln1"])
+        q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
+        attn = _prefill_attention(q, k, v, cfg)
+        x = x + _attn_out(attn, lp)
+        x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
+        _scatter_kv_blocks(kv_pool[i], k, v, block_table, cfg.block_size)
+    return _logits(x, params), kv_pool
+
+
+def prefill_continue(
+    params: Params,
+    tokens: torch.Tensor,
+    kv_pool: torch.Tensor,
+    block_table: torch.Tensor,
+    prefix_len: int,
+    cfg: LlamaConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill only the uncached suffix of a prompt (prefix-cache hit).
+
+    The first ``prefix_len`` tokens' K/V already live in the pool; this
+    computes the suffix attending over gathered-prefix + new K/V and
+    writes the suffix blocks into the pool in place.
+
+    tokens: [B, Ts] suffix tokens, Ts % block_size == 0.
+    block_table: [B, (prefix_len + Ts) / block_size] — prefix blocks
+    first, then the blocks to write.  Returns (suffix logits
+    [B, Ts, V], kv_pool).
+    """
+    dev = kv_pool.device
+    tokens, block_table = tokens.to(dev), block_table.to(dev)
+    B, Ts = tokens.shape
+    if prefix_len % cfg.block_size or Ts % cfg.block_size:
+        raise ValueError("prefix_len and Ts must be block_size multiples")
+    npre = prefix_len // cfg.block_size
+    nsuf = Ts // cfg.block_size
+    positions = (prefix_len + torch.arange(Ts, device=dev)).expand(B, Ts)
+    x = _embed(params, tokens)
+    prefix_ids = block_table[:, :npre].long()  # [B, npre]
+    suffix_ids = block_table[:, npre : npre + nsuf]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        kv_layer = kv_pool[i]
+        h = _rms_norm(x, lp["ln1"])
+        q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
+        # Gather the prefix K/V: [B, npre, 2, block, Hkv, Dh].
+        pre = kv_layer[prefix_ids].permute(0, 2, 1, 3, 4, 5)
+        pre = pre.reshape(B, 2, prefix_len, k.shape[-2], k.shape[-1])
+        k_full = torch.cat((pre[:, 0].to(k.dtype), k), dim=1)
+        v_full = torch.cat((pre[:, 1].to(v.dtype), v), dim=1)
+        attn = _prefill_attention(q, k_full, v_full, cfg, q_offset=prefix_len)
+        x = x + _attn_out(attn, lp)
+        x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
+        _scatter_kv_blocks(kv_layer, k, v, suffix_ids, cfg.block_size)
+    return _logits(x, params), kv_pool
+
+
+def prefill_chunked(
+    params: Params,
+    tokens: torch.Tensor,
+    kv_pool: torch.Tensor,
+    block_table: torch.Tensor,
+    cfg: LlamaConfig,
+    chunk_tokens: int = 2048,
+    seq_len: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bounded-activation long-prompt prefill: the prompt runs in
+    ``chunk_tokens`` chunks, each writing its K/V blocks into the pool
+    FIRST and then attending over every pool position so far with the
+    chunk's ``q_offset`` (causality hides the blocks not written yet).
+
+    tokens: [B, T] with T % chunk_tokens == 0 and chunk_tokens %
+    block_size == 0; block_table: [B, T / block_size].  ``seq_len``
+    ([B], defaults to T): each sequence's true length; the logits come
+    from position ``seq_len - 1`` (clamped into range), never a pad.
+    Returns (last-position logits [B, V], kv_pool).
+    """
+    dev = kv_pool.device
+    tokens, block_table = tokens.to(dev), block_table.to(dev)
+    B, T = tokens.shape
+    C = chunk_tokens
+    if T % C or C % cfg.block_size:
+        raise ValueError(
+            "chunk_tokens must divide T, and block_size must divide "
+            f"chunk_tokens (T={T}, chunk={C}, block={cfg.block_size})"
+        )
+    blocks_per_chunk = C // cfg.block_size
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    if seq_len is None:
+        seq_len = torch.full((B,), T, dtype=torch.long, device=dev)
+    # Clamped into range, as in the reference: an out-of-range length
+    # must still select a real position.
+    last_pos = torch.clamp(seq_len.to(dev).long() - 1, 0, T - 1)  # [B]
+    table = block_table.long()
+    last_h = torch.zeros((B, cfg.d_model), dtype=params["embed"].dtype, device=dev)
+    for c in range(T // C):
+        start = c * C
+        tok = tokens[:, start : start + C]
+        positions = (torch.arange(C, device=dev) + start).expand(B, C)
+        x = _embed(params, tok)
+        chunk_ids = block_table[:, c * blocks_per_chunk : (c + 1) * blocks_per_chunk]
+        for i in range(cfg.n_layers):
+            lp = _layer(params, i)
+            kv_layer = kv_pool[i]
+            h = _rms_norm(x, lp["ln1"])
+            q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
+            _scatter_kv_blocks(kv_layer, k, v, chunk_ids, cfg.block_size)
+            full = kv_layer[table]  # [B, nb, 2, bs, Hkv, Dh]
+            k_full = full[:, :, 0].reshape(B, T, Hkv, Dh).to(k.dtype)
+            v_full = full[:, :, 1].reshape(B, T, Hkv, Dh).to(v.dtype)
+            attn = flash_gqa_attention_cuda(q, k_full, v_full, q_offset=start)
+            x = x + _attn_out(attn, lp)
+            x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
+        in_chunk = (last_pos // C) == c  # [B]
+        offset = torch.clamp(last_pos - start, 0, C - 1)
+        picked = x[torch.arange(B, device=dev), offset]
+        last_h = torch.where(in_chunk[:, None], picked, last_h)
+    return _logits(last_h, params), kv_pool
+
+
+def decode_step(
+    params: Params,
+    tokens: torch.Tensor,
+    kv_pool: torch.Tensor,
+    block_table: torch.Tensor,
+    context_len: torch.Tensor,
+    cfg: LlamaConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step over the paged pool.
+
+    tokens: [B] current token ids; context_len: [B] length *including*
+    the current token; block_table: [B, max_blocks].  Writes the new
+    token's K/V into its pool slot in place, attends over the table,
+    and returns (logits [B, V], kv_pool).
+    """
+    dev = kv_pool.device
+    tokens = tokens.to(dev)
+    # The decode kernel reads int32 tables and lengths.
+    block_table = block_table.to(dev, torch.int32).contiguous()
+    context_len = context_len.to(dev, torch.int32).contiguous()
+    B = tokens.shape[0]
+    pos = context_len.long() - 1  # [B]
+    x = _embed(params, tokens)  # [B, D]
+    block_idx = pos // cfg.block_size
+    slot = pos % cfg.block_size
+    block_ids = torch.gather(block_table.long(), 1, block_idx[:, None])[:, 0]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        kv_layer = kv_pool[i]
+        h = _rms_norm(x, lp["ln1"])
+        q, k, v = _qkv(h[:, None], lp, pos[:, None], cfg.rope_theta)
+        kv_new = torch.stack((k[:, 0], v[:, 0]), dim=1)  # [B, 2, Hkv, Dh]
+        kv_layer[block_ids, :, slot] = kv_new.to(kv_layer.dtype)
+        attn = paged_decode_attention_cuda(
+            q[:, 0].contiguous(), kv_layer, block_table, context_len
+        )
+        x = x + torch.einsum("bhk,hkd->bd", attn, lp["wo"])
+        h2 = _rms_norm(x, lp["ln2"])[:, None]
+        x = x + _mlp(h2, lp)[:, 0]
+    return _logits(x, params), kv_pool

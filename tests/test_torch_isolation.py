@@ -1,0 +1,100 @@
+"""The PyTorch port stands alone: it never loads JAX or the JAX package,
+and its entry points refuse to fall back to the CPU quietly."""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tests.helpers.torch_port import PACKAGE, port
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "llm_d_kv_cache_manager_tpu")
+
+
+def _port_sources():
+    return sorted((REPO / PACKAGE).rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_importing_every_port_module_loads_no_jax():
+    """In a fresh interpreter, import every module of the port and the
+    chip smoke script; neither JAX nor the JAX package may be loaded."""
+    script = f"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {str(REPO)!r})
+import {PACKAGE} as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import runpy
+runpy.run_path({str(REPO / "chip_smoke.py")!r}, run_name="chip_smoke_import")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+print(json.dumps({{"modules": names, "loaded": loaded}}))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert f"{PACKAGE}.models.llama" in result["modules"]
+    assert f"{PACKAGE}.ops.paged_decode_cuda" in result["modules"]
+    assert result["loaded"] == []
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: str(p.relative_to(REPO))
+)
+def test_no_source_imports_jax_or_the_jax_package(path):
+    """Static check, function bodies included: no import statement of the
+    port or of chip_smoke.py names JAX or the JAX package."""
+    tree = ast.parse(path.read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def _pool():
+    mod = port("models.kv_cache_pool")
+    return mod.KVCachePool(mod.KVCachePoolConfig(1, 2, 4, 1, 8))
+
+
+def _params():
+    llama = port("models.llama")
+    return llama.init_params(llama.LlamaConfig(n_layers=1), torch.Generator())
+
+
+def _resolve():
+    return port("utils.device").resolve_device("cuda")
+
+
+@pytest.mark.parametrize(
+    "entry", [_pool, _params, _resolve], ids=["KVCachePool", "init_params", "resolve_device"]
+)
+def test_entry_point_without_device_raises_without_gpu(entry):
+    """Entry points default to CUDA; with no GPU they raise instead of
+    carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        entry()
+
+
+def test_entry_points_run_on_cpu_when_asked():
+    mod = port("models.kv_cache_pool")
+    pool = mod.KVCachePool(mod.KVCachePoolConfig(1, 2, 4, 1, 8), device="cpu")
+    assert pool.kv.device.type == "cpu" and not pool.pinned_host
+    with pytest.raises(RuntimeError):
+        pool.stage_gather_pinned([0])

@@ -1,0 +1,209 @@
+"""The port's Llama serving path against the JAX reference, on the
+reference suite's tiny float32 config (tests/test_llama_model.py).
+
+Weights are the reference's ``init_params`` carried across by
+``params_from_numpy``; tokens come from a numpy seed.  Logits must agree
+within rtol = atol = 2e-4 (the reference suite's own tolerance) and pool
+contents within 1e-5.  The port writes its pool in place, so each run
+starts from its own zeroed pool."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_d_kv_cache_manager_tpu.models import llama as jax_llama
+from tests.helpers.torch_port import port
+
+llama = port("models.llama")
+
+JAX_CFG = jax_llama.LlamaConfig(
+    vocab_size=128,
+    d_model=64,
+    n_layers=2,
+    n_heads=4,
+    n_kv_heads=2,
+    d_ff=128,
+    block_size=4,
+    dtype="float32",
+)
+LOGITS = dict(rtol=2e-4, atol=2e-4)
+POOL = dict(rtol=1e-5, atol=1e-5)
+# Key length at which CPU prefill switches from dense to the tiled op:
+# the default keeps every test shape dense, 8 sends them through tiles.
+MIN_LENS = [1024, 8]
+
+
+def _cfgs(min_len=1024):
+    jcfg = dataclasses.replace(JAX_CFG, flash_attention_min_len=min_len)
+    shared = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(llama.LlamaConfig)}
+    return jcfg, llama.LlamaConfig(**shared)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return jax_llama.init_params(jax.random.PRNGKey(0), JAX_CFG)
+
+
+@pytest.fixture(scope="module")
+def torch_params(jax_params):
+    tree = jax.tree_util.tree_map(np.asarray, jax_params)
+    return llama.params_from_numpy(tree, _cfgs()[1], device="cpu")
+
+
+def _tokens(seed, B, T):
+    return np.random.default_rng(seed).integers(0, JAX_CFG.vocab_size, (B, T)).astype(np.int32)
+
+
+def _pools(num_blocks):
+    c = JAX_CFG
+    shape = (c.n_layers, num_blocks, 2, c.block_size, c.n_kv_heads, c.head_dim)
+    return jnp.zeros(shape, jnp.float32), torch.zeros(shape)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+@pytest.mark.parametrize("min_len", MIN_LENS)
+def test_forward_matches_reference(jax_params, torch_params, min_len):
+    jcfg, tcfg = _cfgs(min_len)
+    tokens = _tokens(1, 2, 12)
+    want = jax_llama.forward(jax_params, jnp.asarray(tokens), jcfg)
+    got = llama.forward(torch_params, _t(tokens), tcfg)
+    _close(got, want, LOGITS)
+
+
+@pytest.mark.parametrize("min_len", MIN_LENS)
+def test_prefill_paged_matches_reference(jax_params, torch_params, min_len):
+    jcfg, tcfg = _cfgs(min_len)
+    B, T = 2, 8
+    tokens = _tokens(2, B, T)
+    table = np.random.default_rng(3).permutation(16)[: B * 2].reshape(B, 2).astype(np.int32)
+    jpool, tpool = _pools(16)
+    want, jpool = jax_llama.prefill_paged(jax_params, jnp.asarray(tokens), jpool,
+                                          jnp.asarray(table), jcfg)
+    got, out_pool = llama.prefill_paged(torch_params, _t(tokens), tpool, _t(table), tcfg)
+    assert out_pool is tpool  # written in place
+    _close(got, want, LOGITS)
+    _close(tpool, jpool, POOL)
+    assert float(tpool.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("min_len", MIN_LENS)
+def test_prefill_continue_matches_reference(jax_params, torch_params, min_len):
+    jcfg, tcfg = _cfgs(min_len)
+    B, T, P = 2, 12, 8
+    tokens = _tokens(4, B, T)
+    table = np.arange(B * 3, dtype=np.int32).reshape(B, 3)[:, ::-1].copy()
+    jpool, tpool = _pools(16)
+    _, jpool = jax_llama.prefill_paged(jax_params, jnp.asarray(tokens[:, :P]), jpool,
+                                       jnp.asarray(table[:, :2]), jcfg)
+    llama.prefill_paged(torch_params, _t(tokens[:, :P]), tpool, _t(table[:, :2]), tcfg)
+    want, jpool = jax_llama.prefill_continue(jax_params, jnp.asarray(tokens[:, P:]), jpool,
+                                             jnp.asarray(table), P, jcfg)
+    got, _ = llama.prefill_continue(torch_params, _t(tokens[:, P:]), tpool, _t(table), P, tcfg)
+    _close(got, want, LOGITS)
+    _close(tpool, jpool, POOL)
+
+
+@pytest.mark.parametrize("min_len", MIN_LENS)
+def test_prefill_chunked_matches_reference(jax_params, torch_params, min_len):
+    jcfg, tcfg = _cfgs(min_len)
+    B, T, C = 2, 32, 8
+    tokens = _tokens(5, B, T)
+    nb = T // JAX_CFG.block_size
+    table = np.arange(B * nb, dtype=np.int32).reshape(B, nb)
+    for seq_len in (None, np.asarray([T - C - 3, T - 1], np.int32)):
+        jpool, tpool = _pools(B * nb)
+        want, jpool = jax_llama.prefill_chunked(
+            jax_params, jnp.asarray(tokens), jpool, jnp.asarray(table), jcfg,
+            chunk_tokens=C, seq_len=None if seq_len is None else jnp.asarray(seq_len))
+        got, _ = llama.prefill_chunked(
+            torch_params, _t(tokens), tpool, _t(table), tcfg,
+            chunk_tokens=C, seq_len=None if seq_len is None else _t(seq_len))
+        _close(got, want, LOGITS)
+        _close(tpool, jpool, POOL)
+
+
+def test_decode_steps_match_reference(jax_params, torch_params):
+    jcfg, tcfg = _cfgs()
+    B, T, max_blocks = 2, 8, 4
+    tokens = _tokens(6, B, T)
+    table = np.random.default_rng(7).permutation(32)[: B * max_blocks]
+    table = table.reshape(B, max_blocks).astype(np.int32)
+    jpool, tpool = _pools(32)
+    jlog, jpool = jax_llama.prefill_paged(jax_params, jnp.asarray(tokens), jpool,
+                                          jnp.asarray(table[:, :2]), jcfg)
+    tlog, _ = llama.prefill_paged(torch_params, _t(tokens), tpool, _t(table[:, :2]), tcfg)
+    nxt = np.asarray(jnp.argmax(jlog[:, -1], -1)).astype(np.int32)
+    for step in range(3):
+        ctx = np.full((B,), T + 1 + step, np.int32)
+        jlog, jpool = jax_llama.decode_step(jax_params, jnp.asarray(nxt), jpool,
+                                            jnp.asarray(table), jnp.asarray(ctx), jcfg)
+        tlog, _ = llama.decode_step(torch_params, _t(nxt), tpool, _t(table), _t(ctx), tcfg)
+        _close(tlog, jlog, LOGITS)
+        _close(tpool, jpool, POOL)
+        nxt = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("min_len", MIN_LENS)
+def test_prefix_hit_contract_in_port(torch_params, min_len):
+    """Prefill of a prefix, then continuation of the suffix, gives the
+    suffix logits of one full prefill, and decode continues off the
+    continued pool as off a dense pass (the port alone)."""
+    _, cfg = _cfgs(min_len)
+    B, T, P = 2, 16, 8
+    tokens = _t(_tokens(8, B, T))
+    table = torch.arange(B * 5, dtype=torch.int32).reshape(B, 5)
+    pool = _pools(16)[1]
+    llama.prefill_paged(torch_params, tokens[:, :P], pool, table[:, :2], cfg)
+    cont, _ = llama.prefill_continue(torch_params, tokens[:, P:], pool, table[:, :4], P, cfg)
+    full, _ = llama.prefill_paged(torch_params, tokens, _pools(16)[1], table[:, :4], cfg)
+    np.testing.assert_allclose(cont.numpy(), full[:, P:].numpy(), **LOGITS)
+    nxt = cont[:, -1].argmax(-1)
+    dec, _ = llama.decode_step(torch_params, nxt, pool, table,
+                               torch.full((B,), T + 1, dtype=torch.int32), cfg)
+    dense = llama.forward(torch_params, torch.cat([tokens, nxt[:, None]], 1), cfg)[:, -1]
+    np.testing.assert_allclose(dec.numpy(), dense.numpy(), **LOGITS)
+
+
+def test_params_from_numpy_carries_bf16_bits():
+    jcfg = dataclasses.replace(JAX_CFG, dtype="bfloat16")
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_llama.init_params(jax.random.PRNGKey(1), jcfg))
+    _, tcfg = _cfgs()
+    tcfg.dtype = "bfloat16"
+    params = llama.params_from_numpy(tree, tcfg, device="cpu")
+    assert params["embed"].dtype == torch.bfloat16
+    for got, want in [(params["embed"], tree["embed"]), (params["ln_f"], tree["ln_f"])] + [
+        (params["layers"][k], tree["layers"][k]) for k in tree["layers"]
+    ]:
+        assert got.view(torch.uint16).numpy().tobytes() == want.view(np.uint16).tobytes()
+
+
+def test_params_from_numpy_rejects_wrong_shapes(jax_params):
+    tree = jax.tree_util.tree_map(np.asarray, jax_params)
+    _, tcfg = _cfgs()
+    tcfg.n_heads = 8  # head_dim 8: wq no longer fits
+    with pytest.raises(ValueError, match="layers.wq"):
+        llama.params_from_numpy(tree, tcfg, device="cpu")
+
+
+def test_init_params_layout_on_cpu():
+    _, cfg = _cfgs()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jax_shapes = jax.tree_util.tree_map(
+        lambda x: tuple(x.shape), jax_llama.init_params(jax.random.PRNGKey(0), JAX_CFG))
+    assert tuple(params["embed"].shape) == jax_shapes["embed"]
+    for key, shape in jax_shapes["layers"].items():
+        assert tuple(params["layers"][key].shape) == shape
+    logits = llama.forward(params, _t(_tokens(9, 1, 8)), cfg)
+    assert logits.shape == (1, 8, cfg.vocab_size) and bool(torch.isfinite(logits).all())
