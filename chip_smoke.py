@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's serving path (``llm_d_kv_cache_manager_tpu_torch``)
-at the full width of Llama-3-8B with random weights from a seed: a
-prompt is hashed into block keys, scored against the in-memory block
-index, and served on the chosen pod by prefill (index miss) or by
-continuation over the cached prefix (index hit), then decoded.  Before
-that, it builds both hand-written kernels from ``csrc/`` with nvcc and
-holds each one against its plain PyTorch version at the shapes the
-serving path gives it.  It imports nothing of JAX or the JAX package.
+Drives the port's two paths (``llm_d_kv_cache_manager_tpu_torch``) at
+the full width and depth of Llama-3-8B with random weights from a seed.
+The serving path: a prompt is hashed into block keys, scored against
+the in-memory block index, and served on the chosen pod by prefill
+(index miss) or by continuation over the cached prefix (index hit),
+then decoded.  The long-context prefill path: one 8192-token prompt
+through ``forward(sp_mesh=...)``, ring attention over a 4-rank ``sp``
+mesh whose ranks share the card, in both sequence layouts.  Before
+that, it builds the three hand-written kernels from ``csrc/`` with nvcc
+and holds each one against its plain PyTorch version at the shapes the
+paths give it.  It imports nothing of JAX or the JAX package.
 
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build;
@@ -20,14 +23,24 @@ Phases (any failure exits non-zero):
   3. decode kernel vs its plain version (the serving batch, B=4, B=16,
      shuffled tables, ragged contexts down to 1), likewise, the planted
      fault being one dropped partial;
-  4. serving: two simulated pods, a miss, a hit, 8 decode steps, which
+  4. ring partial kernel vs its plain version (causal offsets None, 0
+     and -1 at one rank's chunk of the ring prefill, small edge cases
+     including the exact empty-row sentinel), likewise, on the
+     normalized output acc/l and on m and l, the planted fault being
+     one key tile skipped;
+  5. serving: two simulated pods, a miss, a hit, 8 decode steps, which
      must launch the prefill kernel once per layer per request and the
      decode kernel once per layer per step; then the prefix-hit
      contract, chunked prefill and decode are checked against fresh
      full passes and the device time of each step is broken down by
      kernel category;
-  5. one JSON line listing each kernel's numbers;
-  6. last line: {"ok": true, "device": {...}}.
+  6. ring prefill: the 8192-token prompt through the striped and the
+     contiguous ring and through the dense forward; each ring must
+     launch the partial kernel exactly 16 (striped) or 10 (contiguous)
+     times a layer and agree with the dense logits; walls and device
+     breakdowns as in phase 5;
+  7. one JSON line listing each kernel's numbers;
+  8. last line: {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
 """
@@ -48,6 +61,10 @@ SUFFIX_TOKENS = 256
 DECODE_STEPS = 8
 MODEL_NAME = "meta-llama/Llama-3.1-8B"
 POOL_BLOCKS = 640  # per pod: A's 528 blocks + B's 16 suffix blocks + 2 decode
+# Ring prefill: the ring configuration of the reference's bench (an
+# 8192-token prompt over sp=4), its 4 ranks sharing the one card.
+RING_SP = 4
+RING_TOKENS = 8192
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
 # bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores,
@@ -68,10 +85,23 @@ LIMITS = {
     ("prefill", "bfloat16"): (2.0**-6, 2.0**-6),
     # The decode kernel keeps its probabilities in float32.
     ("decode", "bfloat16"): (2.0**-6, 2.0**-10),
+    # The ring partial kernel rounds P to bf16 for P.V as the prefill
+    # kernel does, so the same floor; its acc/l stays float32, so the
+    # rel term (for a bf16 output's last rounding) is slack here.
+    ("ring", "bfloat16"): (2.0**-6, 2.0**-6),
     # float32 in and out: the same sums taken in another order.
     ("prefill", "float32"): (2.0**-14, 2.0**-14),
     ("decode", "float32"): (2.0**-14, 2.0**-14),
+    ("ring", "float32"): (2.0**-14, 2.0**-14),
 }
+# The ring partial's m and l against the plain version's.  m is the max
+# of the same float32 scores (|m| below ~10 here), summed over D in
+# another order and carried in log2 units: a few float32 ulps, far
+# inside 2^-12 absolute.  l sums up to 2048 float32 exponentials of
+# those scores: 2^-10 relative.  Empty rows must match exactly
+# (-1e30 and 0 on both sides).
+RING_M_ABS = 2.0**-12
+RING_L_REL = 2.0**-10
 
 
 def port(name):
@@ -277,10 +307,105 @@ def decode_case(torch, peaks, B, H, Hkv, D, max_blocks, ctx, dtype, timing):
 # --------------------------------------------------------------- phase 4
 
 
+def visible_pairs(Tq: int, Tk: int, offset) -> int:
+    """(query, key) pairs a ring partial's mask keeps: key <= row +
+    offset and key < Tk (``None``: every pair)."""
+    if offset is None:
+        return Tq * Tk
+    return sum(min(max(i + offset + 1, 0), Tk) for i in range(Tq))
+
+
+def ring_partial_case(torch, peaks, B, Tq, Tk, H, Hkv, D, offset, dtype, timing):
+    rf = port("ops.ring_flash")
+    rc = port("ops.ring_flash_cuda")
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3 * Tq + Tk + 5 * (offset or 0))
+    q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Tk, Hkv, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Tk, Hkv, D, generator=g, device="cuda").to(dtype)
+    got = rc.flash_partial_cuda(q, k, v, causal_offset=offset)
+    ref = rf.flash_partial_plain(q, k, v, causal_offset=offset)
+    torch.cuda.synchronize()
+
+    def norm(part):
+        return rf.normalize_partial(part[0], part[2], torch.float32)
+
+    limits = LIMITS["ring", str(dtype)[6:]]
+    shape = (f"B={B} Tq={Tq} Tk={Tk} H={H} Hkv={Hkv} D={D} causal_offset={offset} "
+             f"{str(dtype)[6:]}")
+    row = {"shape": shape, **check_close(f"ring partial {shape}, acc/l", norm(got), norm(ref),
+                                         *limits)}
+    (acc, m, l), (_, m_ref, l_ref) = got, ref
+    m_err = float((m - m_ref).abs().max())
+    l_worst = float(((l - l_ref).abs() / (RING_L_REL * l_ref.abs())).nan_to_num(0.0).max())
+    empty = m_ref == rf.NEG_INF  # float32(-1e30) on both sides
+    exact = bool((m[empty] == rf.NEG_INF).all() and (l[empty] == 0).all()
+                 and (acc[empty] == 0).all())
+    print(f"  ring partial {shape}, m: max_abs_err {m_err:.3g} (limit {RING_M_ABS:.3g}); "
+          f"l: worst err/limit {l_worst:.4g} (limit 2^{math.log2(RING_L_REL):.0f}*|ref|); "
+          f"{int(empty.sum())} empty rows, (acc, m, l) = (0, -1e30, 0) exactly: {exact}",
+          flush=True)
+    if not (m_err <= RING_M_ABS and l_worst <= 1.0 and exact):
+        raise AssertionError(f"ring partial {shape}: m, l or the empty rows disagree")
+    if offset is not None and offset < 0 and not bool(empty.any()):
+        raise AssertionError(f"ring partial {shape}: expected rows that see no key")
+    row.update(m_max_abs_err=m_err, l_worst_err_over_limit=l_worst,
+               empty_rows=int(empty.sum()))
+    if not timing:
+        return row
+    # Planted fault: a kernel that skips the middle visible key tile.
+    # Rows from r0 on see the whole tile; their partial is this kernel's
+    # over the keys without it, with the offset moved to match.
+    tile = 64
+    n_vis = Tk if offset is None else min(Tk, Tq + offset)
+    t = -(-n_vis // tile) // 2
+    r0 = 0 if offset is None else max(0, (t + 1) * tile - offset)
+    faulty = norm(got)
+    faulty[:, r0:] = norm(rc.flash_partial_cuda(
+        q[:, r0:].contiguous(), torch.cat((k[:, : t * tile], k[:, (t + 1) * tile:]), 1),
+        torch.cat((v[:, : t * tile], v[:, (t + 1) * tile:]), 1),
+        causal_offset=None if offset is None else offset + r0 - tile))
+    row["planted"] = reject_fault(
+        f"key tile {t} of {-(-Tk // tile)} skipped", faulty, norm(ref), *limits)
+    del faulty
+    item = q.element_size()
+    flops = 4.0 * B * H * D * visible_pairs(Tq, Tk, offset)
+    nbytes = (B * Tq * H * D + 2 * B * Tk * Hkv * D) * item + 4 * (B * Tq * H * D + 2 * B * Tq * H)
+    t_ops = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1])
+    t_bytes = nbytes / peaks[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's [B, H, T, D]
+    if offset is None:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)  # noqa: E731
+    elif offset == 0 and Tq == Tk:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        mask = (torch.arange(Tk, device="cuda")[None, :]
+                <= offset + torch.arange(Tq, device="cuda")[:, None])
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    row.update(
+        ms=timed_ms(torch, lambda: rc.flash_partial_cuda(q, k, v, causal_offset=offset), 20),
+        plain_ms=timed_ms(torch, lambda: rf.flash_partial_plain(q, k, v, causal_offset=offset),
+                          2),
+        library_ms=timed_ms(torch, lib, 20),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+    )
+    print(f"  ms {row['ms']:.4f}  plain_ms {row['plain_ms']:.3f}  library_ms "
+          f"{row['library_ms']:.4f}  bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
+          flush=True)
+    return row
+
+
+# --------------------------------------------------------------- phase 5
+
+
 # Kernel-name fragments -> the breakdown's categories (first match wins).
 KERNEL_GROUPS = (
     ("prefill_attention", ("flash_bf16_kernel", "flash_merge_kernel")),
     ("decode_attention", ("decode_partial_kernel", "decode_merge_kernel")),
+    ("ring_attention", ("ring_partial_bf16_kernel", "ring_partial_f32_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitKreduce")),
 )
 
@@ -376,7 +501,7 @@ class SimPod:
             self._block_owner[bid] = h
 
 
-def serving(torch, layers: int):
+def serving(torch, params, cfg):
     llama = port("models.llama")
     index_mod = port("kvcache.kvblock.index")
     tp_mod = port("kvcache.kvblock.token_processor")
@@ -384,14 +509,7 @@ def serving(torch, layers: int):
     fc = port("ops.flash_cuda")
     pc = port("ops.paged_decode_cuda")
 
-    cfg = llama.LlamaConfig.llama3_8b()
-    cfg.n_layers = layers
-    t0 = time.perf_counter()
-    params = llama.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    torch.cuda.synchronize()
-    print(f"  Llama-3-8B widths, {layers} of 32 layers, bf16 random weights "
-          f"(seed {SEED}): {time.perf_counter() - t0:.1f} s to init", flush=True)
+    layers = cfg.n_layers
     pods = [SimPod(f"pod-{n}", cfg, POOL_BLOCKS) for n in ("a", "b")]
     index = index_mod.new_index()
     hasher = tp_mod.ChunkedTokenDatabase(
@@ -587,6 +705,86 @@ def serving(torch, layers: int):
     }
 
 
+# --------------------------------------------------------------- phase 6
+
+
+def ring_prefill(torch, params, cfg):
+    """One prompt through the ring (both layouts) and the dense forward:
+    launch counts, logits against the dense forward, walls, breakdowns."""
+    llama = port("models.llama")
+    mesh_mod = port("parallel.mesh")
+    fc = port("ops.flash_cuda")
+    rc = port("ops.ring_flash_cuda")
+    sp_mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, sp=RING_SP), ["cuda:0"] * RING_SP)
+    rng = torch.Generator().manual_seed(SEED + 1)
+    tokens = torch.randint(1, cfg.vocab_size, (1, RING_TOKENS), generator=rng)
+    runs = {
+        "striped": dict(sp_mesh=sp_mesh, ring_striped=True),
+        "contiguous": dict(sp_mesh=sp_mesh, ring_striped=False),
+        "dense": {},
+    }
+    layers = cfg.n_layers
+    # Striped: each of the sp*sp (rank, step) pairs is a causal band.
+    # Contiguous: sp(sp-1)/2 fully visible steps and sp diagonal ones;
+    # the sp(sp-1)/2 fully masked steps launch nothing.
+    expected = {
+        "striped": {"ring_partial": layers * RING_SP**2, "flash_prefill": 0},
+        "contiguous": {"ring_partial": layers * RING_SP * (RING_SP + 1) // 2,
+                       "flash_prefill": 0},
+        "dense": {"ring_partial": 0, "flash_prefill": layers},
+    }
+    print(f"  mesh {sp_mesh}; prompt of {RING_TOKENS} tokens, {RING_TOKENS // RING_SP} "
+          f"per rank", flush=True)
+    for kwargs in runs.values():  # warm-up: cuBLAS picks its algorithms
+        llama.forward(params, tokens, cfg, **kwargs)
+    torch.cuda.synchronize()
+
+    def run(name):
+        fc.flash_gqa_attention_cuda.launches = 0
+        rc.flash_partial_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = llama.forward(params, tokens, cfg, **runs[name])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {"ring_partial": rc.flash_partial_cuda.launches,
+                    "flash_prefill": fc.flash_gqa_attention_cuda.launches}
+        print(f"  {name} forward: {wall:.1f} ms; kernel launches {launches}", flush=True)
+        if launches != expected[name]:
+            raise AssertionError(f"{name}: launches {launches}, expected {expected[name]}")
+        if logits.shape != (1, RING_TOKENS, cfg.vocab_size):
+            raise AssertionError(f"{name}: logits shape {tuple(logits.shape)}")
+        return logits, wall, launches
+
+    dense, dense_wall, _ = run("dense")
+    walls, launches, errs = {"dense": dense_wall}, {}, {}
+    first = int(dense[0, -1].argmax())
+    for name in ("striped", "contiguous"):
+        logits, walls[name], launches[name] = run(name)
+        errs[name] = check_logits(f"{name} ring vs dense forward", logits, dense)
+        token = int(logits[0, -1].argmax())
+        if token != first:
+            raise AssertionError(f"{name} ring picks token {token} at the last position, "
+                                 f"the dense forward {first}")
+        del logits  # 4.2 GB of float32 logits
+        torch.cuda.empty_cache()
+    print(f"  last-position token {first} in all three", flush=True)
+    del dense
+    torch.cuda.empty_cache()
+    breakdown = {
+        name: show_breakdown(f"{name} forward under torch.profiler", walls[name],
+                             device_breakdown(torch, lambda kw=kw: llama.forward(
+                                 params, tokens, cfg, **kw), steps=1))
+        for name, kw in runs.items()
+    }
+    return {
+        "launches": launches,
+        "wall_ms": walls,
+        "max_abs_err_vs_dense": errs,
+        "breakdown_ms": breakdown,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -610,8 +808,8 @@ def main() -> int:
           f"{peaks[2] / 1e12:.2f} TB/s)", flush=True)
     build = port("ops._build")
     t0 = time.perf_counter()
-    logs = build.build_all(["flash_prefill", "paged_decode"])
-    print(f"  kernel build (nvcc, sm_90a, both sources at once): "
+    logs = build.build_all(build.SOURCES)
+    print(f"  kernel build (nvcc, sm_90a, {len(logs)} sources at once): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in logs.items():
         regs = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
@@ -652,10 +850,45 @@ def main() -> int:
     ]
     torch.cuda.empty_cache()
 
-    phase("4. serving: index-routed miss, hit and decode on two pods")
-    serve = serving(torch, LAYERS)
+    phase("4. ring partial kernel (csrc/ring_partial.cu) vs plain partial")
+    # One rank's chunk of the ring prefill: 8192 tokens over sp=4.
+    chunk = RING_TOKENS // RING_SP
+    ring_serving = {
+        off: ring_partial_case(torch, peaks, 1, chunk, chunk, 32, 8, 128, off, bf16, True)
+        for off in (0, None, -1)
+    }
+    ring_edge = [
+        ring_partial_case(torch, peaks, *case, False)
+        for case in [
+            (1, 100, 300, 32, 8, 128, None, bf16),
+            (1, 77, 77, 32, 8, 128, -1, bf16),  # row 0 sees no key
+            (1, 200, 200, 8, 2, 64, 0, bf16),
+            (2, 130, 130, 32, 8, 128, -1, bf16),
+            (1, 100, 100, 4, 2, 128, -1, f32),
+            (2, 70, 90, 8, 2, 64, None, f32),
+        ]
+    ]
+    torch.cuda.empty_cache()
 
-    phase("5. kernels")
+    llama = port("models.llama")
+    cfg = llama.LlamaConfig.llama3_8b()
+    cfg.n_layers = LAYERS
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    print(f"\n  Llama-3-8B widths, {LAYERS} of 32 layers, bf16 random weights "
+          f"(seed {SEED}): {time.perf_counter() - t0:.1f} s to init", flush=True)
+
+    phase("5. serving: index-routed miss, hit and decode on two pods")
+    serve = serving(torch, params, cfg)
+    torch.cuda.empty_cache()
+
+    phase(f"6. ring prefill: forward(sp_mesh=sp {RING_SP} on one card) over "
+          f"{RING_TOKENS} tokens")
+    ring = ring_prefill(torch, params, cfg)
+
+    phase("7. kernels")
     kernels = [
         dict(
             name="flash_prefill",
@@ -679,9 +912,23 @@ def main() -> int:
                                               "worst_err_over_limit", "planted")},
             cases=[decode_b4, decode_b16] + decode_edge,
         ),
+        dict(
+            name="ring_partial",
+            route="cuda",
+            source="llm_d_kv_cache_manager_tpu_torch/csrc/ring_partial.cu",
+            replaces="llm_d_kv_cache_manager_tpu/ops/ring_flash_pallas.py:48",
+            launches=sum(n["ring_partial"] for n in ring["launches"].values()),
+            launches_by_layout={k: n["ring_partial"] for k, n in ring["launches"].items()},
+            **{k: ring_serving[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "shape", "limit",
+                                               "worst_err_over_limit", "planted",
+                                               "m_max_abs_err", "l_worst_err_over_limit")},
+            cases=[ring_serving[None], ring_serving[-1]] + ring_edge,
+        ),
     ]
     summary = {k: v for k, v in serve.items() if k != "launches"}
-    print(json.dumps({"serving": summary, "layers": LAYERS,
+    ring_summary = {k: v for k, v in ring.items() if k != "launches"}
+    print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "layers": LAYERS,
                       "seconds": round(time.perf_counter() - t_all, 1)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,216 @@
+// One ring-attention step's unnormalized GQA attention partial, for
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernel `_partial_kernel` of the JAX reference
+// (llm_d_kv_cache_manager_tpu/ops/ring_flash_pallas.py, reached through
+// `flash_partial`).  Same function: for query row a and key b, score
+// s = q.k * D^-0.5 over the keys the step's mask keeps (b < Tk and,
+// when `causal`, b <= a + offset); outputs float32
+//   acc [B, Tq, H, D] = sum_b exp(s_b - m) v_b     (not divided by l)
+//   m   [B, Tq, H]    = max_b s_b, natural-log units of the scaled score
+//   l   [B, Tq, H]    = sum_b exp(s_b - m)
+// and, for a row that sees no key, exactly (acc, m, l) = (0, -1e30, 0):
+// the reference's finite NEG_INF, which merge_partials relies on.
+//
+// What bounds it on an H100: at the ring's serving shape (one rank's
+// 2048-row chunk of an 8192-token prompt over sp=4, H 32, Hkv 8, D 128)
+// a causal step does ~34 GFLOP and moves ~59 MB, over half of it the
+// float32 acc it writes: ~580 operations a byte (~1160 unmasked), above
+// the card's ~295, so the tensor cores are the limit.  The bf16 kernel
+// is therefore the structure of flash_prefill.cu's: mma.sync m16n8k16
+// (bf16 in, f32 accumulate), one CTA of 4 warps per (64-row q-tile,
+// head, batch), Q fragments in registers for the whole key loop, K/V
+// through a two-stage cp.async shared-memory ring of 64 keys a stage,
+// ldmatrix (.trans for V), and a key loop that ends at the tile's causal
+// limit a + offset, so a causal step does only the visible half.  The
+// longest tiles start first.  The probabilities are rounded to bf16 for
+// the P.V product (l sums them in f32).  The running max is kept in log2
+// units for exp2f and written as m * ln 2.  With (q-tile, head, batch)
+// CTAs the ring shape gives 1024 CTAs, so the keys are not split.  The
+// tile loop is attention_tiles.cuh, shared with flash_prefill.cu.
+//
+// Unlike the TPU kernel, which stages one KV head's whole chunk in VMEM,
+// nothing here caps Tk, and the offset is a runtime argument (any int;
+// `causal == 0` means no mask), so one build serves every ring step.
+//
+// The float32 variant (test and small-shape use) is a plain CUDA-core
+// kernel: one warp per query row, lanes splitting the head dimension.
+//
+// C interface for ctypes; the entry returns cudaGetLastError().
+
+#include "attention_tiles.cuh"
+
+namespace {
+
+constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Keys [0, end) that local row `row` may see: min(row + offset + 1, Tk)
+// clamped at 0 when causal, all Tk otherwise.  64-bit, so no offset the
+// int interface can carry overflows.
+__device__ __forceinline__ int visible_end(long long row, int causal,
+                                           int offset, int Tk) {
+  if (!causal) return Tk;
+  const long long end = row + offset + 1;
+  return static_cast<int>(end < 0 ? 0 : (end > Tk ? Tk : end));
+}
+
+// Grid (n_qtiles, H, B).  Every row < Tq of the tile is written, also
+// when its causal limit leaves no key (the outputs come from
+// torch.empty).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    ring_partial_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             float* __restrict__ acc, float* __restrict__ m_out,
+                             float* __restrict__ l_out, int Tq, int Tk, int H,
+                             int Hkv, int causal, int offset, float scale_log2) {
+  constexpr int kDTiles = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int qt = static_cast<int>(gridDim.x - 1 - blockIdx.x);  // longest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const long q_stride = static_cast<long>(H) * D;
+  const long kv_stride = static_cast<long>(Hkv) * D;
+  const __nv_bfloat16* qb = q + static_cast<long>(b) * Tq * q_stride + h * D;
+  const __nv_bfloat16* kb = k + static_cast<long>(b) * Tk * kv_stride + kvh * D;
+  const __nv_bfloat16* vb = v + static_cast<long>(b) * Tk * kv_stride + kvh * D;
+
+  // The tile's last row sees the most keys.
+  const int kv_end = visible_end(static_cast<long long>(qt) * kBQ + kBQ - 1,
+                                 causal, offset, Tk);
+  const int row0 = qt * kBQ + warp * 16 + g;  // this thread's two rows
+  const int row1 = row0 + 8;
+  TileRows<D> st;
+  attend_tiles<D>(qb, q_stride, Tq, row0, kb, vb, kv_stride, Tk, 0,
+                  (kv_end + kBK - 1) / kBK, visible_end(row0, causal, offset, Tk),
+                  visible_end(row1, causal, offset, Tk), scale_log2, smem_raw, st);
+
+  // A row that saw no key has o = 0 and l = 0 already (every p was
+  // exp2(-inf) = 0); its max becomes the finite sentinel.
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = hr ? row1 : row0;
+    if (row >= Tq) continue;
+    const long cell = (static_cast<long>(b) * Tq + row) * H + h;
+    float* po = acc + cell * D;
+#pragma unroll
+    for (int dt = 0; dt < kDTiles; ++dt) {
+      *reinterpret_cast<float2*>(po + dt * 8 + 2 * t) =
+          make_float2(st.o[dt][2 * hr], st.o[dt][2 * hr + 1]);
+    }
+    if (t == 0) {
+      const float mr = hr ? st.m1 : st.m0;
+      m_out[cell] = mr == -INFINITY ? kNegInf : mr * kLn2;
+      l_out[cell] = hr ? st.l1 : st.l0;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kRowsF32 * 32)
+    ring_partial_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ acc, float* __restrict__ m_out,
+                            float* __restrict__ l_out, int Tq, int Tk, int H,
+                            int Hkv, int causal, int offset, float scale) {
+  constexpr int kDPL = D / 32;  // head-dim elements per lane
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowsF32 + warp;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  if (row >= Tq) return;
+  const int kvh = h / (H / Hkv);
+  const long kv_stride = static_cast<long>(Hkv) * D;
+  const long cell = (static_cast<long>(b) * Tq + row) * H + h;
+  const float* kb = k + static_cast<long>(b) * Tk * kv_stride + kvh * D;
+  const float* vb = v + static_cast<long>(b) * Tk * kv_stride + kvh * D;
+
+  float o[kDPL], m, l;
+  attend_row_f32<D>(q + cell * D, kb, vb, kv_stride,
+                    visible_end(row, causal, offset, Tk), scale, o, m, l);
+#pragma unroll
+  for (int i = 0; i < kDPL; ++i) acc[cell * D + lane + 32 * i] = o[i];
+  if (lane == 0) {
+    m_out[cell] = m == -INFINITY ? kNegInf : m;
+    l_out[cell] = l;
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, float* acc,
+                float* m, float* l, int B, int Tq, int Tk, int H, int Hkv,
+                int causal, int offset, cudaStream_t st) {
+  constexpr int kSmem = smem_bytes<D>();
+  cudaError_t rc = cudaFuncSetAttribute(
+      ring_partial_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
+  ring_partial_bf16_kernel<D><<<grid, kThreads, kSmem, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), acc, m, l, Tq, Tk, H, Hkv, causal,
+      offset, scale_log2);
+  return 0;
+}
+
+template <int D>
+void launch_f32(const void* q, const void* k, const void* v, float* acc,
+                float* m, float* l, int B, int Tq, int Tk, int H, int Hkv,
+                int causal, int offset, cudaStream_t st) {
+  const dim3 grid((Tq + kRowsF32 - 1) / kRowsF32, H, B);
+  ring_partial_f32_kernel<D><<<grid, kRowsF32 * 32, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), acc, m, l, Tq, Tk, H, Hkv, causal, offset,
+      1.f / sqrtf(static_cast<float>(D)));
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* kernel_error_string(int rc) {
+  return cudaGetErrorString(static_cast<cudaError_t>(rc));
+}
+
+// q: [B, Tq, H, D], k/v: [B, Tk, Hkv, D] in one dtype (0 = float32,
+// 1 = bfloat16); acc: float32 [B, Tq, H, D]; m, l: float32 [B, Tq, H];
+// all contiguous.  `causal` 0: every key visible; 1: key <= row + offset.
+int ring_partial(const void* q, const void* k, const void* v, void* acc,
+                 void* m, void* l, int B, int Tq, int Tk, int H, int Hkv,
+                 int D, int causal, int offset, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* pa = static_cast<float*>(acc);
+  auto* pm = static_cast<float*>(m);
+  auto* pl = static_cast<float*>(l);
+  int rc = 0;
+  if (dtype == 1 && D == 128) {
+    rc = launch_bf16<128>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal,
+                          offset, st);
+  } else if (dtype == 1 && D == 64) {
+    rc = launch_bf16<64>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal,
+                         offset, st);
+  } else if (dtype == 0 && D == 128) {
+    launch_f32<128>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal, offset, st);
+  } else if (dtype == 0 && D == 64) {
+    launch_f32<64>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal, offset, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,6 +1,7 @@
-"""Llama-family decoder, serving part, in PyTorch.
+"""Llama-family decoder, serving and ring-prefill parts, in PyTorch.
 
-Port of the reference's ``models/llama.py`` serving path: the same
+Port of the reference's ``models/llama.py`` serving path and its
+ring-attention prefill (``forward(sp_mesh=...)``): the same
 stacked-layer params tree (``embed``, ``layers.{ln1, ln2, wq, wk, wv,
 wo, w_gate, w_up, w_down}`` with a leading layer axis, ``ln_f``), the
 same layouts, bf16 matmuls with f32 norm/softmax/logits, and the paged
@@ -9,7 +10,10 @@ pool ``[L, num_blocks, 2, block_size, Hkv, Dh]`` of
 
 Attention routing follows the tensors' device, not a backend probe:
 
-- CUDA tensors: every prefill attention (``forward``,
+- ``forward(sp_mesh=...)``: ring attention over the mesh's ``sp``
+  axis in every layer (``ops/ring_attention.py``; on CUDA its steps run
+  the kernel of ``ops/ring_flash_cuda.py``).
+- CUDA tensors otherwise: every prefill attention (``forward``,
   ``prefill_paged``, ``prefill_continue`` with ``q_offset=prefix_len``,
   ``prefill_chunked`` with ``q_offset=start``) runs the hand-written
   kernel of ``ops/flash_cuda.py`` and every ``decode_step`` attention
@@ -44,6 +48,12 @@ from llm_d_kv_cache_manager_tpu_torch.ops.flash_cuda import (
 from llm_d_kv_cache_manager_tpu_torch.ops.paged_decode_cuda import (
     paged_decode_attention_cuda,
 )
+from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import (
+    ring_for_mesh,
+    stripe,
+    unstripe,
+)
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh
 from llm_d_kv_cache_manager_tpu_torch.utils.device import (
     from_numpy,
     resolve_device,
@@ -251,22 +261,64 @@ def forward(
     cfg: LlamaConfig,
     positions: Optional[torch.Tensor] = None,
     use_flash: bool = True,
+    sp_mesh: Optional[Mesh] = None,
+    ring_striped: bool = False,
+    ring_impl: str = "auto",
 ) -> torch.Tensor:
-    """Dense forward: tokens [B, T] -> logits [B, T, V] (no ring
-    attention in this port yet)."""
+    """Dense forward: tokens [B, T] -> logits [B, T, V].
+
+    ``sp_mesh``: a :class:`~llm_d_kv_cache_manager_tpu_torch.parallel.mesh.Mesh`
+    with an ``sp`` axis routes every layer's attention through ring
+    attention (``ops/ring_attention.py``) — the long-context prefill
+    path: the sequence is cut into ``sp`` chunks, K/V chunks rotate
+    around the ring, per-step partials merge by log-sum-exp.  The ring's
+    causal mask derives from each chunk's ring position, i.e. global
+    positions 0..T-1, so custom ``positions`` are rejected rather than
+    silently mismasked.
+
+    ``ring_striped``: run the whole network in the striped (token-
+    interleaved) sequence layout — tokens AND positions are striped at
+    entry, every layer computes in stripe order, attention runs the
+    balanced striped ring, and the hidden states are unstriped before
+    the logits, so the returned contract is unchanged.  ``ring_impl``:
+    ``"auto"`` (the partial kernel on CUDA, the einsum body on the
+    CPU), ``"flash"`` or ``"einsum"``.
+    """
     B, T = tokens.shape
+    if sp_mesh is not None and positions is not None:
+        raise ValueError(
+            "sp_mesh ring attention assumes default positions 0..T-1 "
+            "(its causal mask is derived from ring chunk indices); "
+            "custom positions would be RoPE-rotated but mis-masked"
+        )
     dev = params["embed"].device
     tokens = tokens.to(dev)
     if positions is None:
         positions = torch.arange(T, device=dev).expand(B, T)
+    ring = None
+    striped = False
+    if sp_mesh is not None:
+        ring_size = sp_mesh.shape["sp"]
+        striped = ring_striped and ring_size > 1
+        if striped:
+            tokens = stripe(tokens, ring_size)
+            # Positions stay PHYSICAL (RoPE rotates by true token
+            # index); only their order is striped to match the tokens.
+            positions = stripe(positions, ring_size)
+        ring = ring_for_mesh(sp_mesh, striped=striped, impl=ring_impl)
     x = _embed(params, tokens)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h = _rms_norm(x, lp["ln1"])
         q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
-        attn = _prefill_attention(q, k, v, cfg, use_flash=use_flash)
+        if ring is not None:
+            attn = ring(q, k, v)
+        else:
+            attn = _prefill_attention(q, k, v, cfg, use_flash=use_flash)
         x = x + _attn_out(attn, lp)
         x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
+    if striped:
+        x = unstripe(x, sp_mesh.shape["sp"])
     return _logits(x, params)
 
 

@@ -5,5 +5,9 @@
   the kernels' oracles).
 - ``flash_cuda``: prefill attention kernel (``csrc/flash_prefill.cu``).
 - ``paged_decode_cuda``: decode attention kernel (``csrc/paged_decode.cu``).
+- ``ring_flash``: the ring partial's plain version and the log-sum-exp
+  merge of partials; ``ring_flash_cuda``: the partial kernel
+  (``csrc/ring_partial.cu``); ``ring_attention``: the ring over a mesh's
+  ``sp`` axis.
 - ``_build``: nvcc build and ctypes loading of ``csrc/``.
 """

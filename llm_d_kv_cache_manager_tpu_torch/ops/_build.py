@@ -26,6 +26,8 @@ from typing import Dict, Iterable, List, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+# Every kernel source: csrc/<name>.cu, each its own library.
+SOURCES = ("flash_prefill", "paged_decode", "ring_partial")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode",

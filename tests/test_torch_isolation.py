@@ -46,6 +46,8 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert f"{PACKAGE}.models.llama" in result["modules"]
     assert f"{PACKAGE}.ops.paged_decode_cuda" in result["modules"]
+    for name in ("parallel.mesh", "ops.ring_attention", "ops.ring_flash", "ops.ring_flash_cuda"):
+        assert f"{PACKAGE}.{name}" in result["modules"]
     assert result["loaded"] == []
 
 
@@ -80,8 +82,14 @@ def _resolve():
     return port("utils.device").resolve_device("cuda")
 
 
+def _mesh():
+    mod = port("parallel.mesh")
+    return mod.make_mesh(mod.MeshPlan(dp=1))
+
+
 @pytest.mark.parametrize(
-    "entry", [_pool, _params, _resolve], ids=["KVCachePool", "init_params", "resolve_device"]
+    "entry", [_pool, _params, _resolve, _mesh],
+    ids=["KVCachePool", "init_params", "resolve_device", "make_mesh"],
 )
 def test_entry_point_without_device_raises_without_gpu(entry):
     """Entry points default to CUDA; with no GPU they raise instead of
@@ -98,3 +106,10 @@ def test_entry_points_run_on_cpu_when_asked():
     assert pool.kv.device.type == "cpu" and not pool.pinned_host
     with pytest.raises(RuntimeError):
         pool.stage_gather_pinned([0])
+
+
+def test_build_sources_are_the_kernel_files():
+    """Every ``csrc/*.cu`` is named in ``_build.SOURCES``, so a build of
+    all sources builds every kernel."""
+    build = port("ops._build")
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
