@@ -9,115 +9,91 @@
 // What bounds it on an H100: at the serving shapes (8448-token prefill,
 // 256-token continuation over an 8192-token prefix) the work is the two
 // matrix products, about 300 operations per byte of K/V read, so the
-// tensor cores are the limit.  The bf16 kernel therefore runs both
-// products on them (mma.sync m16n8k16, bf16 in, f32 accumulate): one
-// CTA of 4 warps per (q-tile of 64 rows, head, batch, key split), each
-// warp owning 16 query rows whose Q fragments stay in registers for the
-// whole key loop.  K/V stream through a two-stage shared-memory ring, 64
-// keys a stage, filled by cp.async while the previous stage computes,
-// with no cap on the key length; ldmatrix (.trans for V) reads the
-// fragments, so shared-memory loads stay well below the mma count.  The
-// key loop ends at the tile's causal limit min(q_offset + (tile+1)*64,
-// Tk), so a short suffix over a long prefix does only the work the mask
-// allows, and the longest tiles start first.  The probabilities are
-// rounded to bf16 for the second product, as in FlashAttention-2.
+// tensor cores are the limit.  The bf16 kernel is therefore the Hopper
+// tile loop of attention_tiles.cuh (shared with ring_partial.cu): a
+// persistent CTA per SM, a producer warp that streams Q, K and V in by
+// TMA, two consumer warpgroups that run both products on wgmma, and
+// masks only on the tiles that straddle the causal diagonal.  What this
+// kernel adds is its row end min(q_offset + row + 1, Tk) and its
+// epilogue.  A q tile's key range ends at its last row's limit, so a
+// short suffix over a long prefix does only the work the mask allows.
+// The probabilities are rounded to bf16 for the second product, as in
+// FlashAttention-2 and -3.
 //
-// A continuation suffix (256 rows) gives only 4 q-tiles a head, too few
-// CTAs to fill 132 SMs; the wrapper then splits the keys across CTAs,
-// each writing an unnormalized float32 partial (o, m, l), and a second
-// kernel merges the splits by log-sum-exp.  Not yet used: wgmma and TMA.
-// The tile loop itself is attention_tiles.cuh, shared with ring_partial.cu.
+// The work list (ops/tile_plan.py) also splits the keys when the (q
+// tile, head, batch) items are too few to fill the SMs, as a 256-row
+// continuation's are: each split writes an unnormalized float32 partial
+// (o, m, l), and a second kernel merges the splits by log-sum-exp.
 //
 // The float32 variant (test and small-shape use) is a plain CUDA-core
 // kernel: one warp per query row, lanes splitting the head dimension.
 //
-// C interface for ctypes; every entry returns cudaGetLastError().
+// C interface for ctypes; every entry returns cudaGetLastError() or the
+// error of a tensor map it could not encode.
 
 #include "attention_tiles.cuh"
 
 namespace {
 
-// Grid (n_qtiles * n_split, H, B).  `part_o` null: write the normalized
-// bf16 output.  Otherwise write this split's unnormalized partial:
-// part_o float32 [n_split, B, Tq, H, D], part_ml float32
-// [n_split, B, Tq, H, 2] = (max in log2 units, sum).
+// A persistent CTA walks `items` (ops/tile_plan.py).  `part_o` null:
+// write the normalized bf16 output.  Otherwise write each item's
+// split's unnormalized partial: part_o float32 [n_split, B, Tq, H, D],
+// part_ml float32 [n_split, B, Tq, H, 2] = (max in log2 units, sum).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const int* __restrict__ items, int n_items,
                       __nv_bfloat16* __restrict__ out,
                       float* __restrict__ part_o, float* __restrict__ part_ml,
                       int B, int Tq, int Tk, int H, int Hkv, int q_offset,
-                      float scale_log2, int n_split, int tiles_per_split) {
-  constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-
-  const int n_qtiles = gridDim.x / n_split;
-  const int qt = n_qtiles - 1 - static_cast<int>(blockIdx.x) / n_split;
-  const int split = static_cast<int>(blockIdx.x) % n_split;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
+                      float scale_log2) {
+  constexpr int kDBlocks = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int t = threadIdx.x % 4;
   const long q_stride = static_cast<long>(H) * D;
-  const long kv_stride = static_cast<long>(Hkv) * D;
-  const __nv_bfloat16* qb = q + static_cast<long>(b) * Tq * q_stride + h * D;
-  const __nv_bfloat16* kb = k + static_cast<long>(b) * Tk * kv_stride + kvh * D;
-  const __nv_bfloat16* vb = v + static_cast<long>(b) * Tk * kv_stride + kvh * D;
 
-  const int kv_end = min(q_offset + (qt + 1) * kBQ, Tk);
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
-  const int kt_begin = split * tiles_per_split;
-  const int kt_end = min(n_tiles, kt_begin + tiles_per_split);
-
-  const int row0 = qt * kBQ + warp * 16 + g;  // this thread's two rows
-  const int row1 = row0 + 8;
-  TileRows<D> st;
-  attend_tiles<D>(qb, q_stride, Tq, row0, kb, vb, kv_stride, Tk, kt_begin,
-                  kt_end, min(q_offset + row0 + 1, Tk),
-                  min(q_offset + row1 + 1, Tk), scale_log2, smem_raw, st);
-
-  if (part_o != nullptr) {
-    const long base = (static_cast<long>(split) * B + b) * Tq;
+  attend_items<D>(
+      &qmap, &kmap, &vmap, items, n_items, H / Hkv, scale_log2, smem_raw,
+      [=](int row) { return min(q_offset + row + 1, Tk); },
+      [&](int b, int h, int split, const TileRows<D>& st, int row0, int row1) {
+        if (part_o != nullptr) {
+          const long base = (static_cast<long>(split) * B + b) * Tq;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = hr ? row1 : row0;
-      if (row >= Tq) continue;
-      const long cell = (base + row) * H + h;
-      float* po = part_o + cell * D;
+          for (int hr = 0; hr < 2; ++hr) {
+            const int row = hr ? row1 : row0;
+            if (row >= Tq) continue;
+            const long cell = (base + row) * H + h;
+            float* po = part_o + cell * D;
 #pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        *reinterpret_cast<float2*>(po + dt * 8 + 2 * t) =
-            make_float2(st.o[dt][2 * hr], st.o[dt][2 * hr + 1]);
-      }
-      if (t == 0) {
-        *reinterpret_cast<float2*>(part_ml + cell * 2) =
-            make_float2(hr ? st.m1 : st.m0, hr ? st.l1 : st.l0);
-      }
-    }
-    return;
-  }
-
-  const float inv0 = st.l0 > 0.f ? 1.f / st.l0 : 0.f;  // empty rows give 0
-  const float inv1 = st.l1 > 0.f ? 1.f / st.l1 : 0.f;
-  __nv_bfloat16* ob = out + static_cast<long>(b) * Tq * q_stride + h * D;
+            for (int j = 0; j < kDBlocks; ++j) {
+              *reinterpret_cast<float2*>(po + j * 8 + 2 * t) =
+                  make_float2(st.o[4 * j + 2 * hr], st.o[4 * j + 2 * hr + 1]);
+            }
+            if (t == 0) {
+              *reinterpret_cast<float2*>(part_ml + cell * 2) =
+                  make_float2(hr ? st.m1 : st.m0, hr ? st.l1 : st.l0);
+            }
+          }
+          return;
+        }
+        const float inv0 = st.l0 > 0.f ? 1.f / st.l0 : 0.f;  // empty rows give 0
+        const float inv1 = st.l1 > 0.f ? 1.f / st.l1 : 0.f;
+        __nv_bfloat16* ob = out + static_cast<long>(b) * Tq * q_stride + h * D;
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row0 < Tq) {
-      *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + col) =
-          pack_floats(st.o[dt][0] * inv0, st.o[dt][1] * inv0);
-    }
-    if (row1 < Tq) {
-      *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + col) =
-          pack_floats(st.o[dt][2] * inv1, st.o[dt][3] * inv1);
-    }
-  }
+        for (int j = 0; j < kDBlocks; ++j) {
+          const int col = j * 8 + 2 * t;
+          if (row0 < Tq) {
+            *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + col) =
+                pack_floats(st.o[4 * j] * inv0, st.o[4 * j + 1] * inv0);
+          }
+          if (row1 < Tq) {
+            *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + col) =
+                pack_floats(st.o[4 * j + 2] * inv1, st.o[4 * j + 3] * inv1);
+          }
+        }
+      });
 }
 
 // One block of D threads per (batch, row, head): log-sum-exp merge of
@@ -175,22 +151,23 @@ __global__ void __launch_bounds__(kRowsF32 * 32)
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                float* part_o, float* part_ml, int B, int Tq, int Tk, int H,
-                int Hkv, int q_offset, int n_split, int tiles_per_split,
-                cudaStream_t st) {
-  constexpr int kSmem = smem_bytes<D>();
-  cudaError_t rc = cudaFuncSetAttribute(
+                float* part_o, float* part_ml, const int* items, int n_items,
+                int ctas, int B, int Tq, int Tk, int H, int Hkv, int q_offset,
+                int n_split, cudaStream_t st) {
+  CUtensorMap qmap, kmap, vmap;
+  int rc = make_tile_map(&qmap, q, B, Tq, H, D, kBQ);
+  if (rc == 0) rc = make_tile_map(&kmap, k, B, Tk, Hkv, D, kBK);
+  if (rc == 0) rc = make_tile_map(&vmap, v, B, Tk, Hkv, D, kBK);
+  if (rc != 0) return rc;
+  constexpr int kSmem = TileBytes<D>::smem;
+  const cudaError_t attr = cudaFuncSetAttribute(
       flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  const dim3 grid(((Tq + kBQ - 1) / kBQ) * n_split, H, B);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  flash_bf16_kernel<D><<<grid, kThreads, kSmem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), op,
-      n_split > 1 ? part_o : nullptr, part_ml, B, Tq, Tk, H, Hkv, q_offset,
-      scale_log2, n_split, tiles_per_split);
+  flash_bf16_kernel<D><<<n_items < ctas ? n_items : ctas, kThreads, kSmem, st>>>(
+      qmap, kmap, vmap, items, n_items, op, n_split > 1 ? part_o : nullptr, part_ml,
+      B, Tq, Tk, H, Hkv, q_offset, scale_log2);
   if (n_split > 1) {
     const long cells = static_cast<long>(B) * Tq * H;
     flash_merge_kernel<D><<<cells, D, 0, st>>>(part_o, part_ml, op, cells,
@@ -219,27 +196,30 @@ const char* kernel_error_string(int rc) {
 }
 
 // q: [B, Tq, H, D], k/v: [B, Tk, Hkv, D], out: [B, Tq, H, D], all
-// contiguous; dtype 0 = float32, 1 = bfloat16.  bf16 only: with
-// n_split > 1 the keys of each q-tile are split into n_split ranges of
-// tiles_per_split 64-key tiles, through the float32 scratch part_o
-// [n_split, B, Tq, H, D] and part_ml [n_split, B, Tq, H, 2].
+// contiguous; dtype 0 = float32, 1 = bfloat16.  bf16 only: `items` is
+// the device work list of `n_items` items (ops/tile_plan.py), walked by
+// at most `ctas` persistent CTAs; with n_split > 1 its items are key
+// splits, written through the float32 scratch part_o [n_split, B, Tq,
+// H, D] and part_ml [n_split, B, Tq, H, 2] and merged.
 int flash_prefill(const void* q, const void* k, const void* v, void* out,
-                  void* part_o, void* part_ml, int B, int Tq, int Tk, int H,
-                  int Hkv, int D, int q_offset, int n_split,
-                  int tiles_per_split, int dtype, void* stream) {
+                  void* part_o, void* part_ml, const void* items, int n_items,
+                  int ctas, int B, int Tq, int Tk, int H, int Hkv, int D,
+                  int q_offset, int n_split, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_split < 1 || (n_split > 1 && (dtype != 1 || !part_o || !part_ml))) {
+  if (n_split < 1 || (n_split > 1 && (dtype != 1 || !part_o || !part_ml)) ||
+      (dtype == 1 && (items == nullptr || n_items < 1 || ctas < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* po = static_cast<float*>(part_o);
   auto* pm = static_cast<float*>(part_ml);
+  const auto* it = static_cast<const int*>(items);
   int rc = 0;
   if (dtype == 1 && D == 128) {
-    rc = launch_bf16<128>(q, k, v, out, po, pm, B, Tq, Tk, H, Hkv, q_offset,
-                          n_split, tiles_per_split, st);
+    rc = launch_bf16<128>(q, k, v, out, po, pm, it, n_items, ctas, B, Tq, Tk, H, Hkv,
+                          q_offset, n_split, st);
   } else if (dtype == 1 && D == 64) {
-    rc = launch_bf16<64>(q, k, v, out, po, pm, B, Tq, Tk, H, Hkv, q_offset,
-                         n_split, tiles_per_split, st);
+    rc = launch_bf16<64>(q, k, v, out, po, pm, it, n_items, ctas, B, Tq, Tk, H, Hkv,
+                         q_offset, n_split, st);
   } else if (dtype == 0 && D == 128) {
     launch_f32<128>(q, k, v, out, B, Tq, Tk, H, Hkv, q_offset, st);
   } else if (dtype == 0 && D == 64) {

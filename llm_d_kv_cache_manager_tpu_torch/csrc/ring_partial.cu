@@ -17,17 +17,17 @@
 // a causal step does ~34 GFLOP and moves ~59 MB, over half of it the
 // float32 acc it writes: ~580 operations a byte (~1160 unmasked), above
 // the card's ~295, so the tensor cores are the limit.  The bf16 kernel
-// is therefore the structure of flash_prefill.cu's: mma.sync m16n8k16
-// (bf16 in, f32 accumulate), one CTA of 4 warps per (64-row q-tile,
-// head, batch), Q fragments in registers for the whole key loop, K/V
-// through a two-stage cp.async shared-memory ring of 64 keys a stage,
-// ldmatrix (.trans for V), and a key loop that ends at the tile's causal
-// limit a + offset, so a causal step does only the visible half.  The
-// longest tiles start first.  The probabilities are rounded to bf16 for
-// the P.V product (l sums them in f32).  The running max is kept in log2
-// units for exp2f and written as m * ln 2.  With (q-tile, head, batch)
-// CTAs the ring shape gives 1024 CTAs, so the keys are not split.  The
-// tile loop is attention_tiles.cuh, shared with flash_prefill.cu.
+// is therefore the Hopper tile loop of attention_tiles.cuh, shared with
+// flash_prefill.cu: a persistent CTA per SM walking a work list of
+// (batch, head, 128-row q tile) items sorted longest first, a producer
+// warp that streams Q, K and V in by TMA, two consumer warpgroups that
+// run both products on wgmma, and masks only on the tiles that straddle
+// a row's limit a + offset, so a causal step does only the visible
+// half.  What this kernel adds is its row end (below) and its epilogue.
+// The probabilities are rounded to bf16 for the P.V product (l sums
+// them in f32).  The running max is kept in log2 units for exp2f and
+// written as m * ln 2.  The ring shape gives 512 items for 132 SMs, so
+// the keys are not split.
 //
 // Unlike the TPU kernel, which stages one KV head's whole chunk in VMEM,
 // nothing here caps Tk, and the offset is a runtime argument (any int;
@@ -36,7 +36,8 @@
 // The float32 variant (test and small-shape use) is a plain CUDA-core
 // kernel: one warp per query row, lanes splitting the head dimension.
 //
-// C interface for ctypes; the entry returns cudaGetLastError().
+// C interface for ctypes; the entry returns cudaGetLastError() or the
+// error of a tensor map it could not encode.
 
 #include "attention_tiles.cuh"
 
@@ -55,64 +56,46 @@ __device__ __forceinline__ int visible_end(long long row, int causal,
   return static_cast<int>(end < 0 ? 0 : (end > Tk ? Tk : end));
 }
 
-// Grid (n_qtiles, H, B).  Every row < Tq of the tile is written, also
-// when its causal limit leaves no key (the outputs come from
-// torch.empty).
+// A persistent CTA walks `items` (ops/tile_plan.py).  Every row < Tq
+// of an item is written, also when its causal limit leaves no key (the
+// outputs come from torch.empty).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    ring_partial_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+    ring_partial_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const int* __restrict__ items, int n_items,
                              float* __restrict__ acc, float* __restrict__ m_out,
                              float* __restrict__ l_out, int Tq, int Tk, int H,
                              int Hkv, int causal, int offset, float scale_log2) {
-  constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kDBlocks = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int t = threadIdx.x % 4;
 
-  const int qt = static_cast<int>(gridDim.x - 1 - blockIdx.x);  // longest first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  const long q_stride = static_cast<long>(H) * D;
-  const long kv_stride = static_cast<long>(Hkv) * D;
-  const __nv_bfloat16* qb = q + static_cast<long>(b) * Tq * q_stride + h * D;
-  const __nv_bfloat16* kb = k + static_cast<long>(b) * Tk * kv_stride + kvh * D;
-  const __nv_bfloat16* vb = v + static_cast<long>(b) * Tk * kv_stride + kvh * D;
-
-  // The tile's last row sees the most keys.
-  const int kv_end = visible_end(static_cast<long long>(qt) * kBQ + kBQ - 1,
-                                 causal, offset, Tk);
-  const int row0 = qt * kBQ + warp * 16 + g;  // this thread's two rows
-  const int row1 = row0 + 8;
-  TileRows<D> st;
-  attend_tiles<D>(qb, q_stride, Tq, row0, kb, vb, kv_stride, Tk, 0,
-                  (kv_end + kBK - 1) / kBK, visible_end(row0, causal, offset, Tk),
-                  visible_end(row1, causal, offset, Tk), scale_log2, smem_raw, st);
-
-  // A row that saw no key has o = 0 and l = 0 already (every p was
-  // exp2(-inf) = 0); its max becomes the finite sentinel.
+  attend_items<D>(
+      &qmap, &kmap, &vmap, items, n_items, H / Hkv, scale_log2, smem_raw,
+      [=](int row) { return visible_end(row, causal, offset, Tk); },
+      [&](int b, int h, int, const TileRows<D>& st, int row0, int row1) {
+        // A row that saw no key has o = 0 and l = 0 already (every p was
+        // exp2(-inf) = 0); its max becomes the finite sentinel.
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = hr ? row1 : row0;
-    if (row >= Tq) continue;
-    const long cell = (static_cast<long>(b) * Tq + row) * H + h;
-    float* po = acc + cell * D;
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = hr ? row1 : row0;
+          if (row >= Tq) continue;
+          const long cell = (static_cast<long>(b) * Tq + row) * H + h;
+          float* po = acc + cell * D;
 #pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<float2*>(po + dt * 8 + 2 * t) =
-          make_float2(st.o[dt][2 * hr], st.o[dt][2 * hr + 1]);
-    }
-    if (t == 0) {
-      const float mr = hr ? st.m1 : st.m0;
-      m_out[cell] = mr == -INFINITY ? kNegInf : mr * kLn2;
-      l_out[cell] = hr ? st.l1 : st.l0;
-    }
-  }
+          for (int j = 0; j < kDBlocks; ++j) {
+            *reinterpret_cast<float2*>(po + j * 8 + 2 * t) =
+                make_float2(st.o[4 * j + 2 * hr], st.o[4 * j + 2 * hr + 1]);
+          }
+          if (t == 0) {
+            const float mr = hr ? st.m1 : st.m0;
+            m_out[cell] = mr == -INFINITY ? kNegInf : mr * kLn2;
+            l_out[cell] = hr ? st.l1 : st.l0;
+          }
+        }
+      });
 }
 
 template <int D>
@@ -149,20 +132,23 @@ __global__ void __launch_bounds__(kRowsF32 * 32)
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, float* acc,
-                float* m, float* l, int B, int Tq, int Tk, int H, int Hkv,
-                int causal, int offset, cudaStream_t st) {
-  constexpr int kSmem = smem_bytes<D>();
-  cudaError_t rc = cudaFuncSetAttribute(
+                float* m, float* l, const int* items, int n_items, int ctas, int B,
+                int Tq, int Tk, int H, int Hkv, int causal, int offset,
+                cudaStream_t st) {
+  CUtensorMap qmap, kmap, vmap;
+  int rc = make_tile_map(&qmap, q, B, Tq, H, D, kBQ);
+  if (rc == 0) rc = make_tile_map(&kmap, k, B, Tk, Hkv, D, kBK);
+  if (rc == 0) rc = make_tile_map(&vmap, v, B, Tk, Hkv, D, kBK);
+  if (rc != 0) return rc;
+  constexpr int kSmem = TileBytes<D>::smem;
+  const cudaError_t attr = cudaFuncSetAttribute(
       ring_partial_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  ring_partial_bf16_kernel<D><<<grid, kThreads, kSmem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), acc, m, l, Tq, Tk, H, Hkv, causal,
-      offset, scale_log2);
+  ring_partial_bf16_kernel<D><<<n_items < ctas ? n_items : ctas, kThreads, kSmem, st>>>(
+      qmap, kmap, vmap, items, n_items, acc, m, l, Tq, Tk, H, Hkv, causal, offset,
+      scale_log2);
   return 0;
 }
 
@@ -188,20 +174,27 @@ const char* kernel_error_string(int rc) {
 // q: [B, Tq, H, D], k/v: [B, Tk, Hkv, D] in one dtype (0 = float32,
 // 1 = bfloat16); acc: float32 [B, Tq, H, D]; m, l: float32 [B, Tq, H];
 // all contiguous.  `causal` 0: every key visible; 1: key <= row + offset.
+// bf16 only: `items` is the device work list of `n_items` items
+// (ops/tile_plan.py), walked by at most `ctas` persistent CTAs.
 int ring_partial(const void* q, const void* k, const void* v, void* acc,
-                 void* m, void* l, int B, int Tq, int Tk, int H, int Hkv,
-                 int D, int causal, int offset, int dtype, void* stream) {
+                 void* m, void* l, const void* items, int n_items, int ctas, int B,
+                 int Tq, int Tk, int H, int Hkv, int D, int causal, int offset,
+                 int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && (items == nullptr || n_items < 1 || ctas < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto* pa = static_cast<float*>(acc);
   auto* pm = static_cast<float*>(m);
   auto* pl = static_cast<float*>(l);
+  const auto* it = static_cast<const int*>(items);
   int rc = 0;
   if (dtype == 1 && D == 128) {
-    rc = launch_bf16<128>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal,
-                          offset, st);
+    rc = launch_bf16<128>(q, k, v, pa, pm, pl, it, n_items, ctas, B, Tq, Tk, H, Hkv,
+                          causal, offset, st);
   } else if (dtype == 1 && D == 64) {
-    rc = launch_bf16<64>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal,
-                         offset, st);
+    rc = launch_bf16<64>(q, k, v, pa, pm, pl, it, n_items, ctas, B, Tq, Tk, H, Hkv,
+                         causal, offset, st);
   } else if (dtype == 0 && D == 128) {
     launch_f32<128>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal, offset, st);
   } else if (dtype == 0 && D == 64) {

@@ -9,5 +9,7 @@
   merge of partials; ``ring_flash_cuda``: the partial kernel
   (``csrc/ring_partial.cu``); ``ring_attention``: the ring over a mesh's
   ``sp`` axis.
+- ``tile_plan``: the work list that the bf16 prefill and ring partial
+  kernels walk (q tiles, key ranges, masked tiles, key splits).
 - ``_build``: nvcc build and ctypes loading of ``csrc/``.
 """

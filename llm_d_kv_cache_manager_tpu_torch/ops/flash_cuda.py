@@ -7,9 +7,11 @@ header note says what bounds it on an H100 and what its design does
 about that.  Unlike the TPU kernel it has no VMEM-style cap on the key
 length (K/V stream through shared memory tile by tile), and
 ``q_offset`` is a runtime argument, so one build serves full prefill,
-prefix-hit continuation and chunked prefill.  When the (q-tile, head,
-batch) grid is smaller than the card, the keys are split across CTAs
-and a merge kernel combines the splits (:func:`split_plan`).
+prefix-hit continuation and chunked prefill.  The bf16 kernel is
+persistent and walks a work list of (batch, head, 128-row q tile, key
+range) items from :func:`~.tile_plan.work_list`; when those items are
+too few to fill the card, the keys are split across items and a merge
+kernel combines the splits (:func:`split_plan`).
 
 :func:`flash_gqa_attention_cuda` launches the kernel for CUDA tensors
 and takes the plain version, :func:`flash_gqa_attention_plain` (the
@@ -27,12 +29,14 @@ from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops.flash_attention import (
     flash_gqa_attention,
 )
+from llm_d_kv_cache_manager_tpu_torch.ops.tile_plan import (  # noqa: F401
+    KV_TILE,
+    split_plan,
+    work_list,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
-Q_TILE = KV_TILE = 64  # rows per CTA and keys per stage in the kernel
-# CTAs per SM that a key split aims for when the grid is small.
-CTAS_PER_SM = 4
 
 
 def flash_gqa_attention_plain(
@@ -42,18 +46,6 @@ def flash_gqa_attention_plain(
     online-softmax op (same result as dense attention, without its
     [Tq, Tk] score matrix)."""
     return flash_gqa_attention(q, k, v, q_offset=q_offset)
-
-
-def split_plan(ctas: int, kv_tiles: int, sms: int):
-    """(splits, key tiles per split) for a bf16 launch of ``ctas``
-    (q-tile, head, batch) CTAs whose longest key loop is ``kv_tiles``
-    tiles: no split when the grid already covers the SMs, else about
-    ``CTAS_PER_SM`` CTAs per SM, each split at least one tile."""
-    if ctas >= sms or kv_tiles <= 1:
-        return 1, max(1, kv_tiles)
-    want = min(kv_tiles, -(-CTAS_PER_SM * sms // ctas))
-    per_split = -(-kv_tiles // want)
-    return -(-kv_tiles // per_split), per_split
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int):
@@ -83,10 +75,10 @@ def flash_gqa_attention_cuda(
     query row i sits at key position ``q_offset + i``.  Returns
     [B, Tq, H, D] in q's dtype.
 
-    CUDA tensors run the kernel (bf16 or float32, contiguous, head dim
-    64 or 128) and every launch adds one to
-    ``flash_gqa_attention_cuda.launches``; CPU tensors run
-    :func:`flash_gqa_attention_plain`."""
+    CUDA tensors run the kernel (bf16 or float32, contiguous, 16-byte
+    aligned, head dim 64 or 128; bf16 also at least one key) and every
+    launch adds one to ``flash_gqa_attention_cuda.launches``; CPU tensors
+    run :func:`flash_gqa_attention_plain`."""
     q_offset = int(q_offset)
     _check(q, k, v, q_offset)
     if q.device.type == "cpu":
@@ -105,19 +97,19 @@ def flash_gqa_attention_cuda(
     out = torch.empty_like(q)
     if B == 0 or Tq == 0:
         return out
-    q_tiles = -(-Tq // Q_TILE)
-    kv_tiles = -(-min(q_offset + q_tiles * Q_TILE, Tk) // KV_TILE)
-    splits, per_split = 1, max(1, kv_tiles)
+    items, n_items, ctas, splits = None, 0, 0, 1
     if q.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits, per_split = split_plan(q_tiles * H * B, kv_tiles, sms)
+        if Tk == 0:
+            raise ValueError("the bf16 kernel needs at least one key")
+        plan = work_list(B, H, Tq, Tk, q_offset, q.device, split_keys=True)
+        items, n_items, ctas, splits = plan.items, len(plan.items), plan.ctas, plan.splits
     part_o = part_ml = None
     if splits > 1:
         part_o = torch.empty((splits, B, Tq, H, D), dtype=torch.float32, device=q.device)
         part_ml = torch.empty((splits, B, Tq, H, 2), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_prefill")
     fn = lib.flash_prefill
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -125,8 +117,8 @@ def flash_gqa_attention_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
-            B, Tq, Tk, H, Hkv, D, q_offset, splits, per_split,
-            _DTYPE_CODES[q.dtype], stream,
+            None if items is None else items.data_ptr(), n_items, ctas,
+            B, Tq, Tk, H, Hkv, D, q_offset, splits, _DTYPE_CODES[q.dtype], stream,
         )
     _build.check(lib, "flash_prefill launch", rc)
     flash_gqa_attention_cuda.launches += 1

@@ -8,6 +8,8 @@ says what bounds it on an H100 and what its design does about that.
 It has no VMEM-style cap on the key length, and the mask is a runtime
 argument: ``causal_offset=None`` is passed as an explicit "no mask"
 flag, never as a large offset, so one build serves every ring step.
+The bf16 kernel is persistent and walks a work list of (batch, head,
+128-row q tile, key range) items from :func:`~.tile_plan.work_list`.
 
 :func:`flash_partial_cuda` launches the kernel for CUDA tensors and
 takes the plain version, :func:`flash_partial_plain`
@@ -28,6 +30,10 @@ from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash import (
     Partial,
     flash_partial_plain,
+)
+from llm_d_kv_cache_manager_tpu_torch.ops.tile_plan import (  # noqa: F401
+    KV_TILE,
+    work_list,
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,9 +79,9 @@ def flash_partial_cuda(
     :func:`flash_partial_plain` does.
 
     CUDA tensors run the kernel (bf16 or float32, contiguous, 16-byte
-    aligned, head dim 64 or 128) and every launch adds one to
-    ``flash_partial_cuda.launches``; CPU tensors run
-    :func:`flash_partial_plain`."""
+    aligned, head dim 64 or 128; bf16 also at least one key) and every
+    launch adds one to ``flash_partial_cuda.launches``; CPU tensors
+    run :func:`flash_partial_plain`."""
     if causal_offset is not None:
         causal_offset = int(causal_offset)
     _check(q, k, v, causal_offset)
@@ -97,9 +103,15 @@ def flash_partial_cuda(
     l = torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
     if B == 0 or Tq == 0:
         return acc, m, l
+    items, n_items, ctas = None, 0, 0
+    if q.dtype == torch.bfloat16:
+        if Tk == 0:
+            raise ValueError("the bf16 kernel needs at least one key")
+        plan = work_list(B, H, Tq, Tk, causal_offset, q.device)
+        items, n_items, ctas = plan.items, len(plan.items), plan.ctas
     lib = _build.library("ring_partial")
     fn = lib.ring_partial
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     causal = causal_offset is not None
     with torch.cuda.device(q.device):
@@ -107,6 +119,7 @@ def flash_partial_cuda(
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            None if items is None else items.data_ptr(), n_items, ctas,
             B, Tq, Tk, H, Hkv, D, int(causal), causal_offset if causal else 0,
             _DTYPE_CODES[q.dtype], stream,
         )

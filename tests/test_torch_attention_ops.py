@@ -137,11 +137,11 @@ def test_prefill_wrapper_rejects_bad_inputs(bad):
 
 @pytest.mark.parametrize(
     "ctas,kv_tiles,sms,splits",
-    [(4224, 132, 132, 1), (128, 132, 132, 5), (8, 3, 132, 3), (2, 1, 132, 1), (66, 2, 132, 2)],
+    [(4224, 132, 132, 1), (128, 132, 132, 1), (8, 3, 132, 3), (2, 1, 132, 1), (66, 2, 132, 2)],
 )
 def test_prefill_split_plan_covers_the_keys(ctas, kv_tiles, sms, splits):
-    """Full prefill grids stay unsplit; a continuation's small grid is
-    split so every key tile falls in exactly one split."""
+    """Work lists that fill the SMs stay unsplit; a small one is split
+    so every key tile falls in exactly one split."""
     got, per_split = flash_cuda.split_plan(ctas, kv_tiles, sms)
     assert got == splits
     assert (got - 1) * per_split < kv_tiles <= got * per_split
