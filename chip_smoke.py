@@ -24,19 +24,25 @@ Phases (any failure exits non-zero):
      the serving shapes the same limit must reject a planted fault (one
      key tile skipped);
   3. decode kernel vs its plain version (the serving batch, B=4, B=16,
-     shuffled tables, ragged contexts down to 1), likewise, the planted
-     fault being one dropped partial;
+     shuffled tables, ragged contexts down to 1, sequences that end on
+     and just past a CTA's run, one inside a run beside one cut over
+     all, G = 1 and 2, tables wider than any context), likewise, the
+     planted fault being one CTA's partial dropped; an empty context
+     must give 0 and three replays of one CUDA graph the same bits;
   4. ring partial kernel vs its plain version (causal offsets None, 0
      and -1 at one rank's chunk of the ring prefill, small edge cases
      including the exact empty-row sentinel), likewise, on the
      normalized output acc/l and on m and l, the planted fault being
      one key tile skipped;
-  5. serving: two simulated pods, a miss, a hit, 8 decode steps, which
-     must launch the prefill kernel once per layer per request and the
-     decode kernel once per layer per step; then the prefix-hit
-     contract, chunked prefill and decode are checked against fresh
-     full passes and the device time of each step is broken down by
-     kernel category;
+  5. serving: two simulated pods, a miss, a hit, 8 decode steps replayed
+     from one captured CUDA graph (``make_decode_step``), which must
+     launch the prefill kernel once per layer per request and the
+     decode kernel once per layer per step (counted from the kernels the
+     profiler sees a replay run); the eager ``decode_step`` over the same
+     eight inputs on a copy of the pool must give the same logits,
+     tokens and pool bytes; then the prefix-hit contract, chunked
+     prefill and decode are checked against fresh full passes and the
+     device time of each step is broken down by kernel category;
   6. ring prefill: the 8192-token prompt through the striped and the
      contiguous ring and through the dense forward; each ring must
      launch the partial kernel exactly 16 (striped) or 10 (contiguous)
@@ -125,12 +131,16 @@ def kernel_name(mangled: str) -> str:
     """``name<int args>`` of a mangled kernel: the identifier whose
     length prefix says it ends in ``_kernel``, then its template ints."""
     for match in re.finditer(r"\d+", mangled):
-        end = match.end() + int(match.group())
-        name = mangled[match.end():end]
-        if name.endswith("_kernel"):
-            rest = mangled[end:]
-            args = re.findall(r"L[ij](\d+)E", rest[:rest.find("EE") + 2]) if rest[:1] == "I" else []
-            return f"{name}<{','.join(args)}>"
+        # The digits may start with the tail of a file hash: try each
+        # suffix of the run as the length.
+        for start in range(match.start(), match.end()):
+            end = match.end() + int(mangled[start:match.end()])
+            name = mangled[match.end():end]
+            if name.endswith("_kernel"):
+                rest = mangled[end:]
+                args = (re.findall(r"L[ij](\d+)E", rest[:rest.find("EE") + 2])
+                        if rest[:1] == "I" else [])
+                return f"{name}<{','.join(args)}>"
     return mangled
 
 
@@ -349,6 +359,15 @@ def prefill_case(torch, peaks, B, Tq, Tk, H, Hkv, D, q_offset, dtype, timing):
 # --------------------------------------------------------------- phase 3
 
 
+def decode_items(torch, pc, B, H, Hkv, D, max_blocks, ctx, dtype):
+    """The pieces the decode kernel cuts this call into on this card:
+    the wrapper's grid and the mirror of the kernel's arithmetic."""
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    resident = pc.RESIDENT_CTAS[torch.cuda.current_device(), D, H // Hkv, code]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pc.work_items(ctx, Hkv, max_blocks, pc.split_plan(B, Hkv, max_blocks, sms, resident))
+
+
 def decode_case(torch, peaks, B, H, Hkv, D, max_blocks, ctx, dtype, timing):
     pc = port("ops.paged_decode_cuda")
     g = torch.Generator(device="cuda").manual_seed(SEED + B + max_blocks)
@@ -367,21 +386,33 @@ def decode_case(torch, peaks, B, H, Hkv, D, max_blocks, ctx, dtype, timing):
     torch.cuda.synchronize()
     limits = LIMITS["decode", str(dtype)[6:]]
     shape = f"B={B} H={H} Hkv={Hkv} D={D} max_blocks={max_blocks} ctx={ctx} {str(dtype)[6:]}"
-    row = {"shape": shape, **check_close(f"decode {shape}", got, ref, *limits)}
+    result = check_close(f"decode {shape}", got, ref, *limits)
     if not timing:
-        return row
-    # Planted fault: a merge that drops the middle chunk's partial.  Its
-    # output is this kernel's over the table without that chunk's blocks.
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    per_chunk, chunks = pc.split_plan(B, Hkv, max_blocks, sms)
-    lo, hi = chunks // 2 * per_chunk, (chunks // 2 + 1) * per_chunk
-    ctx_faulty = [n - (hi - lo) * 16 if n >= hi * 16 else min(n, lo * 16) for n in ctx]
-    faulty = pc.paged_decode_attention_cuda(
-        q, kv, torch.cat((table[:, :lo], table[:, hi:]), 1).contiguous(),
-        torch.tensor(ctx_faulty, dtype=torch.int32, device="cuda"))
-    row["planted"] = reject_fault(
-        f"partial {chunks // 2} of {chunks} (blocks {lo}-{hi - 1}) dropped", faulty, ref,
-        *limits)
+        return {"shape": shape, **result}
+    # Planted fault: a merge that drops one partial.  The kernel cuts the
+    # live blocks into runs, one a CTA (``work_items``); of the pieces
+    # that leave a partial, take the middle one of the longest sequence.
+    # The faulty output is this kernel's over that sequence's table
+    # without the piece's blocks, for the query heads of its KV head.
+    G = H // Hkv
+    items = decode_items(torch, pc, B, H, Hkv, D, max_blocks, ctx, dtype)
+    long_b = max(range(B), key=lambda b: ctx[b])
+    live = -(-ctx[long_b] // 16)
+    partial = [it for it in items if it[1] == long_b and (it[3], it[4]) != (0, live)]
+    if not partial:
+        raise AssertionError(f"decode {shape}: no piece leaves a partial to drop")
+    cta, _, kvh, lo, hi = partial[len(partial) // 2]
+    dropped = min(ctx[long_b], hi * 16) - lo * 16
+    table_b = table[long_b: long_b + 1]
+    faulty = got.clone()
+    faulty[long_b, kvh * G:(kvh + 1) * G] = pc.paged_decode_attention_cuda(
+        q[long_b: long_b + 1], kv, torch.cat((table_b[:, :lo], table_b[:, hi:]), 1).contiguous(),
+        torch.tensor([ctx[long_b] - dropped], dtype=torch.int32, device="cuda"),
+    )[0, kvh * G:(kvh + 1) * G]
+    planted = reject_fault(
+        f"partial of CTA {cta} (sequence {long_b}, KV head {kvh}, blocks {lo}-{hi - 1} of "
+        f"{live}; {len(partial)} partials in the sequence) dropped", faulty, ref, *limits)
+    row = {"shape": shape, **result, "planted": planted}
     item = q.element_size()
     tokens = sum(ctx)
     flops = 4.0 * tokens * H * D
@@ -402,6 +433,49 @@ def decode_case(torch, peaks, B, H, Hkv, D, max_blocks, ctx, dtype, timing):
           f"{row['plain_ms']:.3f}  bound_ms {row['bound_ms']:.4f} ({row['bound_by']})",
           flush=True)
     return add_rates(row, flops)
+
+
+def decode_replay_case(torch):
+    """What one CUDA graph of one decode call gives on three replays,
+    and an empty context beside a live one.  The kernel's arrival
+    counters are zeroed inside the launch sequence: left standing, they
+    would make the second replay merge early or never.  The merge adds
+    the partials in CTA order whatever the order of arrival, so replays
+    agree bit for bit with each other and with the eager call."""
+    pc = port("ops.paged_decode_cuda")
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 77)
+    B, H, Hkv, D, max_blocks = 3, 32, 8, 128, 300
+    ctx = [4790, 0, 2333]
+    kv = torch.randn(B * max_blocks, 2, 16, Hkv, D, generator=g, device="cuda").to(bf16)
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(bf16)
+    table = torch.randperm(B * max_blocks, generator=torch.Generator().manual_seed(SEED))
+    table = table.reshape(B, max_blocks).to(torch.int32).cuda()
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    eager = pc.paged_decode_attention_cuda(q, kv, table, ctx_t)
+    ref = pc.paged_decode_attention_plain(q, kv, table, ctx_t)
+    torch.cuda.synchronize()
+    live = [0, 2]
+    row = check_close(f"decode B={B} ctx={ctx} (live sequences)", eager[live], ref[live],
+                      *LIMITS["decode", "bfloat16"])
+    if bool((eager[1] != 0).any()):
+        raise AssertionError("decode: an empty context must give 0")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pc.paged_decode_attention_cuda(q, kv, table, ctx_t)
+    replays = []
+    for _ in range(3):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    same = all(torch.equal(r, eager) for r in replays)
+    print(f"  decode B={B} ctx={ctx}: empty context gives 0; 3 replays of one CUDA graph equal "
+          f"the eager call bit for bit: {same}", flush=True)
+    if not same:
+        raise AssertionError("decode: replays of one CUDA graph disagree")
+    return {"shape": f"B={B} H={H} Hkv={Hkv} D={D} max_blocks={max_blocks} ctx={ctx} bfloat16, "
+                     "3 graph replays", **row, "replays_equal": same}
 
 
 # --------------------------------------------------------------- phase 4
@@ -506,7 +580,7 @@ def ring_partial_case(torch, peaks, B, Tq, Tk, H, Hkv, D, offset, dtype, timing)
 # Kernel-name fragments -> the breakdown's categories (first match wins).
 KERNEL_GROUPS = (
     ("prefill_attention", ("flash_bf16_kernel", "flash_merge_kernel")),
-    ("decode_attention", ("decode_partial_kernel", "decode_merge_kernel")),
+    ("decode_attention", ("paged_decode_bf16_kernel", "paged_decode_f32_kernel")),
     ("ring_attention", ("ring_partial_bf16_kernel", "ring_partial_f32_kernel")),
     ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitKreduce")),
 )
@@ -532,16 +606,56 @@ def device_breakdown(torch, step, steps: int):
         wall = (time.perf_counter() - t0) * 1e3 / steps
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
+    rows = []
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
             continue
         group = next((name for name, keys in KERNEL_GROUPS
                       if any(key in event.key for key in keys)), "other")
         groups[group] += event.self_device_time_total / 1e3 / steps
+        rows.append((event.key, event.count))
     device = sum(groups.values())
     if device <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return {"device_ms": device, "kernels_ms": groups, "profiled_wall_ms": wall}
+    return {"device_ms": device, "kernels_ms": groups, "profiled_wall_ms": wall,
+            "kernel_rows": {name: kernel_rows_per_step(rows, keys, steps)
+                            for name, keys in KERNEL_GROUPS[:3]}}
+
+
+def kernel_rows_per_step(rows, fragments, steps: int) -> int:
+    """Launches a step of the kernels whose names hold one of
+    ``fragments``, from a profiler window of ``steps`` steps: ``rows``
+    are (kernel name, times it ran on the device).  The count is taken
+    where the kernels ran, so it also sees launches that a replayed CUDA
+    graph makes without a Python call.  Fails unless every step ran the
+    same number."""
+    total = sum(count for name, count in rows if any(f in name for f in fragments))
+    if total % steps:
+        raise AssertionError(f"{total} launches of {fragments} do not divide over {steps} steps")
+    return total // steps
+
+
+def graph_kernel_nodes(dot: str, fragments) -> int:
+    """Kernel nodes of a captured CUDA graph whose kernel's name holds
+    one of ``fragments``, from the graph's DOT dump
+    (``CUDAGraph.debug_dump``): every replay launches each of them once.
+    A node's statement runs from its quoted id and ``[`` to the next
+    statement; an edge (``"a" -> "b"``) names no kernel."""
+    starts = [m.start() for m in re.finditer(r'^\s*"[^"\n]+"\s*\[', dot, re.MULTILINE)]
+    nodes = [dot[a:b] for a, b in zip(starts, starts[1:] + [len(dot)])]
+    return sum("KERNEL" in node and any(f in node for f in fragments) for node in nodes)
+
+
+def captured_kernel_nodes(graph, fragments) -> int:
+    """``graph_kernel_nodes`` of a captured ``torch.cuda.CUDAGraph`` made
+    with ``keep_graph=True``."""
+    import pathlib
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as folder:
+        path = pathlib.Path(folder) / "graph.dot"
+        graph.debug_dump(str(path))
+        return graph_kernel_nodes(path.read_text(), fragments)
 
 
 def show_breakdown(what: str, wall_ms: float, busy) -> dict:
@@ -551,7 +665,8 @@ def show_breakdown(what: str, wall_ms: float, busy) -> dict:
     parts = ", ".join(f"{k} {v:.2f}" for k, v in busy["kernels_ms"].items())
     print(f"  {what}: {busy['device_ms']:.2f} ms of device kernels ({parts}); device idle "
           f"share {idle:.2f} of the unprofiled {wall_ms:.2f} ms (profiled window "
-          f"{busy['profiled_wall_ms']:.2f} ms)", flush=True)
+          f"{busy['profiled_wall_ms']:.2f} ms); attention kernel launches a step "
+          f"{busy['kernel_rows']}", flush=True)
     return dict(busy, wall_ms=wall_ms, idle_share=idle)
 
 
@@ -708,43 +823,128 @@ def serving(torch, params, cfg):
         raise AssertionError("unexpected logits shapes")
     del a["logits"]  # 4.3 GB of float32 logits
 
-    # Decode both requests in one batch of 2 on their pod.
+    # Decode both requests in one batch of 2 on their pod, through the
+    # captured step: one CUDA graph of decode_step, replayed per token.
+    # Pod-b's pool gets a copy of pod-a's first, so that the eager
+    # decode_step can run the same eight inputs there afterwards.
+    pods[1].pool.kv.copy_(pod_a.pool.kv)
     extra, _ = pod_a.alloc(2)
     table = torch.tensor([ids_a + [extra[0]], ids_b + [extra[1]]], dtype=torch.int32)
+    captured = llama.make_decode_step(params, pod_a.pool.kv, cfg, 2, table.shape[1])
+    # A graph object that keeps its nodes, for the count below.
+    captured.graph = torch.cuda.CUDAGraph(keep_graph=True)
+    # The first call captures (outside the timed run, as the warm-up
+    # above is): it decodes step 1, and the timed run's step 1 writes
+    # the same K/V into the same slot again.
     tokens = torch.tensor([first_a, first_b], device="cuda")
+    ctx0 = torch.full((2,), len(prompt_a), dtype=torch.int32, device="cuda")
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t_cap = time.perf_counter()
+    captured(tokens, table, ctx0 + 1)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t_cap
+    # What the graph keeps for its life: its private pool holds every
+    # intermediate of the step, the float32 copy of the embedding too.
+    graph_pool_gb = (torch.cuda.memory_reserved() - reserved) / 2**30
+    captured.replays = 0
+    inputs, step_logits = [], []
     generated = [tokens]
-    ctx = torch.full((2,), len(prompt_a), dtype=torch.int32, device="cuda")
-    step_logits = []
+    ctx = ctx0
     torch.cuda.synchronize()
     t_dec = time.perf_counter()
     for _ in range(DECODE_STEPS):
         ctx = ctx + 1
-        logits, _ = llama.decode_step(params, tokens, pod_a.pool.kv, table, ctx, cfg)
+        inputs.append((tokens, ctx))
+        logits = captured(tokens, table, ctx).clone()  # the static output
         step_logits.append(logits)
         tokens = logits.argmax(-1)
         generated.append(tokens)
     torch.cuda.synchronize()
     ms_per_step = (time.perf_counter() - t_dec) * 1e3 / DECODE_STEPS
-    # The main path's launches: counted from request A to here, before
-    # the profiler windows and the checks below launch the kernels again.
+    main_replays = captured.replays
+    python_calls = pc.paged_decode_attention_cuda.launches
+    out_tokens = torch.stack(generated, 1).tolist()
+    print(f"  decode: {DECODE_STEPS} steps at batch 2 replayed from one CUDA graph (captured "
+          f"in {capture_s:.2f} s, {graph_pool_gb:.2f} GiB of device memory reserved for it), "
+          f"{ms_per_step:.2f} ms/step; tokens {out_tokens}", flush=True)
+    if not all(bool(x.isfinite().all()) for x in step_logits):
+        raise AssertionError("decode logits not finite")
+    # The eager decode_step over the same eight inputs, on pod-b's copy.
+    table_dev = table.cuda()
+    eager_logits = []
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter()
+    for step_tokens, step_ctx in inputs:
+        eager_logits.append(llama.decode_step(
+            params, step_tokens, pods[1].pool.kv, table_dev, step_ctx, cfg)[0])
+    torch.cuda.synchronize()
+    eager_ms_per_step = (time.perf_counter() - t_dec) * 1e3 / DECODE_STEPS
+    same_logits = [torch.equal(x, y) for x, y in zip(step_logits, eager_logits)]
+    same_tokens = [x.argmax(-1).tolist() == y.argmax(-1).tolist()
+                   for x, y in zip(step_logits, eager_logits)]
+    same_pool = torch.equal(pod_a.pool.kv, pods[1].pool.kv)
+    print(f"  eager decode_step over the same {DECODE_STEPS} inputs on pod-b's copy of the "
+          f"pool: {eager_ms_per_step:.2f} ms/step; logits bit-equal to the captured step's at "
+          f"steps {[i + 1 for i, same in enumerate(same_logits) if same]}, same tokens at "
+          f"every step: {all(same_tokens)}, pools bit-equal afterwards: {same_pool}",
+          flush=True)
+    if not (same_logits[0] and all(same_tokens) and same_pool):
+        raise AssertionError("the captured decode step and the eager one disagree")
+    del eager_logits
+    # The main path's launches, from request A to the last decode step
+    # (the profiler windows and the checks below launch the kernels
+    # again).  The prefill kernel is launched by its Python wrapper; the
+    # decode kernel by the graph the main path replayed, so its count is
+    # those replays times the decode kernel nodes of that graph.
+    decode_nodes = captured_kernel_nodes(captured.graph, dict(KERNEL_GROUPS)["decode_attention"])
     launches = {
         "flash_prefill": fc.flash_gqa_attention_cuda.launches,
-        "paged_decode": pc.paged_decode_attention_cuda.launches,
+        "paged_decode": main_replays * decode_nodes,
     }
     expected = {"flash_prefill": 2 * layers, "paged_decode": DECODE_STEPS * layers}
     print(f"  kernel launches on the main path (2 prefills, {DECODE_STEPS} decode steps, "
-          f"{layers} layers): {launches}", flush=True)
-    if launches != expected:
-        raise AssertionError(f"main-path launches {launches}, expected {expected}")
-    out_tokens = torch.stack(generated, 1).tolist()
-    print(f"  decode: {DECODE_STEPS} steps at batch 2, {ms_per_step:.2f} ms/step; "
-          f"tokens {out_tokens}", flush=True)
-    if not all(bool(x.isfinite().all()) for x in step_logits):
-        raise AssertionError("decode logits not finite")
+          f"{layers} layers): {launches} ({main_replays} replays x {decode_nodes} decode "
+          f"kernel nodes in the replayed graph; the wrapper's Python count, which sees the "
+          f"warm-up and the capture only: {python_calls})", flush=True)
+    if launches != expected or python_calls != 2 * layers:
+        raise AssertionError(f"main-path launches {launches}, expected {expected}; Python "
+                             f"calls {python_calls}, expected {2 * layers}")
+    # Where the device time of a replay goes, from the kernels the
+    # profiler saw run in two further replays; it must see each replay
+    # launch the graph's decode nodes.
     decode_split = show_breakdown(
-        "decode step under torch.profiler", ms_per_step,
-        device_breakdown(torch, lambda: llama.decode_step(
-            params, tokens, pod_a.pool.kv, table, ctx + 1, cfg), steps=2))
+        "decode step (graph replay) under torch.profiler", ms_per_step,
+        device_breakdown(torch, lambda: captured(tokens, table, ctx + 1), steps=2))
+    if decode_split["kernel_rows"]["decode_attention"] != decode_nodes:
+        raise AssertionError(f"the profiler saw {decode_split['kernel_rows']} kernels a replay, "
+                             f"the graph holds {decode_nodes} decode kernel nodes")
+    # The captured step past the main path's one shape, each call held
+    # bit-equal (logits and pool) to the eager decode_step on pod-b's
+    # pool: a table narrower than the step's capacity, copied into the
+    # left columns while the right ones still hold the wide table's ids;
+    # the wide table again; and a second step, captured for another
+    # batch size and width over the same pool.
+    pods[1].pool.kv.copy_(pod_a.pool.kv)  # the profiled replays wrote pod-a's pool only
+    solo = llama.make_decode_step(params, pod_a.pool.kv, cfg, 1, 200)
+    captured_cases = {}
+    for what, step, toks, tab, lens in (
+            ("a 300-block table in the 530-block step", captured, tokens, table[:, :300],
+             [300 * bs - 3, 2000]),
+            ("the 530-block table again", captured, tokens, table, ctx + 1),
+            ("a second step, captured for batch 1 and 200 blocks", solo, tokens[1:],
+             table[1:, :200], [200 * bs - 7])):
+        lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+        got = step(toks, tab, lens).clone()
+        want = llama.decode_step(params, toks, pods[1].pool.kv, tab, lens, cfg)[0]
+        captured_cases[what] = (torch.equal(got, want)
+                                and torch.equal(pod_a.pool.kv, pods[1].pool.kv))
+        print(f"  captured step, {what} (context {lens.tolist()}): logits and pool bit-equal "
+              f"to the eager decode_step's: {captured_cases[what]}", flush=True)
+    if not all(captured_cases.values()) or solo.replays != 1:
+        raise AssertionError(f"the captured decode step and the eager one disagree: "
+                             f"{captured_cases}")
+    del solo, got, want
     # The same for the two prefills, re-run on pod-b's warm-up blocks
     # (the index and pod-a are not touched).
     miss_split = show_breakdown(
@@ -799,6 +999,10 @@ def serving(torch, params, cfg):
         "route_miss_ms": a["route_ms"],
         "route_hit_ms": b["route_ms"],
         "decode_ms_per_step": ms_per_step,
+        "decode_eager_ms_per_step": eager_ms_per_step,
+        "decode_capture_s": capture_s,
+        "decode_graph_pool_gib": graph_pool_gb,
+        "decode_captured_cases": captured_cases,
         "breakdown_ms": {"miss": miss_split, "hit": hit_split, "decode_step": decode_split},
         "prefix_hit_max_abs_err": hit_err,
         "prefix_hit_token_gap": hit_gap,
@@ -949,8 +1153,18 @@ def main() -> int:
             (3, 8, 2, 64, 8, [16, 7, 128], bf16),
             (2, 32, 8, 128, 7, [97, 1], f32),
             (1, 8, 8, 128, 4, [33], f32),
+            # 264 units over 132 CTAs, 2 a run: sequence 0 ends exactly
+            # on a run's end, then one block past it.
+            (2, 8, 1, 128, 264, [132 * 16, 132 * 16], bf16),
+            (2, 8, 1, 128, 264, [133 * 16, 131 * 16 - 5], bf16),
+            # a sequence inside one run beside one cut over all of them
+            (2, 32, 8, 128, 528, [20, 8448], bf16),
+            (2, 8, 8, 128, 64, [1000, 37], bf16),  # G = 1
+            (2, 16, 8, 64, 40, [600, 333], bf16),  # G = 2
+            (2, 32, 8, 128, 600, [4000, 77], bf16),  # a table wider than any context
+            (2, 16, 4, 64, 80, [1200, 700], f32),  # float32 partials merged across CTAs
         ]
-    ]
+    ] + [decode_replay_case(torch)]
     torch.cuda.empty_cache()
 
     phase("4. ring partial kernel (csrc/ring_partial.cu) vs plain partial")

@@ -17,7 +17,8 @@ Attention routing follows the tensors' device, not a backend probe:
   ``prefill_paged``, ``prefill_continue`` with ``q_offset=prefix_len``,
   ``prefill_chunked`` with ``q_offset=start``) runs the hand-written
   kernel of ``ops/flash_cuda.py`` and every ``decode_step`` attention
-  the one of ``ops/paged_decode_cuda.py``.
+  the one of ``ops/paged_decode_cuda.py``; :func:`make_decode_step`
+  gives the decode step as one captured CUDA graph, replayed per token.
 - CPU tensors: the reference's routing off the TPU, exactly — dense
   attention below ``flash_attention_min_len`` keys, the tiled op at or
   above it, the gather op at decode.
@@ -516,3 +517,96 @@ def decode_step(
         h2 = _rms_norm(x, lp["ln2"])[:, None]
         x = x + _mlp(h2, lp)[:, 0]
     return _logits(x, params), kv_pool
+
+
+class CapturedDecodeStep:
+    """:func:`decode_step` for one (batch, table width), replayed from
+    one CUDA graph: the port's form of the reference's jitted step with
+    its pool donated.  Made by :func:`make_decode_step`.
+
+    ``step(tokens, block_table, context_len)`` returns logits ``[B, V]``.
+    On a CUDA pool the inputs are copied into static device buffers and
+    the graph is replayed; the first call runs :func:`decode_step` once
+    eagerly on those buffers on a side stream (which builds the kernel
+    and lets cuBLAS choose its algorithms), captures it, and replays.
+    The eager run, the capture and the replay write the same K/V into
+    the same slot, so the first call is exact.  The pool is written IN
+    PLACE.  The logits returned are the graph's static output, valid
+    until the next call: a caller that keeps them clones them.  The
+    graph's private memory pool holds the step's intermediates for the
+    life of this object, the float32 copy of the embedding that
+    ``_logits`` makes among them (4 bytes per embedding element).
+
+    ``block_table`` may be narrower than ``max_blocks``: it is copied
+    into the left columns, and the step reads nothing past a context.
+    Another batch size or a wider table raises; make another step for
+    it.  On a CPU pool there is nothing to capture and every call is
+    :func:`decode_step`.  ``replays`` counts graph replays; ``graph`` is
+    the ``torch.cuda.CUDAGraph`` (None on a CPU pool), made empty here
+    and captured by the first call, so that a caller who wants to
+    inspect the captured graph can replace it before that call with one
+    that keeps it (``torch.cuda.CUDAGraph(keep_graph=True)``).
+    """
+
+    def __init__(self, params: Params, kv_pool: torch.Tensor, cfg: LlamaConfig,
+                 batch: int, max_blocks: int) -> None:
+        if batch < 1 or max_blocks < 1:
+            raise ValueError(f"batch and max_blocks must be positive, got {batch}, {max_blocks}")
+        self.params, self.kv_pool, self.cfg = params, kv_pool, cfg
+        self.batch, self.max_blocks = batch, max_blocks
+        self.replays = 0
+        dev = kv_pool.device
+        self.graph = torch.cuda.CUDAGraph() if dev.type == "cuda" else None
+        self.logits = None  # the graph's static output, once captured
+        self.tokens = torch.zeros((batch,), dtype=torch.long, device=dev)
+        self.block_table = torch.zeros((batch, max_blocks), dtype=torch.int32, device=dev)
+        self.context_len = torch.ones((batch,), dtype=torch.int32, device=dev)
+
+    def _run(self) -> torch.Tensor:
+        return decode_step(self.params, self.tokens, self.kv_pool, self.block_table,
+                           self.context_len, self.cfg)[0]
+
+    def _capture(self) -> None:
+        side = torch.cuda.Stream(self.kv_pool.device)
+        side.wait_stream(torch.cuda.current_stream(self.kv_pool.device))
+        with torch.cuda.stream(side):
+            self._run()
+        torch.cuda.current_stream(self.kv_pool.device).wait_stream(side)
+        with torch.cuda.graph(self.graph):
+            self.logits = self._run()
+
+    def __call__(self, tokens: torch.Tensor, block_table: torch.Tensor,
+                 context_len: torch.Tensor) -> torch.Tensor:
+        width = block_table.shape[-1]
+        if (tuple(tokens.shape) != (self.batch,) or tuple(context_len.shape) != (self.batch,)
+                or block_table.dim() != 2 or block_table.shape[0] != self.batch
+                or width > self.max_blocks):
+            raise ValueError(
+                f"this step was made for batch {self.batch} and tables up to "
+                f"{self.max_blocks} blocks wide; got tokens {tuple(tokens.shape)}, "
+                f"block_table {tuple(block_table.shape)}, context_len "
+                f"{tuple(context_len.shape)}")
+        self.tokens.copy_(tokens)
+        self.block_table[:, :width].copy_(block_table)
+        self.context_len.copy_(context_len)
+        if not self.kv_pool.is_cuda:
+            return self._run()
+        with torch.cuda.device(self.kv_pool.device):
+            if self.logits is None:
+                self._capture()
+            self.graph.replay()
+        self.replays += 1
+        return self.logits
+
+
+def make_decode_step(
+    params: Params,
+    kv_pool: torch.Tensor,
+    cfg: LlamaConfig,
+    batch: int,
+    max_blocks: int,
+) -> CapturedDecodeStep:
+    """The decode step over ``kv_pool`` for ``batch`` sequences and
+    tables up to ``max_blocks`` wide, as a callable that replays one
+    captured CUDA graph (see :class:`CapturedDecodeStep`)."""
+    return CapturedDecodeStep(params, kv_pool, cfg, batch, max_blocks)

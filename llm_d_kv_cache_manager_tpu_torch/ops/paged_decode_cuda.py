@@ -6,10 +6,15 @@ Replaces the reference's Pallas TPU kernel ``_decode_kernel``
 ``csrc/paged_decode.cu``, is CUDA C++ for ``sm_90a``; its header note
 says what bounds it on an H100 and what its design does about that.
 The TPU kernel carries its online softmax along a sequential grid axis;
-here the context is split across warps (flash-decoding) and a second
-kernel merges the partials by log-sum-exp, so a batch of 4 still fills
-the card.  The kernel reads the block table itself and never reads an
-entry at or past ``ceil(context_len / block_size)``.
+here one wave of CTAs cuts the live blocks of all sequences and KV heads
+into equal runs on the device (:func:`work_items` mirrors that
+arithmetic for the tests), streams them through shared-memory rings,
+and the last CTA of a (sequence, KV head) to arrive merges its partials
+by log-sum-exp inside the same kernel.  The kernel reads the block table
+itself and never reads an entry at or past
+``ceil(context_len / block_size)``.  The host plan (:func:`split_plan`)
+reads shapes only and the wrapper never waits for the device, so a call
+can be captured in a CUDA graph.
 
 :func:`paged_decode_attention_cuda` launches the kernels for CUDA
 tensors and takes the plain version, :func:`paged_decode_attention_plain`
@@ -36,8 +41,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 BLOCK_SIZES = (16,)
 GROUPS = (1, 2, 4, 8)
-# Warps the partial pass aims for on each SM (the chunk size follows).
-WARPS_PER_SM = 16
+# CTAs of each kernel variant that one SM holds, asked of the library
+# once: {(device index, head_dim, group, dtype code): CTAs}.
+RESIDENT_CTAS = {}
 
 
 def paged_decode_attention_plain(
@@ -50,14 +56,41 @@ def paged_decode_attention_plain(
     return paged_attention(q, kv_layer, block_table, context_len)
 
 
-def split_plan(batch: int, kv_heads: int, max_blocks: int, sms: int):
-    """(blocks per chunk, chunks per sequence) for the partial pass: about
-    ``WARPS_PER_SM`` warps per SM over ``batch * kv_heads`` sequence-heads,
-    each chunk at least one block."""
-    want = -(-sms * WARPS_PER_SM // max(1, batch * kv_heads))
-    chunks = max(1, min(max_blocks, want))
-    per_chunk = -(-max_blocks // chunks)
-    return per_chunk, -(-max_blocks // per_chunk)
+def split_plan(batch: int, kv_heads: int, max_blocks: int, sms: int,
+               ctas_per_sm: int) -> int:
+    """The grid: one wave of CTAs (``sms * ctas_per_sm``), or one CTA per
+    (sequence, KV head, block) where the table has fewer.  From shapes
+    alone; the kernel cuts the work among them from the lengths."""
+    return max(1, min(sms * ctas_per_sm, batch * kv_heads * max_blocks))
+
+
+def work_items(context_len, kv_heads: int, max_blocks: int, ctas: int):
+    """The kernel's split of one call, as ``(cta, b, kv_head, first
+    block, end block)`` pieces.  The live blocks of every (KV head,
+    sequence), in that order, form one line of units; CTA ``c`` takes units
+    ``[c * per, (c + 1) * per)`` with ``per = ceil(units / ctas)``, and
+    each stretch of its run inside one (sequence, KV head) is a piece.
+    A piece that is not the whole pair leaves a partial that the pair's
+    last CTA merges."""
+    block_size, = BLOCK_SIZES
+    live = [0 if n <= 0 else min(-(-int(n) // block_size), max_blocks)
+            for n in context_len]
+    per_head = sum(live)
+    total = kv_heads * per_head
+    per = -(-total // ctas)
+    items = []
+    for cta in range(ctas):
+        at, run_end = cta * per, min((cta + 1) * per, total)
+        while at < run_end:
+            kvh = at // per_head
+            seg_start = kvh * per_head
+            for b, nb in enumerate(live):
+                if seg_start <= at < min(run_end, seg_start + nb):
+                    stop = min(run_end, seg_start + nb)
+                    items.append((cta, b, kvh, at - seg_start, stop - seg_start))
+                    at = stop
+                seg_start += nb
+    return items
 
 
 def _check(q, kv_layer, block_table, context_len):
@@ -82,6 +115,15 @@ def _check(q, kv_layer, block_table, context_len):
     devices = {t.device for t in (q, kv_layer, block_table, context_len)}
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {devices}")
+
+
+def _bind(lib) -> None:
+    lib.paged_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.paged_decode.restype = ctypes.c_int
+    lib.paged_decode_ctas_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.paged_decode_ctas_per_sm.restype = ctypes.c_int
+    lib.paged_decode_scratch_bytes.argtypes = [ctypes.c_int] * 5
+    lib.paged_decode_scratch_bytes.restype = ctypes.c_long
 
 
 def paged_decode_attention_cuda(
@@ -124,21 +166,27 @@ def paged_decode_attention_cuda(
     out = torch.empty_like(q)
     if B == 0 or max_blocks == 0 or num_blocks == 0:
         return out.zero_()
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    per_chunk, chunks = split_plan(B, Hkv, max_blocks, sms)
-    part_acc = torch.empty((B, H, chunks, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, H, chunks, 2), dtype=torch.float32, device=q.device)
     lib = _build.library("paged_decode")
-    fn = lib.paged_decode
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    _bind(lib)
+    code, group = _DTYPE_CODES[q.dtype], H // Hkv
+    key = (q.device.index, D, group, code)
+    if key not in RESIDENT_CTAS:
+        with torch.cuda.device(q.device):
+            resident = lib.paged_decode_ctas_per_sm(D, group, code)
+        if resident <= 0:
+            _build.check(lib, "paged_decode occupancy", -resident or 1)
+        RESIDENT_CTAS[key] = resident
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    ctas = split_plan(B, Hkv, max_blocks, sms, RESIDENT_CTAS[key])
+    scratch = torch.empty(
+        lib.paged_decode_scratch_bytes(B, Hkv, group, D, ctas),
+        dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
+        rc = lib.paged_decode(
             q.data_ptr(), kv_layer.data_ptr(), block_table.data_ptr(),
-            context_len.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            out.data_ptr(), B, H, Hkv, D, block_size, num_blocks, max_blocks,
-            per_chunk, chunks, _DTYPE_CODES[q.dtype], stream,
+            context_len.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            B, H, Hkv, D, block_size, num_blocks, max_blocks, ctas, code, stream,
         )
     _build.check(lib, "paged_decode launch", rc)
     paged_decode_attention_cuda.launches += 1

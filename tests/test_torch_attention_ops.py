@@ -198,13 +198,71 @@ def test_decode_wrapper_rejects_bad_inputs():
         paged_decode_cuda.paged_decode_attention_cuda(q, kv, table, ctx[:1])
 
 
+def _covered(items):
+    """{(sequence, KV head, block): CTA} of a list of pieces; fails on a
+    block that two pieces hold."""
+    seen = {}
+    for cta, b, kvh, first, end in items:
+        assert first < end
+        for j in range(first, end):
+            assert (b, kvh, j) not in seen
+            seen[b, kvh, j] = cta
+    return seen
+
+
 @pytest.mark.parametrize(
     "batch,kv_heads,max_blocks,sms",
     [(4, 8, 528, 132), (16, 8, 528, 132), (2, 8, 529, 132), (1, 1, 1, 132), (64, 8, 3, 132)],
 )
 def test_decode_split_plan_covers_the_table(batch, kv_heads, max_blocks, sms):
-    """Every table column falls in exactly one chunk, and no chunk is
-    empty by construction."""
-    per_chunk, chunks = paged_decode_cuda.split_plan(batch, kv_heads, max_blocks, sms)
-    assert per_chunk >= 1 and chunks >= 1
-    assert (chunks - 1) * per_chunk < max_blocks <= chunks * per_chunk
+    """The grid is one wave of CTAs, or one CTA a block where the table
+    has fewer; with every context as long as the table, every table
+    column of every (sequence, KV head) falls in exactly one piece, and
+    the runs differ by at most one rounding of the split."""
+    for resident in (1, 3):
+        ctas = paged_decode_cuda.split_plan(batch, kv_heads, max_blocks, sms, resident)
+        assert ctas == min(sms * resident, batch * kv_heads * max_blocks)
+        items = paged_decode_cuda.work_items([max_blocks * 16] * batch, kv_heads, max_blocks, ctas)
+        seen = _covered(items)
+        assert len(seen) == batch * kv_heads * max_blocks
+        per = -(-len(seen) // ctas)
+        load = [0] * ctas
+        for cta in seen.values():
+            load[cta] += 1
+        assert max(load) == per and all(cta < ctas for cta in seen.values())
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_decode_work_items_cover_every_live_block(seed):
+    """Random batches, lengths (0 and past the table included), table
+    widths and grids: every block below ceil(ctx / 16) is in exactly one
+    piece, no piece reaches past the live blocks or the table, a CTA's
+    pieces are one contiguous run, and at most two of them (its first
+    and its last) are not a whole (sequence, KV head)."""
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(40):
+        batch = int(rng.integers(1, 9))
+        kv_heads = int(rng.choice([1, 2, 4, 8]))
+        max_blocks = int(rng.integers(1, 70))
+        ctas = int(rng.integers(1, 3 * 132))
+        ctx = [int(n) for n in rng.integers(0, max_blocks * 16 + 40, batch)]
+        ctx[int(rng.integers(batch))] = int(rng.choice([0, 1, 16, 17, max_blocks * 16]))
+        live = [min(-(-n // 16), max_blocks) for n in ctx]
+        items = paged_decode_cuda.work_items(ctx, kv_heads, max_blocks, ctas)
+        seen = _covered(items)
+        assert set(seen) == {(b, h, j) for b in range(batch) for h in range(kv_heads)
+                             for j in range(live[b])}
+        per = -(-len(seen) // ctas) if seen else 0
+        by_cta = {}
+        for cta, b, kvh, first, end in items:
+            assert 0 <= cta < ctas and end <= live[b] <= max_blocks
+            by_cta.setdefault(cta, []).append((b, kvh, first, end))
+        for cta, pieces in by_cta.items():
+            assert sum(end - first for _, _, first, end in pieces) <= per
+            partial = [i for i, (b, _, first, end) in enumerate(pieces)
+                       if (first, end) != (0, live[b])]
+            assert set(partial) <= {0, len(pieces) - 1}
+            # Inside a run a piece starts where the one before it ended:
+            # a later piece starts its pair, an earlier one ends its own.
+            assert all(first == 0 for _, _, first, _ in pieces[1:])
+            assert all(end == live[b] for b, _, _, end in pieces[:-1])

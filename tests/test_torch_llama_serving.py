@@ -154,6 +154,81 @@ def test_decode_steps_match_reference(jax_params, torch_params):
         nxt = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
 
 
+def _decode_setup(jax_params, torch_params, B, max_blocks, eager_steps):
+    """Both packages after a prefill of 8 tokens and ``eager_steps``
+    eager decode steps: (jax pool, torch pool, table, next tokens)."""
+    jcfg, tcfg = _cfgs()
+    T = 8
+    tokens = _tokens(10 + B, B, T)
+    table = np.random.default_rng(11).permutation(32)[: B * max_blocks]
+    table = table.reshape(B, max_blocks).astype(np.int32)
+    jpool, tpool = _pools(32)
+    jlog, jpool = jax_llama.prefill_paged(jax_params, jnp.asarray(tokens), jpool,
+                                          jnp.asarray(table[:, :2]), jcfg)
+    llama.prefill_paged(torch_params, _t(tokens), tpool, _t(table[:, :2]), tcfg)
+    nxt = np.asarray(jnp.argmax(jlog[:, -1], -1)).astype(np.int32)
+    for step in range(eager_steps):
+        ctx = np.full((B,), T + 1 + step, np.int32)
+        jlog, jpool = jax_llama.decode_step(jax_params, jnp.asarray(nxt), jpool,
+                                            jnp.asarray(table), jnp.asarray(ctx), jcfg)
+        llama.decode_step(torch_params, _t(nxt), tpool, _t(table), _t(ctx), tcfg)
+        nxt = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+    return jpool, tpool, table, nxt, T + eager_steps
+
+
+@pytest.mark.parametrize("B,capacity", [(2, 4), (2, 6), (1, 4)],
+                         ids=["table-at-capacity", "narrower-table", "second-batch-size"])
+def test_captured_decode_step_matches_reference_and_eager(jax_params, torch_params, B, capacity):
+    """The captured-step callable over 4 steps that cross a block
+    boundary (positions 10..13, blocks of 4), against the reference's
+    jitted, pool-donating decode step at the tolerance of
+    ``test_decode_steps_match_reference``, and against the port's eager
+    ``decode_step`` exactly, pool bytes included.  On CPU tensors the
+    callable runs the eager step on its static buffers."""
+    jcfg, tcfg = _cfgs()
+    jpool, tpool, table, nxt, done = _decode_setup(jax_params, torch_params, B, 4, 2)
+    jstep = jax.jit(
+        lambda p, t, kv, bt, cl: jax_llama.decode_step(p, t, kv, bt, cl, jcfg),
+        donate_argnums=(2,))
+    step = llama.make_decode_step(torch_params, tpool, tcfg, B, capacity)
+    epool = tpool.clone()
+    for i in range(4):
+        ctx = np.full((B,), done + 1 + i, np.int32)
+        jlog, jpool = jstep(jax_params, jnp.asarray(nxt), jpool, jnp.asarray(table),
+                            jnp.asarray(ctx))
+        elog, _ = llama.decode_step(torch_params, _t(nxt), epool, _t(table), _t(ctx), tcfg)
+        tlog = step(_t(nxt), _t(table), _t(ctx))
+        assert tlog.shape == (B, JAX_CFG.vocab_size)
+        assert torch.equal(tlog, elog) and torch.equal(tpool, epool)
+        _close(tlog, jlog, LOGITS)
+        _close(tpool, jpool, POOL)
+        nxt = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+    assert step.replays == 0 and step.graph is None  # nothing to capture on the CPU
+    assert (done + 1) // 4 != (done + 4) // 4  # the steps crossed a block boundary
+
+
+def test_captured_decode_step_is_made_for_one_shape(torch_params):
+    """Another batch size or a wider table raises instead of running
+    eagerly behind the caller's back; a second step serves it."""
+    _, tcfg = _cfgs()
+    pool = _pools(32)[1]
+    step = llama.make_decode_step(torch_params, pool, tcfg, 2, 4)
+    ctx = torch.full((2,), 3, dtype=torch.int32)
+    table = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    step(torch.tensor([1, 2]), table, ctx)
+    with pytest.raises(ValueError, match="batch 2"):
+        step(torch.tensor([1, 2, 3]), torch.zeros((3, 4), dtype=torch.int32),
+             torch.full((3,), 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="4 blocks wide"):
+        step(torch.tensor([1, 2]), torch.zeros((2, 5), dtype=torch.int32), ctx)
+    with pytest.raises(ValueError):
+        llama.make_decode_step(torch_params, pool, tcfg, 0, 4)
+    other = llama.make_decode_step(torch_params, pool, tcfg, 3, 4)
+    logits = other(torch.tensor([1, 2, 3]), torch.arange(12, dtype=torch.int32).reshape(3, 4),
+                   torch.full((3,), 3, dtype=torch.int32))
+    assert logits.shape == (3, JAX_CFG.vocab_size)
+
+
 @pytest.mark.parametrize("min_len", MIN_LENS)
 def test_prefix_hit_contract_in_port(torch_params, min_len):
     """Prefill of a prefix, then continuation of the suffix, gives the
