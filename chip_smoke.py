@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths (``llm_d_kv_cache_manager_tpu_torch``) at
+Drives the port's three paths (``llm_d_kv_cache_manager_tpu_torch``) at
 the full width and depth of Llama-3-8B with random weights from a seed.
 The serving path: a prompt is hashed into block keys, scored against
 the in-memory block index, and served on the chosen pod by prefill
 (index miss) or by continuation over the cached prefix (index hit),
 then decoded.  The long-context prefill path: one 8192-token prompt
 through ``forward(sp_mesh=...)``, ring attention over a 4-rank ``sp``
-mesh whose ranks share the card, in both sequence layouts.  Before
-that, it builds the three hand-written kernels from ``csrc/`` with nvcc
-and holds each one against its plain PyTorch version at the shapes the
-paths give it.  It imports nothing of JAX or the JAX package.
+mesh whose ranks share the card, in both sequence layouts.  The
+offload path: the served prefix is stored to files through the offload
+connector and served on another pod from them.  Before that, it builds
+the three hand-written kernels from ``csrc/`` with nvcc and the native
+I/O engine from ``native/src/`` with g++, and holds each kernel against
+its plain PyTorch version at the shapes the paths give it.  It imports
+nothing of JAX or the JAX package.
 
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build
@@ -48,8 +51,16 @@ Phases (any failure exits non-zero):
      launch the partial kernel exactly 16 (striped) or 10 (contiguous)
      times a layer and agree with the dense logits; walls and device
      breakdowns as in phase 5;
-  7. one JSON line listing each kernel's numbers;
-  8. last line: {"ok": true, "device": {...}}.
+  7. offload: pod-a's 512 prefix blocks (1 GiB) stored through the
+     offload connector, one-shot and staged (pinned lanes), on the native
+     I/O engine, as 128 files that must equal each other and the pool's
+     bytes; a third pod looks them up and loads them from files (one-shot,
+     staged, and one-shot after dropping the page cache) and from a host
+     tier, each time bit-equal to pod-a's blocks, and continues request B
+     over them, which must give phase 5's hit logits; store, load and
+     offload-hit TTFT timed, and the copies apart against their bounds;
+  8. one JSON line listing each kernel's numbers;
+  last line: {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
 """
@@ -59,10 +70,15 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import re
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
 LAYERS = 32  # Llama-3-8B's full depth
@@ -75,6 +91,16 @@ POOL_BLOCKS = 640  # per pod: A's 528 blocks + B's 16 suffix blocks + 2 decode
 # 8192-token prompt over sp=4), its 4 ranks sharing the one card.
 RING_SP = 4
 RING_TOKENS = 8192
+# Offload: files of 64 tokens (4 blocks) on 4 I/O threads; pod-c loads
+# the prefix from its block 100 on; a warm round, then 3 timed ones.
+OFFLOAD_BLOCK = 64
+OFFLOAD_THREADS = 4
+OFFLOAD_TARGET = 100
+OFFLOAD_ROUNDS = 3
+HOST_TIER_BYTES = 2 << 30
+# PCIe Gen5 x16, one direction (NVIDIA's H100 SXM data sheet: 128 GB/s
+# both ways).
+PCIE_GEN5_X16 = 64e9
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet):
 # bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores,
@@ -822,6 +848,10 @@ def serving(torch, params, cfg):
             1, SUFFIX_TOKENS, cfg.vocab_size):
         raise AssertionError("unexpected logits shapes")
     del a["logits"]  # 4.3 GB of float32 logits
+    # Phase 7 offloads this prefix as B's hit read it; the decode checks
+    # below write into three of its blocks (the narrower tables).
+    prefix_ids = ids_b[:PREFIX_TOKENS // bs]
+    prefix_kv = pod_a.pool.kv[:, torch.tensor(prefix_ids, device="cuda")]
 
     # Decode both requests in one batch of 2 on their pod, through the
     # captured step: one CUDA graph of decode_step, replayed per token.
@@ -1008,6 +1038,9 @@ def serving(torch, params, cfg):
         "prefix_hit_token_gap": hit_gap,
         "chunked_max_abs_err": chunk_err,
         "decode_max_abs_err": dec_err,
+        "offload_inputs": dict(pod_a=pod_a, prefix_ids=prefix_ids, prefix_kv=prefix_kv,
+                               prompt_b=prompt_b, keys_b=b["keys"], logits_b=logits_b,
+                               first_b=first_b, hasher=hasher),
     }
 
 
@@ -1091,6 +1124,469 @@ def ring_prefill(torch, params, cfg):
     }
 
 
+# --------------------------------------------------------------- phase 7
+
+
+def group_file_hashes(keys, blocks_per_file: int):
+    """The file hash of each group of ``blocks_per_file`` blocks: the
+    chained key of the group's last block, which covers the prefix up to
+    it; a partial tail group ends on the last key."""
+    return [keys[min(i + blocks_per_file, len(keys)) - 1]
+            for i in range(0, len(keys), blocks_per_file)]
+
+
+def read_tree(root: str) -> dict:
+    """{path relative to root: bytes} of every file under ``root``."""
+    out = {}
+    for folder, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(folder, name)
+            with open(path, "rb") as handle:
+                out[os.path.relpath(path, root)] = handle.read()
+    return out
+
+
+def tree_mismatches(got: dict, want: dict):
+    """Files of either tree that the other lacks or holds other bytes of."""
+    return sorted(name for name in set(got) | set(want) if got.get(name) != want.get(name))
+
+
+def rate(nbytes: int, seconds: float, bound_bytes_per_s: float) -> dict:
+    """A transfer of ``nbytes`` in ``seconds`` against a rate bound: its
+    ms, GB/s, the bound's ms, and the share of the bound it reached."""
+    bound_s = nbytes / bound_bytes_per_s
+    return {"ms": seconds * 1e3, "gbps": nbytes / seconds / 1e9, "bound_ms": bound_s * 1e3,
+            "share_of_bound": bound_s / seconds}
+
+
+def mount_of(path: str, mounts: str):
+    """(mount point, filesystem type, source) of the mount holding
+    ``path``, from the text of /proc/mounts: the longest mount point
+    that is a prefix of the real path."""
+    real = os.path.realpath(path)
+    best = ("", "", "")
+    for line in mounts.splitlines():
+        fields = line.split()
+        if len(fields) < 3:
+            continue
+        point = fields[1].replace("\\040", " ")
+        inside = real == point or real.startswith(point.rstrip("/") + "/")
+        if inside and len(point) > len(best[0]):
+            best = (point, fields[2], fields[0])
+    return best
+
+
+def clear_dir(root: str) -> None:
+    """Delete everything under ``root``, keeping ``root``."""
+    for name in os.listdir(root):
+        path = os.path.join(root, name)
+        if os.path.isdir(path) and not os.path.islink(path):
+            shutil.rmtree(path)
+        else:
+            os.unlink(path)
+
+
+def drop_page_cache(root: str) -> int:
+    """Write back and drop the page cache of every file under ``root``
+    (``posix_fadvise`` DONTNEED), so the next read comes from the disk;
+    returns the number of files."""
+    count = 0
+    for folder, _, files in os.walk(root):
+        for name in files:
+            fd = os.open(os.path.join(folder, name), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+            count += 1
+    return count
+
+
+def ms_median(rounds, key: str) -> float:
+    return statistics.median(r[key] for r in rounds)
+
+
+def pinned_allocs(torch):
+    """(pinned host blocks created so far, microseconds spent creating
+    them) from PyTorch's caching host allocator."""
+    stats = torch.cuda.host_memory_stats()
+    return stats.get("num_host_alloc", 0), stats.get("host_alloc_time.total", 0)
+
+
+def offload(torch, params, cfg, peaks, served):
+    """Store pod-a's 8192-token prefix through the one-shot and the
+    staged connector, load it into a third pod three ways (files,
+    staged files, host tier), continue request B there, and time it."""
+    import numpy as np
+
+    llama = port("models.llama")
+    spec_mod = port("offload.spec")
+    worker = port("offload.worker")
+    from_numpy, to_numpy = port("utils.device").from_numpy, port("utils.device").to_numpy
+    succeeded = port("native.engine").JobStatus.SUCCEEDED
+    bs = cfg.block_size
+    pod_a, prefix_ids = served["pod_a"], served["prefix_ids"]
+    n_prefix = len(prefix_ids)
+    bpf = OFFLOAD_BLOCK // bs
+    idx_a = torch.tensor(prefix_ids, device="cuda")
+    suffix = served["prompt_b"][PREFIX_TOKENS:]
+
+    # Phase 5's decode checks wrote into the prefix after B's hit: put
+    # back the bytes the hit read, in place.
+    kv_a = pod_a.pool.kv
+    dirty = int((kv_a[:, idx_a] != served["prefix_kv"]).flatten(2).any(-1).any(0).sum())
+    kv_a[:, idx_a] = served["prefix_kv"]
+    del served["prefix_kv"]
+    nbytes = n_prefix * pod_a.pool.block_nbytes
+    print(f"  prefix: {n_prefix} blocks of pod-a ({nbytes / 2**30:.3f} GiB, "
+          f"{pod_a.pool.block_nbytes / 2**20:.0f} MiB a block), {dirty} of them rewritten by "
+          f"phase 5's decode checks and restored to the hit's bytes", flush=True)
+
+    hashes = group_file_hashes(served["keys_b"][:n_prefix], bpf)
+    pod_c = SimPod("pod-c", cfg, POOL_BLOCKS)
+    ids_c = list(range(OFFLOAD_TARGET, OFFLOAD_TARGET + n_prefix))
+    idx_c = torch.tensor(ids_c, device="cuda")
+    suffix_c = list(range(ids_c[-1] + 1, ids_c[-1] + 1 + SUFFIX_TOKENS // bs))
+    table_c = torch.tensor([ids_c + suffix_c], dtype=torch.int32)
+    roots = {name: tempfile.mkdtemp(prefix=f"kv-offload-{name}-")
+             for name in ("one_shot", "staged", "host_tier", "host_tier_staged")}
+    with open("/proc/mounts") as handle:
+        point, fstype, source = mount_of(roots["one_shot"], handle.read())
+    print(f"  files under {os.path.dirname(roots['one_shot'])}: {fstype} mounted at {point} "
+          f"({source}); {len(hashes)} files of {bpf} blocks ({OFFLOAD_BLOCK} tokens), "
+          f"{OFFLOAD_THREADS} I/O threads", flush=True)
+    connectors = []
+
+    def connector(pool, name, lanes, host_bytes=0):
+        """A connector over ``pool`` writing under ``roots[name]``, and the
+        list its RTT observers fill: (bytes, io s, device s or None)."""
+        spec = spec_mod.TPUOffloadSpec(
+            shared_storage_path=roots[name], model_name=MODEL_NAME, device_block_size=bs,
+            offloaded_block_size=OFFLOAD_BLOCK, threads_per_chip=OFFLOAD_THREADS,
+            staging_lanes=lanes, staging_slots=2, host_cache_bytes=host_bytes, dtype=cfg.dtype)
+        seen = []
+        conn = spec_mod.TPUOffloadConnector(
+            spec, pool, rtt_observer=lambda n, io_s: seen.append((n, io_s, None)),
+            store_rtt_observer=lambda n, io_s, dev_s: seen.append((n, io_s, dev_s)))
+        connectors.append(conn)
+        if not conn.engine.is_native:
+            raise AssertionError("the connector is not on the native I/O engine")
+        if lanes and not conn.staging.uses_pinned:
+            raise AssertionError("the staged connector is not on the pinned path")
+        return conn, seen
+
+    jobs = iter(range(1, 1 << 30))
+
+    def store(conn):
+        job = next(jobs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conn.store_handler.transfer_async(job, worker.group_blocks_per_file(
+            hashes, prefix_ids if conn.pool is pod_a.pool else ids_c, bpf))
+        status = conn.store_handler.wait(job)
+        wall = time.perf_counter() - t0
+        if status != succeeded:
+            raise AssertionError(f"store job {job}: {status.name}")
+        return wall
+
+    try:
+        # 1-2. Store through the one-shot and the staged connector.
+        stores = {}
+        for name, lanes in (("one_shot", 0), ("staged", 2)):
+            conn, seen = connector(pod_a.pool, name, lanes)
+            rounds = []
+            for r in range(OFFLOAD_ROUNDS + 1):
+                clear_dir(roots[name])
+                before = pinned_allocs(torch)
+                wall = store(conn)
+                after = pinned_allocs(torch)
+                _, io_s, dev_s = seen[-1]
+                row = {"wall_ms": wall * 1e3, "device_ms": dev_s * 1e3, "io_ms": io_s * 1e3,
+                       "device_gbps": nbytes / dev_s / 1e9, "write_gbps": nbytes / io_s / 1e9,
+                       "pinned_host_allocs": after[0] - before[0],
+                       "pinned_host_alloc_ms": (after[1] - before[1]) / 1e3}
+                rounds.append(row)
+                print(f"  store {name} round {r}{' (warm)' if r == 0 else ''}: wall "
+                      f"{row['wall_ms']:.1f} ms, device half {row['device_ms']:.1f} ms "
+                      f"({row['device_gbps']:.2f} GB/s), file writes {row['io_ms']:.1f} ms "
+                      f"({row['write_gbps']:.2f} GB/s); {row['pinned_host_allocs']} new pinned "
+                      f"host blocks ({row['pinned_host_alloc_ms']:.1f} ms in cudaHostAlloc)",
+                      flush=True)
+            stores[name] = {"rounds": rounds, **{
+                k: ms_median(rounds[1:], k) for k in ("wall_ms", "device_ms", "io_ms",
+                                                      "device_gbps", "write_gbps")}}
+
+        # The two trees, byte for byte, and each file against the pool's
+        # bytes read back without the connector.
+        trees = {name: read_tree(roots[name]) for name in ("one_shot", "staged")}
+        bad = tree_mismatches(trees["one_shot"], trees["staged"])
+        expected = to_numpy(kv_a[:, idx_a].movedim(1, 0))
+        mapper = connectors[0].file_mapper
+        bad_pool = [g for g, h in enumerate(hashes) if trees["one_shot"].get(
+            os.path.relpath(mapper.get_file_name(h), roots["one_shot"]))
+            != expected[g * bpf:(g + 1) * bpf].tobytes()]
+        sizes = {len(v) for v in trees["one_shot"].values()}
+        print(f"  stored trees: {len(trees['one_shot'])} and {len(trees['staged'])} files of "
+              f"{sorted(sizes)} bytes; differing between the roots: {len(bad)}; files not equal "
+              f"to the pool's bytes: {len(bad_pool)}", flush=True)
+        if len(trees["one_shot"]) != len(hashes) or bad or bad_pool:
+            raise AssertionError(f"stored files: {len(trees['one_shot'])} of {len(hashes)}, "
+                                 f"mismatches {bad[:4]}, pool mismatches {bad_pool[:4]}")
+        del trees, expected
+
+        # 3. Look up and load into pod-c, then continue B there.
+        loaders = {"one_shot": connector(pod_c.pool, "one_shot", 0),
+                   "staged": connector(pod_c.pool, "staged", 2)}
+        lookups = {name: conn.get_manager().lookup(hashes) for name, (conn, _) in loaders.items()}
+        print(f"  pod-c lookup over the {len(hashes)} file hashes: {lookups}", flush=True)
+        if set(lookups.values()) != {len(hashes)}:
+            raise AssertionError(f"lookup {lookups}, expected {len(hashes)}")
+        loaders["one_shot_cold"] = loaders["one_shot"]
+
+        def offload_hit(mode):
+            """TTFT of request B on pod-c from its stored prefix: hash the
+            prompt, look up the groups, load them, continue, sample."""
+            conn, seen = loaders[mode]
+            pod_c.pool.kv[:, idx_c] = 0
+            if mode == "one_shot_cold":
+                drop_page_cache(roots["one_shot"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keys = served["hasher"].tokens_to_kv_block_keys(
+                port("kvcache.kvblock.index").EMPTY_BLOCK_HASH, served["prompt_b"], MODEL_NAME)
+            file_hashes = group_file_hashes(keys[:n_prefix], bpf)
+            if mode.startswith("host_tier"):
+                found = conn.host_cache.lookup_consecutive(file_hashes)
+            else:
+                found = conn.get_manager().lookup(file_hashes)
+            t1 = time.perf_counter()
+            job = next(jobs)
+            before = len(seen)
+            conn.load_handler.transfer_async(job, worker.group_blocks_per_file(
+                file_hashes[:found], ids_c[:found * bpf], bpf))
+            status = conn.load_handler.wait(job)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            logits, _ = llama.prefill_continue(params, torch.tensor([suffix]), pod_c.pool.kv,
+                                               table_c, found * bpf * bs, cfg)
+            first = int(logits[0, -1].argmax())
+            t3 = time.perf_counter()
+            if status != succeeded or found != len(hashes):
+                raise AssertionError(f"{mode} load: {status.name}, {found} groups found")
+            io_s = seen[-1][1] if len(seen) > before else None
+            same = bool(torch.equal(pod_c.pool.kv[:, idx_c], kv_a[:, idx_a]))
+            return logits, first, same, {
+                "ttft_ms": (t3 - t0) * 1e3, "lookup_ms": (t1 - t0) * 1e3,
+                "load_ms": (t2 - t1) * 1e3, "continue_ms": (t3 - t2) * 1e3,
+                "io_ms": None if io_s is None else io_s * 1e3,
+                "read_gbps": None if io_s is None else nbytes / io_s / 1e9,
+                "after_read_ms": None if io_s is None else (t2 - t1 - io_s) * 1e3}
+
+        def run_mode(mode):
+            rounds, last = [], None
+            for r in range(OFFLOAD_ROUNDS + 1):
+                logits, first, same, row = offload_hit(mode)
+                print(f"  offload hit, {mode} round {r}{' (warm)' if r == 0 else ''}: TTFT "
+                      f"{row['ttft_ms']:.1f} ms = hash+lookup {row['lookup_ms']:.1f} + load "
+                      f"{row['load_ms']:.1f}"
+                      + ("" if row["io_ms"] is None else
+                         f" (file reads {row['io_ms']:.1f} ms, {row['read_gbps']:.2f} GB/s)")
+                      + f" + continuation and token {row['continue_ms']:.1f}; pod-c's blocks "
+                      f"equal pod-a's: {same}; token {first}", flush=True)
+                if not same:
+                    raise AssertionError(f"{mode}: pod-c's loaded blocks differ from pod-a's")
+                rounds.append(row)
+                last = (logits, first)
+            keys = ("ttft_ms", "lookup_ms", "load_ms", "continue_ms")
+            keys += () if rounds[0]["io_ms"] is None else ("io_ms", "read_gbps", "after_read_ms")
+            return last, {"rounds": rounds, **{k: ms_median(rounds[1:], k) for k in keys}}
+
+        loads, finals = {}, {}
+        for mode in ("one_shot", "staged", "one_shot_cold"):
+            finals[mode], loads[mode] = run_mode(mode)
+
+        # The host tier: a connector over pod-c stores the loaded prefix
+        # (filling its 2 GiB tier and writing a third tree), its files
+        # are deleted, and the loads read no file.
+        tier, tier_seen = connector(pod_c.pool, "host_tier", 0, HOST_TIER_BYTES)
+        loaders["host_tier"] = (tier, tier_seen)
+        store(tier)
+        third = tree_mismatches(read_tree(roots["host_tier"]), read_tree(roots["one_shot"]))
+        resident = tier.host_cache.stats()
+        clear_dir(roots["host_tier"])
+        print(f"  host tier: pod-c's store put {resident['entries']} groups "
+              f"({resident['bytes'] / 2**30:.3f} GiB) in the tier; its files differ from "
+              f"pod-a's tree in {len(third)}; files deleted before the loads", flush=True)
+        if third or resident["entries"] != len(hashes):
+            raise AssertionError(f"host tier store: {resident}, {len(third)} files differ")
+        finals["host_tier"], loads["host_tier"] = run_mode("host_tier")
+        served_from_tier = tier.host_cache.stats()
+        if served_from_tier["hits"] != (OFFLOAD_ROUNDS + 1) * len(hashes) or served_from_tier[
+                "misses"] or len(tier_seen) != 1:
+            raise AssertionError(f"the host-tier loads read files: {served_from_tier}, "
+                                 f"{len(tier_seen) - 1} file-read observations")
+        # The host-tier load's steps apart, as the one-shot handler runs
+        # them at harvest, on the tier's own groups (host clock).
+        cached = [tier.host_cache.get(h) for h in hashes]
+        steps = []
+        for _ in range(OFFLOAD_ROUNDS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            relaid = np.concatenate([np.moveaxis(g, 0, 1) for g in cached], axis=1)
+            t1 = time.perf_counter()
+            uploaded = from_numpy(relaid, kv_a.dtype).to("cuda")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pod_c.pool.kv[:, idx_c] = uploaded
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            del relaid, uploaded
+            t4 = time.perf_counter()
+            steps.append({"relayout_ms": (t1 - t0) * 1e3, "upload_ms": (t2 - t1) * 1e3,
+                          "index_write_ms": (t3 - t2) * 1e3, "free_ms": (t4 - t3) * 1e3})
+        del cached
+        tier_steps = {k: ms_median(steps[1:], k) for k in steps[0]}
+        print(f"  host-tier load, its steps apart (medians of {OFFLOAD_ROUNDS}): re-layout "
+              f"{tier_steps['relayout_ms']:.1f} ms, pageable upload {tier_steps['upload_ms']:.1f} "
+              f"ms, indexed write {tier_steps['index_write_ms']:.1f} ms, freeing the host array "
+              f"{tier_steps['free_ms']:.1f} ms", flush=True)
+
+        # The staged handler's host-tier side: a staged connector over
+        # pod-c with a tier of its own admits each group from its pinned
+        # slot as it stores; with its files deleted, its loads read only
+        # the tier and scatter each group under the staging engine's lock.
+        tier_staged, tier_staged_seen = connector(pod_c.pool, "host_tier_staged", 2,
+                                                  HOST_TIER_BYTES)
+        loaders["host_tier_staged"] = (tier_staged, tier_staged_seen)
+        staged_tier_store_ms = store(tier_staged) * 1e3
+        fourth = tree_mismatches(read_tree(roots["host_tier_staged"]), read_tree(roots["one_shot"]))
+        admitted = tier_staged.host_cache.stats()
+        clear_dir(roots["host_tier_staged"])
+        print(f"  host tier, staged connector: its store ({staged_tier_store_ms:.1f} ms, files "
+              f"and tier) admitted {admitted['entries']} groups from the pinned slots; its files "
+              f"differ from pod-a's tree in {len(fourth)}; files deleted before the loads",
+              flush=True)
+        if fourth or admitted["entries"] != len(hashes):
+            raise AssertionError(f"staged host tier store: {admitted}, {len(fourth)} files differ")
+        finals["host_tier_staged"], loads["host_tier_staged"] = run_mode("host_tier_staged")
+        tier_hits = tier_staged.host_cache.stats()
+        if tier_hits["hits"] != (OFFLOAD_ROUNDS + 1) * len(hashes) or tier_hits[
+                "misses"] or len(tier_staged_seen) != 1:
+            raise AssertionError(f"the staged host-tier loads read files: {tier_hits}, "
+                                 f"{len(tier_staged_seen) - 1} file-read observations")
+
+        # 4. The continuation on pod-c against phase 5's hit on pod-a.
+        continuation = {}
+        ref = served["logits_b"]
+        for mode, (logits, first) in finals.items():
+            equal = bool(torch.equal(logits, ref))
+            row = {"bit_equal": equal, "token": first}
+            if not equal:
+                print(f"  {mode}: the continuation is not bit-equal to phase 5's hit (same "
+                      f"bytes, other block ids); held to the model-level limit", flush=True)
+                row["max_abs_err"] = check_logits(f"{mode} continuation vs phase 5's hit",
+                                                  logits, ref)
+                row["token_gap"] = check_next_token(f"{mode} next token", first, ref[0, -1],
+                                                    row["max_abs_err"])
+            continuation[mode] = row
+        equal_modes = [m for m, r in continuation.items() if r["bit_equal"]]
+        print(f"  continuation of B on pod-c ({len(suffix)} tokens over the loaded prefix) vs "
+              f"phase 5's hit on pod-a: bit-equal logits {equal_modes}; "
+              f"tokens {sorted({r['token'] for r in continuation.values()})}, phase 5's "
+              f"{served['first_b']}", flush=True)
+        del finals
+    finally:
+        for conn in connectors:
+            conn.close()
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+
+    # 5. The device and link halves apart, on the same 1 GiB.
+    def events_ms(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def host_ms(fn, iters=3):
+        fn()
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    groups_a = [idx_a[i:i + bpf] for i in range(0, n_prefix, bpf)]
+    gathered = kv_a[:, idx_a]
+    pinned = torch.empty(gathered.shape, dtype=gathered.dtype, pin_memory=True)
+    host_lm = to_numpy(gathered)
+    probes = {
+        "gather_one_shot": rate(2 * nbytes, events_ms(lambda: kv_a[:, idx_a]) / 1e3, peaks[2]),
+        "gather_staged": rate(2 * nbytes, events_ms(lambda: [
+            kv_a[:, g].movedim(1, 0).contiguous() for g in groups_a]) / 1e3, peaks[2]),
+        "d2h_pageable": rate(nbytes, host_ms(lambda: gathered.cpu()) / 1e3, PCIE_GEN5_X16),
+        "d2h_pinned": rate(nbytes, events_ms(lambda: pinned.copy_(gathered)) / 1e3,
+                           PCIE_GEN5_X16),
+        "h2d_pinned": rate(nbytes, events_ms(lambda: gathered.copy_(pinned)) / 1e3,
+                           PCIE_GEN5_X16),
+        "h2d_pageable": rate(nbytes, host_ms(
+            lambda: from_numpy(host_lm, kv_a.dtype).to("cuda")) / 1e3, PCIE_GEN5_X16),
+        "upload_and_scatter": rate(nbytes, host_ms(
+            lambda: pod_c.pool.scatter_from_host(ids_c, host_lm)) / 1e3, PCIE_GEN5_X16),
+    }
+    # The host's own share: the one-shot load's re-layout (128 block-major
+    # groups into one layer-major array), into fresh and into touched
+    # memory, and a first touch of 1 GiB alone (host clock).
+    groups_host = [np.ascontiguousarray(np.moveaxis(host_lm[:, i:i + bpf], 1, 0))
+                   for i in range(0, n_prefix, bpf)]
+
+    def relayout(out=None):
+        return np.concatenate([np.moveaxis(g, 0, 1) for g in groups_host], axis=1, out=out)
+
+    touched = relayout()
+    host = {"first_touch_ms": host_ms(lambda: np.ones(nbytes, np.uint8)),
+            "relayout_fresh_ms": host_ms(relayout),
+            "relayout_touched_ms": host_ms(lambda: relayout(touched))}
+    del gathered, pinned, host_lm, groups_host, touched
+    for what, row in probes.items():
+        bound = ("HBM 3.35 TB/s, read + write" if what.startswith("gather")
+                 else "PCIe Gen5 x16, 64 GB/s")
+        print(f"  {what}: {row['ms']:.2f} ms, {row['gbps']:.2f} GB/s, bound {row['bound_ms']:.2f} "
+              f"ms ({bound}), share of bound {row['share_of_bound']:.3f}", flush=True)
+    gib = f"{nbytes / 2**30:.3g} GiB"
+    print(f"  host: first touch of {gib} {host['first_touch_ms']:.1f} ms; the one-shot load's "
+          f"re-layout of {gib} {host['relayout_fresh_ms']:.1f} ms into fresh memory, "
+          f"{host['relayout_touched_ms']:.1f} ms into touched memory", flush=True)
+    for name, row in stores.items():
+        print(f"  store {name}, medians of {OFFLOAD_ROUNDS}: wall {row['wall_ms']:.1f} ms, device "
+              f"half {row['device_ms']:.1f} ms ({row['device_gbps']:.2f} GB/s), file writes "
+              f"{row['io_ms']:.1f} ms ({row['write_gbps']:.2f} GB/s)", flush=True)
+    for mode, row in loads.items():
+        print(f"  offload hit {mode}, medians of {OFFLOAD_ROUNDS}: TTFT {row['ttft_ms']:.1f} ms, "
+              f"load {row['load_ms']:.1f} ms"
+              + ("" if "io_ms" not in row else f" (file reads {row['io_ms']:.1f} ms, "
+                 f"{row['read_gbps']:.2f} GB/s; {row['after_read_ms']:.1f} ms after them)")
+              + f", continuation and token {row['continue_ms']:.1f} ms", flush=True)
+    print(f"  beside phase 5: TTFT miss {served['ttft_miss_ms']:.1f} ms, local hit "
+          f"{served['ttft_hit_ms']:.1f} ms", flush=True)
+    return {"bytes": nbytes, "files": len(hashes), "blocks_per_file": bpf,
+            "filesystem": {"type": fstype, "mount": point}, "restored_blocks": dirty,
+            "lookup": lookups, "store": stores, "offload_hit": loads, "probes": probes,
+            "host": host, "host_tier_load_steps": tier_steps,
+            "host_tier_staged_store_ms": staged_tier_store_ms,
+            "continuation": continuation, "ttft_miss_ms": served["ttft_miss_ms"],
+            "ttft_hit_ms": served["ttft_hit_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -1114,9 +1610,13 @@ def main() -> int:
           f"{peaks[2] / 1e12:.2f} TB/s)", flush=True)
     build = port("ops._build")
     t0 = time.perf_counter()
-    logs = build.build_all(build.SOURCES)
-    print(f"  kernel build (nvcc, sm_90a, {len(logs)} sources at once): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # The native I/O engine (g++) builds beside the kernels (nvcc).
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="native-build") as executor:
+        native_lib = executor.submit(port("native.build").build)
+        logs = build.build_all(build.SOURCES)
+        native_lib = native_lib.result()
+    print(f"  kernel build (nvcc, sm_90a, {len(logs)} sources at once) and the native I/O "
+          f"engine (g++, {native_lib.name}): {time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in logs.items():
         for kernel, line in ptxas_lines(log):
             print(f"  {src}: {kernel}: {line}", flush=True)
@@ -1201,13 +1701,19 @@ def main() -> int:
 
     phase("5. serving: index-routed miss, hit and decode on two pods")
     serve = serving(torch, params, cfg)
+    offload_inputs = serve.pop("offload_inputs")
     torch.cuda.empty_cache()
 
     phase(f"6. ring prefill: forward(sp_mesh=sp {RING_SP} on one card) over "
           f"{RING_TOKENS} tokens")
     ring = ring_prefill(torch, params, cfg)
 
-    phase("7. kernels")
+    phase("7. offload: store pod-a's prefix, serve it on pod-c")
+    offload_inputs.update(ttft_miss_ms=serve["ttft_miss_ms"], ttft_hit_ms=serve["ttft_hit_ms"])
+    offloaded = offload(torch, params, cfg, peaks, offload_inputs)
+    del offload_inputs
+
+    phase("8. kernels")
     kernels = [
         dict(
             name="flash_prefill",
@@ -1250,8 +1756,9 @@ def main() -> int:
     ]
     summary = {k: v for k, v in serve.items() if k != "launches"}
     ring_summary = {k: v for k, v in ring.items() if k != "launches"}
-    print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "layers": LAYERS,
-                      "seconds": round(time.perf_counter() - t_all, 1)}), flush=True)
+    print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "offload": offloaded,
+                      "layers": LAYERS, "seconds": round(time.perf_counter() - t_all, 1)}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,9 @@
 """The host-side helpers of ``chip_smoke.py``, on the CPU: the parser of
 ``nvcc -Xptxas -v`` logs that phase 1 prints, the derived kernel rates,
-the tie-aware next-token check of the prefix-hit contract, and the two
+the tie-aware next-token check of the prefix-hit contract, the two
 counts of decode kernel launches (a profiler window's rows, a captured
-graph's kernel nodes)."""
+graph's kernel nodes), and phase 7's file-hash choice per group, tree
+comparison, rate and bound arithmetic, mount lookup and file helpers."""
 
 import pathlib
 import runpy
@@ -117,3 +118,85 @@ def test_graph_kernel_nodes_counts_the_kernels_a_replay_launches():
     assert count(dot, ("paged_decode",)) == 2  # not the memset node that names it
     assert count(dot, ("ring_partial_bf16_kernel",)) == 0
     assert count("digraph dot {\n}\n", ("paged_decode_bf16_kernel",)) == 0
+
+
+# ------------------------------------------------------------ phase 7
+
+
+@pytest.mark.parametrize("n,per_file,want", [
+    (8, 4, [3, 7]),
+    (10, 4, [3, 7, 9]),  # a partial tail group ends on the last key
+    (3, 4, [2]),
+    (4, 1, [0, 1, 2, 3]),
+    (0, 4, []),
+])
+def test_group_file_hashes_take_each_groups_last_key(n, per_file, want):
+    keys = [1000 + i for i in range(n)]
+    assert smoke["group_file_hashes"](keys, per_file) == [1000 + i for i in want]
+
+
+def test_file_hashes_name_the_connectors_groups():
+    """The chosen hashes and the connector's grouping give one file per
+    group, named by the key covering the prefix up to its last block."""
+    from tests.helpers.torch_port import port
+
+    group = port("offload.worker").group_blocks_per_file
+    keys = [0x10 + i for i in range(10)]
+    hashes = smoke["group_file_hashes"](keys, 4)
+    groups = group(hashes, list(range(100, 110)), 4)
+    assert [(h, ids[-1] - 100) for h, ids in groups] == [(keys[3], 3), (keys[7], 7), (keys[9], 9)]
+
+
+def test_tree_comparison_finds_every_difference(tmp_path):
+    for root, files in ((tmp_path / "a", {"x/1.bin": b"ab", "x/2.bin": b"cd", "3.bin": b""}),
+                        (tmp_path / "b", {"x/1.bin": b"ab", "x/2.bin": b"ce", "4.bin": b""})):
+        for name, data in files.items():
+            (root / name).parent.mkdir(parents=True, exist_ok=True)
+            (root / name).write_bytes(data)
+    a, b = smoke["read_tree"](str(tmp_path / "a")), smoke["read_tree"](str(tmp_path / "b"))
+    assert a == {"x/1.bin": b"ab", "x/2.bin": b"cd", "3.bin": b""}
+    assert smoke["tree_mismatches"](a, b) == ["3.bin", "4.bin", "x/2.bin"]
+    assert smoke["tree_mismatches"](a, dict(a)) == []
+
+
+def test_rate_against_its_bound():
+    row = smoke["rate"](2**30, 0.02, 64e9)
+    assert row["ms"] == pytest.approx(20.0)
+    assert row["gbps"] == pytest.approx(2**30 / 0.02 / 1e9)
+    assert row["bound_ms"] == pytest.approx(2**30 / 64e9 * 1e3)
+    assert row["share_of_bound"] == pytest.approx(row["bound_ms"] / row["ms"])
+    hbm = smoke["rate"](2 * 2**30, 0.00128, smoke["H100_SXM_PEAKS"][2])
+    assert hbm["bound_ms"] == pytest.approx(0.641, abs=1e-3)
+
+
+MOUNTS = """overlay / overlay rw,relatime 0 0
+tmpfs /tmp tmpfs rw 0 0
+/dev/vdb /tmp/data ext4 rw 0 0
+/dev/vdc /tmp/data\\040two xfs rw 0 0
+"""
+
+
+@pytest.mark.parametrize("path,want", [
+    ("/tmp/kv-offload-x", ("/tmp", "tmpfs", "tmpfs")),
+    ("/tmp/data/a/b", ("/tmp/data", "ext4", "/dev/vdb")),
+    ("/tmp/database", ("/tmp", "tmpfs", "tmpfs")),
+    ("/tmp/data two/f", ("/tmp/data two", "xfs", "/dev/vdc")),
+    ("/home/user/repo", ("/", "overlay", "overlay")),
+])
+def test_mount_of_takes_the_longest_mount_point(path, want):
+    assert smoke["mount_of"](path, MOUNTS) == want
+
+
+def test_clear_dir_and_drop_page_cache(tmp_path):
+    (tmp_path / "a" / "b").mkdir(parents=True)
+    (tmp_path / "a" / "b" / "f.bin").write_bytes(b"x" * 4096)
+    (tmp_path / "g.bin").write_bytes(b"y")
+    assert smoke["drop_page_cache"](str(tmp_path)) == 2
+    assert (tmp_path / "g.bin").read_bytes() == b"y"
+    smoke["clear_dir"](str(tmp_path))
+    assert tmp_path.exists() and list(tmp_path.iterdir()) == []
+
+
+def test_ms_median_over_rounds():
+    rounds = [{"ms": 5.0}, {"ms": 1.0}, {"ms": 3.0}]
+    assert smoke["ms_median"](rounds, "ms") == 3.0

@@ -48,7 +48,31 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
     assert f"{PACKAGE}.ops.paged_decode_cuda" in result["modules"]
     for name in ("parallel.mesh", "ops.ring_attention", "ops.ring_flash", "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
+    for name in OFFLOAD_MODULES:
+        assert f"{PACKAGE}.{name}" in result["modules"]
     assert result["loaded"] == []
+
+
+OFFLOAD_MODULES = (
+    "native", "native.build", "native.engine", "offload", "offload.file_mapper",
+    "offload.manager", "offload.staging", "offload.host_tier", "offload.worker",
+    "offload.staging_engine", "offload.spec", "utils.victim",
+)
+
+
+def test_native_engine_builds_from_the_ports_own_sources():
+    """The native engine's sources are the port's copy: the build reads
+    ``native/src`` inside the port, and every quoted ``#include`` there
+    names a file of that directory."""
+    build = port("native.build")
+    src = REPO / PACKAGE / "native" / "src"
+    assert build.SRC_DIR == src and build.BUILD_DIR == REPO / PACKAGE / "build"
+    names = set(build.SOURCES + build.HEADERS)
+    assert names == {p.name for p in src.iterdir()}
+    for name in names:
+        for line in (src / name).read_text().splitlines():
+            if line.startswith("#include \""):
+                assert line.split('"')[1] in names, (name, line)
 
 
 @pytest.mark.parametrize(
