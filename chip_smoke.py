@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths (``llm_d_kv_cache_manager_tpu_torch``) at
-the full width and depth of Llama-3-8B with random weights from a seed.
+Drives the port's paths (``llm_d_kv_cache_manager_tpu_torch``) at the
+full width and depth of Llama-3-8B with random weights from a seed, and
+its training, MoE and checkpoint paths at the widths noted below.
 The serving path: a prompt is hashed into block keys, scored against
 the in-memory block index, and served on the chosen pod by prefill
 (index miss) or by continuation over the cached prefix (index hit),
@@ -10,7 +11,11 @@ then decoded.  The long-context prefill path: one 8192-token prompt
 through ``forward(sp_mesh=...)``, ring attention over a 4-rank ``sp``
 mesh whose ranks share the card, in both sequence layouts.  The
 offload path: the served prefix is stored to files through the offload
-connector and served on another pod from them.  Before that, it builds
+connector and served on another pod from them.  Training: AdamW steps
+at Llama-3-8B's widths, cut to 8 of its 32 layers, with a checkpoint of
+the state saved, restored onto the card and resumed.  The MoE family at
+its one configuration, ``MoEConfig()``: a forward over 8192 tokens on the
+prefill kernel and on the ring, and train steps.  Before that, it builds
 the three hand-written kernels from ``csrc/`` with nvcc and the native
 I/O engine from ``native/src/`` with g++, and holds each kernel against
 its plain PyTorch version at the shapes the paths give it.  It imports
@@ -51,6 +56,9 @@ Phases (any failure exits non-zero):
      launch the partial kernel exactly 16 (striped) or 10 (contiguous)
      times a layer and agree with the dense logits; walls and device
      breakdowns as in phase 5;
+  2-4 also hold the prefill and ring partial kernels at the MoE
+     forward's shapes (8 heads, 4 KV heads, 8192 tokens, a 2048-token
+     ring chunk), planted faults included;
   7. offload: pod-a's 512 prefix blocks (1 GiB) stored through the
      offload connector, one-shot and staged (pinned lanes), on the native
      I/O engine, as 128 files that must equal each other and the pool's
@@ -59,7 +67,28 @@ Phases (any failure exits non-zero):
      tier, each time bit-equal to pod-a's blocks, and continues request B
      over them, which must give phase 5's hit logits; store, load and
      offload-hit TTFT timed, and the copies apart against their bounds;
-  8. one JSON line listing each kernel's numbers;
+  8. autograd guard, on the training configuration: with params that
+     require grad, the forward on the prefill kernel, the ring forward
+     and the decode kernel's wrapper raise before any launch; under
+     ``torch.no_grad()`` the forward runs the kernel; ``loss_fn`` (the
+     dense op) gives every layer's attention weights and norms finite,
+     non-zero gradients; a small float32 step on the card agrees with the
+     same step on the CPU (loss, gradients, updated leaves);
+  9. training: three AdamW steps at Llama-3-8B widths, 8 layers, bf16,
+     one 2048-token sequence each, every loss and leaf finite, no
+     prefill kernel launched; ms a step, model TFLOP/s, peak memory;
+ 10. checkpoint: the state after step 1 (params and AdamW state), saved
+     under a fresh temporary directory, restored onto the card into
+     ``abstract_like`` targets, bit-equal, and step 2 resumed from it
+     gives the uninterrupted step 2's loss (within the spread of two
+     identical steps, which it measures); save and restore timed;
+ 11. MoE: ``MoEConfig()``'s bf16 forward over 8192 tokens on the prefill
+     kernel (one launch a layer) and on the contiguous ring over sp=4
+     (ten a layer), timed beside the dense forward; the float32 kernel and
+     ring forwards held against the float32 dense forward at the
+     model-level limit, each layer's expert picks compared; three bf16
+     train steps at 2048 tokens;
+ 12. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
@@ -67,6 +96,9 @@ Usage, from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -98,6 +130,24 @@ OFFLOAD_THREADS = 4
 OFFLOAD_TARGET = 100
 OFFLOAD_ROUNDS = 3
 HOST_TIER_BYTES = 2 << 30
+# Training: Llama-3-8B's widths at 8 of its 32 layers, the depth whose
+# bf16 params, gradients and AdamW state (18 GB) and activations fit one
+# 80 GB card (PERF.md §4); three steps, each on one 2048-token sequence.
+TRAIN_LAYERS = 8
+TRAIN_TOKENS = 2048
+TRAIN_STEPS = 3
+# A small float32 step on the card against the same step on the CPU:
+# gradients and updated leaves within atol + rtol * |ref| (float32 sums
+# taken in another order), the loss within SMALL_STEP_LOSS_REL.
+SMALL_STEP_LIMITS = (1e-6, 1e-4)
+SMALL_STEP_LOSS_REL = 1e-5
+# MoE: MoEConfig() over one prompt of the ring prefill's 8192 tokens,
+# its train steps at 2048.  At float32 a token whose router scores two
+# experts within the rounding of two attention paths may take another
+# expert; more than 1% of tokens doing so is a fault.
+MOE_TOKENS = 8192
+MOE_TRAIN_TOKENS = 2048
+MOE_PICK_LIMIT = 0.01
 # PCIe Gen5 x16, one direction (NVIDIA's H100 SXM data sheet: 128 GB/s
 # both ways).
 PCIE_GEN5_X16 = 64e9
@@ -1587,6 +1637,484 @@ def offload(torch, params, cfg, peaks, served):
             "ttft_hit_ms": served["ttft_hit_ms"]}
 
 
+# --------------------------------------------------------------- phases 8-11
+
+
+def leaf_paths(tree, prefix=""):
+    """(path, leaf) of every leaf of a nested state, dicts and lists
+    walked in order: "params.layers.wq", "opt.param_groups.0.lr"."""
+    items = tree.items() if isinstance(tree, dict) else (
+        enumerate(tree) if isinstance(tree, list) else None)
+    if items is None:
+        yield prefix, tree
+        return
+    for key, value in items:
+        yield from leaf_paths(value, f"{prefix}.{key}" if prefix else str(key))
+
+
+def map_state(torch, state, fn):
+    """A nested state of the same structure with ``fn`` applied to each
+    tensor and every other leaf copied."""
+    if isinstance(state, dict):
+        return {key: map_state(torch, value, fn) for key, value in state.items()}
+    if isinstance(state, list):
+        return [map_state(torch, value, fn) for value in state]
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    return copy.deepcopy(state)
+
+
+def gc_cuda(torch) -> None:
+    """Return the memory of dropped tensors to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def state_bytes(torch, state) -> int:
+    """Bytes of the tensors of a nested state: what a checkpoint of it
+    writes and reads, give or take its metadata."""
+    return sum(leaf.numel() * leaf.element_size() for _, leaf in leaf_paths(state)
+               if isinstance(leaf, torch.Tensor))
+
+
+def state_mismatches(torch, got, want):
+    """Paths where two nested states differ: structure, a tensor's
+    dtype, shape or bytes (wherever each lives), or another leaf's
+    value."""
+    got, want = dict(leaf_paths(got)), dict(leaf_paths(want))
+    bad = sorted(set(got) ^ set(want))
+    for path in sorted(set(got) & set(want)):
+        a, b = got[path], want[path]
+        if isinstance(b, torch.Tensor):
+            same = (isinstance(a, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.detach().to(b.device).reshape(-1).view(torch.uint8),
+                                    b.detach().reshape(-1).view(torch.uint8)))
+        else:
+            same = type(a) is type(b) and a == b
+        if not same:
+            bad.append(path)
+    return bad
+
+
+def train_step_flops(cfg, batch: int, tokens: int) -> float:
+    """Model FLOPs of one Llama training step: three times the forward's
+    (the backward costs two forwards).  The forward does 2 FLOPs a
+    weight a token in every matmul, the tied embedding's logits product
+    included and its lookup not, and 4 * H * head_dim a visible causal
+    (query, key) pair; the masked half that the dense op also computes
+    is not counted."""
+    D, H, Hkv, Dh, F_ = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    per_layer = D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D + 3 * D * F_
+    matmul = 2.0 * batch * tokens * (cfg.n_layers * per_layer + cfg.vocab_size * D)
+    attention = 4.0 * batch * H * Dh * cfg.n_layers * tokens * (tokens + 1) / 2
+    return 3.0 * (matmul + attention)
+
+
+def routed_experts(dispatch):
+    """[S, E] bool of a ``_route`` dispatch [S, E, C]: the experts each
+    token went to, after capacity (a dropped pick goes nowhere)."""
+    return dispatch.sum(-1) > 0
+
+
+def differing_tokens(got, want):
+    """[S] bool: tokens routed differently in any layer, from two lists
+    (one entry a layer) of ``routed_experts``."""
+    if len(got) != len(want):
+        raise ValueError(f"{len(got)} layers against {len(want)}")
+    out = None
+    for a, b in zip(got, want):
+        diff = (a != b).any(-1)
+        out = diff if out is None else out | diff
+    return out
+
+
+def leaves_close(torch, got, want, atol: float, rtol: float, free=None):
+    """Two params or grads trees, named alike: (max |got - want|, worst
+    |got - want| / (atol + rtol |want|) outside ``free``, the elements
+    in ``free``, max |got - want| inside it).  ``free`` ({path: bool
+    tensor}) marks elements held to another limit by the caller."""
+    got, want = dict(leaf_paths(got)), dict(leaf_paths(want))
+    if got.keys() != want.keys():
+        raise AssertionError(f"trees differ: {sorted(set(got) ^ set(want))}")
+    err = worst = free_err = 0.0
+    n_free = 0
+    for path, b in want.items():
+        a = got[path].detach().to(b.device).float()
+        b = b.detach().float()
+        diff = (a - b).abs()
+        ratio = diff / (atol + rtol * b.abs())
+        if free is not None:
+            mask = free[path].to(b.device)
+            n_free += int(mask.sum())
+            free_err = max(free_err, float((diff * mask).max()))
+            ratio = ratio.masked_fill(mask, 0.0)
+        err = max(err, float(diff.max()))
+        worst = max(worst, float(ratio.max()))
+    return err, worst, n_free, free_err
+
+
+def grad_tree(torch, params):
+    """{leaf path: grad} of a params tree."""
+    return {path: leaf.grad for path, leaf in leaf_paths(params)}
+
+
+def train_batches(torch, vocab: int, tokens: int, steps: int, seed: int):
+    """``steps`` batches of one sequence of ``tokens`` ids, from ``seed``."""
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, vocab, (1, tokens), generator=rng) for _ in range(steps)]
+
+
+def autograd_guard(torch, cfg):
+    """The kernels are forward-only: under autograd each wrapper raises
+    before its launch, and the dense op (``use_flash=False``) carries
+    the gradient to every layer.  Runs on the training configuration."""
+    llama = port("models.llama")
+    mesh_mod = port("parallel.mesh")
+    fc, rc = port("ops.flash_cuda"), port("ops.ring_flash_cuda")
+    pc = port("ops.paged_decode_cuda")
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    for leaf in llama.param_leaves(params):
+        leaf.requires_grad_()
+    (tokens,) = train_batches(torch, cfg.vocab_size, TRAIN_TOKENS, 1, SEED + 10)
+    sp_mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, sp=RING_SP), ["cuda:0"] * RING_SP)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    q = torch.randn(2, cfg.n_heads, cfg.head_dim, generator=g, device="cuda").to(torch.bfloat16)
+    kv = torch.randn(8, 2, 16, cfg.n_kv_heads, cfg.head_dim, generator=g, device="cuda")
+    kv = kv.to(torch.bfloat16)
+    table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
+    ctx = torch.tensor([50, 17], dtype=torch.int32, device="cuda")
+    refused = {}
+    for what, call, counter in (
+            ("forward(use_flash=True), params requiring grad",
+             lambda: llama.forward(params, tokens, cfg), fc.flash_gqa_attention_cuda),
+            (f"forward(sp_mesh=sp {RING_SP}), params requiring grad",
+             lambda: llama.forward(params, tokens, cfg, sp_mesh=sp_mesh),
+             rc.flash_partial_cuda),
+            ("paged_decode_attention_cuda, q requiring grad",
+             lambda: pc.paged_decode_attention_cuda(q.requires_grad_(), kv, table, ctx),
+             pc.paged_decode_attention_cuda)):
+        counter.launches = 0
+        try:
+            call()
+        except RuntimeError as exc:
+            refused[what] = str(exc).split(";")[0]
+        else:
+            raise AssertionError(f"{what} under autograd ran without raising")
+        if "forward-only" not in refused[what] or counter.launches:
+            raise AssertionError(f"{what}: {refused[what]!r}, {counter.launches} launches")
+        print(f"  {what}: raises before the launch ({refused[what]!r}); 0 launches",
+              flush=True)
+    fc.flash_gqa_attention_cuda.launches = 0
+    with torch.no_grad():
+        llama.forward(params, tokens, cfg)
+    no_grad_launches = fc.flash_gqa_attention_cuda.launches
+    print(f"  the same forward under torch.no_grad(): runs, {no_grad_launches} prefill "
+          f"kernel launches", flush=True)
+    if no_grad_launches != cfg.n_layers:
+        raise AssertionError(f"no_grad forward launched {no_grad_launches} prefill kernels")
+    fc.flash_gqa_attention_cuda.launches = 0
+    loss = llama.loss_fn(params, tokens, cfg)
+    loss.backward()
+    loss = float(loss.detach())
+    if fc.flash_gqa_attention_cuda.launches:
+        raise AssertionError("loss_fn launched the prefill kernel")
+    grads = {}
+    for key in ("wq", "wk", "wv", "wo", "ln1", "ln2"):
+        grad = params["layers"][key].grad
+        per_layer = grad.float().flatten(1).abs().amax(1)
+        grads[key] = per_layer.tolist()
+        if not bool(grad.isfinite().all()) or not bool((per_layer > 0).all()):
+            raise AssertionError(f"{key}: a layer's gradient is zero or not finite: "
+                                 f"{grads[key]}")
+    print(f"  loss_fn (use_flash=False, the dense op): loss {loss:.6f}; max |grad| "
+          f"of each of {cfg.n_layers} layers, finite and non-zero: "
+          + "; ".join(f"{k} {min(v):.3g}..{max(v):.3g}" for k, v in grads.items()),
+          flush=True)
+    return {"refused": refused, "no_grad_launches": no_grad_launches,
+            "loss": loss, "grad_max_abs_by_layer": grads}
+
+
+def small_training_step(torch):
+    """One train step at a small float32 shape on the card against the
+    same step on the CPU: loss, every gradient, every updated leaf."""
+    llama = port("models.llama")
+    cfg = llama.LlamaConfig(vocab_size=1024, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512, dtype="float32")
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    gpu = map_state(torch, cpu, lambda leaf: leaf.cuda())
+    (tokens,) = train_batches(torch, cfg.vocab_size, 128, 1, SEED + 12)
+    tokens = torch.cat((tokens, tokens.flip(1)))  # B = 2
+    losses, grads = {}, {}
+    for name, params in (("cpu", cpu), ("cuda", gpu)):
+        opt = llama.make_optimizer(params)
+        losses[name] = float(llama.train_step(params, opt, tokens, cfg))
+        grads[name] = grad_tree(torch, params)
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    g_err, g_worst, _, _ = leaves_close(torch, grads["cuda"], grads["cpu"], *SMALL_STEP_LIMITS)
+    # Adam's first step moves an element by lr * g / (|g| + eps): where g
+    # lies within the gradient limit of zero, its rounding decides that
+    # step's size and sign, so such elements are held to 2 * lr instead.
+    near_zero = {p: g.abs() <= SMALL_STEP_LIMITS[0] for p, g in grads["cpu"].items()}
+    p_err, p_worst, n_free, free_err = leaves_close(torch, gpu, cpu, *SMALL_STEP_LIMITS,
+                                                    free=near_zero)
+    print(f"  small float32 step (2 layers, d 256, B=2, T=128), card against the CPU: loss "
+          f"{losses['cuda']:.7f} vs {losses['cpu']:.7f} (rel err {loss_err:.3g}, limit "
+          f"{SMALL_STEP_LOSS_REL:.0e}); gradients max_abs_err {g_err:.3g}, worst err/limit "
+          f"{g_worst:.3g}; updated leaves max_abs_err {p_err:.3g}, worst err/limit "
+          f"{p_worst:.3g} (limit {SMALL_STEP_LIMITS[0]:.0e} + {SMALL_STEP_LIMITS[1]:.0e}*|ref|; "
+          f"{n_free} elements with |grad| within it of 0 held to 2*lr: max err "
+          f"{free_err:.3g})", flush=True)
+    if not (loss_err <= SMALL_STEP_LOSS_REL and g_worst <= 1.0 and p_worst <= 1.0
+            and free_err <= 2 * 3e-4):
+        raise AssertionError("the card's small training step disagrees with the CPU's")
+    return {"loss": losses, "loss_rel_err": loss_err, "grad_max_abs_err": g_err,
+            "grad_worst_err_over_limit": g_worst, "leaf_max_abs_err": p_err,
+            "leaf_worst_err_over_limit": p_worst, "near_zero_grads": n_free}
+
+
+def training_and_checkpoint(torch, peaks, cfg):
+    """Three train steps at Llama-3-8B widths (``cfg``: the depth cut),
+    a checkpoint of the state after step 1, its restore onto the card and
+    step 2 resumed from it against the uninterrupted step 2."""
+    llama = port("models.llama")
+    ckpt = port("models.checkpoint")
+    fc = port("ops.flash_cuda")
+    batches = train_batches(torch, cfg.vocab_size, TRAIN_TOKENS, TRAIN_STEPS, SEED + 20)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    opt = llama.make_optimizer(params)
+    n_params = sum(leaf.numel() for leaf in llama.param_leaves(params))
+    flops = train_step_flops(cfg, 1, TRAIN_TOKENS)
+    print(f"  {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, bf16, B=1, "
+          f"T={TRAIN_TOKENS}; model FLOPs a step {flops / 1e12:.2f} T", flush=True)
+
+    def step(params, opt, i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(llama.train_step(params, opt, batches[i], cfg))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        finite = math.isfinite(loss) and all(
+            bool(leaf.isfinite().all()) for leaf in llama.param_leaves(params))
+        if not finite:
+            raise AssertionError(f"step {i + 1}: loss {loss} or an updated leaf not finite")
+        return loss, ms
+
+    fc.flash_gqa_attention_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    loss, ms = step(params, opt, 0)
+    losses.append(loss)
+    walls.append(ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state = {"params": params, "opt": opt.state_dict()}
+    nbytes = state_bytes(torch, state)
+    # The state after step 1, kept on the card for the checks below.
+    snapshot = map_state(torch, state, lambda leaf: leaf.detach().clone())
+    folder = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free_gb = shutil.disk_usage(folder).free / 1e9
+        print(f"  checkpoint of the state after step 1: {nbytes / 1e9:.2f} GB of tensors "
+              f"(params and AdamW's exp_avg, exp_avg_sq, step) to {folder} "
+              f"({free_gb:.1f} GB free there)", flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(folder, state)
+        save_s = time.perf_counter() - t0
+        del state
+        for i in range(1, TRAIN_STEPS):
+            loss, ms = step(params, opt, i)
+            losses.append(loss)
+            walls.append(ms)
+        if fc.flash_gqa_attention_cuda.launches:
+            raise AssertionError(f"training launched the prefill kernel "
+                                 f"{fc.flash_gqa_attention_cuda.launches} times")
+        step_ms = statistics.mean(walls[1:])
+        tflops = flops / (step_ms * 1e-3) / 1e12
+        print(f"  losses {losses}; ms a step {[round(w, 1) for w in walls]} (step 1 allocates "
+              f"AdamW's state); steps 2-{TRAIN_STEPS}: {step_ms:.1f} ms, {tflops:.1f} model "
+              f"TFLOP/s, {tflops * 1e12 / peaks[0]:.3f} of the {peaks[0] / 1e12:.0f} TFLOP/s "
+              f"bf16 peak; max_memory_allocated over step 1 {peak_gb:.2f} GB; prefill kernel "
+              f"launches during the steps: 0", flush=True)
+        uninterrupted = losses[1]
+        # Where a step's device time goes: one more step, profiled.
+        split = show_breakdown("train step under torch.profiler", step_ms, device_breakdown(
+            torch, lambda: llama.train_step(params, opt, batches[-1], cfg), steps=1))
+        del params, opt
+        gc_cuda(torch)
+
+        phase("10. checkpoint: restore the state after step 1 onto the card, resume step 2")
+        target = ckpt.abstract_like(snapshot, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ckpt.restore_checkpoint(folder, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(folder, f)) for f in os.listdir(folder))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    bad = state_mismatches(torch, restored, snapshot)
+    leaves = dict(leaf_paths(snapshot))
+    n_tensors = sum(isinstance(v, torch.Tensor) for v in leaves.values())
+    print(f"  save {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} GB/s), restore into "
+          f"abstract_like targets on the card {restore_s:.2f} s ({nbytes / restore_s / 1e9:.2f} "
+          f"GB/s); {on_disk / 1e9:.2f} GB on disk, removed; {n_tensors} tensors and "
+          f"{len(leaves) - n_tensors} Python values, bit-equal to the state saved: "
+          f"{not bad}", flush=True)
+    if bad:
+        raise AssertionError(f"restored state differs at {bad[:10]}")
+    resumed = {}
+    for name, state in (("restored", restored), ("a device copy", snapshot)):
+        params = state["params"]
+        opt = llama.make_optimizer(params)
+        opt.load_state_dict(state["opt"])
+        resumed[name] = step(params, opt, 1)[0]
+        del params, opt, state
+    del restored, snapshot, target, leaves
+    gc_cuda(torch)
+    spread = abs(resumed["restored"] - resumed["a device copy"])
+    err = abs(resumed["restored"] - uninterrupted)
+    print(f"  step 2 resumed from the restored state: loss {resumed['restored']!r}; "
+          f"uninterrupted {uninterrupted!r}; from a device copy of the state "
+          f"{resumed['a device copy']!r} (spread of two identical steps {spread:.3g}); "
+          f"difference {err:.3g}", flush=True)
+    if not err <= spread:
+        raise AssertionError("the resumed step 2 differs from the uninterrupted one by more "
+                             "than two identical steps do")
+    return {"layers": cfg.n_layers, "tokens": TRAIN_TOKENS, "params": n_params,
+            "losses": losses, "step_ms": walls, "steady_step_ms": step_ms,
+            "model_tflops": tflops, "bf16_peak_share": tflops * 1e12 / peaks[0],
+            "max_memory_allocated_gb": peak_gb, "breakdown_ms": split,
+            "checkpoint": {"bytes": nbytes, "on_disk_bytes": on_disk, "save_s": save_s,
+                           "restore_s": restore_s, "tensors": n_tensors,
+                           "resumed_loss": resumed["restored"], "uninterrupted_loss":
+                           uninterrupted, "identical_step_spread": spread}}
+
+
+def moe_phase(torch, peaks):
+    """The MoE family at ``MoEConfig()``: the bf16 forward on the prefill
+    kernel and on the ring (the main path's launches), the float32
+    forwards held against the dense one with each layer's expert picks
+    compared, and three train steps."""
+    moe = port("models.moe")
+    mesh_mod = port("parallel.mesh")
+    fc, rc = port("ops.flash_cuda"), port("ops.ring_flash_cuda")
+    cfg = moe.MoEConfig()
+    L = cfg.n_layers
+    params = moe.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    (tokens,) = train_batches(torch, cfg.vocab_size, MOE_TOKENS, 1, SEED + 30)
+    sp_mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, sp=RING_SP), ["cuda:0"] * RING_SP)
+    runs = {"flash": {}, "ring": dict(sp_mesh=sp_mesh), "dense": dict(use_flash=False)}
+    # Contiguous ring: sp(sp+1)/2 visible (rank, step) pairs a layer.
+    expected = {"flash": {"flash_prefill": L, "ring_partial": 0},
+                "ring": {"flash_prefill": 0, "ring_partial": L * RING_SP * (RING_SP + 1) // 2},
+                "dense": {"flash_prefill": 0, "ring_partial": 0}}
+    print(f"  MoEConfig(): d_model {cfg.d_model}, {L} layers, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} KV heads, head_dim {cfg.head_dim}, {cfg.n_experts} experts, top "
+          f"{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; one prompt of {MOE_TOKENS} "
+          f"tokens, capacity {cfg.capacity(MOE_TOKENS)} slots an expert", flush=True)
+
+    def run(params, name):
+        fc.flash_gqa_attention_cuda.launches = 0
+        rc.flash_partial_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, aux = moe.forward(params, tokens, cfg, **runs[name])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {"flash_prefill": fc.flash_gqa_attention_cuda.launches,
+                    "ring_partial": rc.flash_partial_cuda.launches}
+        if launches != expected[name]:
+            raise AssertionError(f"MoE {name}: launches {launches}, expected {expected[name]}")
+        if logits.shape != (1, MOE_TOKENS, cfg.vocab_size) or not bool(
+                logits.isfinite().all()) or not math.isfinite(float(aux)):
+            raise AssertionError(f"MoE {name}: logits {tuple(logits.shape)} or aux not finite")
+        return logits, float(aux), wall, launches
+
+    for name in runs:  # warm-up: cuBLAS picks its algorithms
+        run(params, name)
+    walls, launches = {}, {}
+    for name in runs:
+        _, aux, walls[name], launches[name] = run(params, name)
+        print(f"  bf16 {name} forward: {walls[name]:.1f} ms, aux {aux:.6f}, kernel launches "
+              f"{launches[name]}", flush=True)
+    with torch.no_grad():
+        split = show_breakdown("bf16 forward on the prefill kernel under torch.profiler",
+                               walls["flash"], device_breakdown(
+                                   torch, lambda: moe.forward(params, tokens, cfg), steps=1))
+
+    # float32: the kernels' float32 variants against the dense op, with
+    # the experts each token went to recorded in every layer.
+    params32 = map_state(torch, params, lambda leaf: leaf.float())
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    route, records = moe._route, []
+
+    def recording_route(x, router, c):
+        dispatch, combine, aux = route(x, router, c)
+        records.append(routed_experts(dispatch))
+        return dispatch, combine, aux
+
+    outputs = {}
+    moe._route = recording_route
+    try:
+        for name in runs:
+            records = []
+            with torch.no_grad():
+                logits, aux = moe.forward(params32, tokens, cfg32, **runs[name])
+            outputs[name] = (logits, float(aux), records)
+    finally:
+        moe._route = route
+    dense, dense_aux, dense_routes = outputs["dense"]
+    checks = {}
+    for name in ("flash", "ring"):
+        logits, aux, routes = outputs[name]
+        differ = differing_tokens(routes, dense_routes)
+        n_differ = int(differ.sum())
+        print(f"  float32 {name} forward vs the dense forward: tokens routed to other experts "
+              f"in some layer: {n_differ} of {MOE_TOKENS} (limit {MOE_PICK_LIMIT:.0%}); aux "
+              f"{aux!r} vs {dense_aux!r}", flush=True)
+        if n_differ > MOE_PICK_LIMIT * MOE_TOKENS:
+            raise AssertionError(f"MoE {name}: {n_differ} tokens routed otherwise")
+        agree = ~differ
+        err = check_logits(f"float32 {name} vs dense logits, the {int(agree.sum())} tokens "
+                           f"routed alike", logits[0, agree], dense[0, agree])
+        gap = check_next_token(f"float32 {name} next token", int(logits[0, -1].argmax()),
+                               dense[0, -1], err)
+        aux_err = abs(aux - dense_aux) / abs(dense_aux)
+        if not aux_err <= 2.0**-14:
+            raise AssertionError(f"MoE {name}: aux {aux} vs dense {dense_aux}")
+        checks[name] = {"tokens_routed_otherwise": n_differ, "max_abs_err": err,
+                        "next_token_gap": gap, "aux_rel_err": aux_err}
+    del outputs, dense, params32, records
+    gc_cuda(torch)
+
+    # Training: three steps at T=MOE_TRAIN_TOKENS through the dense op.
+    opt = moe.make_optimizer(params)
+    batches = train_batches(torch, cfg.vocab_size, MOE_TRAIN_TOKENS, TRAIN_STEPS, SEED + 31)
+    fc.flash_gqa_attention_cuda.launches = 0
+    losses, step_ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(moe.train_step(params, opt, batch, cfg))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not math.isfinite(loss) or not all(
+                bool(leaf.isfinite().all()) for leaf in port("models.llama").param_leaves(params)):
+            raise AssertionError(f"MoE train step: loss {loss} or a leaf not finite")
+    if fc.flash_gqa_attention_cuda.launches:
+        raise AssertionError("MoE training launched the prefill kernel")
+    print(f"  bf16 train steps at T={MOE_TRAIN_TOKENS}: losses {losses}, ms a step "
+          f"{[round(w, 1) for w in step_ms]}; prefill kernel launches 0", flush=True)
+    del params, opt
+    gc_cuda(torch)
+    return {"launches": {"flash_prefill": launches["flash"]["flash_prefill"],
+                         "ring_partial": launches["ring"]["ring_partial"]},
+            "forward_ms": walls, "breakdown_ms": split, "float32_vs_dense": checks,
+            "train_losses": losses, "train_step_ms": step_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1625,6 +2153,8 @@ def main() -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     prefill_full = prefill_case(torch, peaks, 1, 8448, 8448, 32, 8, 128, 0, bf16, True)
     prefill_hit = prefill_case(torch, peaks, 1, 256, 8448, 32, 8, 128, 8192, bf16, True)
+    # The MoE forward's shape: MoEConfig()'s heads over 8192 tokens.
+    prefill_moe = prefill_case(torch, peaks, 1, MOE_TOKENS, MOE_TOKENS, 8, 4, 128, 0, bf16, True)
     prefill_edge = [
         prefill_case(torch, peaks, *case, False)
         for case in [
@@ -1674,6 +2204,13 @@ def main() -> int:
         off: ring_partial_case(torch, peaks, 1, chunk, chunk, 32, 8, 128, off, bf16, True)
         for off in (0, None, -1)
     }
+    # One rank's chunk of the MoE ring forward (contiguous: offsets 0 and
+    # None only).
+    ring_moe = {
+        off: ring_partial_case(torch, peaks, 1, MOE_TOKENS // RING_SP, MOE_TOKENS // RING_SP,
+                               8, 4, 128, off, bf16, True)
+        for off in (0, None)
+    }
     ring_edge = [
         ring_partial_case(torch, peaks, *case, False)
         for case in [
@@ -1711,21 +2248,41 @@ def main() -> int:
     phase("7. offload: store pod-a's prefix, serve it on pod-c")
     offload_inputs.update(ttft_miss_ms=serve["ttft_miss_ms"], ttft_hit_ms=serve["ttft_hit_ms"])
     offloaded = offload(torch, params, cfg, peaks, offload_inputs)
-    del offload_inputs
+    del offload_inputs, params
+    gc_cuda(torch)
+    print(f"\n  phases 5-7's params and pools freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB still allocated", flush=True)
 
-    phase("8. kernels")
+    train_cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    phase(f"8. autograd guard: Llama-3-8B widths, {TRAIN_LAYERS} of 32 layers, bf16, "
+          f"T={TRAIN_TOKENS}")
+    guard = autograd_guard(torch, train_cfg)
+    guard["small_step_vs_cpu"] = small_training_step(torch)
+    gc_cuda(torch)
+
+    phase(f"9. training: Llama-3-8B widths, {TRAIN_LAYERS} of 32 layers, {TRAIN_STEPS} "
+          f"AdamW steps")
+    trained = training_and_checkpoint(torch, peaks, train_cfg)
+
+    phase(f"11. MoE: MoEConfig(), forward over {MOE_TOKENS} tokens (prefill kernel, ring "
+          f"sp {RING_SP}), float32 against dense, train steps")
+    moe_run = moe_phase(torch, peaks)
+
+    phase("12. kernels")
     kernels = [
         dict(
             name="flash_prefill",
             route="cuda",
             source="llm_d_kv_cache_manager_tpu_torch/csrc/flash_prefill.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/flash_pallas.py:49",
-            launches=serve["launches"]["flash_prefill"],
+            launches=serve["launches"]["flash_prefill"] + moe_run["launches"]["flash_prefill"],
+            launches_by_path={"llama_serving": serve["launches"]["flash_prefill"],
+                              "moe_forward": moe_run["launches"]["flash_prefill"]},
             **{k: prefill_full[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "eager_ms", "tflops",
                                             "library_ratio", "bound_share", "shape", "limit",
                                             "worst_err_over_limit", "planted")},
-            cases=[prefill_hit] + prefill_edge,
+            cases=[prefill_hit, prefill_moe] + prefill_edge,
         ),
         dict(
             name="paged_decode",
@@ -1744,19 +2301,25 @@ def main() -> int:
             route="cuda",
             source="llm_d_kv_cache_manager_tpu_torch/csrc/ring_partial.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/ring_flash_pallas.py:48",
-            launches=sum(n["ring_partial"] for n in ring["launches"].values()),
+            launches=(sum(n["ring_partial"] for n in ring["launches"].values())
+                      + moe_run["launches"]["ring_partial"]),
             launches_by_layout={k: n["ring_partial"] for k, n in ring["launches"].items()},
+            launches_by_path={**{f"llama_ring_{k}": n["ring_partial"]
+                                 for k, n in ring["launches"].items()},
+                              "moe_ring_contiguous": moe_run["launches"]["ring_partial"]},
             **{k: ring_serving[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms", "eager_ms", "tflops",
                                                "library_ratio", "bound_share", "shape", "limit",
                                                "worst_err_over_limit", "planted",
                                                "m_max_abs_err", "l_worst_err_over_limit")},
-            cases=[ring_serving[None], ring_serving[-1]] + ring_edge,
+            cases=[ring_serving[None], ring_serving[-1], ring_moe[0], ring_moe[None]] + ring_edge,
         ),
     ]
     summary = {k: v for k, v in serve.items() if k != "launches"}
     ring_summary = {k: v for k, v in ring.items() if k != "launches"}
+    moe_summary = {k: v for k, v in moe_run.items() if k != "launches"}
     print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "offload": offloaded,
+                      "autograd_guard": guard, "training": trained, "moe": moe_summary,
                       "layers": LAYERS, "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,9 @@
-"""Llama-family decoder, serving and ring-prefill parts, in PyTorch.
+"""Llama-family decoder in PyTorch: serving, ring prefill and training.
 
-Port of the reference's ``models/llama.py`` serving path and its
-ring-attention prefill (``forward(sp_mesh=...)``): the same
+Port of the reference's ``models/llama.py``: its serving path, its
+ring-attention prefill (``forward(sp_mesh=...)``) and its training
+step (``next_token_nll``, ``loss_fn``, ``make_optimizer``,
+``train_step``): the same
 stacked-layer params tree (``embed``, ``layers.{ln1, ln2, wq, wk, wv,
 wo, w_gate, w_up, w_down}`` with a leading layer axis, ``ln_f``), the
 same layouts, bf16 matmuls with f32 norm/softmax/logits, and the paged
@@ -13,6 +15,10 @@ Attention routing follows the tensors' device, not a backend probe:
 - ``forward(sp_mesh=...)``: ring attention over the mesh's ``sp``
   axis in every layer (``ops/ring_attention.py``; on CUDA its steps run
   the kernel of ``ops/ring_flash_cuda.py``).
+- ``use_flash=False`` (``forward``; ``loss_fn`` passes it): the dense
+  op of ``ops/attention.py`` on every device, as in the reference.
+  The kernels are forward-only and raise under autograd; training
+  differentiates through the dense op.
 - CUDA tensors otherwise: every prefill attention (``forward``,
   ``prefill_paged``, ``prefill_continue`` with ``q_offset=prefix_len``,
   ``prefill_chunked`` with ``q_offset=start``) runs the hand-written
@@ -26,14 +32,16 @@ Attention routing follows the tensors' device, not a backend probe:
 The reference's arrays are immutable; here ``prefill_*`` and
 ``decode_step`` write the new K/V into ``kv_pool`` IN PLACE and return
 ``(logits, kv_pool)`` with that same tensor, so callers that compare
-pools clone them first.
+pools clone them first.  Likewise ``train_step`` updates the params
+and the optimizer's state in place and returns the loss, where the
+reference returns new params and optimizer state.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -79,7 +87,7 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     # Key-axis length at/above which CPU prefill attention switches from
     # the dense op to the tiled op (the reference's routing off the TPU).
-    # CUDA tensors always take the prefill kernel.
+    # CUDA tensors take the prefill kernel unless use_flash=False.
     flash_attention_min_len: int = 1024
 
     @property
@@ -119,6 +127,23 @@ def _param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
     }
 
 
+def _normal(shape, fan_in, dtype, generator, device) -> torch.Tensor:
+    """normal(0, fan_in^-1/2) drawn in float32 from ``generator`` and
+    stored in ``dtype``, in slices along the leading axis of at most
+    2^26 elements (one layer of the largest weight), so the float32
+    scratch stays a fraction of the stack."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, (1 << 26) // math.prod(shape[1:]))
+    for i in range(0, shape[0], rows):
+        n = min(rows, shape[0] - i)
+        draw = torch.randn(
+            (n,) + tuple(shape[1:]), generator=generator, device=device,
+            dtype=torch.float32,
+        )
+        out[i : i + n] = (draw * fan_in**-0.5).to(dtype)
+    return out
+
+
 def init_params(
     cfg: LlamaConfig,
     generator: torch.Generator,
@@ -126,27 +151,15 @@ def init_params(
 ) -> Params:
     """Random params in the reference's layout: normal(0, fan_in^-1/2)
     weights drawn in float32 from ``generator`` (which must live on
-    ``device``), norms at 1.  Drawn in slices along the leading axis of
-    at most 2^26 elements (one layer of the largest weight), so the
-    float32 scratch stays a fraction of the stack.  ``jax.random`` and
-    torch give different numbers from one seed; tests that compare with
-    the reference load its weights through :func:`params_from_numpy`
-    instead."""
+    ``device``), norms at 1.  ``jax.random`` and torch give different
+    numbers from one seed; tests that compare with the reference load
+    its weights through :func:`params_from_numpy` instead."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     D = cfg.d_model
 
     def normal(shape, fan_in):
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        rows = max(1, (1 << 26) // math.prod(shape[1:]))
-        for i in range(0, shape[0], rows):
-            n = min(rows, shape[0] - i)
-            draw = torch.randn(
-                (n,) + shape[1:], generator=generator, device=dev,
-                dtype=torch.float32,
-            )
-            out[i : i + n] = (draw * fan_in**-0.5).to(dtype)
-        return out
+        return _normal(shape, fan_in, dtype, generator, dev)
 
     layers = {
         "ln1": torch.ones((cfg.n_layers, D), dtype=dtype, device=dev),
@@ -242,12 +255,17 @@ def _attn_out(attn: torch.Tensor, lp: Params) -> torch.Tensor:
 
 
 def _prefill_attention(q, k, v, cfg: LlamaConfig, q_offset: int = 0, use_flash=True):
-    """Prefill attention routed by device: the prefill kernel on CUDA;
-    on the CPU dense below ``flash_attention_min_len`` keys and the
-    tiled op at or above it (``use_flash=False`` forces dense there)."""
+    """Prefill attention.  ``use_flash=False`` forces the dense op on
+    every device, as in the reference: neither the kernel nor the tiled
+    op has a backward, so training differentiates through the dense op.
+    Otherwise routed by device: the prefill kernel on CUDA; on the CPU
+    dense below ``flash_attention_min_len`` keys and the tiled op at or
+    above it."""
+    if not use_flash:
+        return causal_gqa_attention(q, k, v, q_offset=q_offset)
     if q.is_cuda:
         return flash_gqa_attention_cuda(q, k, v, q_offset=q_offset)
-    if use_flash and k.shape[1] >= cfg.flash_attention_min_len:
+    if k.shape[1] >= cfg.flash_attention_min_len:
         return flash_gqa_attention(q, k, v, q_offset=q_offset)
     return causal_gqa_attention(q, k, v, q_offset=q_offset)
 
@@ -610,3 +628,71 @@ def make_decode_step(
     tables up to ``max_blocks`` wide, as a callable that replays one
     captured CUDA graph (see :class:`CapturedDecodeStep`)."""
     return CapturedDecodeStep(params, kv_pool, cfg, batch, max_blocks)
+
+
+# ---------------------------------------------------------------- training
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy from full-length [B, T, V] logits.
+
+    Shift-and-mask, not slice, as in the reference: the targets are the
+    tokens rolled left by one and the last position is masked out, so
+    every intermediate keeps the [B, T] shape that a sequence-sharded
+    mesh cuts evenly.  Shared by the Llama and MoE losses."""
+    B, T = tokens.shape
+    targets = torch.roll(tokens.long(), -1, dims=1)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mask = (torch.arange(T, device=nll.device) < T - 1).to(nll.dtype)
+    return (nll * mask).sum() / (B * (T - 1))
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy over tokens [B, T], through the dense
+    attention op (``use_flash=False``): the kernels have no backward."""
+    logits = forward(params, tokens, cfg, use_flash=False)
+    return next_token_nll(logits, tokens.to(logits.device))
+
+
+def param_leaves(params: Params) -> Iterator[torch.Tensor]:
+    """The tensors of a params tree, depth first in dict order: the
+    order of the optimizer's param indices."""
+    for value in params.values():
+        if isinstance(value, dict):
+            yield from param_leaves(value)
+        else:
+            yield value
+
+
+def make_optimizer(params: Params, lr: float = 3e-4) -> torch.optim.AdamW:
+    """The reference's ``optax.adamw(lr, b1=0.9, b2=0.95,
+    weight_decay=0.1)`` over every leaf of ``params``, norms included
+    (the reference passes no mask).  AdamW's decoupled update equals
+    optax's ``scale_by_adam``, ``add_decayed_weights`` and
+    ``scale_by_learning_rate`` chain in exact arithmetic.  Turns on
+    ``requires_grad`` of every leaf: these are training's params, which
+    the kernels then refuse outside ``torch.no_grad()``."""
+    leaves = [leaf.requires_grad_() for leaf in param_leaves(params)]
+    return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
+
+
+def optimizer_step(
+    loss: Callable[[], torch.Tensor], optimizer: torch.optim.Optimizer
+) -> torch.Tensor:
+    """One step: zero the grads, differentiate ``loss()``, update the
+    params in place.  Returns the loss, detached."""
+    optimizer.zero_grad(set_to_none=True)
+    value = loss()
+    value.backward()
+    optimizer.step()
+    return value.detach()
+
+
+def train_step(
+    params: Params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor, cfg: LlamaConfig
+) -> torch.Tensor:
+    """One AdamW step on :func:`loss_fn`, updating ``params`` and
+    ``optimizer`` (from :func:`make_optimizer`) in place; returns the
+    loss before the update."""
+    return optimizer_step(lambda: loss_fn(params, tokens, cfg), optimizer)

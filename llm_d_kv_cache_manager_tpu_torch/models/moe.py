@@ -1,0 +1,293 @@
+"""Mixtral-style sparse-MoE decoder in PyTorch: serving and training.
+
+Port of the reference's ``models/moe.py``.  The attention stack is the
+Llama one of ``models/llama.py`` (GQA, RoPE, RMSNorm; on CUDA the
+prefill kernel, or the ring-partial kernel under ``sp_mesh``), and the
+MLP is a top-k routed expert layer in the GShard/Switch form: a static
+expert capacity, one-hot dispatch and combine products (no dynamic
+shapes), tokens over capacity dropped to the residual path.  Params are
+the reference's tree: ``embed``, ``layers.{ln1, ln2, wq, wk, wv, wo,
+router, w_gate, w_up, w_down}`` with a leading layer axis (experts on
+the second axis of the expert weights), ``ln_f``; the router is float32
+in every config, since its logits decide the routing.
+
+Routing picks must equal the reference's: top-k is ``k`` rounds of
+argmax (ties to the first expert on both sides), queue positions come
+from a float32 cumsum, and the gates are renormalized by
+``max(gate_sum, 1e-9)``.  The reference's expert sharding
+(``param_pspecs``, ``_constrain``) waits for sharded meshes; outside a
+mesh ``_constrain`` is a no-op there, so leaving it out changes no
+result.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from llm_d_kv_cache_manager_tpu_torch.models.llama import (
+    _logits,
+    _normal,
+    _prefill_attention,
+    _qkv,
+    _rms_norm,
+    make_optimizer,  # noqa: F401  (the reference's moe.make_optimizer)
+    next_token_nll,
+    optimizer_step,
+)
+from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import ring_for_mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh
+from llm_d_kv_cache_manager_tpu_torch.utils.device import (
+    from_numpy,
+    resolve_device,
+    torch_dtype,
+)
+
+Params = Dict[str, Any]
+
+_LAYER_KEYS = (
+    "ln1", "ln2", "wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down",
+)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    vocab_size: int = 32000
+    d_model: int = 1024
+    n_layers: int = 8
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    d_ff: int = 2816  # per-expert hidden dim
+    n_experts: int = 8
+    top_k: int = 2
+    # Static per-expert slot budget: capacity = ceil(top_k * T / E *
+    # factor).  Overflowing tokens fall back to the residual stream.
+    capacity_factor: float = 1.25
+    rope_theta: float = 500000.0
+    block_size: int = 16
+    dtype: str = "bfloat16"
+    # As in LlamaConfig: the CPU's switch from the dense to the tiled op.
+    flash_attention_min_len: int = 1024
+    # Weight of the load-balancing auxiliary loss (Switch §2.2 form).
+    router_aux_weight: float = 0.01
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def capacity(self, tokens_per_batch: int) -> int:
+        raw = self.top_k * tokens_per_batch / self.n_experts
+        return max(int(math.ceil(raw * self.capacity_factor)), 1)
+
+
+def _param_shapes(cfg: MoEConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
+    """{layer key: (shape, fan_in)} of the stacked weights, router
+    included."""
+    L, D, H, Hkv, Dh, F_, E = (
+        cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        cfg.d_ff, cfg.n_experts,
+    )
+    return {
+        "wq": ((L, D, H, Dh), D),
+        "wk": ((L, D, Hkv, Dh), D),
+        "wv": ((L, D, Hkv, Dh), D),
+        "wo": ((L, H, Dh, D), H * Dh),
+        "router": ((L, D, E), D),
+        "w_gate": ((L, E, D, F_), D),
+        "w_up": ((L, E, D, F_), D),
+        "w_down": ((L, E, F_, D), F_),
+    }
+
+
+def init_params(
+    cfg: MoEConfig,
+    generator: torch.Generator,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """Random params in the reference's layout: normal(0, fan_in^-1/2)
+    weights drawn in float32 from ``generator`` (which must live on
+    ``device``) and stored in ``cfg.dtype``, the router in float32,
+    norms at 1.  Tests that compare with the reference load its weights
+    through :func:`params_from_numpy`."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    D = cfg.d_model
+    layers = {
+        "ln1": torch.ones((cfg.n_layers, D), dtype=dtype, device=dev),
+        "ln2": torch.ones((cfg.n_layers, D), dtype=dtype, device=dev),
+    }
+    for key, (shape, fan_in) in _param_shapes(cfg).items():
+        leaf_dtype = torch.float32 if key == "router" else dtype
+        layers[key] = _normal(shape, fan_in, leaf_dtype, generator, dev)
+    return {
+        "embed": _normal((cfg.vocab_size, D), D, dtype, generator, dev),
+        "layers": layers,
+        "ln_f": torch.ones((D,), dtype=dtype, device=dev),
+    }
+
+
+def params_from_numpy(
+    tree: Params, cfg: MoEConfig, device: Union[str, torch.device] = "cuda"
+) -> Params:
+    """The reference's ``init_params`` pytree, as numpy arrays, in the
+    port's layout (the same one): bf16 leaves carried bit for bit
+    through their ``uint16`` view, the router as float32, others by
+    value in ``cfg.dtype``."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+
+    def conv(array, leaf_dtype=dtype) -> torch.Tensor:
+        return from_numpy(np.asarray(array), leaf_dtype).to(dev)
+
+    shapes = _param_shapes(cfg)
+    layers = {}
+    for key in _LAYER_KEYS:
+        layers[key] = conv(tree["layers"][key],
+                           torch.float32 if key == "router" else dtype)
+        want = shapes[key][0] if key in shapes else (cfg.n_layers, cfg.d_model)
+        if tuple(layers[key].shape) != want:
+            raise ValueError(
+                f"layers.{key} has shape {tuple(layers[key].shape)}, "
+                f"config wants {want}"
+            )
+    return {
+        "embed": conv(tree["embed"]),
+        "layers": layers,
+        "ln_f": conv(tree["ln_f"]),
+    }
+
+
+def _layer(params: Params, i: int) -> Params:
+    return {key: params["layers"][key][i] for key in _LAYER_KEYS}
+
+
+def _route(
+    x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing with static capacity.
+
+    x: [S, D] flattened tokens.  Returns (dispatch [S, E, C] one-hot,
+    combine [S, E, C] gate-weighted, aux load-balancing loss), all
+    float32."""
+    S = x.shape[0]
+    E, C = cfg.n_experts, cfg.capacity(S)
+    logits = x.float() @ router.float()  # [S, E]
+    probs = torch.softmax(logits, dim=-1)
+
+    # Top-k as k sequential argmax rounds (ties go to the first expert).
+    remaining = probs
+    picks, picked_gates = [], []
+    for _ in range(cfg.top_k):
+        choice = remaining.argmax(dim=-1)  # [S]
+        picks.append(choice)
+        picked_gates.append(torch.gather(probs, -1, choice[:, None])[:, 0])
+        remaining = remaining * (1.0 - F.one_hot(choice, E).float())
+
+    # Normalize the k gates per token (Mixtral renormalizes top-k).
+    gate_sum = sum(picked_gates)
+    dispatch = torch.zeros((S, E, C), dtype=torch.float32, device=x.device)
+    combine = torch.zeros_like(dispatch)
+    # Slots already taken per expert, accumulated across rounds.
+    fill = torch.zeros((E,), dtype=torch.int32, device=x.device)
+    slots = torch.arange(C, device=x.device)
+    for choice, gate in zip(picks, picked_gates):
+        onehot = F.one_hot(choice, E).float()  # [S, E]
+        # Position of each token within its chosen expert's queue:
+        # tokens are served in sequence order, after the slots earlier
+        # rounds filled.
+        position = torch.cumsum(onehot, dim=0) - 1.0 + fill[None, :].float()
+        position_tok = (position * onehot).sum(dim=-1)  # [S]
+        keep = position_tok < C  # capacity drop
+        # A dropped token's slot index is C, which matches no slot: the
+        # reference's one_hot of an out-of-range index, a zero row.
+        slot = (position_tok.long()[:, None] == slots).float()  # [S, C]
+        contrib = onehot[:, :, None] * slot[:, None, :]  # [S, E, C]
+        dispatch = dispatch + contrib * keep[:, None, None]
+        combine = combine + contrib * (
+            (gate / torch.clamp(gate_sum, min=1e-9)) * keep
+        )[:, None, None]
+        fill = fill + (onehot * keep[:, None]).sum(dim=0).int()
+
+    # Load-balancing aux loss: E * sum_e f_e * p_e (Switch/GShard).
+    token_frac = F.one_hot(picks[0], E).float().mean(dim=0)
+    prob_frac = probs.mean(dim=0)
+    aux = cfg.n_experts * (token_frac * prob_frac).sum()
+    return dispatch, combine, aux
+
+
+def _moe_mlp(
+    x: torch.Tensor, lp: Params, cfg: MoEConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routed expert MLP.  x: [B, T, D] -> ([B, T, D], aux loss)."""
+    B, T, D = x.shape
+    flat = x.reshape(B * T, D)
+    dispatch, combine, aux = _route(flat, lp["router"], cfg)
+    # [S, E, C] x [S, D] -> the experts' batches [E, C, D].
+    expert_in = torch.einsum("sec,sd->ecd", dispatch.to(x.dtype), flat)
+    gate = torch.einsum("ecd,edf->ecf", expert_in, lp["w_gate"])
+    up = torch.einsum("ecd,edf->ecf", expert_in, lp["w_up"])
+    hidden = F.silu(gate.float()).to(x.dtype) * up
+    expert_out = torch.einsum("ecf,efd->ecd", hidden, lp["w_down"])
+    out = torch.einsum("sec,ecd->sd", combine.to(x.dtype), expert_out)
+    return out.reshape(B, T, D), aux
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: MoEConfig,
+    use_flash: bool = True,
+    sp_mesh: Optional[Mesh] = None,
+    ring_impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense forward: tokens [B, T] -> (logits [B, T, V], aux loss).
+
+    Attention is routed as in ``llama.forward``: ``use_flash=False``
+    forces the dense op; otherwise the prefill kernel on CUDA.
+    ``sp_mesh``: ring attention over the mesh's ``sp`` axis, in the
+    CONTIGUOUS layout only: capacity routing consumes expert slots in
+    token order, so the striped layout would change which tokens
+    overflow.  ``ring_impl`` as in ``llama.forward``."""
+    B, T = tokens.shape
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    positions = torch.arange(T, device=dev).expand(B, T)
+    x = params["embed"][tokens.long()]
+    ring = None
+    if sp_mesh is not None:
+        ring = ring_for_mesh(sp_mesh, impl=ring_impl)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = _rms_norm(x, lp["ln1"])
+        q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
+        if ring is not None:
+            attn = ring(q, k, v)
+        else:
+            attn = _prefill_attention(q, k, v, cfg, use_flash=use_flash)
+        x = x + torch.einsum("bthk,hkd->btd", attn, lp["wo"])
+        moe_out, layer_aux = _moe_mlp(_rms_norm(x, lp["ln2"]), lp, cfg)
+        x = x + moe_out
+        aux = aux + layer_aux
+    return _logits(x, params), aux / cfg.n_layers
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """Next-token cross entropy plus the router's load-balancing loss,
+    through the dense attention op (``use_flash=False``)."""
+    logits, aux = forward(params, tokens, cfg, use_flash=False)
+    return next_token_nll(logits, tokens.to(logits.device)) + cfg.router_aux_weight * aux
+
+
+def train_step(
+    params: Params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor, cfg: MoEConfig
+) -> torch.Tensor:
+    """One AdamW step on :func:`loss_fn`, updating ``params`` and
+    ``optimizer`` (``make_optimizer(params)``, shared with the Llama
+    family) in place; returns the loss before the update."""
+    return optimizer_step(lambda: loss_fn(params, tokens, cfg), optimizer)

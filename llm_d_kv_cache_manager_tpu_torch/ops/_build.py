@@ -11,6 +11,12 @@ and waits for them together.
 Nothing is built or loaded at import: the CPU tests import every
 module of the port on machines without ``nvcc``.  A failed build
 raises; no caller carries on without its kernel.
+
+The kernels are forward-only, as the reference's Pallas kernels are (it
+gives none of them a VJP and trains through its dense einsum): a
+wrapper calls :func:`refuse_grad` before it launches, so a call that
+autograd would record raises instead of returning an output with no
+gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -133,3 +141,16 @@ def check(lib: ctypes.CDLL, what: str, rc: int) -> None:
     if rc != 0:
         message = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({message})")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a kernel call: grad mode is on
+    and an input requires grad.  A kernel writes its output through a
+    raw pointer, so that output would carry no ``grad_fn`` and the
+    inputs would get no gradient, without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel is forward-only and an input requires grad; "
+            "call it under torch.no_grad(), or differentiate through the "
+            "dense op (forward(..., use_flash=False), as loss_fn does)"
+        )

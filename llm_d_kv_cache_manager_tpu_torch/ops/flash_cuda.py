@@ -78,11 +78,14 @@ def flash_gqa_attention_cuda(
     CUDA tensors run the kernel (bf16 or float32, contiguous, 16-byte
     aligned, head dim 64 or 128; bf16 also at least one key) and every
     launch adds one to ``flash_gqa_attention_cuda.launches``; CPU tensors
-    run :func:`flash_gqa_attention_plain`."""
+    run :func:`flash_gqa_attention_plain`.  The kernel is forward-only:
+    on any other device, grad mode with an input that requires grad
+    raises ``RuntimeError`` before the launch."""
     q_offset = int(q_offset)
     _check(q, k, v, q_offset)
     if q.device.type == "cpu":
         return flash_gqa_attention_plain(q, k, v, q_offset=q_offset)
+    _build.refuse_grad("flash_gqa_attention_cuda", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES:

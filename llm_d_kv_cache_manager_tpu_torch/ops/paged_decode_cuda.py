@@ -140,10 +140,13 @@ def paged_decode_attention_cuda(
     16, head dim 64 or 128, H/Hkv in 1, 2, 4, 8, int32 table and
     lengths) and every launch adds one to
     ``paged_decode_attention_cuda.launches``; CPU tensors run
-    :func:`paged_decode_attention_plain`."""
+    :func:`paged_decode_attention_plain`.  The kernel is forward-only:
+    on any other device, grad mode with an input that requires grad
+    raises ``RuntimeError`` before the launch."""
     _check(q, kv_layer, block_table, context_len)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, kv_layer, block_table, context_len)
+    _build.refuse_grad("paged_decode_attention_cuda", q, kv_layer)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, H, D = q.shape

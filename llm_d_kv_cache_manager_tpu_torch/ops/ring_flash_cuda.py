@@ -81,12 +81,15 @@ def flash_partial_cuda(
     CUDA tensors run the kernel (bf16 or float32, contiguous, 16-byte
     aligned, head dim 64 or 128; bf16 also at least one key) and every
     launch adds one to ``flash_partial_cuda.launches``; CPU tensors
-    run :func:`flash_partial_plain`."""
+    run :func:`flash_partial_plain`.  The kernel is forward-only: on any
+    other device, grad mode with an input that requires grad raises
+    ``RuntimeError`` before the launch."""
     if causal_offset is not None:
         causal_offset = int(causal_offset)
     _check(q, k, v, causal_offset)
     if q.device.type == "cpu":
         return flash_partial_plain(q, k, v, causal_offset=causal_offset)
+    _build.refuse_grad("flash_partial_cuda", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES:

@@ -2,14 +2,18 @@
 ``nvcc -Xptxas -v`` logs that phase 1 prints, the derived kernel rates,
 the tie-aware next-token check of the prefix-hit contract, the two
 counts of decode kernel launches (a profiler window's rows, a captured
-graph's kernel nodes), and phase 7's file-hash choice per group, tree
-comparison, rate and bound arithmetic, mount lookup and file helpers."""
+graph's kernel nodes), phase 7's file-hash choice per group, tree
+comparison, rate and bound arithmetic, mount lookup and file helpers,
+and phases 8-11's model FLOP count of a train step, expert-pick
+comparison, nested-state walks, byte totals and comparisons."""
 
 import pathlib
 import runpy
 
 import pytest
 import torch
+
+from tests.helpers.torch_port import port
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 smoke = runpy.run_path(str(REPO / "chip_smoke.py"), run_name="chip_smoke_helpers")
@@ -200,3 +204,93 @@ def test_clear_dir_and_drop_page_cache(tmp_path):
 def test_ms_median_over_rounds():
     rounds = [{"ms": 5.0}, {"ms": 1.0}, {"ms": 3.0}]
     assert smoke["ms_median"](rounds, "ms") == 3.0
+
+
+# ------------------------------------------------ phases 8-11 helpers
+
+
+def test_train_step_flops_at_the_training_cut():
+    """Three forwards' worth: 2 FLOPs a weight a token over every matmul
+    (the logits product included), 4 * H * Dh a causal pair."""
+    llama = port("models.llama")
+    cfg = llama.LlamaConfig.llama3_8b()
+    cfg.n_layers = 8
+    per_layer = 4096 * 4096 + 2 * 4096 * 1024 + 4096 * 4096 + 3 * 4096 * 14336
+    assert per_layer == 218_103_808
+    matmul = 2 * 2048 * (8 * per_layer + 128256 * 4096)
+    attention = 4 * 32 * 128 * 8 * 2048 * 2049 // 2
+    assert smoke["train_step_flops"](cfg, 1, 2048) == 3.0 * (matmul + attention)
+    assert smoke["train_step_flops"](cfg, 2, 2048) == 2 * smoke["train_step_flops"](cfg, 1, 2048)
+    tiny = llama.LlamaConfig(vocab_size=10, d_model=4, n_layers=1, n_heads=2, n_kv_heads=1,
+                             d_ff=8)
+    # per layer 4*4 + 2*4*2 + 4*4 + 3*4*8 = 144; T=3 has 6 causal pairs.
+    assert smoke["train_step_flops"](tiny, 1, 3) == 3.0 * (2 * 3 * (144 + 40) + 4 * 2 * 2 * 6)
+
+
+def test_routed_experts_and_differing_tokens():
+    dispatch = torch.zeros(4, 3, 2)
+    dispatch[0, 1, 0] = dispatch[1, 1, 1] = dispatch[1, 2, 0] = 1  # token 2: dropped
+    routed = smoke["routed_experts"](dispatch)
+    assert routed.tolist() == [[False, True, False], [False, True, True],
+                               [False, False, False], [False, False, False]]
+    other = routed.clone()
+    other[3, 0] = True
+    layers = [routed, routed]
+    assert smoke["differing_tokens"](layers, layers).tolist() == [False] * 4
+    assert smoke["differing_tokens"](layers, [routed, other]).tolist() == [False, False, False,
+                                                                           True]
+    with pytest.raises(ValueError, match="2 layers against 1"):
+        smoke["differing_tokens"](layers, [routed])
+
+
+def _state():
+    return {"params": {"w": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3),
+                       "b": torch.ones(4)},
+            "opt": {"state": {0: {"step": torch.tensor(2.0)}},
+                    "param_groups": [{"lr": 3e-4, "betas": (0.9, 0.95), "params": [0, 1]}]}}
+
+
+def test_leaf_paths_and_state_bytes():
+    paths = dict(smoke["leaf_paths"](_state()))
+    assert sorted(paths) == ["opt.param_groups.0.betas", "opt.param_groups.0.lr",
+                             "opt.param_groups.0.params.0", "opt.param_groups.0.params.1",
+                             "opt.state.0.step", "params.b", "params.w"]
+    assert paths["opt.param_groups.0.betas"] == (0.9, 0.95)  # a tuple is a leaf
+    assert smoke["state_bytes"](torch, _state()) == 6 * 2 + 4 * 4 + 4
+
+
+def test_state_mismatches_finds_every_difference():
+    want = _state()
+    assert smoke["state_mismatches"](torch, smoke["map_state"](torch, want, torch.clone),
+                                     want) == []
+    got = smoke["map_state"](torch, want, torch.clone)
+    got["params"]["w"][1, 2] = 0.0
+    got["params"]["b"] = got["params"]["b"].double()
+    got["opt"]["param_groups"][0]["betas"] = [0.9, 0.95]  # a list is not the tuple
+    got["opt"]["state"][0]["extra"] = torch.zeros(1)
+    assert set(smoke["state_mismatches"](torch, got, want)) == {
+        "opt.state.0.extra", "opt.param_groups.0.betas", "opt.param_groups.0.betas.0",
+        "opt.param_groups.0.betas.1", "params.b", "params.w"}
+    zero = {"x": torch.zeros(2)}  # bytes, not values: -0.0 is not 0.0
+    assert smoke["state_mismatches"](torch, {"x": -torch.zeros(2)}, zero) == ["x"]
+
+
+def test_map_state_copies_structure():
+    state = _state()
+    copy = smoke["map_state"](torch, state, lambda t: t + 1)
+    assert copy["opt"]["param_groups"] == state["opt"]["param_groups"]
+    assert copy["opt"]["param_groups"][0] is not state["opt"]["param_groups"][0]
+    assert float(copy["opt"]["state"][0]["step"]) == 3.0
+
+
+def test_leaves_close_measures_outside_the_free_elements():
+    want = {"a": torch.tensor([1.0, 2.0, 0.0]), "b": torch.tensor([[10.0]])}
+    got = {"a": torch.tensor([1.0, 2.0002, 0.5]), "b": torch.tensor([[10.0]])}
+    err, worst, n_free, free_err = smoke["leaves_close"](torch, got, want, 1e-6, 1e-4)
+    assert err == pytest.approx(0.5) and worst == pytest.approx(0.5 / 1e-6)
+    free = {"a": torch.tensor([False, False, True]), "b": torch.tensor([[False]])}
+    err, worst, n_free, free_err = smoke["leaves_close"](torch, got, want, 1e-6, 1e-4, free)
+    assert (n_free, free_err) == (1, pytest.approx(0.5))
+    assert worst == pytest.approx(0.0002 / (1e-6 + 2e-4), rel=1e-3)
+    with pytest.raises(AssertionError, match="trees differ"):
+        smoke["leaves_close"](torch, {"a": got["a"]}, want, 1e-6, 1e-4)

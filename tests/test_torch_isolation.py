@@ -102,6 +102,11 @@ def _params():
     return llama.init_params(llama.LlamaConfig(n_layers=1), torch.Generator())
 
 
+def _moe_params():
+    moe = port("models.moe")
+    return moe.init_params(moe.MoEConfig(n_layers=1, vocab_size=8), torch.Generator())
+
+
 def _resolve():
     return port("utils.device").resolve_device("cuda")
 
@@ -112,8 +117,8 @@ def _mesh():
 
 
 @pytest.mark.parametrize(
-    "entry", [_pool, _params, _resolve, _mesh],
-    ids=["KVCachePool", "init_params", "resolve_device", "make_mesh"],
+    "entry", [_pool, _params, _resolve, _mesh, _moe_params],
+    ids=["KVCachePool", "init_params", "resolve_device", "make_mesh", "moe.init_params"],
 )
 def test_entry_point_without_device_raises_without_gpu(entry):
     """Entry points default to CUDA; with no GPU they raise instead of
@@ -130,6 +135,15 @@ def test_entry_points_run_on_cpu_when_asked():
     assert pool.kv.device.type == "cpu" and not pool.pinned_host
     with pytest.raises(RuntimeError):
         pool.stage_gather_pinned([0])
+
+
+def test_moe_init_params_runs_on_cpu_when_asked():
+    moe = port("models.moe")
+    cfg = moe.MoEConfig(vocab_size=16, d_model=32, n_layers=1, n_heads=2, n_kv_heads=1,
+                        d_ff=8, n_experts=2)
+    params = moe.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert params["layers"]["router"].dtype == torch.float32
 
 
 def test_build_sources_are_the_kernel_files():
