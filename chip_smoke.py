@@ -18,8 +18,9 @@ its one configuration, ``MoEConfig()``: a forward over 8192 tokens on the
 prefill kernel and on the ring, and train steps.  Before that, it builds
 the three hand-written kernels from ``csrc/`` with nvcc and the native
 I/O engine from ``native/src/`` with g++, and holds each kernel against
-its plain PyTorch version at the shapes the paths give it.  It imports
-nothing of JAX or the JAX package.
+its plain PyTorch version at the shapes the paths give it.  Last, the
+sharded paths over the dp x pp x tp x sp x ep mesh, with every rank on
+the one card.  It imports nothing of JAX or the JAX package.
 
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build
@@ -88,7 +89,29 @@ Phases (any failure exits non-zero):
      ring forwards held against the float32 dense forward at the
      model-level limit, each layer's expert picks compared; three bf16
      train steps at 2048 tokens;
- 12. one JSON line listing each kernel's numbers;
+ 12. sharded meshes on one card, every rank on ``cuda:0`` (an emulated
+     mesh: results and launches, not speed): (a, after phase 7) phase
+     5's requests over params cut by ``param_pspecs`` over tp 2 and a
+     pool cut on its kv heads, logits and tokens against phase 5's,
+     the captured tp decode step bit-equal to the eager one, 2 x 32
+     prefill launches a request and 2 x 32 decode launches a step; (b)
+     phase 6's prompt through the tp 2 x sp 4 ring, both layouts
+     (2 x 16 and 2 x 10 partial launches a layer), against the dense
+     forward; (c, after phase 11) a small float32 step on the
+     reference's 8-device plan (dp 1 x pp 2 x tp 2 x sp 2) against the
+     unsharded step, then three 8-layer AdamW steps there, each loss
+     and step 1's batch after them held to phase 9's at limits that a
+     planted fault each crosses (tp rank 1's wo slices zeroed; its
+     gradients lost); (d) the 8-layer params saved
+     unsharded and restored onto pp 2 x tp 2, every local bit-equal to
+     its slice, and one step from them; (e) ``MoEConfig()`` on dp 1 x ep
+     2 x tp 2 inside ``activate(mesh)``: ``moe._constrain`` places a
+     probe on the active mesh's ranks (a no-op outside it), float32
+     against the unsharded forward (expert picks, logits), the bf16
+     forward (2 x 8 prefill launches), three train steps; phases 2-4 also hold each
+     kernel at the tp shapes (16 heads and 4 KV heads; the MoE's 4 and
+     2);
+ 13. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
@@ -148,6 +171,25 @@ SMALL_STEP_LOSS_REL = 1e-5
 MOE_TOKENS = 8192
 MOE_TRAIN_TOKENS = 2048
 MOE_PICK_LIMIT = 0.01
+# Sharded meshes on one card: every rank names cuda:0.  tp 2 serving
+# (phase 5's requests; its miss logits are kept for the last REF_TAIL
+# positions), the tp x sp ring over phase 6's prompt, training on the
+# reference's 8-device plan (_plan_for(8): dp 1, pp 2, tp 2, sp 2), a
+# restore onto pp 2 x tp 2, and the MoE over dp 1 x ep 2 x tp 2.  The
+# sharded steps' losses are held to phase 9's (bf16 partial sums taken
+# in another order): the first within SHARD_FIRST_LOSS_REL, losses 2-3
+# and step 1's batch after the steps within SHARD_LATER_LOSS_REL.  On
+# an NVIDIA H100 80GB HBM3 at 700 W the clean gaps read 1.56e-6 and at
+# most 6.41e-5; tp rank 1's wo slices zeroed moved the first loss
+# 2.19e-3, and its gradients lost at every step moved the later ones
+# 2.82e-4 to 1.22e-2 (PERF.md).
+SHARD_TP = 2
+REF_TAIL = 512
+SHARD_TRAIN_PLAN = dict(dp=1, pp=2, tp=2, sp=2)
+SHARD_RESTORE_PLAN = dict(dp=1, pp=2, tp=2)
+SHARD_MOE_PLAN = dict(dp=1, ep=2, tp=2)
+SHARD_FIRST_LOSS_REL = 2e-5
+SHARD_LATER_LOSS_REL = 2e-4
 # PCIe Gen5 x16, one direction (NVIDIA's H100 SXM data sheet: 128 GB/s
 # both ways).
 PCIE_GEN5_X16 = 64e9
@@ -897,6 +939,7 @@ def serving(torch, params, cfg):
     if a["logits"].shape != (1, len(prompt_a), cfg.vocab_size) or logits_b.shape != (
             1, SUFFIX_TOKENS, cfg.vocab_size):
         raise AssertionError("unexpected logits shapes")
+    miss_tail = a["logits"][:, -REF_TAIL:].clone()  # phase 12a's reference
     del a["logits"]  # 4.3 GB of float32 logits
     # Phase 7 offloads this prefix as B's hit read it; the decode checks
     # below write into three of its blocks (the narrower tables).
@@ -1091,6 +1134,11 @@ def serving(torch, params, cfg):
         "offload_inputs": dict(pod_a=pod_a, prefix_ids=prefix_ids, prefix_kv=prefix_kv,
                                prompt_b=prompt_b, keys_b=b["keys"], logits_b=logits_b,
                                first_b=first_b, hasher=hasher),
+        "sharded_inputs": dict(prompt_a=prompt_a, prompt_b=prompt_b, ids_a=ids_a, ids_b=ids_b,
+                               miss_tail=miss_tail, logits_b=logits_b, table=table,
+                               decode_inputs=inputs, step_logits=step_logits,
+                               miss_ms=a["ttft_ms"], hit_ms=b["ttft_ms"],
+                               decode_ms=ms_per_step),
     }
 
 
@@ -1928,13 +1976,18 @@ def training_and_checkpoint(torch, peaks, cfg):
         if fc.flash_gqa_attention_cuda.launches:
             raise AssertionError(f"training launched the prefill kernel "
                                  f"{fc.flash_gqa_attention_cuda.launches} times")
+        # Step 1's batch under the params after the three steps: the
+        # updates' effect, which phase 12c holds the sharded steps to.
+        with torch.no_grad():
+            after = float(llama.loss_fn(params, batches[0], cfg))
         step_ms = statistics.mean(walls[1:])
         tflops = flops / (step_ms * 1e-3) / 1e12
         print(f"  losses {losses}; ms a step {[round(w, 1) for w in walls]} (step 1 allocates "
               f"AdamW's state); steps 2-{TRAIN_STEPS}: {step_ms:.1f} ms, {tflops:.1f} model "
               f"TFLOP/s, {tflops * 1e12 / peaks[0]:.3f} of the {peaks[0] / 1e12:.0f} TFLOP/s "
               f"bf16 peak; max_memory_allocated over step 1 {peak_gb:.2f} GB; prefill kernel "
-              f"launches during the steps: 0", flush=True)
+              f"launches during the steps: 0; step 1's batch after the steps: loss {after!r}",
+              flush=True)
         uninterrupted = losses[1]
         # Where a step's device time goes: one more step, profiled.
         split = show_breakdown("train step under torch.profiler", step_ms, device_breakdown(
@@ -1981,7 +2034,8 @@ def training_and_checkpoint(torch, peaks, cfg):
         raise AssertionError("the resumed step 2 differs from the uninterrupted one by more "
                              "than two identical steps do")
     return {"layers": cfg.n_layers, "tokens": TRAIN_TOKENS, "params": n_params,
-            "losses": losses, "step_ms": walls, "steady_step_ms": step_ms,
+            "losses": losses, "loss_after_steps": after, "step_ms": walls,
+            "steady_step_ms": step_ms,
             "model_tflops": tflops, "bf16_peak_share": tflops * 1e12 / peaks[0],
             "max_memory_allocated_gb": peak_gb, "breakdown_ms": split,
             "checkpoint": {"bytes": nbytes, "on_disk_bytes": on_disk, "save_s": save_s,
@@ -2115,6 +2169,552 @@ def moe_phase(torch, peaks):
             "train_losses": losses, "train_step_ms": step_ms}
 
 
+# --------------------------------------------------------------- phase 12
+
+
+def ring_steps(sp: int, striped: bool) -> int:
+    """Partial launches a layer of one head shard's ring over sp ranks:
+    every (rank, step) pair striped; the sp(sp+1)/2 pairs that see a key
+    contiguous (a fully masked step launches nothing)."""
+    return sp * sp if striped else sp * (sp + 1) // 2
+
+
+def shard_launches(per_shard: int, shards: int, layers: int) -> int:
+    """Launches of a kernel over ``layers`` layers when each of
+    ``shards`` head shards launches ``per_shard`` times a layer."""
+    return per_shard * shards * layers
+
+
+def shard_mismatches(torch, sharded, full):
+    """Coordinates of the ranks whose local tensor is not bit-equal to
+    its slice of ``full`` (wherever each lies)."""
+    bad = []
+    for coord, tensor in sharded.distinct():
+        want = full[sharded.slices(sharded.shard_index(coord))]
+        got = tensor.detach().to(want.device)
+        if got.shape != want.shape or not torch.equal(
+                got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8)):
+            bad.append(coord)
+    return bad
+
+
+def tree_shard_mismatches(torch, sharded_tree, full_tree):
+    """{leaf path: mismatching coordinates} over two trees named alike."""
+    full = dict(leaf_paths(full_tree))
+    out = {}
+    for path, leaf in leaf_paths(sharded_tree):
+        bad = shard_mismatches(torch, leaf, full[path])
+        if bad:
+            out[path] = bad
+    return out
+
+
+def tp_rank_locals(leaf, t: int) -> list:
+    """The distinct local tensors of tp rank ``t`` of a leaf cut over tp
+    (none for a leaf that tp does not cut)."""
+    if "tp" not in leaf.spec:
+        return []
+    axis = leaf.mesh.axis_names.index("tp")
+    return [x for coord, x in leaf.distinct() if coord[axis] == t]
+
+
+def zero_tp_rank(torch, sharding, leaf, t: int):
+    """``leaf`` with tp rank ``t``'s slices replaced by zeros: that
+    rank's partial product dropped (a planted fault)."""
+    zeros = {id(x): torch.zeros_like(x) for x in tp_rank_locals(leaf, t)}
+    locals_ = leaf.locals.copy()
+    flat = locals_.reshape(-1)
+    for i in range(flat.size):
+        flat[i] = zeros.get(id(flat[i]), flat[i])
+    return sharding.Sharded(leaf.mesh, leaf.spec, leaf.shape, leaf.dtype, locals_)
+
+
+def rel_gap(got: float, want: float) -> float:
+    return abs(got - want) / abs(want)
+
+
+def pool_copy(torch, dst, src) -> None:
+    """Copy every local tensor of one sharded pool into another's."""
+    for (_, a), (_, b) in zip(dst.distinct(), src.distinct()):
+        a.copy_(b)
+
+
+def pools_equal(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(a.distinct(), b.distinct()))
+
+
+def sharded_serving(torch, params, cfg, ref):
+    """12a: phase 5's miss, hit and decode over params cut over tp on
+    one card, against phase 5's logits and tokens."""
+    llama = port("models.llama")
+    sharding, mesh_mod, pool_mod = port("parallel.sharding"), port("parallel.mesh"), port(
+        "models.kv_cache_pool")
+    fc, pc = port("ops.flash_cuda"), port("ops.paged_decode_cuda")
+    layers, bs = cfg.n_layers, cfg.block_size
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, tp=SHARD_TP), ["cuda:0"] * SHARD_TP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = sharding.shard_tree(params, mesh, llama.param_pspecs(cfg))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    bad = tree_shard_mismatches(torch, sharded, params)
+    print(f"  mesh {mesh}; params cut by param_pspecs in {shard_s:.2f} s, every local tensor "
+          f"bit-equal to its slice: {not bad}; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    if bad:
+        raise AssertionError(f"shards differ from their slices: {bad}")
+    spec = sharding.P(None, None, None, None, "tp", None)
+    pools = [pool_mod.KVCachePool(
+        pool_mod.KVCachePoolConfig(layers, POOL_BLOCKS, bs, cfg.n_kv_heads, cfg.head_dim,
+                                   cfg.dtype), sharding=sharding.NamedSharding(mesh, spec))
+        for _ in range(2)]
+    print(f"  two pools of {POOL_BLOCKS} blocks cut on their kv heads ({spec}): each rank "
+          f"holds {pools[0].kv.local_shape}", flush=True)
+    prompt_a, prompt_b, ids_a, ids_b = ref["prompt_a"], ref["prompt_b"], ref["ids_a"], ref["ids_b"]
+
+    def miss(pool):
+        return llama.prefill_paged(sharded, torch.tensor([prompt_a]), pool.kv,
+                                   torch.tensor([ids_a], dtype=torch.int32), cfg)[0]
+
+    def hit(pool):
+        return llama.prefill_continue(sharded, torch.tensor([prompt_b[PREFIX_TOKENS:]]),
+                                      pool.kv, torch.tensor([ids_b], dtype=torch.int32),
+                                      PREFIX_TOKENS, cfg)[0]
+
+    miss(pools[1])  # warm-up on the second pool: cuBLAS picks its algorithms
+    hit(pools[1])
+    torch.cuda.synchronize()
+    fc.flash_gqa_attention_cuda.launches = 0
+    pc.paged_decode_attention_cuda.launches = 0
+    walls = {}
+    for name, run in (("miss", miss), ("hit", hit)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = run(pools[0])
+        first = int(logits[0, -1].argmax())
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        if name == "miss":
+            miss_tail = logits[:, -REF_TAIL:].clone()
+            first_a = first
+            del logits
+        else:
+            logits_b, first_b = logits, first
+    prefill_launches = fc.flash_gqa_attention_cuda.launches
+    print(f"  miss (prefill_paged, {len(prompt_a)} tokens) {walls['miss']:.1f} ms, hit "
+          f"(prefill_continue, {SUFFIX_TOKENS} over {PREFIX_TOKENS}) {walls['hit']:.1f} ms, "
+          f"to the first token (phase 5, unsharded: {ref['miss_ms']:.1f} and "
+          f"{ref['hit_ms']:.1f} ms with routing)", flush=True)
+    errs = {"miss_tail": check_logits(f"miss, last {REF_TAIL} positions, vs phase 5's",
+                                      miss_tail, ref["miss_tail"]),
+            "hit": check_logits("hit vs phase 5's", logits_b, ref["logits_b"])}
+    check_next_token("miss next token", first_a, ref["miss_tail"][0, -1], errs["miss_tail"])
+    check_next_token("hit next token", first_b, ref["logits_b"][0, -1], errs["hit"])
+    del miss_tail, logits_b
+
+    # Decode: phase 5's eight inputs through the captured tp step, then
+    # the eager tp step over a copy of the pool.
+    pool_copy(torch, pools[1].kv, pools[0].kv)
+    table = ref["table"]
+    step = llama.make_decode_step(sharded, pools[0].kv, cfg, 2, table.shape[1])
+    step.graph = torch.cuda.CUDAGraph(keep_graph=True)
+    inputs = ref["decode_inputs"]
+    step(inputs[0][0], table, inputs[0][1])  # captures; replays write the same K/V
+    step.replays = 0
+    got = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tokens, ctx in inputs:
+        got.append(step(tokens, table, ctx).clone())
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
+    replays = step.replays
+    python_calls = pc.paged_decode_attention_cuda.launches  # the capture's two runs
+    decode_nodes = captured_kernel_nodes(step.graph, dict(KERNEL_GROUPS)["decode_attention"])
+    table_dev = table.cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = [llama.decode_step(sharded, tokens, pools[1].kv, table_dev, ctx, cfg)[0]
+             for tokens, ctx in inputs]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
+    same = [torch.equal(a, b) for a, b in zip(got, eager)]
+    same_pool = pools_equal(torch, pools[0].kv, pools[1].kv)
+    decode_errs, gaps = [], []
+    for i, (logits, want) in enumerate(zip(got, ref["step_logits"])):
+        decode_errs.append(check_logits(f"decode step {i + 1} vs phase 5's", logits, want))
+        for row in range(2):
+            gaps.append(check_next_token(f"decode step {i + 1}, sequence {row}",
+                                         int(logits[row].argmax()), want[row], decode_errs[-1]))
+    print(f"  decode: {len(inputs)} steps at batch 2 replayed from one CUDA graph holding "
+          f"both shards, {decode_ms:.2f} ms/step (phase 5: {ref['decode_ms']:.2f}); eager "
+          f"tp step {eager_ms:.2f} ms/step; captured logits bit-equal to the eager step's at "
+          f"every step: {all(same)}, pools bit-equal: {same_pool}", flush=True)
+    if not (all(same) and same_pool):
+        raise AssertionError("the captured tp decode step and the eager one disagree")
+    launches = {"flash_prefill": prefill_launches, "paged_decode": replays * decode_nodes}
+    expected = {"flash_prefill": 2 * shard_launches(1, SHARD_TP, layers),
+                "paged_decode": DECODE_STEPS * shard_launches(1, SHARD_TP, layers)}
+    print(f"  kernel launches on the tp path: {launches} ({replays} replays x {decode_nodes} "
+          f"decode kernel nodes), expected {expected}", flush=True)
+    if launches != expected or python_calls != 2 * shard_launches(1, SHARD_TP, layers):
+        raise AssertionError(f"tp launches {launches}, expected {expected}; the decode "
+                             f"wrapper's Python count {python_calls} (the capture's eager "
+                             f"run and the capture only)")
+    breakdown = {
+        "miss": show_breakdown("tp miss under torch.profiler", walls["miss"],
+                               device_breakdown(torch, lambda: miss(pools[1]), steps=1)),
+        "hit": show_breakdown("tp hit under torch.profiler", walls["hit"],
+                              device_breakdown(torch, lambda: hit(pools[1]), steps=1)),
+        "decode_step": show_breakdown(
+            "tp decode step (graph replay) under torch.profiler", decode_ms,
+            device_breakdown(torch, lambda: step(inputs[-1][0], table, inputs[-1][1]),
+                             steps=2)),
+    }
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del step, pools, sharded, got, eager
+    gc_cuda(torch)
+    return {"launches": launches, "mesh": str(mesh), "shard_s": shard_s,
+            "miss_ms": walls["miss"], "hit_ms": walls["hit"], "decode_ms_per_step": decode_ms,
+            "decode_eager_ms_per_step": eager_ms, "max_abs_err": errs,
+            "decode_max_abs_err": max(decode_errs), "next_token_gaps": max(gaps),
+            "breakdown_ms": breakdown, "max_memory_allocated_gb": peak}
+
+
+def sharded_ring(torch, params, cfg, phase6):
+    """12b: phase 6's prompt through the tp x sp ring over params cut
+    over tp, both layouts, against the unsharded dense forward."""
+    llama = port("models.llama")
+    sharding, mesh_mod = port("parallel.sharding"), port("parallel.mesh")
+    fc, rc = port("ops.flash_cuda"), port("ops.ring_flash_cuda")
+    n = SHARD_TP * RING_SP
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, tp=SHARD_TP, sp=RING_SP), ["cuda:0"] * n)
+    sharded = sharding.shard_tree(params, mesh, llama.param_pspecs(cfg))
+    rng = torch.Generator().manual_seed(SEED + 1)  # phase 6's prompt
+    tokens = torch.randint(1, cfg.vocab_size, (1, RING_TOKENS), generator=rng)
+    print(f"  mesh {mesh}: {n} ranks on one card, {RING_TOKENS // RING_SP} tokens and "
+          f"{cfg.n_heads // SHARD_TP} of {cfg.n_heads} heads a rank; the tp shards held once "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)", flush=True)
+    dense = llama.forward(params, tokens, cfg)
+    first = int(dense[0, -1].argmax())
+    out = {"wall_ms": {}, "launches": {}, "max_abs_err_vs_dense": {}, "breakdown_ms": {}}
+    for name, striped in (("striped", True), ("contiguous", False)):
+        llama.forward(sharded, tokens, cfg, sp_mesh=mesh, ring_striped=striped)  # warm-up
+        fc.flash_gqa_attention_cuda.launches = 0
+        rc.flash_partial_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = llama.forward(sharded, tokens, cfg, sp_mesh=mesh, ring_striped=striped)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {"ring_partial": rc.flash_partial_cuda.launches,
+                    "flash_prefill": fc.flash_gqa_attention_cuda.launches}
+        want = {"ring_partial": shard_launches(ring_steps(RING_SP, striped), SHARD_TP,
+                                               cfg.n_layers), "flash_prefill": 0}
+        print(f"  {name} tp x sp ring: {wall:.1f} ms (phase 6, sp {RING_SP} alone: "
+              f"{phase6['wall_ms'][name]:.1f} ms); kernel launches {launches}", flush=True)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        err = check_logits(f"{name} tp x sp ring vs the unsharded dense forward", logits, dense)
+        check_next_token(f"{name} next token", int(logits[0, -1].argmax()), dense[0, -1], err)
+        del logits
+        out["wall_ms"][name], out["launches"][name] = wall, launches
+        out["max_abs_err_vs_dense"][name] = err
+        out["breakdown_ms"][name] = show_breakdown(
+            f"{name} tp x sp ring under torch.profiler", wall, device_breakdown(
+                torch, lambda s=striped: llama.forward(sharded, tokens, cfg, sp_mesh=mesh,
+                                                       ring_striped=s), steps=1))
+        gc_cuda(torch)
+    print(f"  last-position token {first} (dense)", flush=True)
+    del sharded, dense
+    gc_cuda(torch)
+    return out
+
+
+def small_sharded_step(torch):
+    """12c, small: phase 8's float32 configuration, one step over the
+    reference's 8-device plan on the card against the unsharded step on
+    the card, at phase 8's limits."""
+    llama = port("models.llama")
+    sharding, mesh_mod = port("parallel.sharding"), port("parallel.mesh")
+    cfg = llama.LlamaConfig(vocab_size=1024, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512, dtype="float32")
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_TRAIN_PLAN), ["cuda:0"] * 8)
+    sharded = sharding.shard_tree(params, mesh, llama.param_pspecs(cfg))
+    (tokens,) = train_batches(torch, cfg.vocab_size, 128, 1, SEED + 12)
+    tokens = torch.cat((tokens, tokens.flip(1)))
+    loss = float(llama.train_step(params, llama.make_optimizer(params), tokens, cfg))
+    sloss = float(llama.train_step(sharded, llama.make_optimizer(sharded), tokens, cfg))
+    loss_err = abs(sloss - loss) / abs(loss)
+    grads = grad_tree(torch, params)
+    sgrads = sharding.unshard_tree(sharding.grad_tree(sharded))
+    g_err, g_worst, _, _ = leaves_close(torch, sgrads, grads, *SMALL_STEP_LIMITS)
+    near_zero = {p: g.abs() <= SMALL_STEP_LIMITS[0] for p, g in grads.items()}
+    p_err, p_worst, n_free, free_err = leaves_close(
+        torch, sharding.unshard_tree(sharded), params, *SMALL_STEP_LIMITS, free=near_zero)
+    print(f"  small float32 step (2 layers, d 256, B=2, T=128) on {mesh}, against the "
+          f"unsharded step on the card: loss {sloss:.7f} vs {loss:.7f} (rel err "
+          f"{loss_err:.3g}); gradients worst err/limit {g_worst:.3g}, leaves {p_worst:.3g} "
+          f"({n_free} near-zero gradients held to 2*lr: max err {free_err:.3g})", flush=True)
+    if not (loss_err <= SMALL_STEP_LOSS_REL and g_worst <= 1.0 and p_worst <= 1.0
+            and free_err <= 2 * 3e-4):
+        raise AssertionError("the sharded small step disagrees with the unsharded one")
+    return {"loss_rel_err": loss_err, "grad_worst_err_over_limit": g_worst,
+            "leaf_worst_err_over_limit": p_worst, "near_zero_grads": n_free}
+
+
+def sharded_training_faults(torch, cfg, params, mesh, batches):
+    """12c's planted faults, each on its own sharded copy of the initial
+    params: (a) tp rank 1's attention output dropped (its slice of every
+    layer's ``wo`` zeroed), the first loss; (b) tp rank 1's gradients
+    lost at each of the steps, the losses and step 1's batch after them."""
+    llama, sharding = port("models.llama"), port("parallel.sharding")
+    sharded = sharding.shard_tree(params, mesh, llama.param_pspecs(cfg))
+    layers = dict(sharded["layers"], wo=zero_tp_rank(torch, sharding, sharded["layers"]["wo"], 1))
+    with torch.no_grad():
+        dropped = float(llama.loss_fn(dict(sharded, layers=layers), batches[0], cfg))
+    del layers
+    opt = llama.make_optimizer(sharded)
+    lost = []
+    for batch in batches:
+        opt.zero_grad(set_to_none=True)
+        loss = llama.loss_fn(sharded, batch, cfg)
+        loss.backward()
+        for leaf in sharding.tree_leaves(sharded):
+            for x in tp_rank_locals(leaf, 1):
+                x.grad = None
+        opt.step()
+        lost.append(float(loss.detach()))
+    with torch.no_grad():
+        lost.append(float(llama.loss_fn(sharded, batches[0], cfg)))
+    del opt, sharded
+    gc_cuda(torch)
+    return {"wo_dropped_first_loss": dropped, "grads_lost_losses": lost}
+
+
+def sharded_training_and_restore(torch, cfg, phase9):
+    """12c and 12d: three AdamW steps of the 8-layer Llama-3-8B-width
+    model over the reference's 8-device plan, then its initial params,
+    saved unsharded, restored onto a pp x tp layout and stepped once."""
+    llama = port("models.llama")
+    ckpt = port("models.checkpoint")
+    sharding, mesh_mod = port("parallel.sharding"), port("parallel.mesh")
+    fc = port("ops.flash_cuda")
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    batches = train_batches(torch, cfg.vocab_size, TRAIN_TOKENS, TRAIN_STEPS, SEED + 20)
+    folder = tempfile.mkdtemp(prefix="chip_smoke_sharded_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(folder, params)
+        save_s = time.perf_counter() - t0
+        mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_TRAIN_PLAN), ["cuda:0"] * 8)
+        faults = sharded_training_faults(torch, cfg, params, mesh, batches)
+        sharded = sharding.shard_tree(params, mesh, llama.param_pspecs(cfg))
+        del params
+        gc_cuda(torch)
+        opt = llama.make_optimizer(sharded)
+        fc.flash_gqa_attention_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(llama.train_step(sharded, opt, batch, cfg)))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            finite = math.isfinite(losses[-1]) and all(
+                bool(t.isfinite().all()) for t in sharding.distinct_locals(sharded))
+            if not finite:
+                raise AssertionError(f"sharded step {len(losses)}: loss or a leaf not finite")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = fc.flash_gqa_attention_cuda.launches
+        with torch.no_grad():
+            after = float(llama.loss_fn(sharded, batches[0], cfg))
+        # Losses 1-3, then step 1's batch after the steps, each against
+        # phase 9's: the first at SHARD_FIRST_LOSS_REL, the rest (the
+        # updates' effect) at SHARD_LATER_LOSS_REL.
+        ref = phase9["losses"] + [phase9["loss_after_steps"]]
+        limits = [SHARD_FIRST_LOSS_REL] + [SHARD_LATER_LOSS_REL] * TRAIN_STEPS
+        gaps = [rel_gap(a, b) for a, b in zip(losses + [after], ref)]
+        wo_gap = rel_gap(faults["wo_dropped_first_loss"], ref[0])
+        lost_gaps = [rel_gap(a, b) for a, b in zip(faults["grads_lost_losses"], ref)]
+        print(f"  {cfg.n_layers} layers on {mesh}: losses {losses}, step 1's batch after them "
+              f"{after!r} (phase 9, unsharded: {phase9['losses']}, "
+              f"{phase9['loss_after_steps']!r}); relative gaps {[f'{g:.3g}' for g in gaps]} "
+              f"(limits {[f'{x:.3g}' for x in limits]}); ms a step "
+              f"{[round(w, 1) for w in walls]} (phase 9: "
+              f"{[round(w, 1) for w in phase9['step_ms']]}); peak {peak:.2f} GB (phase 9: "
+              f"{phase9['max_memory_allocated_gb']:.2f}); prefill kernel launches {launches}",
+              flush=True)
+        print(f"  planted faults: tp rank 1's wo slices zeroed, first loss "
+              f"{faults['wo_dropped_first_loss']!r} ({wo_gap:.3g} off, limit "
+              f"{limits[0]:.3g}); tp rank 1's gradients lost at every step, losses and step 1's "
+              f"batch after them {faults['grads_lost_losses']} (gaps "
+              f"{[f'{g:.3g}' for g in lost_gaps]})", flush=True)
+        if not all(g <= x for g, x in zip(gaps, limits)) or launches:
+            raise AssertionError("sharded training: a loss off phase 9's, or the kernel launched")
+        if not (wo_gap > limits[0] and any(g > x for g, x in zip(lost_gaps[1:], limits[1:]))):
+            raise AssertionError("sharded training: a planted fault passed the loss limits")
+        training = {"mesh": str(mesh), "losses": losses, "loss_after_steps": after,
+                    "step_ms": walls, "loss_rel_gaps": gaps, "loss_rel_limits": limits,
+                    "fault_wo_dropped_first_loss_gap": wo_gap,
+                    "fault_grads_lost_gaps": lost_gaps, "max_memory_allocated_gb": peak}
+        del opt
+        gc_cuda(torch)
+
+        phase(f"12d. sharded: restore the saved params onto {SHARD_RESTORE_PLAN} targets")
+        rmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_RESTORE_PLAN), ["cuda:0"] * 4)
+
+        def named(spec):
+            if isinstance(spec, dict):
+                return {k: named(v) for k, v in spec.items()}
+            return sharding.NamedSharding(rmesh, spec)
+
+        target = ckpt.abstract_like(sharded, named(llama.param_pspecs(cfg)))
+        del sharded
+        gc_cuda(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ckpt.restore_checkpoint(folder, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved = ckpt.restore_checkpoint(folder)  # the saved tensors, on the host
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    bad = tree_shard_mismatches(torch, restored, saved)
+    n_locals = len(sharding.distinct_locals(restored))
+    print(f"  save (unsharded) {save_s:.2f} s; restore onto {rmesh} {restore_s:.2f} s; "
+          f"{n_locals} local tensors, each bit-equal to its slice of the saved tensor: "
+          f"{not bad}", flush=True)
+    if bad:
+        raise AssertionError(f"restored shards differ: {bad}")
+    del saved
+    loss = float(llama.train_step(restored, llama.make_optimizer(restored), batches[0], cfg))
+    finite = math.isfinite(loss) and all(
+        bool(t.isfinite().all()) for t in sharding.distinct_locals(restored))
+    print(f"  one step from the restored state on {rmesh}: loss {loss!r} (the 8-device "
+          f"plan's first: {losses[0]!r}), every leaf finite: {finite}", flush=True)
+    if not finite:
+        raise AssertionError("the step from the restored state is not finite")
+    del restored, target
+    gc_cuda(torch)
+    return {"training": training,
+            "restore": {"mesh": str(rmesh), "save_s": save_s, "restore_s": restore_s,
+                        "local_tensors": n_locals, "step_loss": loss}}
+
+
+def constrain_probe(torch, moe, sharding, mesh_mod, probe, mesh) -> str:
+    """Inside ``activate(mesh)``: ``moe._constrain`` places ``probe`` on
+    the active mesh's ranks, each local on the card and bit-equal to its
+    slice.  Returns what it found."""
+    placed = moe._constrain(probe, sharding.P("ep", "tp"))
+    ok = (mesh_mod.mesh_is_active() and mesh_mod.active_mesh() is mesh
+          and isinstance(placed, sharding.Sharded) and placed.mesh is mesh
+          and not shard_mismatches(torch, placed, probe)
+          and all(t.is_cuda for _, t in placed.distinct()))
+    if not ok:
+        raise AssertionError("moe._constrain inside activate(mesh) did not place its input "
+                             "on the mesh's ranks")
+    return f"{len(placed.distinct())} locals of {placed.local_shape} on the card, bit-equal"
+
+
+def sharded_moe(torch):
+    """12e: MoEConfig() over dp 1 x ep 2 x tp 2 inside activate(mesh):
+    float32 against the unsharded float32 forward (expert picks,
+    logits), the bf16 forward on the prefill kernel, three train steps."""
+    moe = port("models.moe")
+    sharding, mesh_mod = port("parallel.sharding"), port("parallel.mesh")
+    fc = port("ops.flash_cuda")
+    cfg = moe.MoEConfig()
+    params = moe.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    (tokens,) = train_batches(torch, cfg.vocab_size, MOE_TOKENS, 1, SEED + 30)
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_MOE_PLAN), ["cuda:0"] * 4)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = map_state(torch, params, lambda leaf: leaf.float())
+    route, outputs = moe._route, {}
+    probe = torch.arange(8.0, device="cuda").reshape(4, 2)
+    with mesh_mod.activate(mesh):
+        placed = constrain_probe(torch, moe, sharding, mesh_mod, probe, mesh)
+        sharded32 = sharding.shard_tree(params32, mesh, moe.param_pspecs(cfg))
+        try:
+            for name, tree in (("unsharded", params32), ("sharded", sharded32)):
+                records = []
+
+                def recording_route(x, router, c, records=records):
+                    dispatch, combine, aux = route(x, router, c)
+                    records.append(routed_experts(dispatch))
+                    return dispatch, combine, aux
+
+                moe._route = recording_route
+                with torch.no_grad():
+                    logits, aux = moe.forward(tree, tokens, cfg32)
+                outputs[name] = (logits, float(aux), records)
+        finally:
+            moe._route = route
+        del sharded32, params32
+        (want, want_aux, want_routes), (got, got_aux, got_routes) = (
+            outputs["unsharded"], outputs["sharded"])
+        differ = differing_tokens(got_routes, want_routes)
+        n_differ = int(differ.sum())
+        print(f"  mesh {mesh}, inside activate(mesh); float32 forward over {MOE_TOKENS} "
+              f"tokens, sharded vs unsharded: tokens routed to other experts in some layer "
+              f"{n_differ} (limit {MOE_PICK_LIMIT:.0%}); aux {got_aux!r} vs {want_aux!r}",
+              flush=True)
+        if n_differ > MOE_PICK_LIMIT * MOE_TOKENS:
+            raise AssertionError(f"sharded MoE: {n_differ} tokens routed otherwise")
+        agree = ~differ
+        err = check_logits(f"sharded vs unsharded float32 logits, {int(agree.sum())} tokens "
+                           f"routed alike", got[0, agree], want[0, agree])
+        check_next_token("sharded float32 next token", int(got[0, -1].argmax()), want[0, -1],
+                         err)
+        del outputs, got, want
+        gc_cuda(torch)
+
+        sharded = sharding.shard_tree(params, mesh, moe.param_pspecs(cfg))
+        del params
+        with torch.no_grad():
+            moe.forward(sharded, tokens, cfg)  # warm-up
+            fc.flash_gqa_attention_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, aux = moe.forward(sharded, tokens, cfg)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = fc.flash_gqa_attention_cuda.launches
+        want_launches = shard_launches(1, mesh.size("tp"), cfg.n_layers)
+        finite = bool(logits.isfinite().all()) and math.isfinite(float(aux))
+        print(f"  bf16 sharded forward on the prefill kernel: {wall:.1f} ms, prefill launches "
+              f"{launches} (expected {want_launches}), finite: {finite}", flush=True)
+        if launches != want_launches or not finite:
+            raise AssertionError("sharded bf16 MoE forward: launches or values wrong")
+        del logits
+        opt = moe.make_optimizer(sharded)
+        losses, step_ms = [], []
+        for batch in train_batches(torch, cfg.vocab_size, MOE_TRAIN_TOKENS, TRAIN_STEPS,
+                                   SEED + 31):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(moe.train_step(sharded, opt, batch, cfg)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(losses[-1]) or not all(
+                    bool(t.isfinite().all()) for t in sharding.distinct_locals(sharded)):
+                raise AssertionError(f"sharded MoE step: loss {losses[-1]} or a leaf not finite")
+        print(f"  bf16 sharded train steps at T={MOE_TRAIN_TOKENS}: losses {losses}, ms a step "
+              f"{[round(w, 1) for w in step_ms]}", flush=True)
+    outside = moe._constrain(probe, sharding.P("ep", "tp"))
+    print(f"  moe._constrain inside activate(mesh): {placed}; outside: returns its input: "
+          f"{outside is probe and not mesh_mod.mesh_is_active()}", flush=True)
+    if outside is not probe or mesh_mod.mesh_is_active():
+        raise AssertionError("moe._constrain outside a mesh is not a no-op")
+    del sharded, opt
+    gc_cuda(torch)
+    return {"launches": {"flash_prefill": launches}, "mesh": str(mesh),
+            "tokens_routed_otherwise": n_differ, "float32_max_abs_err": err,
+            "bf16_forward_ms": wall, "train_losses": losses, "train_step_ms": step_ms}
+
+
 def main() -> int:
     import torch
 
@@ -2155,6 +2755,11 @@ def main() -> int:
     prefill_hit = prefill_case(torch, peaks, 1, 256, 8448, 32, 8, 128, 8192, bf16, True)
     # The MoE forward's shape: MoEConfig()'s heads over 8192 tokens.
     prefill_moe = prefill_case(torch, peaks, 1, MOE_TOKENS, MOE_TOKENS, 8, 4, 128, 0, bf16, True)
+    # One tp shard's heads (phase 12): Llama-3-8B's and the MoE's over tp 2.
+    prefill_tp = [prefill_case(torch, peaks, *case, bf16, True) for case in (
+        (1, 8448, 8448, 32 // SHARD_TP, 8 // SHARD_TP, 128, 0),
+        (1, 256, 8448, 32 // SHARD_TP, 8 // SHARD_TP, 128, 8192),
+        (1, MOE_TOKENS, MOE_TOKENS, 8 // SHARD_TP, 4 // SHARD_TP, 128, 0))]
     prefill_edge = [
         prefill_case(torch, peaks, *case, False)
         for case in [
@@ -2175,6 +2780,8 @@ def main() -> int:
                                  [serving_ctx, serving_ctx], bf16, True)
     decode_b4 = decode_case(torch, peaks, 4, 32, 8, 128, 528, [8448, 1, 5000, 8447],
                             bf16, True)
+    decode_tp = decode_case(torch, peaks, 2, 32 // SHARD_TP, 8 // SHARD_TP, 128,
+                            serving_ctx // 16 + 1, [serving_ctx, serving_ctx], bf16, True)
     ragged16 = [8448 - 523 * i for i in range(15)] + [1]
     decode_b16 = decode_case(torch, peaks, 16, 32, 8, 128, 528, ragged16, bf16, True)
     decode_edge = [
@@ -2211,6 +2818,12 @@ def main() -> int:
                                8, 4, 128, off, bf16, True)
         for off in (0, None)
     }
+    # One (head shard, rank)'s chunk of the tp x sp ring (phase 12b).
+    ring_tp = {
+        off: ring_partial_case(torch, peaks, 1, chunk, chunk, 32 // SHARD_TP, 8 // SHARD_TP, 128,
+                               off, bf16, True)
+        for off in (0, None, -1)
+    }
     ring_edge = [
         ring_partial_case(torch, peaks, *case, False)
         for case in [
@@ -2239,6 +2852,7 @@ def main() -> int:
     phase("5. serving: index-routed miss, hit and decode on two pods")
     serve = serving(torch, params, cfg)
     offload_inputs = serve.pop("offload_inputs")
+    sharded_inputs = serve.pop("sharded_inputs")
     torch.cuda.empty_cache()
 
     phase(f"6. ring prefill: forward(sp_mesh=sp {RING_SP} on one card) over "
@@ -2248,10 +2862,21 @@ def main() -> int:
     phase("7. offload: store pod-a's prefix, serve it on pod-c")
     offload_inputs.update(ttft_miss_ms=serve["ttft_miss_ms"], ttft_hit_ms=serve["ttft_hit_ms"])
     offloaded = offload(torch, params, cfg, peaks, offload_inputs)
-    del offload_inputs, params
+    del offload_inputs
     gc_cuda(torch)
-    print(f"\n  phases 5-7's params and pools freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
-          f"GB still allocated", flush=True)
+
+    phase(f"12a. sharded: tp {SHARD_TP} serving on one card (phase 5's requests), "
+          f"{LAYERS} layers")
+    tp_serving = sharded_serving(torch, params, cfg, sharded_inputs)
+    del sharded_inputs
+    gc_cuda(torch)
+    phase(f"12b. sharded: the tp {SHARD_TP} x sp {RING_SP} ring on one card over "
+          f"{RING_TOKENS} tokens")
+    tp_ring = sharded_ring(torch, params, cfg, ring)
+    del params
+    gc_cuda(torch)
+    print(f"\n  phases 5-7's and 12a-b's params and pools freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated", flush=True)
 
     train_cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
     phase(f"8. autograd guard: Llama-3-8B widths, {TRAIN_LAYERS} of 32 layers, bf16, "
@@ -2268,33 +2893,47 @@ def main() -> int:
           f"sp {RING_SP}), float32 against dense, train steps")
     moe_run = moe_phase(torch, peaks)
 
-    phase("12. kernels")
+    phase(f"12c. sharded: training on {SHARD_TRAIN_PLAN} on one card, {TRAIN_LAYERS} layers")
+    small_sharded = small_sharded_step(torch)
+    gc_cuda(torch)
+    sharded_train = sharded_training_and_restore(torch, train_cfg, trained)
+    sharded_train["training"]["small_step_vs_unsharded"] = small_sharded
+    phase(f"12e. sharded: MoEConfig() on {SHARD_MOE_PLAN} inside activate(mesh)")
+    tp_moe = sharded_moe(torch)
+
+    phase("13. kernels")
     kernels = [
         dict(
             name="flash_prefill",
             route="cuda",
             source="llm_d_kv_cache_manager_tpu_torch/csrc/flash_prefill.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/flash_pallas.py:49",
-            launches=serve["launches"]["flash_prefill"] + moe_run["launches"]["flash_prefill"],
+            launches=(serve["launches"]["flash_prefill"] + moe_run["launches"]["flash_prefill"]
+                      + tp_serving["launches"]["flash_prefill"]
+                      + tp_moe["launches"]["flash_prefill"]),
             launches_by_path={"llama_serving": serve["launches"]["flash_prefill"],
-                              "moe_forward": moe_run["launches"]["flash_prefill"]},
+                              "moe_forward": moe_run["launches"]["flash_prefill"],
+                              "llama_serving_tp": tp_serving["launches"]["flash_prefill"],
+                              "moe_forward_ep_tp": tp_moe["launches"]["flash_prefill"]},
             **{k: prefill_full[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "eager_ms", "tflops",
                                             "library_ratio", "bound_share", "shape", "limit",
                                             "worst_err_over_limit", "planted")},
-            cases=[prefill_hit, prefill_moe] + prefill_edge,
+            cases=[prefill_hit, prefill_moe] + prefill_tp + prefill_edge,
         ),
         dict(
             name="paged_decode",
             route="cuda",
             source="llm_d_kv_cache_manager_tpu_torch/csrc/paged_decode.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/paged_decode_pallas.py:40",
-            launches=serve["launches"]["paged_decode"],
+            launches=serve["launches"]["paged_decode"] + tp_serving["launches"]["paged_decode"],
+            launches_by_path={"llama_serving": serve["launches"]["paged_decode"],
+                              "llama_serving_tp": tp_serving["launches"]["paged_decode"]},
             **{k: decode_serving[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms", "eager_ms", "tflops",
                                               "library_ratio", "bound_share", "shape", "limit",
                                               "worst_err_over_limit", "planted")},
-            cases=[decode_b4, decode_b16] + decode_edge,
+            cases=[decode_b4, decode_b16, decode_tp] + decode_edge,
         ),
         dict(
             name="ring_partial",
@@ -2302,24 +2941,30 @@ def main() -> int:
             source="llm_d_kv_cache_manager_tpu_torch/csrc/ring_partial.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/ring_flash_pallas.py:48",
             launches=(sum(n["ring_partial"] for n in ring["launches"].values())
-                      + moe_run["launches"]["ring_partial"]),
+                      + moe_run["launches"]["ring_partial"]
+                      + sum(n["ring_partial"] for n in tp_ring["launches"].values())),
             launches_by_layout={k: n["ring_partial"] for k, n in ring["launches"].items()},
             launches_by_path={**{f"llama_ring_{k}": n["ring_partial"]
                                  for k, n in ring["launches"].items()},
-                              "moe_ring_contiguous": moe_run["launches"]["ring_partial"]},
+                              "moe_ring_contiguous": moe_run["launches"]["ring_partial"],
+                              **{f"llama_ring_tp_sp_{k}": n["ring_partial"]
+                                 for k, n in tp_ring["launches"].items()}},
             **{k: ring_serving[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms", "eager_ms", "tflops",
                                                "library_ratio", "bound_share", "shape", "limit",
                                                "worst_err_over_limit", "planted",
                                                "m_max_abs_err", "l_worst_err_over_limit")},
-            cases=[ring_serving[None], ring_serving[-1], ring_moe[0], ring_moe[None]] + ring_edge,
+            cases=([ring_serving[None], ring_serving[-1], ring_moe[0], ring_moe[None]]
+                   + list(ring_tp.values()) + ring_edge),
         ),
     ]
     summary = {k: v for k, v in serve.items() if k != "launches"}
     ring_summary = {k: v for k, v in ring.items() if k != "launches"}
     moe_summary = {k: v for k, v in moe_run.items() if k != "launches"}
+    sharded = {"tp_serving": tp_serving, "tp_sp_ring": tp_ring, "moe": tp_moe, **sharded_train}
     print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "offload": offloaded,
                       "autograd_guard": guard, "training": trained, "moe": moe_summary,
+                      "sharded": sharded,
                       "layers": LAYERS, "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

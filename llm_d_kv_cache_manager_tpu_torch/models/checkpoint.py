@@ -8,8 +8,14 @@ their own dtype, bf16 included, and restored bit for bit.
 
 Restoring onto another device goes through :func:`abstract_like`:
 empty tensors of each leaf's shape and dtype on the target device, which
-:func:`restore_checkpoint` fills in place.  Without a process group the
-checkpoint is written and read by this one process.
+:func:`restore_checkpoint` fills in place.  Restoring onto a sharded
+layout, as the reference's ``abstract_like(state, shardings)``: given a
+tree of ``parallel.sharding.NamedSharding`` (e.g. of
+``llama.param_pspecs`` over a mesh) the targets are
+``parallel.sharding.Sharded`` leaves, and every local tensor is filled
+with its slice of the saved tensor.  A sharded state is saved whole.
+Without a process group the checkpoint is written and read by this one
+process.
 """
 
 from __future__ import annotations
@@ -22,6 +28,13 @@ from typing import Any, Optional, Union
 
 import torch
 import torch.distributed.checkpoint as dcp
+
+from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import (
+    NamedSharding,
+    Sharded,
+    empty,
+    unshard,
+)
 
 # What torch.distributed.checkpoint says when no process group is up
 # (the single-process save and load this module makes on purpose) and
@@ -47,7 +60,34 @@ def _detached(state: Any) -> Any:
         return {key: _detached(value) for key, value in state.items()}
     if isinstance(state, torch.Tensor):
         return state.detach()
+    if isinstance(state, Sharded):
+        return unshard(state, "cpu")
     return state
+
+
+def _staged(target: Any) -> Any:
+    """``target`` with each sharded leaf replaced by a host tensor of its
+    global shape, which ``dcp.load`` can fill."""
+    if isinstance(target, dict):
+        return {key: _staged(value) for key, value in target.items()}
+    if isinstance(target, Sharded):
+        return torch.empty(target.shape, dtype=target.dtype)
+    return target
+
+
+def _fill(target: Any, staged: Any) -> Any:
+    """Copy each staged tensor's slices into its sharded leaf's locals;
+    take every other loaded leaf as it is, into ``target``'s own dicts."""
+    if isinstance(target, dict):
+        for key, value in target.items():
+            target[key] = _fill(value, staged[key])
+        return target
+    if isinstance(target, Sharded):
+        with torch.no_grad():
+            for coord, tensor in target.distinct():
+                tensor.copy_(staged[target.slices(target.shard_index(coord))])
+        return target
+    return staged
 
 
 def save_checkpoint(path: str, state: Any) -> str:
@@ -86,15 +126,18 @@ def restore_checkpoint(path: str, target: Optional[Any] = None) -> Any:
     """Read a checkpoint written by :func:`save_checkpoint`.
 
     ``target`` (e.g. :func:`abstract_like` of the state, on the device
-    to restore onto) is filled IN PLACE, tensors keeping their device,
-    and returned.  With None, the state comes back as CPU tensors in the
-    dtypes it was saved in, every dict key as a string (an optimizer's
-    ``state`` is keyed by int: restore that into a target)."""
+    or the sharded layout to restore onto) is filled IN PLACE, tensors
+    keeping their device, and returned; a sharded leaf is read whole
+    into host memory and each local gets its slice.  With None, the
+    state comes back as CPU tensors in the dtypes it was saved in, every
+    dict key as a string (an optimizer's ``state`` is keyed by int:
+    restore that into a target)."""
     path = os.path.abspath(path)
     with _quiet():
         if target is not None:
-            dcp.load(target, checkpoint_id=path)
-            return target
+            staged = _staged(target)
+            dcp.load(staged, checkpoint_id=path)
+            return _fill(target, staged)
         metadata = dcp.FileSystemReader(path).read_metadata()
         flat = {}
         for key, meta in metadata.state_dict_metadata.items():
@@ -106,13 +149,22 @@ def restore_checkpoint(path: str, target: Optional[Any] = None) -> Any:
     return _unflatten(flat, metadata.planner_data)
 
 
-def abstract_like(state: Any, device: Optional[Union[str, torch.device]] = None) -> Any:
+def abstract_like(state: Any, shardings: Optional[Any] = None,
+                  device: Optional[Union[str, torch.device]] = None) -> Any:
     """The restore target for ``state``: an empty tensor of each tensor
     leaf's shape and dtype, on ``device`` (None: the leaf's own), and a
     copy of every other leaf (restore overwrites it with the saved
-    value)."""
+    value).  ``shardings``, a tree of ``NamedSharding`` shaped like
+    ``state`` (or like one of its subtrees' keys), makes each tensor leaf
+    it covers an empty ``Sharded`` of that layout instead; a sharded
+    leaf of ``state`` keeps its own layout."""
+    if isinstance(shardings, NamedSharding):
+        return empty(tuple(state.shape), state.dtype, shardings.mesh, shardings.spec)
     if isinstance(state, dict):
-        return {key: abstract_like(value, device) for key, value in state.items()}
+        sub = shardings if isinstance(shardings, dict) else {}
+        return {key: abstract_like(value, sub.get(key), device) for key, value in state.items()}
+    if isinstance(state, Sharded):
+        return empty(state.shape, state.dtype, state.mesh, state.spec)
     if isinstance(state, torch.Tensor):
         return torch.empty(state.shape, dtype=state.dtype,
                            device=state.device if device is None else device)

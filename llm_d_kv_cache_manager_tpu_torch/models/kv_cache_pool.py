@@ -12,16 +12,26 @@ rebound.
 Host arrays: gathers return numpy arrays with the pool's bytes (bf16 as
 ``uint16`` bit patterns, see ``utils/device.py``); scatters take either
 those bit patterns or any float array, converted by value.
+
+Sharded pools, as the reference's ``sharding=``: with a
+``parallel.sharding.NamedSharding`` (the reference's tp serving spec is
+``P(None, None, None, None, "tp", None)``), ``kv`` is a
+``parallel.sharding.Sharded`` whose every tp rank holds
+``[num_layers, num_blocks, 2, block_size, num_kv_heads / tp,
+head_dim]``; the sharded serving paths of ``models/llama.py`` write and
+read it.  The block gathers, scatters and host copies below move whole
+blocks of an unsharded pool and refuse a sharded one.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import NamedSharding, zeros
 from llm_d_kv_cache_manager_tpu_torch.utils.device import (
     from_numpy,
     resolve_device,
@@ -45,7 +55,10 @@ class KVCachePool:
         self,
         config: KVCachePoolConfig,
         device: Union[str, torch.device] = "cuda",
+        sharding: Optional[NamedSharding] = None,
     ) -> None:
+        """A pool of zeros on ``device``, or, with ``sharding``, cut over
+        its mesh (whose devices it lies on; ``device`` is then unused)."""
         self.config = config
         shape = (
             config.num_layers,
@@ -55,16 +68,22 @@ class KVCachePool:
             config.num_kv_heads,
             config.head_dim,
         )
-        self.kv = torch.zeros(
-            shape, dtype=torch_dtype(config.dtype), device=resolve_device(device)
-        )
+        dtype = torch_dtype(config.dtype)
+        if sharding is not None:
+            self.kv = zeros(shape, dtype, sharding.mesh, sharding.spec)
+        else:
+            self.kv = torch.zeros(shape, dtype=dtype, device=resolve_device(device))
+
+    @property
+    def sharded(self) -> bool:
+        return not isinstance(self.kv, torch.Tensor)
 
     @property
     def pinned_host(self) -> bool:
         """Whether gathers can stage through pinned host memory: True on
-        a CUDA pool, False on the CPU (the staging engine's fast-path
-        gate, as in the reference)."""
-        return self.kv.is_cuda
+        an unsharded CUDA pool, False on the CPU or a sharded pool (the
+        staging engine's fast-path gate, as in the reference)."""
+        return not self.sharded and self.kv.is_cuda
 
     @property
     def block_nbytes(self) -> int:
@@ -76,10 +95,13 @@ class KVCachePool:
             * c.block_size
             * c.num_kv_heads
             * c.head_dim
-            * self.kv.element_size()
+            * torch_dtype(c.dtype).itemsize
         )
 
     def _ids(self, block_ids: Sequence[int]) -> torch.Tensor:
+        if self.sharded:
+            raise TypeError("block gathers and scatters take an unsharded pool; this one is "
+                            f"{self.kv!r}")
         return torch.as_tensor(
             np.asarray(block_ids, dtype=np.int64), device=self.kv.device
         )
@@ -103,12 +125,13 @@ class KVCachePool:
         Returns ``(host, event)``: the pinned ``[n, L, 2, bs, h, d]``
         tensor and the CUDA event recorded after its copy.  The caller
         synchronizes the event before reading ``host``, so this slot's
-        copy overlaps other work until then.  Raises on a CPU pool;
+        copy overlaps other work until then.  Raises on a CPU or sharded pool;
         callers gate on :attr:`pinned_host` and use
         :meth:`gather_block_major` instead.
         """
         if not self.pinned_host:
-            raise RuntimeError("CPU pool: no pinned host staging")
+            kind = "sharded" if self.sharded else "CPU"
+            raise RuntimeError(f"{kind} pool: no pinned host staging")
         gathered = self.kv[:, self._ids(block_ids)].movedim(1, 0).contiguous()
         host = torch.empty(
             gathered.shape, dtype=gathered.dtype, pin_memory=True
@@ -136,8 +159,8 @@ class KVCachePool:
     ) -> None:
         """Upload a host block batch ``[L, n, 2, bs, h, d]`` and write it
         into the pool in place."""
-        uploaded = from_numpy(blocks, self.kv.dtype).to(self.kv.device)
-        self.kv[:, self._ids(block_ids)] = uploaded
+        ids = self._ids(block_ids)
+        self.kv[:, ids] = from_numpy(blocks, self.kv.dtype).to(self.kv.device)
 
     def write_block(self, block_id: int, block: np.ndarray) -> None:
         """Test/demo helper: set one block's contents."""

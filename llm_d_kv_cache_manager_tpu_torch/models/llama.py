@@ -29,6 +29,17 @@ Attention routing follows the tensors' device, not a backend probe:
   attention below ``flash_attention_min_len`` keys, the tiled op at or
   above it, the gather op at decode.
 
+Sharded execution: params cut by :func:`param_pspecs` over a
+``parallel.mesh.Mesh`` (``parallel.sharding.shard_tree``) carry their
+mesh, and ``forward`` (also with ``sp_mesh``, the tp x sp ring),
+``prefill_paged``, ``prefill_continue``, ``decode_step`` and
+``make_decode_step`` (over a pool cut on its kv heads), ``loss_fn`` and
+``train_step`` compute the function the unsharded params give, over dp
+x pp x tp x sp: batch shards, layer stages, head and hidden-width
+shards, sequence chunks.  The collectives are explicit and
+single-controller (see the "sharded" section below).  Logits come back
+whole, on the first rank's device.
+
 The reference's arrays are immutable; here ``prefill_*`` and
 ``decode_step`` write the new K/V into ``kv_pool`` IN PLACE and return
 ``(logits, kv_pool)`` with that same tensor, so callers that compare
@@ -58,11 +69,22 @@ from llm_d_kv_cache_manager_tpu_torch.ops.paged_decode_cuda import (
     paged_decode_attention_cuda,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import (
+    ring_body,
     ring_for_mesh,
     stripe,
     unstripe,
 )
-from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import (
+    P,
+    Sharded,
+    all_gather,
+    all_reduce,
+    distinct_locals,
+    sync_replica_grads,
+    tree_leaves,
+    tree_mesh,
+)
 from llm_d_kv_cache_manager_tpu_torch.utils.device import (
     from_numpy,
     resolve_device,
@@ -204,6 +226,29 @@ def params_from_numpy(
     }
 
 
+def param_pspecs(cfg: LlamaConfig) -> Params:
+    """The reference's spec tree for :func:`init_params`'s params (axes:
+    ``parallel/mesh.py``): the layer axis over ``pp``, heads and the
+    MLP's hidden width over ``tp``, the embedding's width over ``tp``.
+    ``parallel.sharding.shard_tree(params, mesh, param_pspecs(cfg))``
+    cuts params by it; every entry point takes the result."""
+    return {
+        "embed": P(None, "tp"),
+        "layers": {
+            "ln1": P("pp", None),
+            "ln2": P("pp", None),
+            "wq": P("pp", None, "tp", None),
+            "wk": P("pp", None, "tp", None),
+            "wv": P("pp", None, "tp", None),
+            "wo": P("pp", "tp", None, None),
+            "w_gate": P("pp", None, "tp"),
+            "w_up": P("pp", None, "tp"),
+            "w_down": P("pp", "tp", None),
+        },
+        "ln_f": P(None),
+    }
+
+
 def _layer(params: Params, i: int) -> Params:
     return {key: params["layers"][key][i] for key in _LAYER_KEYS}
 
@@ -310,6 +355,13 @@ def forward(
             "(its causal mask is derived from ring chunk indices); "
             "custom positions would be RoPE-rotated but mis-masked"
         )
+    if is_sharded(params):
+        grid = _grid(params, cfg)
+        xs, striped = _sharded_run(params, tokens, cfg, grid, positions=positions,
+                                   use_flash=use_flash, sp_mesh=sp_mesh,
+                                   striped=ring_striped, impl=ring_impl)
+        logits = _join_logits(params, grid, xs)
+        return unstripe(logits, grid.sp) if striped else logits
     dev = params["embed"].device
     tokens = tokens.to(dev)
     if positions is None:
@@ -369,7 +421,9 @@ def prefill_paged(
     block_table: [B, T/block_size] pool block ids for each sequence.
     Returns (logits [B, T, V], kv_pool) — the same pool tensor, updated.
     """
-    dev = kv_pool.device
+    if is_sharded(params):
+        return _prefill_sharded(params, tokens, kv_pool, block_table, cfg, 0)
+    dev = _plain_pool(kv_pool).device
     tokens, block_table = tokens.to(dev), block_table.to(dev)
     B, T = tokens.shape
     positions = torch.arange(T, device=dev).expand(B, T)
@@ -404,7 +458,9 @@ def prefill_continue(
     first, then the blocks to write.  Returns (suffix logits
     [B, Ts, V], kv_pool).
     """
-    dev = kv_pool.device
+    if is_sharded(params):
+        return _prefill_sharded(params, tokens, kv_pool, block_table, cfg, prefix_len)
+    dev = _plain_pool(kv_pool).device
     tokens, block_table = tokens.to(dev), block_table.to(dev)
     B, Ts = tokens.shape
     if prefix_len % cfg.block_size or Ts % cfg.block_size:
@@ -450,9 +506,13 @@ def prefill_chunked(
     block_size == 0; block_table: [B, T / block_size].  ``seq_len``
     ([B], defaults to T): each sequence's true length; the logits come
     from position ``seq_len - 1`` (clamped into range), never a pad.
-    Returns (last-position logits [B, V], kv_pool).
+    Returns (last-position logits [B, V], kv_pool).  Takes unsharded
+    params and pool only.
     """
-    dev = kv_pool.device
+    if is_sharded(params):
+        raise TypeError("prefill_chunked takes unsharded params; prefill_paged and "
+                        "prefill_continue take sharded ones")
+    dev = _plain_pool(kv_pool).device
     tokens, block_table = tokens.to(dev), block_table.to(dev)
     B, T = tokens.shape
     C = chunk_tokens
@@ -510,7 +570,9 @@ def decode_step(
     token's K/V into its pool slot in place, attends over the table,
     and returns (logits [B, V], kv_pool).
     """
-    dev = kv_pool.device
+    if is_sharded(params):
+        return _decode_sharded(params, tokens, kv_pool, block_table, context_len, cfg)
+    dev = _plain_pool(kv_pool).device
     tokens = tokens.to(dev)
     # The decode kernel reads int32 tables and lengths.
     block_table = block_table.to(dev, torch.int32).contiguous()
@@ -558,9 +620,13 @@ class CapturedDecodeStep:
     ``block_table`` may be narrower than ``max_blocks``: it is copied
     into the left columns, and the step reads nothing past a context.
     Another batch size or a wider table raises; make another step for
-    it.  On a CPU pool there is nothing to capture and every call is
-    :func:`decode_step`.  ``replays`` counts graph replays; ``graph`` is
-    the ``torch.cuda.CUDAGraph`` (None on a CPU pool), made empty here
+    it.  A sharded pool (``KVCachePool(..., sharding=...)``, with
+    sharded params) whose ranks all share one CUDA device is captured
+    whole, every shard's kernels in one graph.  On a CPU pool, or one
+    whose ranks span several devices, there is nothing to capture and
+    every call is :func:`decode_step`.  ``replays`` counts graph
+    replays; ``graph`` is the ``torch.cuda.CUDAGraph`` (None when
+    nothing is captured), made empty here
     and captured by the first call, so that a caller who wants to
     inspect the captured graph can replace it before that call with one
     that keeps it (``torch.cuda.CUDAGraph(keep_graph=True)``).
@@ -573,8 +639,16 @@ class CapturedDecodeStep:
         self.params, self.kv_pool, self.cfg = params, kv_pool, cfg
         self.batch, self.max_blocks = batch, max_blocks
         self.replays = 0
-        dev = kv_pool.device
-        self.graph = torch.cuda.CUDAGraph() if dev.type == "cuda" else None
+        if isinstance(kv_pool, Sharded):
+            # One graph holds the step of every shard when all ranks
+            # share one device; across devices every call runs eagerly.
+            devices = set(kv_pool.mesh.devices.flat)
+            dev = kv_pool.mesh.devices.flat[0]
+            self.device = dev if len(devices) == 1 and dev.type == "cuda" else None
+        else:
+            dev = kv_pool.device
+            self.device = dev if dev.type == "cuda" else None
+        self.graph = torch.cuda.CUDAGraph() if self.device is not None else None
         self.logits = None  # the graph's static output, once captured
         self.tokens = torch.zeros((batch,), dtype=torch.long, device=dev)
         self.block_table = torch.zeros((batch, max_blocks), dtype=torch.int32, device=dev)
@@ -585,11 +659,11 @@ class CapturedDecodeStep:
                            self.context_len, self.cfg)[0]
 
     def _capture(self) -> None:
-        side = torch.cuda.Stream(self.kv_pool.device)
-        side.wait_stream(torch.cuda.current_stream(self.kv_pool.device))
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self._run()
-        torch.cuda.current_stream(self.kv_pool.device).wait_stream(side)
+        torch.cuda.current_stream(self.device).wait_stream(side)
         with torch.cuda.graph(self.graph):
             self.logits = self._run()
 
@@ -607,9 +681,9 @@ class CapturedDecodeStep:
         self.tokens.copy_(tokens)
         self.block_table[:, :width].copy_(block_table)
         self.context_len.copy_(context_len)
-        if not self.kv_pool.is_cuda:
+        if self.graph is None:
             return self._run()
-        with torch.cuda.device(self.kv_pool.device):
+        with torch.cuda.device(self.device):
             if self.logits is None:
                 self._capture()
             self.graph.replay()
@@ -628,6 +702,344 @@ def make_decode_step(
     tables up to ``max_blocks`` wide, as a callable that replays one
     captured CUDA graph (see :class:`CapturedDecodeStep`)."""
     return CapturedDecodeStep(params, kv_pool, cfg, batch, max_blocks)
+
+
+# ---------------------------------------------------------------- sharded
+#
+# Params cut by param_pspecs over a Mesh (parallel/sharding.py) carry the
+# mesh, as a JAX array carries its sharding, and every entry point above
+# takes them.  The single controller walks the ranks: rank (d, p, e, s, t)
+# holds batch shard d, layer stage p, expert shard e, sequence chunk s and
+# head shard t.  An activation shard [B/dp, T/sp, D] lives on the device
+# of its tp-0 rank of the current stage; a collective moves each rank's
+# part there with .to(device) and sums or joins in rank order.  Ranks
+# along ep (and, for the expert weights, along dp and sp) hold replicas:
+# the controller computes once, on index 0.
+
+
+class _Grid:
+    """A sharded path's view of its params' mesh: each axis's degree,
+    each rank's device, each layer's stage."""
+
+    def __init__(self, mesh: Mesh, n_layers: int) -> None:
+        if set(mesh.axis_names) != set(AXIS_ORDER):
+            raise ValueError(f"a sharded path takes a mesh with the axes {AXIS_ORDER} "
+                             f"(make_mesh), not {mesh.axis_names}")
+        self.mesh = mesh
+        self.dp, self.pp, self.ep, self.sp, self.tp = (
+            mesh.size(a) for a in ("dp", "pp", "ep", "sp", "tp"))
+        if n_layers % self.pp:
+            raise ValueError(f"{n_layers} layers do not divide over pp={self.pp}")
+        self.per_stage = n_layers // self.pp
+
+    def coord(self, d=0, p=0, e=0, s=0, t=0) -> Tuple[int, ...]:
+        return self.mesh.coord(dp=d, pp=p, ep=e, sp=s, tp=t)
+
+    def dev(self, d=0, p=0, e=0, s=0, t=0) -> torch.device:
+        return self.mesh.devices[self.coord(d, p, e, s, t)]
+
+    def stage(self, layer: int) -> int:
+        return layer // self.per_stage
+
+    def take(self, leaf: Sharded, layer: Optional[int] = None, d=0, p=0, e=0, s=0,
+             t=0) -> torch.Tensor:
+        """The rank's slice of ``leaf``; of one layer for a stacked leaf,
+        whose axis 0 may be cut over ``pp``."""
+        x = leaf.locals[self.coord(d, p, e, s, t)]
+        if layer is None:
+            return x
+        return x[layer - p * self.per_stage if leaf.spec[0] == "pp" else layer]
+
+    def layer(self, params: Params, keys, i: int, d=0, p=0, e=0, s=0, t=0) -> Params:
+        return {key: self.take(params["layers"][key], i, d, p, e, s, t) for key in keys}
+
+    def cut(self, x: torch.Tensor, d: int, s: Optional[int] = None) -> torch.Tensor:
+        """Batch shard d (and sequence chunk s) of a global [B, T, ...]."""
+        b = x.shape[0] // self.dp
+        x = x[d * b : (d + 1) * b]
+        if s is None:
+            return x
+        tl = x.shape[1] // self.sp
+        return x[:, s * tl : (s + 1) * tl]
+
+    def join(self, shards: Dict[Tuple[int, int], torch.Tensor]) -> torch.Tensor:
+        """The global tensor of {(d, s): shard}, on the first rank's device."""
+        out = self.dev()
+        return torch.cat([torch.cat([shards[d, s].to(out) for s in range(self.sp)], dim=1)
+                          for d in range(self.dp)], dim=0)
+
+    def write_kv(self, kv_pool: Sharded, i: int, d: int, p: int, s: int, t: int,
+                 write: Callable) -> None:
+        """``write(layer i)`` into every copy of rank (d, p, s, t)'s pool
+        slice: copies on other devices hold the same heads."""
+        for copy in kv_pool.replicas(dp=d, pp=p, sp=s, tp=t):
+            write(copy[i - p * self.per_stage if kv_pool.spec[0] == "pp" else i])
+
+
+def is_sharded(params: Params) -> bool:
+    """Whether ``params`` were cut over a mesh (``shard_tree``)."""
+    return isinstance(params["embed"], Sharded)
+
+
+def _same_mesh(a: Mesh, b: Mesh) -> bool:
+    return a is b or (a.axis_names == b.axis_names and a.devices.shape == b.devices.shape
+                      and all(x == y for x, y in zip(a.devices.flat, b.devices.flat)))
+
+
+def _grid(params: Params, cfg, kv_pool=None) -> _Grid:
+    """The grid of sharded params, checking a pool beside them: it must
+    lie on the same mesh with its kv heads cut over ``tp`` (and maybe its
+    layers over ``pp``), and nothing else cut."""
+    if not all(isinstance(leaf, Sharded) for leaf in param_leaves(params)):
+        raise TypeError("params are partly sharded: shard every leaf (shard_tree)")
+    grid = _Grid(tree_mesh(params), cfg.n_layers)
+    if kv_pool is not None:
+        if not isinstance(kv_pool, Sharded):
+            raise TypeError("sharded params take a sharded pool (KVCachePool(..., sharding=...))")
+        spec = kv_pool.spec
+        if not (_same_mesh(kv_pool.mesh, grid.mesh) and spec[0] in (None, "pp")
+                and spec[1:4] == (None, None, None) and spec[5] is None
+                and spec[4] == ("tp" if grid.tp > 1 else spec[4]) and spec[4] in (None, "tp")):
+            raise ValueError(f"a pool cut by {spec} over {kv_pool.mesh} does not match params "
+                             f"over {grid.mesh}: cut its kv heads over tp")
+    return grid
+
+
+def _plain_pool(kv_pool) -> torch.Tensor:
+    if isinstance(kv_pool, Sharded):
+        raise TypeError("a sharded pool takes sharded params "
+                        "(shard_tree(params, mesh, param_pspecs(cfg)))")
+    return kv_pool
+
+
+def _sharded_stack(params: Params, tokens: torch.Tensor, positions: torch.Tensor, cfg,
+                   grid: _Grid, attend: Callable, mlp_block: Callable):
+    """Embed, then run every layer over the grid.  ``tokens`` and
+    ``positions``: global [B, T].  ``attend(i, d, p, t, qs, ks, vs,
+    devices)`` gives layer i's attention of batch shard d and head shard
+    t, one output per sequence chunk; ``mlp_block(i, p, xs)`` adds the
+    MLP's output to every shard of ``xs``.  Returns ``xs``, {(d, s):
+    hidden [B/dp, T/sp, D]} on the last stage's tp-0 devices."""
+    B, T = tokens.shape
+    if B % grid.dp or T % grid.sp:
+        raise ValueError(f"[B={B}, T={T}] does not divide over dp={grid.dp} x sp={grid.sp}")
+    xs = {}
+    # The embedding's width is cut over tp: each rank looks up its
+    # columns, and an all-gather joins them.
+    for d in range(grid.dp):
+        for s in range(grid.sp):
+            parts = [grid.take(params["embed"], None, d, 0, 0, s, t)[
+                grid.cut(tokens, d, s).to(grid.dev(d, 0, 0, s, t)).long()]
+                for t in range(grid.tp)]
+            xs[d, s] = all_gather(parts, grid.dev(d, 0, 0, s, 0), dim=-1)
+    keys = ("ln1", "wq", "wk", "wv", "wo")
+    for i in range(cfg.n_layers):
+        p = grid.stage(i)
+        for d in range(grid.dp):
+            lps, qkv = {}, {}
+            for s in range(grid.sp):
+                # A stage's first layer: the activations hop stages.
+                xs[d, s] = xs[d, s].to(grid.dev(d, p, 0, s, 0))
+                for t in range(grid.tp):
+                    dev = grid.dev(d, p, 0, s, t)
+                    lps[s, t] = lp = grid.layer(params, keys, i, d, p, 0, s, t)
+                    h = _rms_norm(xs[d, s].to(dev), lp["ln1"])
+                    qkv[s, t] = _qkv(h, lp, grid.cut(positions, d, s).to(dev), cfg.rope_theta)
+            attn = {}
+            for t in range(grid.tp):
+                chunks = [[qkv[s, t][j] for s in range(grid.sp)] for j in range(3)]
+                devices = [grid.dev(d, p, 0, s, t) for s in range(grid.sp)]
+                for s, out in enumerate(attend(i, d, p, t, *chunks, devices)):
+                    attn[s, t] = out
+            # wo's rows are cut over tp: an all-reduce sums the partials.
+            for s in range(grid.sp):
+                xs[d, s] = xs[d, s] + all_reduce(
+                    [_attn_out(attn[s, t], lps[s, t]) for t in range(grid.tp)], xs[d, s].device)
+        mlp_block(i, p, xs)
+    return xs
+
+
+def _tp_mlp_block(params: Params, grid: _Grid) -> Callable:
+    """The gated MLP with its hidden width cut over tp: each rank's
+    partial ``w_down`` product, summed by an all-reduce."""
+    keys = ("ln2", "w_gate", "w_up", "w_down")
+
+    def block(i: int, p: int, xs) -> None:
+        for (d, s), x in list(xs.items()):
+            parts = []
+            for t in range(grid.tp):
+                lp = grid.layer(params, keys, i, d, p, 0, s, t)
+                parts.append(_mlp(_rms_norm(x.to(grid.dev(d, p, 0, s, t)), lp["ln2"]), lp))
+            xs[d, s] = x + all_reduce(parts, x.device)
+
+    return block
+
+
+def _sharded_logits(params: Params, x: torch.Tensor, grid: _Grid, d: int, s: int):
+    """:func:`_logits` of shard (d, s): the embedding's width is cut over
+    tp, so each rank's float32 product is partial and an all-reduce sums
+    them in float32."""
+    p, w = grid.pp - 1, x.shape[-1] // grid.tp
+    parts = []
+    for t in range(grid.tp):
+        dev = grid.dev(d, p, 0, s, t)
+        h = _rms_norm(x.to(dev), grid.take(params["ln_f"], None, d, p, 0, s, t))
+        embed = grid.take(params["embed"], None, d, p, 0, s, t)
+        parts.append(torch.einsum("...d,vd->...v", h[..., t * w : (t + 1) * w].float(),
+                                  embed.float()))
+    return all_reduce(parts, x.device)
+
+
+def _join_logits(params: Params, grid: _Grid, xs) -> torch.Tensor:
+    return grid.join({k: _sharded_logits(params, x, grid, *k) for k, x in xs.items()})
+
+
+def _gather_attend(cfg, use_flash: bool) -> Callable:
+    """Attention over an sp-cut sequence without a ring: each chunk's
+    queries attend over the K/V chunks up to its own, gathered onto its
+    device (later chunks lie wholly in its future), at the ``q_offset``
+    of its first position, on the op :func:`_prefill_attention` routes
+    to.  With sp = 1, each head shard's attention on its own."""
+
+    def attend(i, d, p, t, qs, ks, vs, devices):
+        return [_prefill_attention(qs[s], all_gather(ks[: s + 1], dev, 1),
+                                   all_gather(vs[: s + 1], dev, 1), cfg,
+                                   q_offset=s * qs[0].shape[1], use_flash=use_flash)
+                for s, dev in enumerate(devices)]
+
+    return attend
+
+
+def _sharded_run(params: Params, tokens: torch.Tensor, cfg, grid: _Grid, *,
+                 positions: Optional[torch.Tensor] = None, use_flash: bool = True,
+                 sp_mesh: Optional[Mesh] = None, striped: bool = False, impl: str = "auto",
+                 mlp_block: Optional[Callable] = None):
+    """The dense forward's layers over sharded params (``forward``'s
+    arguments; ``mlp_block`` replaces the gated MLP).  Returns (xs,
+    striped): the hidden shards of :func:`_sharded_stack` and whether
+    they are in the stripe layout."""
+    B, T = tokens.shape
+    out = grid.dev()
+    tokens = tokens.to(out)
+    positions = (torch.arange(T, device=out).expand(B, T) if positions is None
+                 else positions.to(out))
+    if sp_mesh is not None:
+        if not _same_mesh(sp_mesh, grid.mesh):
+            raise ValueError(f"sp_mesh {sp_mesh} is not the params' mesh {grid.mesh}")
+        striped = striped and grid.sp > 1
+        if striped:
+            tokens, positions = stripe(tokens, grid.sp), stripe(positions, grid.sp)
+        body = ring_body(impl, out.type)
+
+        def attend(i, d, p, t, qs, ks, vs, devices):
+            return body(qs, ks, vs, devices, striped=striped)
+    else:
+        striped = False
+        attend = _gather_attend(cfg, use_flash)
+    xs = _sharded_stack(params, tokens, positions, cfg, grid, attend,
+                        mlp_block or _tp_mlp_block(params, grid))
+    return xs, striped
+
+
+def _sharded_nll(params: Params, tokens: torch.Tensor, grid: _Grid, xs) -> torch.Tensor:
+    """:func:`next_token_nll` over the shards, in its shift-and-mask
+    form: a chunk's last target is the next chunk's first token, taken
+    from the global roll; each shard's logits are made and dropped in
+    turn, and the shards' sums add in rank order."""
+    B, T = tokens.shape
+    out = grid.dev()
+    tokens = tokens.to(out).long()
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = (torch.arange(T, device=out) < T - 1).expand(B, T)
+    sums = []
+    for (d, s), x in xs.items():
+        logp = torch.log_softmax(_sharded_logits(params, x, grid, d, s), dim=-1)
+        nll = -torch.gather(logp, -1, grid.cut(targets, d, s).to(logp.device)[..., None])[..., 0]
+        sums.append((nll * grid.cut(mask, d, s).to(nll.device, nll.dtype)).sum())
+    return all_reduce(sums, out) / (B * (T - 1))
+
+
+def _prefill_sharded(params, tokens, kv_pool, block_table, cfg, prefix_len: int):
+    """``prefill_paged`` (``prefix_len`` 0) and ``prefill_continue`` over
+    sharded params and pool: each chunk attends over the cached prefix,
+    read from its rank's pool slice, and the chunks up to its own; then
+    every chunk's K/V goes into every copy of its head slice."""
+    grid = _grid(params, cfg, kv_pool)
+    out = grid.dev()
+    tokens, table = tokens.to(out), block_table.to(out).long()
+    B, Ts = tokens.shape
+    bs = cfg.block_size
+    if prefix_len % bs or Ts % (bs * grid.sp):
+        raise ValueError(f"prefix_len must be a block_size multiple and Ts a multiple of "
+                         f"block_size x sp (prefix {prefix_len}, Ts {Ts}, block {bs}, "
+                         f"sp {grid.sp})")
+    npre, chunk_blocks = prefix_len // bs, Ts // bs // grid.sp
+    positions = (prefix_len + torch.arange(Ts, device=out)).expand(B, Ts)
+
+    def attend(i, d, p, t, qs, ks, vs, devices):
+        rows = grid.cut(table, d)
+        outs = []
+        for s, dev in enumerate(devices):
+            k_parts, v_parts = list(ks[: s + 1]), list(vs[: s + 1])
+            if npre:
+                kv_layer = grid.take(kv_pool, i, d, p, 0, s, t)
+                pre = kv_layer[rows[:, :npre].to(dev)].permute(0, 2, 1, 3, 4, 5)
+                pre = pre.reshape(rows.shape[0], 2, prefix_len, *ks[0].shape[2:])
+                k_parts.insert(0, pre[:, 0].to(ks[0].dtype))
+                v_parts.insert(0, pre[:, 1].to(vs[0].dtype))
+            outs.append(_prefill_attention(
+                qs[s], all_gather(k_parts, dev, 1), all_gather(v_parts, dev, 1), cfg,
+                q_offset=prefix_len + s * qs[0].shape[1]))
+        for s in range(grid.sp):
+            ids = rows[:, npre + s * chunk_blocks : npre + (s + 1) * chunk_blocks]
+            grid.write_kv(kv_pool, i, d, p, s, t, lambda layer, s=s, ids=ids: _scatter_kv_blocks(
+                layer, ks[s].to(layer.device), vs[s].to(layer.device), ids.to(layer.device), bs))
+        return outs
+
+    xs = _sharded_stack(params, tokens, positions, cfg, grid, attend,
+                        _tp_mlp_block(params, grid))
+    return _join_logits(params, grid, xs), kv_pool
+
+
+def _decode_sharded(params, tokens, kv_pool, block_table, context_len, cfg):
+    """``decode_step`` over sharded params and pool (dp x pp x tp): each
+    head shard writes its K/V into every copy of its pool slice and runs
+    the decode kernel on its own."""
+    grid = _grid(params, cfg, kv_pool)
+    if grid.sp > 1:
+        raise ValueError(f"a decode step has one token a sequence; sp={grid.sp} cuts nothing")
+    out = grid.dev()
+    tokens = tokens.to(out)
+    block_table = block_table.to(out, torch.int32)
+    context_len = context_len.to(out, torch.int32)
+    if tokens.shape[0] % grid.dp:
+        raise ValueError(f"batch {tokens.shape[0]} does not divide over dp={grid.dp}")
+    pos = context_len.long() - 1
+    block_ids = torch.gather(block_table.long(), 1, (pos // cfg.block_size)[:, None])[:, 0]
+    slot = pos % cfg.block_size
+    # The kernel reads contiguous, 16-byte-aligned tables and lengths: a
+    # batch shard's rows are copied.
+    tables = [grid.cut(block_table, d).clone() for d in range(grid.dp)]
+    lens = [grid.cut(context_len, d).clone() for d in range(grid.dp)]
+
+    def attend(i, d, p, t, qs, ks, vs, devices):
+        dev = devices[0]
+        kv_new = torch.stack((ks[0][:, 0], vs[0][:, 0]), dim=1)  # [b, 2, Hkv/tp, Dh]
+        ids, slots = grid.cut(block_ids, d), grid.cut(slot, d)
+
+        def write(layer):
+            layer[ids.to(layer.device), :, slots.to(layer.device)] = kv_new.to(
+                layer.device, layer.dtype)
+
+        grid.write_kv(kv_pool, i, d, p, 0, t, write)
+        attn = paged_decode_attention_cuda(
+            qs[0][:, 0].contiguous(), grid.take(kv_pool, i, d, p, 0, 0, t),
+            tables[d].to(dev), lens[d].to(dev))
+        return [attn[:, None]]
+
+    xs = _sharded_stack(params, tokens[:, None], pos[:, None], cfg, grid, attend,
+                        _tp_mlp_block(params, grid))
+    return _join_logits(params, grid, xs)[:, 0], kv_pool
 
 
 # ---------------------------------------------------------------- training
@@ -650,7 +1062,13 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     """Next-token cross entropy over tokens [B, T], through the dense
-    attention op (``use_flash=False``): the kernels have no backward."""
+    attention op (``use_flash=False``): the kernels have no backward.
+    Over sharded params each shard's logits feed the loss in turn (the
+    sp chunks' dense attention gathers K/V; see :func:`_sharded_nll`)."""
+    if is_sharded(params):
+        grid = _grid(params, cfg)
+        xs, _ = _sharded_run(params, tokens, cfg, grid, use_flash=False)
+        return _sharded_nll(params, tokens, grid, xs)
     logits = forward(params, tokens, cfg, use_flash=False)
     return next_token_nll(logits, tokens.to(logits.device))
 
@@ -658,11 +1076,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Ten
 def param_leaves(params: Params) -> Iterator[torch.Tensor]:
     """The tensors of a params tree, depth first in dict order: the
     order of the optimizer's param indices."""
-    for value in params.values():
-        if isinstance(value, dict):
-            yield from param_leaves(value)
-        else:
-            yield value
+    return tree_leaves(params)
 
 
 def make_optimizer(params: Params, lr: float = 3e-4) -> torch.optim.AdamW:
@@ -672,19 +1086,23 @@ def make_optimizer(params: Params, lr: float = 3e-4) -> torch.optim.AdamW:
     optax's ``scale_by_adam``, ``add_decayed_weights`` and
     ``scale_by_learning_rate`` chain in exact arithmetic.  Turns on
     ``requires_grad`` of every leaf: these are training's params, which
-    the kernels then refuse outside ``torch.no_grad()``."""
-    leaves = [leaf.requires_grad_() for leaf in param_leaves(params)]
+    the kernels then refuse outside ``torch.no_grad()``.  Over sharded
+    params it steps every distinct local tensor once."""
+    leaves = [leaf.requires_grad_() for leaf in distinct_locals(params)]
     return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
 
 
 def optimizer_step(
-    loss: Callable[[], torch.Tensor], optimizer: torch.optim.Optimizer
+    loss: Callable[[], torch.Tensor], optimizer: torch.optim.Optimizer, params: Params
 ) -> torch.Tensor:
-    """One step: zero the grads, differentiate ``loss()``, update the
-    params in place.  Returns the loss, detached."""
+    """One step: zero the grads, differentiate ``loss()``, give every
+    copy of a sharded slice the slice's whole gradient
+    (``sync_replica_grads`` of ``params``), update the params in place.
+    Returns the loss, detached."""
     optimizer.zero_grad(set_to_none=True)
     value = loss()
     value.backward()
+    sync_replica_grads(params)
     optimizer.step()
     return value.detach()
 
@@ -695,4 +1113,4 @@ def train_step(
     """One AdamW step on :func:`loss_fn`, updating ``params`` and
     ``optimizer`` (from :func:`make_optimizer`) in place; returns the
     loss before the update."""
-    return optimizer_step(lambda: loss_fn(params, tokens, cfg), optimizer)
+    return optimizer_step(lambda: loss_fn(params, tokens, cfg), optimizer, params)

@@ -14,10 +14,17 @@ in every config, since its logits decide the routing.
 Routing picks must equal the reference's: top-k is ``k`` rounds of
 argmax (ties to the first expert on both sides), queue positions come
 from a float32 cumsum, and the gates are renormalized by
-``max(gate_sum, 1e-9)``.  The reference's expert sharding
-(``param_pspecs``, ``_constrain``) waits for sharded meshes; outside a
-mesh ``_constrain`` is a no-op there, so leaving it out changes no
-result.
+``max(gate_sum, 1e-9)``.
+
+Sharded: params cut by :func:`param_pspecs` (experts over ``ep``, each
+expert's hidden width over ``tp``) run ``forward``, ``loss_fn`` and
+``train_step`` over dp x pp x ep x tp x sp, the attention as in
+``models/llama.py``.  Routing is global, as under the reference's jit:
+every batch shard's and sequence chunk's normed tokens are gathered in
+global token order, so capacity and queue positions are those of all
+B x T tokens; :func:`_constrain` places the experts' batches on the ep
+ranks (the dispatch), each (ep, tp) rank runs its experts' slice, and
+the combine sums the ep ranks' outputs.
 """
 
 from __future__ import annotations
@@ -31,17 +38,24 @@ import torch
 import torch.nn.functional as F
 
 from llm_d_kv_cache_manager_tpu_torch.models.llama import (
+    _grid,
+    _Grid,
+    _join_logits,
     _logits,
     _normal,
     _prefill_attention,
     _qkv,
     _rms_norm,
+    _sharded_nll,
+    _sharded_run,
+    is_sharded,
     make_optimizer,  # noqa: F401  (the reference's moe.make_optimizer)
     next_token_nll,
     optimizer_step,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import ring_for_mesh
-from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh, active_mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import P, all_reduce, shard
 from llm_d_kv_cache_manager_tpu_torch.utils.device import (
     from_numpy,
     resolve_device,
@@ -162,6 +176,39 @@ def params_from_numpy(
     }
 
 
+def param_pspecs(cfg: MoEConfig) -> Params:
+    """The reference's spec tree (axes: ``parallel/mesh.py``): experts
+    over ``ep``, each expert's hidden width over ``tp``, the layer axis
+    over ``pp``, attention as in ``llama.param_pspecs``."""
+    return {
+        "embed": P(None, "tp"),
+        "layers": {
+            "ln1": P("pp", None),
+            "ln2": P("pp", None),
+            "wq": P("pp", None, "tp", None),
+            "wk": P("pp", None, "tp", None),
+            "wv": P("pp", None, "tp", None),
+            "wo": P("pp", "tp", None, None),
+            "router": P("pp", None, None),
+            "w_gate": P("pp", "ep", None, "tp"),
+            "w_up": P("pp", "ep", None, "tp"),
+            "w_down": P("pp", "ep", "tp", None),
+        },
+        "ln_f": P(None),
+    }
+
+
+def _constrain(x: torch.Tensor, spec: P, mesh: Optional[Mesh] = None):
+    """The reference's sharding constraint, made explicit.  Outside any
+    mesh (none given, none active: ``parallel.mesh.activate`` or ``with
+    mesh:``) it returns ``x`` itself, the reference's deterministic
+    no-op.  Otherwise it places ``x`` as ``spec`` says over the mesh:
+    a ``parallel.sharding.Sharded`` whose every rank holds its slice on
+    its device, autograd's graph kept."""
+    mesh = mesh if mesh is not None else active_mesh()
+    return x if mesh is None else shard(x, mesh, spec)
+
+
 def _layer(params: Params, i: int) -> Params:
     return {key: params["layers"][key][i] for key in _LAYER_KEYS}
 
@@ -237,6 +284,57 @@ def _moe_mlp(
     return out.reshape(B, T, D), aux
 
 
+def _sharded_moe_block(params: Params, cfg: MoEConfig, grid: _Grid, B: int, T: int,
+                       auxes: list):
+    """The routed MLP over sharded params: the normed tokens of every
+    (batch shard, sequence chunk) gathered in global token order onto the
+    stage's first rank, routed there as one [B*T] batch, the experts'
+    batches placed on the ep ranks (:func:`_constrain`), each (ep, tp)
+    rank's partial product summed over tp, and the combine summed over
+    ep, in rank order.  Appends each layer's aux loss to ``auxes``."""
+    E = cfg.n_experts // grid.ep
+
+    def block(i: int, p: int, xs) -> None:
+        home = grid.dev(0, p)
+        normed = {(d, s): _rms_norm(x, grid.take(params["layers"]["ln2"], i, d, p, 0, s, 0))
+                  for (d, s), x in xs.items()}
+        flat = grid.join(normed).to(home).reshape(B * T, -1)
+        dispatch, combine, aux = _route(flat, grid.take(params["layers"]["router"], i, 0, p),
+                                        cfg)
+        auxes.append(aux)
+        expert_in = _constrain(torch.einsum("sec,sd->ecd", dispatch.to(flat.dtype), flat),
+                               P("ep", None, None), grid.mesh)
+        outs = []
+        for e in range(grid.ep):
+            parts = []
+            for t in range(grid.tp):
+                lp = grid.layer(params, ("w_gate", "w_up", "w_down"), i, 0, p, e, 0, t)
+                x_in = expert_in.locals[grid.coord(0, p, e, 0, t)]
+                gate = torch.einsum("ecd,edf->ecf", x_in, lp["w_gate"])
+                up = torch.einsum("ecd,edf->ecf", x_in, lp["w_up"])
+                hidden = F.silu(gate.float()).to(x_in.dtype) * up
+                parts.append(torch.einsum("ecf,efd->ecd", hidden, lp["w_down"]))
+            expert_out = all_reduce(parts, grid.dev(0, p, e))
+            weights = combine[:, e * E : (e + 1) * E].to(expert_out.device, expert_out.dtype)
+            outs.append(torch.einsum("sec,ecd->sd", weights, expert_out))
+        out = all_reduce(outs, home).reshape(B, T, -1)
+        for (d, s), x in list(xs.items()):
+            xs[d, s] = x + grid.cut(out, d, s).to(x.device)
+
+    return block
+
+
+def _sharded_forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig, use_flash: bool,
+                     sp_mesh: Optional[Mesh], ring_impl: str):
+    """(grid, hidden shards, aux) of the sharded forward."""
+    grid = _grid(params, cfg)
+    auxes = []
+    xs, _ = _sharded_run(params, tokens, cfg, grid, use_flash=use_flash, sp_mesh=sp_mesh,
+                         impl=ring_impl,
+                         mlp_block=_sharded_moe_block(params, cfg, grid, *tokens.shape, auxes))
+    return grid, xs, all_reduce(auxes, grid.dev()) / cfg.n_layers
+
+
 def forward(
     params: Params,
     tokens: torch.Tensor,
@@ -252,7 +350,12 @@ def forward(
     ``sp_mesh``: ring attention over the mesh's ``sp`` axis, in the
     CONTIGUOUS layout only: capacity routing consumes expert slots in
     token order, so the striped layout would change which tokens
-    overflow.  ``ring_impl`` as in ``llama.forward``."""
+    overflow.  ``ring_impl`` as in ``llama.forward``.  Over sharded
+    params (see the module's note) the logits come back whole on the
+    first rank's device."""
+    if is_sharded(params):
+        grid, xs, aux = _sharded_forward(params, tokens, cfg, use_flash, sp_mesh, ring_impl)
+        return _join_logits(params, grid, xs), aux
     B, T = tokens.shape
     dev = params["embed"].device
     tokens = tokens.to(dev)
@@ -280,6 +383,9 @@ def forward(
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """Next-token cross entropy plus the router's load-balancing loss,
     through the dense attention op (``use_flash=False``)."""
+    if is_sharded(params):
+        grid, xs, aux = _sharded_forward(params, tokens, cfg, False, None, "auto")
+        return _sharded_nll(params, tokens, grid, xs) + cfg.router_aux_weight * aux
     logits, aux = forward(params, tokens, cfg, use_flash=False)
     return next_token_nll(logits, tokens.to(logits.device)) + cfg.router_aux_weight * aux
 
@@ -290,4 +396,4 @@ def train_step(
     """One AdamW step on :func:`loss_fn`, updating ``params`` and
     ``optimizer`` (``make_optimizer(params)``, shared with the Llama
     family) in place; returns the loss before the update."""
-    return optimizer_step(lambda: loss_fn(params, tokens, cfg), optimizer)
+    return optimizer_step(lambda: loss_fn(params, tokens, cfg), optimizer, params)

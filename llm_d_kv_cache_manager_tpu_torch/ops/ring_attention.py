@@ -30,8 +30,12 @@ VMEM-style length cap.  The reference's ``interpret`` (Pallas
 interpret mode) and its kernel tiling knobs ``q_block`` and
 ``kv_chunk`` have no counterpart.
 
-Only the ``sp`` ring and a ``dp`` batch split are ported: a mesh that
-uses ``tp``, ``pp`` or ``ep`` raises ``NotImplementedError``.
+``head_axis`` (``"tp"``) cuts the heads too, the reference's tp x sp
+composition: H and Hkv divide by the same degree, which keeps the GQA
+group, and each head shard runs its own ring over the ranks of its tp
+index.  Ranks along an axis the ring does not use (``pp``, ``ep``, and
+``tp`` without ``head_axis``) hold replicas and would compute the same
+thing; the single controller runs the ring once, on their index 0.
 """
 
 from __future__ import annotations
@@ -50,13 +54,9 @@ from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash import (
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash_cuda import (
     flash_partial_cuda,
 )
-from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, Mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP, Mesh
 
 _IMPLS = ("auto", "einsum", "flash")
-_TODO = (
-    "not ported yet (ROADMAP.md Queue A: tp/pp/ep composition of the "
-    "ring, head_axis)"
-)
 
 
 def _ring_driver(states: List, k_chunks: Sequence[torch.Tensor],
@@ -186,24 +186,33 @@ def unstripe(x: torch.Tensor, ring_size: int, axis: int = 1) -> torch.Tensor:
     return stripe(x, T // ring_size, axis=axis)
 
 
-def _rings(mesh: Mesh, axis_name: str, batch_axis: Optional[str]) -> np.ndarray:
-    """The mesh's devices as [batch shards, ring ranks].  Every axis
-    other than ``axis_name`` and ``batch_axis`` must have size 1."""
+def _rings(mesh: Mesh, axis_name: str, batch_axis: Optional[str],
+           head_axis: Optional[str]) -> np.ndarray:
+    """The mesh's devices as [batch shards, head shards, ring ranks],
+    index 0 on every other axis (replicas of the same computation)."""
     names = mesh.axis_names
-    used = [a for a in (batch_axis, axis_name) if a is not None]
+    used = [axis_name, batch_axis, head_axis]
     for a in used:
-        if a not in names:
+        if a is not None and a not in names:
             raise ValueError(f"mesh has no axis {a!r} (axes {names})")
-    for a in names:
-        if a not in used and mesh.shape[a] > 1:
-            raise NotImplementedError(
-                f"ring attention over a mesh with {a}={mesh.shape[a]} is {_TODO}"
-            )
-    order = [names.index(a) for a in used] + [
-        i for i, a in enumerate(names) if a not in used
-    ]
-    n_batch = mesh.shape[batch_axis] if batch_axis is not None else 1
-    return np.transpose(mesh.devices, order).reshape(n_batch, mesh.shape[axis_name])
+    if len({a for a in used if a is not None}) != sum(a is not None for a in used):
+        raise ValueError(f"ring, batch and head axes must differ, got {used}")
+    index = tuple(slice(None) if a in used else 0 for a in names)
+    kept = [a for a in names if a in used]
+    order = [kept.index(a) for a in (batch_axis, head_axis, axis_name) if a is not None]
+    devices = np.transpose(mesh.devices[index], order)
+    return devices.reshape(mesh.size(batch_axis) if batch_axis else 1,
+                           mesh.size(head_axis) if head_axis else 1, mesh.shape[axis_name])
+
+
+def ring_body(impl: str, platform: str) -> Callable:
+    """The step body ``(q_chunks, k_chunks, v_chunks, devices, striped)
+    -> out_chunks`` that ``impl`` names on a mesh of ``platform``
+    (``"auto"``: the kernel's body on CUDA, the einsum body elsewhere)."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown ring impl {impl!r}")
+    resolved = impl if impl != "auto" else ("flash" if platform == "cuda" else "einsum")
+    return _ring_attention_local_flash if resolved == "flash" else _ring_attention_local
 
 
 def ring_attention_sharded(
@@ -215,65 +224,62 @@ def ring_attention_sharded(
     impl: str = "auto",
 ):
     """Returns a callable ``(q, k, v) -> out`` over [B, T, H(kv), D]
-    tensors: T is cut into one chunk per rank of ``axis_name`` and B
-    into one shard per index of ``batch_axis``; each chunk is made
-    contiguous (the kernel requires it) and placed on its rank's
-    device, each batch shard runs its ring, and the output comes back
-    in one [B, T, H, D] tensor on q's device.
+    tensors: T is cut into one chunk per rank of ``axis_name``, B into
+    one shard per index of ``batch_axis`` and, with ``head_axis``, H and
+    Hkv into one shard per index of that axis; each chunk is made
+    contiguous (the kernel requires it) and placed on its rank's device,
+    each (batch, head) shard runs its ring, and the output comes back in
+    one [B, T, H, D] tensor on q's device.
 
     ``striped=True`` expects q/k/v already in the :func:`stripe` layout
     and returns output in it.  RoPE must be applied before striping (or
     with striped positions).  ``impl``: ``"auto"`` (the kernel on CUDA,
-    einsum on the CPU), ``"flash"`` or ``"einsum"``.  ``head_axis`` (the
-    reference's tp x sp composition) is not ported yet and raises."""
-    if head_axis is not None:
-        raise NotImplementedError(f"head_axis={head_axis!r} is {_TODO}")
-    if impl not in _IMPLS:
-        raise ValueError(f"unknown ring impl {impl!r}")
-    rings = _rings(mesh, axis_name, batch_axis)
-    n_batch, ring_size = rings.shape
-    platform = rings[0, 0].type
-    resolved = impl if impl != "auto" else ("flash" if platform == "cuda" else "einsum")
-    body = _ring_attention_local_flash if resolved == "flash" else _ring_attention_local
+    einsum on the CPU), ``"flash"`` or ``"einsum"``."""
+    rings = _rings(mesh, axis_name, batch_axis, head_axis)
+    n_batch, n_heads, ring_size = rings.shape
+    body = ring_body(impl, rings[0, 0, 0].type)
 
     def run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        B, T = q.shape[:2]
-        if B % n_batch or T % ring_size:
+        B, T, H = q.shape[:3]
+        Hkv = k.shape[2]
+        if B % n_batch or T % ring_size or H % n_heads or Hkv % n_heads:
             raise ValueError(
-                f"[B={B}, T={T}] does not divide over {n_batch} batch shards "
-                f"x {ring_size} ring ranks"
+                f"[B={B}, T={T}, H={H}, Hkv={Hkv}] does not divide over {n_batch} batch "
+                f"shards x {ring_size} ring ranks x {n_heads} head shards"
             )
-        b_loc, t_loc = B // n_batch, T // ring_size
+        b_loc, t_loc, h_loc, hkv_loc = B // n_batch, T // ring_size, H // n_heads, Hkv // n_heads
         shards = []
         for d in range(n_batch):
-            devices = list(rings[d])
+            heads = []
+            for h in range(n_heads):
+                devices = list(rings[d, h])
 
-            def cut(x):
-                x = x[d * b_loc : (d + 1) * b_loc]
-                return [
-                    x[:, r * t_loc : (r + 1) * t_loc].contiguous().to(devices[r])
-                    for r in range(ring_size)
-                ]
+                def cut(x, width):
+                    x = x[d * b_loc : (d + 1) * b_loc, :, h * width : (h + 1) * width]
+                    return [
+                        x[:, r * t_loc : (r + 1) * t_loc].contiguous().to(devices[r])
+                        for r in range(ring_size)
+                    ]
 
-            outs = body(cut(q), cut(k), cut(v), devices, striped=striped)
-            shards.append(torch.cat([o.to(q.device) for o in outs], dim=1))
+                outs = body(cut(q, h_loc), cut(k, hkv_loc), cut(v, hkv_loc), devices,
+                            striped=striped)
+                heads.append(torch.cat([o.to(q.device) for o in outs], dim=1))
+            shards.append(torch.cat(heads, dim=2))
         return torch.cat(shards, dim=0)
 
     return run
 
 
 def ring_for_mesh(sp_mesh: Mesh, striped: bool = False, impl: str = "auto"):
-    """Model-layer convenience: the ring over ``sp`` with the batch on
-    ``dp`` when that axis has degree > 1.  The reference also shards
-    heads over ``tp``; here a mesh with ``tp``, ``pp`` or ``ep`` > 1
-    raises ``NotImplementedError``."""
-    for name in sp_mesh.axis_names:
-        if name not in (AXIS_DP, AXIS_SP) and sp_mesh.shape[name] > 1:
-            raise NotImplementedError(
-                f"forward(sp_mesh=...) with {name}={sp_mesh.shape[name]} is {_TODO}"
-            )
-    batch_axis = AXIS_DP if sp_mesh.shape.get(AXIS_DP, 1) > 1 else None
-    return ring_attention_sharded(sp_mesh, batch_axis=batch_axis, striped=striped, impl=impl)
+    """Model-layer convenience, gated as in the reference: the ring over
+    ``sp``, with the batch on ``dp`` and the heads on ``tp`` where those
+    axes have degree > 1."""
+
+    def axis_if_used(name):
+        return name if sp_mesh.size(name) > 1 else None
+
+    return ring_attention_sharded(sp_mesh, batch_axis=axis_if_used(AXIS_DP),
+                                  head_axis=axis_if_used(AXIS_TP), striped=striped, impl=impl)
 
 
 def ring_attention(
@@ -293,7 +299,8 @@ def ring_attention(
     ring_size = mesh.shape[axis_name]
     if striped:
         q, k, v = (stripe(x, ring_size) for x in (q, k, v))
-    out = ring_attention_sharded(mesh, axis_name, batch_axis, striped=striped, impl=impl)(q, k, v)
+    out = ring_attention_sharded(mesh, axis_name, batch_axis, striped=striped,
+                                 impl=impl)(q, k, v)
     if striped:
         out = unstripe(out, ring_size)
     return out

@@ -18,17 +18,22 @@ a JAX ``Mesh``.  So is the port.  A :class:`Mesh` is an array of
 and several entries may name the same device.  On one GPU,
 ``make_mesh(MeshPlan(dp=1, sp=4), ["cuda:0"] * 4)`` is a 4-rank ring
 whose ranks take turns on the card; on the CPU, ``["cpu"] * 8`` plays
-the part of the reference tests' eight virtual host devices.  A
+the part of the reference tests' eight virtual host devices.
+
+:func:`activate` (or ``with mesh:``) makes a mesh the active one, as the
+reference's ``jax.set_mesh`` does, so that ``moe._constrain`` can place
+a tensor on its ranks; :func:`mesh_is_active` says whether one is.  A
 transport over ``torch.distributed`` process groups, and the
-reference's ``make_hybrid_mesh``, ``activate`` and ``mesh_is_active``,
-are not ported yet.
+reference's ``make_hybrid_mesh``, are not ported yet.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,9 +110,59 @@ class Mesh:
     def shape(self) -> "OrderedDict[str, int]":
         return OrderedDict(zip(self.axis_names, self.devices.shape))
 
+    def size(self, axis: str) -> int:
+        """The degree of ``axis``; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
+
+    def coord(self, **index: int) -> Tuple[int, ...]:
+        """The coordinate of the rank at ``index`` (``dp=1, tp=0``, ...),
+        0 on every axis not named."""
+        unknown = set(index) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"mesh has no axes {sorted(unknown)} (axes {self.axis_names})")
+        return tuple(index.get(a, 0) for a in self.axis_names)
+
+    def __enter__(self) -> "Mesh":
+        _ACTIVE.stack.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ACTIVE.stack.pop()
+
     def __repr__(self) -> str:
         sizes = ", ".join(f"{a}={s}" for a, s in self.shape.items())
         return f"Mesh({sizes}; {sorted({str(d) for d in self.devices.flat})})"
+
+
+class _Active(threading.local):
+    """The meshes entered on this thread, innermost last."""
+
+    def __init__(self) -> None:
+        self.stack = []
+
+
+_ACTIVE = _Active()
+
+
+@contextmanager
+def activate(mesh: Mesh) -> Iterator[Mesh]:
+    """Enter ``mesh`` as the active mesh for the block, as the
+    reference's ``activate`` (``jax.set_mesh``) does; ``with mesh:`` is
+    the same.  Contexts nest; the innermost is the active one."""
+    with mesh:
+        yield mesh
+
+
+def mesh_is_active() -> bool:
+    """Whether a mesh is active on this thread (:func:`activate` or
+    ``with mesh:``).  Model code makes its placement constraints a no-op
+    outside any mesh, as the reference does."""
+    return bool(_ACTIVE.stack)
+
+
+def active_mesh() -> Optional[Mesh]:
+    """The innermost active mesh, or None."""
+    return _ACTIVE.stack[-1] if _ACTIVE.stack else None
 
 
 def make_mesh(

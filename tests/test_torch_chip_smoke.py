@@ -4,8 +4,10 @@ the tie-aware next-token check of the prefix-hit contract, the two
 counts of decode kernel launches (a profiler window's rows, a captured
 graph's kernel nodes), phase 7's file-hash choice per group, tree
 comparison, rate and bound arithmetic, mount lookup and file helpers,
-and phases 8-11's model FLOP count of a train step, expert-pick
-comparison, nested-state walks, byte totals and comparisons."""
+phases 8-11's model FLOP count of a train step, expert-pick
+comparison, nested-state walks, byte totals and comparisons, and phase
+12's launch counts per shard, shard-slice comparison and the planted
+faults of the sharded training check."""
 
 import pathlib
 import runpy
@@ -294,3 +296,91 @@ def test_leaves_close_measures_outside_the_free_elements():
     assert worst == pytest.approx(0.0002 / (1e-6 + 2e-4), rel=1e-3)
     with pytest.raises(AssertionError, match="trees differ"):
         smoke["leaves_close"](torch, {"a": got["a"]}, want, 1e-6, 1e-4)
+
+
+def test_sharded_launch_counts():
+    """Phase 12's expected launches: a head shard's ring launches every
+    (rank, step) pair striped and sp(sp+1)/2 contiguous; each shard
+    launches per layer."""
+    assert smoke["ring_steps"](4, True) == 16 and smoke["ring_steps"](4, False) == 10
+    assert smoke["ring_steps"](1, False) == 1
+    assert smoke["shard_launches"](16, 2, 32) == 1024
+    assert smoke["shard_launches"](1, 2, 32) == 64
+
+
+def test_shard_mismatches_find_the_bad_slice():
+    mesh_mod, sharding = port("parallel.mesh"), port("parallel.sharding")
+    tmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, pp=2, tp=2), ["cpu"] * 4)
+    full = torch.arange(32, dtype=torch.float32).reshape(4, 8).to(torch.bfloat16)
+    x = sharding.shard(full, tmesh, sharding.P("pp", "tp"))
+    assert smoke["shard_mismatches"](torch, x, full) == []
+    x.local(pp=1, tp=0)[0, 0] += 1
+    assert smoke["shard_mismatches"](torch, x, full) == [(0, 1, 0, 0, 0)]
+    tree = {"a": x, "b": {"c": sharding.shard(full, tmesh, sharding.P(None))}}
+    assert smoke["tree_shard_mismatches"](torch, tree, {"a": full, "b": {"c": full}}) == {
+        "a": [(0, 1, 0, 0, 0)]}
+
+
+def test_sharded_grads_and_pool_copies():
+    mesh_mod, sharding = port("parallel.mesh"), port("parallel.sharding")
+    tmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=2, tp=2), ["cpu"] * 4)
+    x = sharding.shard(torch.arange(8.0).reshape(2, 4), tmesh, sharding.P(None, "tp"))
+    for _, t in x.distinct():
+        t.requires_grad_()
+        t.grad = t.detach() * 2
+    grads = sharding.grad_tree({"x": x, "plain": x.local()})
+    assert torch.equal(sharding.unshard(grads["x"]), torch.arange(8.0).reshape(2, 4) * 2)
+    assert grads["plain"] is x.local().grad
+    y = sharding.zeros((2, 4), torch.float32, tmesh, sharding.P(None, "tp"))
+    assert not smoke["pools_equal"](torch, y, x)
+    with torch.no_grad():
+        smoke["pool_copy"](torch, y, x)
+    assert smoke["pools_equal"](torch, y, x)
+
+
+def test_tp_rank_faults_zero_one_rank_and_leave_the_rest():
+    """12c's planted-fault helpers: the tp rank's distinct locals, and a
+    copy of a leaf whose slices on that rank are zeros while the other
+    rank's tensor (and the leaf itself) is untouched."""
+    mesh_mod, sharding = port("parallel.mesh"), port("parallel.sharding")
+    tmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, pp=2, tp=2, sp=2), ["cpu"] * 8)
+    full = torch.arange(1.0, 17.0).reshape(2, 8)
+    cut = sharding.shard(full, tmesh, sharding.P("pp", "tp"))
+    whole = sharding.shard(full, tmesh, sharding.P("pp", None))
+    assert smoke["tp_rank_locals"](whole, 1) == []
+    ones = smoke["tp_rank_locals"](cut, 1)
+    assert [t.data_ptr() for t in ones] == [cut.local(pp=0, tp=1).data_ptr(),
+                                            cut.local(pp=1, tp=1).data_ptr()]
+    faulted = smoke["zero_tp_rank"](torch, sharding, cut, 1)
+    want = full.clone()
+    want[:, 4:] = 0
+    assert torch.equal(sharding.unshard(faulted), want)
+    assert faulted.local(pp=1, tp=0) is cut.local(pp=1, tp=0)
+    assert faulted.local(pp=1, sp=1, tp=1) is faulted.local(pp=1, tp=1)
+    assert torch.equal(sharding.unshard(cut), full)
+    assert smoke["rel_gap"](9.0, 10.0) == pytest.approx(0.1)
+
+
+def test_sharded_training_faults_move_the_losses():
+    """12c's faults at a small width on the CPU: dropping tp rank 1's wo
+    slices changes the first loss, and losing its gradients changes the
+    later losses against the clean sharded steps, while the first loss
+    of that run (before any update) is the clean one."""
+    llama, mesh_mod, sharding = port("models.llama"), port("parallel.mesh"), port(
+        "parallel.sharding")
+    cfg = llama.LlamaConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=128, dtype="float32")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, pp=2, tp=2, sp=2), ["cpu"] * 8)
+    batches = smoke["train_batches"](torch, cfg.vocab_size, 32, 2, 1)
+    faults = smoke["sharded_training_faults"](torch, cfg, params, tmesh, batches)
+    sharded = sharding.shard_tree(params, tmesh, llama.param_pspecs(cfg))
+    opt = llama.make_optimizer(sharded)
+    clean = [float(llama.train_step(sharded, opt, b, cfg)) for b in batches]
+    with torch.no_grad():
+        clean.append(float(llama.loss_fn(sharded, batches[0], cfg)))
+    lost = faults["grads_lost_losses"]
+    assert len(lost) == len(clean) == 3
+    assert abs(faults["wo_dropped_first_loss"] - clean[0]) > 1e-4 * clean[0]
+    assert lost[0] == pytest.approx(clean[0], rel=1e-6)
+    assert all(abs(a - b) > 1e-5 * b for a, b in zip(lost[1:], clean[1:]))

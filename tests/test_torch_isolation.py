@@ -46,7 +46,8 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert f"{PACKAGE}.models.llama" in result["modules"]
     assert f"{PACKAGE}.ops.paged_decode_cuda" in result["modules"]
-    for name in ("parallel.mesh", "ops.ring_attention", "ops.ring_flash", "ops.ring_flash_cuda"):
+    for name in ("parallel.mesh", "parallel.sharding", "ops.ring_attention", "ops.ring_flash",
+                 "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
     for name in OFFLOAD_MODULES:
         assert f"{PACKAGE}.{name}" in result["modules"]
@@ -116,9 +117,15 @@ def _mesh():
     return mod.make_mesh(mod.MeshPlan(dp=1))
 
 
+def _shard():
+    sharding = port("parallel.sharding")
+    return sharding.shard(torch.zeros(2), _mesh(), sharding.P(None))
+
+
 @pytest.mark.parametrize(
-    "entry", [_pool, _params, _resolve, _mesh, _moe_params],
-    ids=["KVCachePool", "init_params", "resolve_device", "make_mesh", "moe.init_params"],
+    "entry", [_pool, _params, _resolve, _mesh, _moe_params, _shard],
+    ids=["KVCachePool", "init_params", "resolve_device", "make_mesh", "moe.init_params",
+         "shard"],
 )
 def test_entry_point_without_device_raises_without_gpu(entry):
     """Entry points default to CUDA; with no GPU they raise instead of
@@ -151,3 +158,18 @@ def test_build_sources_are_the_kernel_files():
     all sources builds every kernel."""
     build = port("ops._build")
     assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
+
+
+def test_shard_runs_on_cpu_when_asked():
+    """``make_mesh`` given ``"cpu"`` ranks: shard, a sharded pool and
+    unshard run there."""
+    mesh_mod, sharding = port("parallel.mesh"), port("parallel.sharding")
+    pool_mod = port("models.kv_cache_pool")
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, tp=2), ["cpu"] * 2)
+    x = sharding.shard(torch.arange(4.0), mesh, sharding.P("tp"))
+    assert {t.device.type for _, t in x.distinct()} == {"cpu"}
+    assert torch.equal(sharding.unshard(x), torch.arange(4.0))
+    pool = pool_mod.KVCachePool(
+        pool_mod.KVCachePoolConfig(1, 2, 4, 2, 8),
+        sharding=sharding.NamedSharding(mesh, sharding.P(None, None, None, None, "tp")))
+    assert pool.sharded and not pool.pinned_host and pool.kv.local_shape == (1, 2, 2, 4, 1, 8)

@@ -74,3 +74,51 @@ def test_mesh_keeps_device_order():
 def test_make_mesh_rejects_wrong_device_count():
     with pytest.raises(ValueError, match="mesh plan wants 4 devices, have 3"):
         mesh.make_mesh(mesh.MeshPlan(dp=1, sp=4), ["cpu"] * 3)
+
+
+class TestMeshContext:
+    """The reference suite's TestMeshContext: ``activate`` and ``with
+    mesh:`` make a mesh active for the block, ``mesh_is_active`` says
+    so, and a placement constraint resolves under ``activate``."""
+
+    def test_inactive_outside_any_context(self):
+        assert not mesh.mesh_is_active() and mesh.active_mesh() is None
+        assert mesh.mesh_is_active() == jax_mesh.mesh_is_active()
+
+    def test_activate_enters_and_exits(self):
+        tmesh = mesh.make_mesh(mesh.MeshPlan(dp=4, tp=2), ["cpu"] * 8)
+        with mesh.activate(tmesh) as entered:
+            assert entered is tmesh and mesh.mesh_is_active()
+            assert mesh.active_mesh() is tmesh
+        assert not mesh.mesh_is_active()
+
+    def test_legacy_with_mesh_still_detected(self):
+        tmesh = mesh.make_mesh(mesh.MeshPlan(dp=4, tp=2), ["cpu"] * 8)
+        inner = mesh.make_mesh(mesh.MeshPlan(dp=2, tp=4), ["cpu"] * 8)
+        with tmesh:
+            assert mesh.mesh_is_active()
+            with mesh.activate(inner):
+                assert mesh.active_mesh() is inner
+            assert mesh.active_mesh() is tmesh
+        assert not mesh.mesh_is_active()
+
+    def test_sharding_constraint_resolves_under_activate(self):
+        """The reference's case places ones(8, 2) by P("dp", "tp") under
+        activate and sums to 16; here the port's constraint
+        (``moe._constrain``) gives each of the 8 ranks its [2, 1] slice."""
+        moe, sharding = port("models.moe"), port("parallel.sharding")
+        tmesh = mesh.make_mesh(mesh.MeshPlan(dp=4, tp=2), ["cpu"] * 8)
+        with mesh.activate(tmesh):
+            y = moe._constrain(torch.ones((8, 2)), sharding.P("dp", "tp"))
+        assert y.local_shape == (2, 1) and len(y.distinct()) == 8
+        assert float(sharding.unshard(y).sum()) == 16.0
+
+
+def test_rank_coordinates():
+    tmesh = mesh.make_mesh(mesh.MeshPlan(dp=2, pp=2, tp=2),
+                           [torch.device("cpu", i) for i in range(8)])
+    assert tmesh.coord(dp=1, tp=1) == (1, 0, 0, 0, 1)
+    assert tmesh.devices[tmesh.coord(dp=1, pp=1, tp=1)].index == 7
+    assert tmesh.size("tp") == 2 and tmesh.size("ep") == 1
+    with pytest.raises(ValueError, match="no axes"):
+        tmesh.coord(heads=1)

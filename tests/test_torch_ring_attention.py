@@ -26,6 +26,7 @@ import torch
 from llm_d_kv_cache_manager_tpu.models import llama as jax_llama
 from llm_d_kv_cache_manager_tpu.ops.ring_attention import (
     ring_attention as jax_ring_attention,
+    ring_attention_sharded as jax_ring_sharded,
     stripe as jax_stripe,
     unstripe as jax_unstripe,
 )
@@ -296,15 +297,21 @@ def test_ring_attention_bf16_serving_dtype():
 
 
 def test_ring_rejects_tp_mesh():
+    """A tp mesh no longer raises: the ring with heads cut over tp
+    (``head_axis="tp"``, as ``ring_for_mesh`` gates it) equals the
+    reference's on the same tp x sp mesh and dense attention; without
+    ``head_axis`` the tp ranks are replicas and the ring runs once.
+    The name is the one it had when it checked the raise that tp
+    meshes gave before they were supported."""
     tmesh = mesh.make_mesh(mesh.MeshPlan(dp=1, tp=2, sp=2), ["cpu"] * 4)
-    q, k, v = _t(*_qkv(34, 1, 8, 8, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ring.ring_attention(q, k, v, tmesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ring.ring_for_mesh(tmesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ring.ring_attention_sharded(
-            mesh.make_mesh(mesh.MeshPlan(dp=1, sp=4), ["cpu"] * 4), head_axis="tp")
+    jmesh = jax_mesh.make_mesh(jax_mesh.MeshPlan(dp=1, tp=2, sp=2), jax.devices()[:4])
+    q, k, v = _qkv(34, 1, 8, 8, 4, 2, 8)
+    want = jax_ring_sharded(jmesh, head_axis="tp")(*_j(q, k, v))
+    for run in (ring.ring_attention_sharded(tmesh, head_axis="tp"), ring.ring_for_mesh(tmesh)):
+        _close(run(*_t(q, k, v)), want)
+    _close(ring.ring_attention(*_t(q, k, v), tmesh), jax_dense(*_j(q, k, v)))
+    with pytest.raises(ValueError, match="no axis"):
+        ring.ring_attention_sharded(tmesh, head_axis="heads")
 
 
 def test_ring_rejects_unknown_impl():
@@ -370,7 +377,15 @@ def test_forward_sp_mesh_rejects_custom_positions(models):
 
 
 def test_forward_sp_mesh_rejects_tp_mesh(models):
-    _, tparams, tcfg = models
+    """A tp x sp ``sp_mesh`` no longer raises: unsharded params run the
+    ring with heads cut over tp and give the reference's logits over
+    the same mesh.
+    The name is the one it had when it checked the raise that tp
+    meshes gave before they were supported."""
+    jparams, tparams, tcfg = models
+    tokens = _tokens(46, 1, 8)
     tmesh = mesh.make_mesh(mesh.MeshPlan(dp=1, tp=2, sp=2), ["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="tp=2"):
-        llama.forward(tparams, torch.from_numpy(_tokens(46, 1, 8)), tcfg, sp_mesh=tmesh)
+    jmesh = jax_mesh.make_mesh(jax_mesh.MeshPlan(dp=1, tp=2, sp=2), jax.devices()[:4])
+    want = jax_llama.forward(jparams, jnp.asarray(tokens), JAX_CFG, sp_mesh=jmesh)
+    got = llama.forward(tparams, torch.from_numpy(tokens), tcfg, sp_mesh=tmesh)
+    _close(got, want, LOGITS)
