@@ -4,10 +4,12 @@
 Drives the port's paths (``llm_d_kv_cache_manager_tpu_torch``) at the
 full width and depth of Llama-3-8B with random weights from a seed, and
 its training, MoE and checkpoint paths at the widths noted below.
-The serving path: a prompt is hashed into block keys, scored against
-the in-memory block index, and served on the chosen pod by prefill
+The serving path: the port's ``Indexer`` scores a prompt's text
+(tokenization pool and prefix store, block-hash chain, in-memory block
+index, longest-prefix scorer) and the chosen pod serves it by prefill
 (index miss) or by continuation over the cached prefix (index hit),
-then decoded.  The long-context prefill path: one 8192-token prompt
+then decodes.  The card's machine has no tokenizer library, so the
+Indexer is given a word tokenizer (``"t<id>"`` words, ``WordTokenizer``).  The long-context prefill path: one 8192-token prompt
 through ``forward(sp_mesh=...)``, ring attention over a 4-rank ``sp``
 mesh whose ranks share the card, in both sequence layouts.  The
 offload path: the served prefix is stored to files through the offload
@@ -43,7 +45,11 @@ Phases (any failure exits non-zero):
      including the exact empty-row sentinel), likewise, on the
      normalized output acc/l and on m and l, the planted fault being
      one key tile skipped;
-  5. serving: two simulated pods, a miss, a hit, 8 decode steps replayed
+  5. serving: two simulated pods routed by the port's ``Indexer``
+     (``get_pod_scores`` over the prompt's text; A misses with every pod
+     at 0.0, B hits pod-a, its score over the blocks of the tokens the
+     prefix store serves from A's text, and reuses its 512 prefix
+     blocks), a miss, a hit, 8 decode steps replayed
      from one captured CUDA graph (``make_decode_step``), which must
      launch the prefill kernel once per layer per request and the
      decode kernel once per layer per step (counted from the kernels the
@@ -91,7 +97,8 @@ Phases (any failure exits non-zero):
      train steps at 2048 tokens;
  12. sharded meshes on one card, every rank on ``cuda:0`` (an emulated
      mesh: results and launches, not speed): (a, after phase 7) phase
-     5's requests over params cut by ``param_pspecs`` over tp 2 and a
+     5's requests (their block keys from phase 5's Indexer's token
+     processor) over params cut by ``param_pspecs`` over tp 2 and a
      pool cut on its kv heads, logits and tokens against phase 5's,
      the captured tp decode step bit-equal to the eager one, 2 x 32
      prefill launches a request and 2 x 32 decode launches a step; (b)
@@ -111,7 +118,21 @@ Phases (any failure exits non-zero):
      forward (2 x 8 prefill launches), three train steps; phases 2-4 also hold each
      kernel at the tp shapes (16 heads and 4 KV heads; the MoE's 4 and
      2);
- 13. one JSON line listing each kernel's numbers;
+ 13. read path, on the host: three Indexers (fast lane, fast lane without
+     the score memo, straight path) over metrics-wrapped in-memory
+     indexes seeded through ``kv_block_index.add`` with 4 pods x 64
+     random 8192-token conversations (131,072 keys, hbm and host; seeding
+     rate and process RSS); bench.py's read-path traffic (a resident
+     conversation's 8 turns on pod-0 hbm and pod-1 host, 24 cold 8192-token
+     prompts, the two alternated), at least 200 requests a cell, p50 and
+     p99 ms; every request's scores equal across the lanes and to their
+     expected value; the native and the Python block-hash chains timed
+     over 8448 tokens, keys equal; one traced fast-lane request whose
+     spans must be the reference's (``tokenize`` with
+     ``tokenize.prefix_probe`` and ``tokenize.encode`` under it,
+     ``hash_blocks``, ``index_lookup``, ``score``); the exposition's lookup
+     counter equal to the scoring requests made;
+ 14. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
@@ -190,6 +211,31 @@ SHARD_RESTORE_PLAN = dict(dp=1, pp=2, tp=2)
 SHARD_MOE_PLAN = dict(dp=1, ep=2, tp=2)
 SHARD_FIRST_LOSS_REL = 2e-5
 SHARD_LATER_LOSS_REL = 2e-4
+# Read path (phase 13): bench.py:bench_read_path's shapes at fleet scale.
+# 4 pods (bench.py's NUM_PODS), each holding 64 random 8192-token
+# conversations as 32,768 blocks of 16 tokens: one Llama-3-8B block in
+# bf16 takes 32 layers x 2 x 16 x 8 x 128 x 2 B = 2 MiB, so that is what
+# a pod keeps in about 64 GiB of an 80 GB card beside 16 GB of weights.
+# Traffic: one 8192-token conversation plus 8 turns of 256 tokens,
+# resident on pod-0 (hbm) and pod-1 (host); 24 cold 8192-token prompts;
+# the two alternated.  Each through three Indexers (fast lane, fast lane
+# without the score memo, straight path), at least READ_REQUESTS a cell.
+READ_PODS = 4
+READ_CONVS_PER_POD = 64
+READ_CONV_TOKENS = 8192
+READ_TURNS = 8
+READ_TURN_TOKENS = 256
+READ_COLD_PROMPTS = 24
+READ_REQUESTS = 200
+READ_VOCAB = 128256  # Llama-3's
+READ_BLOCK = 16
+# The prefix store's text chunk and the pool's overlap threshold
+# (LRUStoreConfig and TokenizationPoolConfig defaults).
+STORE_CHUNK_BYTES = 256
+STORE_MIN_OVERLAP = 0.8
+READ_SPANS = {"tokenize": None, "tokenize.prefix_probe": "tokenize",
+              "tokenize.encode": "tokenize", "hash_blocks": None, "index_lookup": None,
+              "score": None}
 # PCIe Gen5 x16, one direction (NVIDIA's H100 SXM data sheet: 128 GB/s
 # both ways).
 PCIE_GEN5_X16 = 64e9
@@ -836,20 +882,83 @@ class SimPod:
             self._block_owner[bid] = h
 
 
+class WordTokenizer:
+    """The card's tokenizer: ``"t<id>"`` words to ids, with byte offsets
+    (bench.py's word tokenizer).  The card's machine has no tokenizer
+    library, so the Indexer is given this one."""
+
+    def type(self) -> str:
+        return "word"
+
+    def encode(self, prompt: str, model_name: str, add_special_tokens: bool):
+        tokens, offsets, pos = [], [], 0
+        for word in prompt.split(" "):
+            tokens.append(int(word[1:]) if word[:1] == "t" else 0)
+            offsets.append((pos, pos + len(word)))
+            pos += len(word) + 1
+        return port("tokenization.tokenizers").Encoding(tokens=tokens, offsets=offsets)
+
+
+def words(tokens) -> str:
+    return " ".join(f"t{t}" for t in tokens)
+
+
+def store_served_tokens(prompt: str, known: str = None):
+    """(token ids, tokenized in full) as the tokenization pool serves a
+    ``words`` prompt when ``known`` (None: nothing) is the text whose full
+    tokenization the prefix store holds.  The store keeps the tokens of
+    each full STORE_CHUNK_BYTES chunk of ``known`` (a token belongs to
+    the chunk its end falls in); the prompt matches the chunks inside its
+    common prefix with ``known``; if they cover at least
+    STORE_MIN_OVERLAP of the prompt, their tokens are served, else the
+    prompt is tokenized in full (and the store takes its chunks)."""
+    data = prompt.encode()
+    matched = 0
+    if known is not None:
+        text = known.encode()
+        common = 0
+        for x, y in zip(data, text):
+            if x != y:
+                break
+            common += 1
+        matched = common // STORE_CHUNK_BYTES
+    if not data or matched * STORE_CHUNK_BYTES / len(data) < STORE_MIN_OVERLAP:
+        return [int(w[1:]) for w in prompt.split(" ")], True
+    end, pos, tokens = matched * STORE_CHUNK_BYTES, 0, []
+    for word in known.split(" "):
+        pos += len(word)
+        if pos > end:
+            break
+        tokens.append(int(word[1:]))
+        pos += 1
+    return tokens, False
+
+
+def tier_score(blocks: int, weight: float) -> float:
+    """A pod's longest-prefix score over ``blocks`` blocks of one tier,
+    summed block by block as the scorer sums it."""
+    score = 0.0
+    for _ in range(blocks):
+        score += weight
+    return score
+
+
 def serving(torch, params, cfg):
     llama = port("models.llama")
     index_mod = port("kvcache.kvblock.index")
+    indexer_mod = port("kvcache.indexer")
     tp_mod = port("kvcache.kvblock.token_processor")
-    scorer_mod = port("kvcache.scorer")
     fc = port("ops.flash_cuda")
     pc = port("ops.paged_decode_cuda")
 
     layers = cfg.n_layers
     pods = [SimPod(f"pod-{n}", cfg, POOL_BLOCKS) for n in ("a", "b")]
-    index = index_mod.new_index()
-    hasher = tp_mod.ChunkedTokenDatabase(
-        tp_mod.TokenProcessorConfig(block_size=cfg.block_size, hash_seed="0"))
-    scorer = scorer_mod.new_scorer(scorer_mod.ScorerConfig())
+    names = [p.name for p in pods]
+    indexer = indexer_mod.Indexer(
+        indexer_mod.IndexerConfig(token_processor_config=tp_mod.TokenProcessorConfig(
+            block_size=cfg.block_size, hash_seed="0")),
+        tokenizer=WordTokenizer())
+    hasher = indexer.token_processor
     bs = cfg.block_size
 
     rng = torch.Generator().manual_seed(SEED)
@@ -858,23 +967,20 @@ def serving(torch, params, cfg):
     prompt_a = prefix + draw(SUFFIX_TOKENS)
     prompt_b = prefix + draw(SUFFIX_TOKENS)
 
-    def route(tokens):
-        keys = hasher.tokens_to_kv_block_keys(
-            index_mod.EMPTY_BLOCK_HASH, tokens, MODEL_NAME)
-        scores = scorer.score(keys, index.lookup(keys))
-        return keys, scores
-
     def serve(tokens, fallback):
-        """Route and prefill one prompt: hash, look up and score it, then
-        continue over the chosen pod's cached prefix (hit) or prefill the
-        whole prompt (miss), and register the new blocks."""
+        """Route and prefill one prompt: the Indexer scores its text
+        (tokenize, hash, look up, score), then the chosen pod continues
+        over its cached prefix (hit) or prefills the whole prompt (miss),
+        and the new blocks are registered in the Indexer's index."""
         t_start = time.perf_counter()
-        keys, scores = route(tokens)
+        scores = indexer.get_pod_scores(words(tokens), MODEL_NAME, names)
         t_routed = time.perf_counter()
-        if scores:
+        if any(scores.values()):
             pod = next(p for p in pods if p.name == max(sorted(scores), key=scores.get))
         else:
             pod = fallback
+        # The pod's own block keys, from the Indexer's token processor.
+        keys = hasher.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH, tokens, MODEL_NAME)
         cached = pod.cached_prefix_blocks(keys)
         if cached:  # hit: continue over the cached prefix
             new_ids, _ = pod.alloc(len(keys) - len(cached))
@@ -893,7 +999,8 @@ def serving(torch, params, cfg):
         ttft = time.perf_counter() - t_start
         fresh = len(cached)
         pod.commit(keys[fresh:], ids[fresh:])
-        index.add(keys[fresh:], keys[fresh:], [index_mod.PodEntry(pod.name, "gpu")])
+        indexer.kv_block_index.add(keys[fresh:], keys[fresh:],
+                                   [index_mod.PodEntry(pod.name, "gpu")])
         return dict(pod=pod, keys=keys, ids=ids, logits=logits, first=first,
                     ttft_ms=ttft * 1e3, route_ms=(t_routed - t_start) * 1e3,
                     reused=len(cached), scores=scores)
@@ -920,22 +1027,33 @@ def serving(torch, params, cfg):
     fc.flash_gqa_attention_cuda.launches = 0
     pc.paged_decode_attention_cuda.launches = 0
 
-    a = serve(prompt_a, pods[0])
-    print(f"  request A: scores {a['scores']} -> {a['pod'].name}, reused {a['reused']} "
-          f"blocks (miss: prefill_paged over {len(prompt_a)} tokens), TTFT "
-          f"{a['ttft_ms']:.1f} ms (routing {a['route_ms']:.1f} ms)", flush=True)
-    b = serve(prompt_b, pods[1])
-    print(f"  request B: scores {b['scores']} -> {b['pod'].name}, reused {b['reused']} "
+    indexer.run()
+    try:
+        a = serve(prompt_a, pods[0])
+        b = serve(prompt_b, pods[1])
+    finally:
+        indexer.shutdown()  # its token processor stays: phases 7 and 12a hash with it
+    print(f"  request A: Indexer scores {a['scores']} -> {a['pod'].name}, reused "
+          f"{a['reused']} blocks (miss: prefill_paged over {len(prompt_a)} tokens), TTFT "
+          f"{a['ttft_ms']:.1f} ms (routing through the Indexer {a['route_ms']:.1f} ms)",
+          flush=True)
+    # The router sees the tokens the prefix store serves for B: those of
+    # A's full text chunks inside the prefix A and B share.
+    served_b, _ = store_served_tokens(words(prompt_b), words(prompt_a))
+    want_b = {pods[0].name: tier_score(len(served_b) // bs, 1.0), pods[1].name: 0.0}
+    print(f"  request B: Indexer scores {b['scores']} (over the {len(served_b)} tokens the "
+          f"prefix store serves from A's text) -> {b['pod'].name}, reused {b['reused']} "
           f"blocks (hit: prefill_continue over {len(prompt_b) - b['reused'] * bs} tokens), "
-          f"TTFT {b['ttft_ms']:.1f} ms (routing {b['route_ms']:.1f} ms)", flush=True)
+          f"TTFT {b['ttft_ms']:.1f} ms (routing through the Indexer {b['route_ms']:.1f} ms)",
+          flush=True)
     pod_a, ids_a, ids_b, logits_b = a["pod"], a["ids"], b["ids"], b["logits"]
     first_a, first_b = a["first"], b["first"]
-    if a["scores"] or a["reused"]:
-        raise AssertionError("request A must be an index miss")
+    if a["scores"] != dict.fromkeys(names, 0.0) or a["reused"]:
+        raise AssertionError(f"request A must be an index miss: {a['scores']}")
     if b["pod"] is not pod_a or b["reused"] != PREFIX_TOKENS // bs:
         raise AssertionError("request B must hit A's pod on the whole prefix")
-    if b["scores"] != {pod_a.name: float(PREFIX_TOKENS // bs)}:
-        raise AssertionError(f"unexpected scores for B: {b['scores']}")
+    if b["scores"] != want_b:
+        raise AssertionError(f"unexpected scores for B: {b['scores']}, expected {want_b}")
     if a["logits"].shape != (1, len(prompt_a), cfg.vocab_size) or logits_b.shape != (
             1, SUFFIX_TOKENS, cfg.vocab_size):
         raise AssertionError("unexpected logits shapes")
@@ -1135,6 +1253,7 @@ def serving(torch, params, cfg):
                                prompt_b=prompt_b, keys_b=b["keys"], logits_b=logits_b,
                                first_b=first_b, hasher=hasher),
         "sharded_inputs": dict(prompt_a=prompt_a, prompt_b=prompt_b, ids_a=ids_a, ids_b=ids_b,
+                               keys_a=a["keys"], keys_b=b["keys"], hasher=hasher,
                                miss_tail=miss_tail, logits_b=logits_b, table=table,
                                decode_inputs=inputs, step_logits=step_logits,
                                miss_ms=a["ttft_ms"], hit_ms=b["ttft_ms"],
@@ -2271,6 +2390,17 @@ def sharded_serving(torch, params, cfg, ref):
     print(f"  two pools of {POOL_BLOCKS} blocks cut on their kv heads ({spec}): each rank "
           f"holds {pools[0].kv.local_shape}", flush=True)
     prompt_a, prompt_b, ids_a, ids_b = ref["prompt_a"], ref["prompt_b"], ref["ids_a"], ref["ids_b"]
+    # The tp requests' block keys, from phase 5's Indexer's token
+    # processor: the keys phase 5 served and registered, the prefix
+    # shared (the hit's 512 reused blocks).
+    empty = port("kvcache.kvblock.index").EMPTY_BLOCK_HASH
+    keys_a, keys_b = (ref["hasher"].tokens_to_kv_block_keys(empty, p, MODEL_NAME)
+                      for p in (prompt_a, prompt_b))
+    n_prefix = PREFIX_TOKENS // bs
+    if keys_a != ref["keys_a"] or keys_b != ref["keys_b"] or keys_a[:n_prefix] != keys_b[:n_prefix]:
+        raise AssertionError("the tp requests' block keys differ from phase 5's")
+    print(f"  block keys of A and B from phase 5's Indexer's token processor: equal to phase "
+          f"5's, {n_prefix} shared", flush=True)
 
     def miss(pool):
         return llama.prefill_paged(sharded, torch.tensor([prompt_a]), pool.kv,
@@ -2715,6 +2845,252 @@ def sharded_moe(torch):
             "bf16_forward_ms": wall, "train_losses": losses, "train_step_ms": step_ms}
 
 
+# --------------------------------------------------------------- phase 13
+
+
+READ_LANES = (("fast", True, True), ("fast_no_memo", True, False), ("straight", False, True))
+
+
+def read_path_indexer(fast: bool, memo: bool = True, block_size: int = READ_BLOCK):
+    """One Indexer of phase 13: the word tokenizer, a metrics-wrapped
+    in-memory index (so its lookups reach the exposition), the fast lane
+    or the straight path, the score memo on or off."""
+    im, tp = port("kvcache.indexer"), port("kvcache.kvblock.token_processor")
+    index_mod = port("kvcache.kvblock.index")
+    indexer = im.Indexer(
+        im.IndexerConfig(
+            token_processor_config=tp.TokenProcessorConfig(block_size=block_size,
+                                                           hash_seed="0"),
+            kvblock_index_config=index_mod.IndexConfig(enable_metrics=True),
+            read_path_fast_lane=fast, score_memo_size=None if memo else 0),
+        tokenizer=WordTokenizer())
+    indexer.run()
+    return indexer
+
+
+def seed_fleet(indexers, rng, pods, convs: int, tokens: int, tiers=("hbm", "host")):
+    """``convs`` random conversations of ``tokens`` tokens on each pod of
+    every Indexer's index, conversation j on ``tiers[j % len(tiers)]``,
+    added through ``kv_block_index.add``; the keys come from the first
+    Indexer's token processor (all share one key space).  Returns the
+    keys added to each index and the seconds the adds took."""
+    index_mod = port("kvcache.kvblock.index")
+    hasher = indexers[0].token_processor
+    chains = []
+    for pod in pods:
+        for j in range(convs):
+            ids = rng.integers(1, READ_VOCAB, tokens).tolist()
+            keys = hasher.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH, ids, MODEL_NAME)
+            chains.append((keys, index_mod.PodEntry(pod, tiers[j % len(tiers)])))
+    t0 = time.perf_counter()
+    for indexer in indexers:
+        for keys, entry in chains:
+            indexer.kv_block_index.add(keys, keys, [entry])
+    return sum(len(keys) for keys, _ in chains), time.perf_counter() - t0
+
+
+def read_traffic(rng, conv_tokens: int, turns: int, turn_tokens: int, cold: int):
+    """The conversation's token ids and the three workloads' prompts:
+    its turns (the conversation so far after each), cold prompts of
+    ``conv_tokens`` new tokens, and the two alternated."""
+    convo = rng.integers(1, READ_VOCAB, conv_tokens + turns * turn_tokens).tolist()
+    warm = [words(convo[:conv_tokens + (t + 1) * turn_tokens]) for t in range(turns)]
+    cold_prompts = [words(rng.integers(1, READ_VOCAB, conv_tokens).tolist())
+                    for _ in range(cold)]
+    mixed = [p for pair in zip(warm * math.ceil(cold / turns), cold_prompts) for p in pair]
+    return convo, {"warm_multi_turn": warm, "cold": cold_prompts, "mixed": mixed}
+
+
+class PrefixStoreModel:
+    """What one Indexer's tokenization pool serves for each of a sequence
+    of ``words`` prompts: ``store_served_tokens`` against the texts it
+    tokenized in full so far, the one sharing the longest prefix with
+    the prompt.  Holds the router's scores to an independent count."""
+
+    def __init__(self) -> None:
+        self.known = []
+
+    def served(self, prompt: str):
+        def shared(text):
+            common = 0
+            for x, y in zip(prompt, text):
+                if x != y:
+                    break
+                common += 1
+            return common
+
+        best = max(self.known, key=shared, default=None)
+        tokens, in_full = store_served_tokens(prompt, best)
+        if in_full and prompt not in self.known:
+            self.known.append(prompt)
+        return tokens
+
+
+def expected_read_scores(n_blocks: int, pods, holders) -> dict:
+    """Scores of ``pods`` for a prompt whose first ``n_blocks`` blocks
+    are resident on each ``(pod, tier)`` of ``holders``, from
+    ``ScorerConfig``'s tier weights; every other pod 0.0."""
+    weights = {t.name: t.weight for t in port("kvcache.scorer").ScorerConfig().tier_configs}
+    out = dict.fromkeys(pods, 0.0)
+    for pod, tier in holders:
+        out[pod] = tier_score(n_blocks, weights[tier])
+    return out
+
+
+def check_spans(spans) -> dict:
+    """The traced fast-lane request's span tree: each name of READ_SPANS
+    once, under its parent.  Returns {name: parent} of every span."""
+    seen = {}
+    for sp in spans:
+        seen.setdefault(sp["name"], []).append(sp["parent"])
+    for name, parent in READ_SPANS.items():
+        if seen.get(name) != [parent]:
+            raise AssertionError(f"span {name!r} under {parent!r} expected once, got "
+                                 f"{seen.get(name)}; spans {sorted(seen)}")
+    return {name: parents[0] for name, parents in seen.items()}
+
+
+def lookup_counter(text: str) -> float:
+    """``kvtpu_kvcache_index_lookup_requests_total`` in a text exposition."""
+    for line in text.splitlines():
+        if line.startswith("kvtpu_kvcache_index_lookup_requests_total "):
+            return float(line.split()[1])
+    raise AssertionError("no lookup counter in the exposition")
+
+
+def percentile_ms(latencies, q: float) -> float:
+    ordered = sorted(latencies)
+    return ordered[min(len(ordered) - 1, int(round(q / 100 * (len(ordered) - 1))))] * 1e3
+
+
+def read_path(smi: str, pods_n=READ_PODS, convs=READ_CONVS_PER_POD,
+              conv_tokens=READ_CONV_TOKENS, turns=READ_TURNS, turn_tokens=READ_TURN_TOKENS,
+              cold=READ_COLD_PROMPTS, min_requests=READ_REQUESTS, block=READ_BLOCK) -> dict:
+    """Phase 13: the Indexer's read path at fleet scale, three lanes."""
+    import numpy as np
+
+    collector = port("metrics.collector")
+    tp = port("kvcache.kvblock.token_processor")
+    trace_mod = port("obs.trace")
+    rng = np.random.default_rng(SEED)
+    pods = [f"pod-{i}" for i in range(pods_n)]
+    lookups0 = lookup_counter(collector.METRICS.exposition().decode())
+    rss0 = collector.update_process_metrics()["rss_bytes"]
+    indexers = {}
+    try:
+        for lane, fast, memo in READ_LANES:
+            indexers[lane] = read_path_indexer(fast, memo, block)
+        lanes = list(indexers.values())
+        if indexers["fast"]._score_memo is None or indexers["fast_no_memo"]._score_memo:
+            raise AssertionError("the score memo is not where it was asked for")
+        keys_added, seed_s = seed_fleet(lanes, rng, pods, convs, conv_tokens)
+        rss1 = collector.update_process_metrics()["rss_bytes"]
+        print(f"  on {smi}: {len(lanes)} Indexers' in-memory indexes, each {pods_n} pods x "
+              f"{convs} conversations of {conv_tokens} tokens = {keys_added} keys "
+              f"({conv_tokens // block} blocks a conversation, tiers hbm/host), seeded "
+              f"through kv_block_index.add at {len(lanes) * keys_added / seed_s:.0f} keys/s "
+              f"({seed_s:.2f} s); process RSS {rss0 / 2**20:.0f} -> {rss1 / 2**20:.0f} MiB",
+              flush=True)
+        convo, workloads = read_traffic(rng, conv_tokens, turns, turn_tokens, cold)
+        index_mod = port("kvcache.kvblock.index")
+        convo_keys = lanes[0].token_processor.tokens_to_kv_block_keys(
+            index_mod.EMPTY_BLOCK_HASH, convo, MODEL_NAME)
+        holders = [(pods[0], "hbm"), (pods[1], "host")]
+        for indexer in lanes:
+            for pod, tier in holders:
+                indexer.kv_block_index.add(convo_keys, convo_keys,
+                                           [index_mod.PodEntry(pod, tier)])
+        warm_set = set(workloads["warm_multi_turn"])
+        model = PrefixStoreModel()
+        calls, cells, checked = 0, {}, 0
+        for workload, prompts in workloads.items():
+            sequence = prompts + prompts * math.ceil(min_requests / len(prompts))
+            timed_from = len(prompts)  # the first pass warms the prefix store
+            scores = {}
+            cells[workload] = {}
+            for lane, indexer in indexers.items():
+                got, latencies = [], []
+                for i, prompt in enumerate(sequence):
+                    t0 = time.perf_counter()
+                    got.append(indexer.get_pod_scores(prompt, MODEL_NAME, pods))
+                    if i >= timed_from:
+                        latencies.append(time.perf_counter() - t0)
+                calls += len(sequence)
+                scores[lane] = got
+                cells[workload][lane] = {
+                    "requests": len(latencies),
+                    "p50_ms": percentile_ms(latencies, 50),
+                    "p99_ms": percentile_ms(latencies, 99),
+                    "scores_per_s": len(latencies) / sum(latencies),
+                }
+            for i, prompt in enumerate(sequence):
+                served = model.served(prompt)
+                want = (expected_read_scores(len(served) // block, pods, holders)
+                        if prompt in warm_set else dict.fromkeys(pods, 0.0))
+                lane_scores = [scores[lane][i] for lane in indexers]
+                if any(s != lane_scores[0] for s in lane_scores):
+                    raise AssertionError(f"{workload} request {i}: the lanes disagree: "
+                                         f"{lane_scores}")
+                if lane_scores[0] != want:
+                    raise AssertionError(f"{workload} request {i}: scores {lane_scores[0]}, "
+                                         f"expected {want}")
+                checked += 1
+            print(f"  {workload}: " + "; ".join(
+                f"{lane} p50 {c['p50_ms']:.3f} ms p99 {c['p99_ms']:.3f} ms "
+                f"({c['requests']} requests)" for lane, c in cells[workload].items()),
+                flush=True)
+        warm_blocks = len(model.served(workloads["warm_multi_turn"][-1])) // block
+        print(f"  scores equal across the three lanes on all {checked} requests, each equal to "
+              f"its expected value (warm turns: pod-0 hbm and pod-1 host over the blocks the "
+              f"prefix store serves, {warm_blocks} on the last turn; cold: all 0.0)",
+              flush=True)
+
+        hash_tokens = rng.integers(1, READ_VOCAB, PREFIX_TOKENS + SUFFIX_TOKENS).tolist()
+        config = tp.TokenProcessorConfig(block_size=block, hash_seed="0")
+        chains = {"native": tp.ChunkedTokenDatabase(config),
+                  "python": tp.ChunkedTokenDatabase(config, use_native=False)}
+        hash_ms, hash_keys = {}, {}
+        for name, db in chains.items():
+            runs = []
+            for _ in range(5 if name == "python" else 50):
+                t0 = time.perf_counter()
+                hash_keys[name] = db.tokens_to_kv_block_keys(
+                    index_mod.EMPTY_BLOCK_HASH, hash_tokens, MODEL_NAME)
+                runs.append(time.perf_counter() - t0)
+            hash_ms[name] = statistics.median(runs) * 1e3
+        if hash_keys["native"] != hash_keys["python"]:
+            raise AssertionError("the native and Python block-hash chains disagree")
+        print(f"  block-hash chain over {len(hash_tokens)} tokens ({len(hash_keys['native'])} "
+              f"keys, equal): native {hash_ms['native']:.3f} ms, Python "
+              f"{hash_ms['python']:.3f} ms (medians)", flush=True)
+
+        fresh = words(rng.integers(1, READ_VOCAB, conv_tokens).tolist())
+        trace = trace_mod.TRACER.start_trace("read_path", force=True)
+        with trace_mod.use_trace(trace):
+            indexers["fast"].get_pod_scores(fresh, MODEL_NAME, pods)
+        trace.finish()
+        calls += 1
+        spans = trace.to_dict()["spans"]
+        tree = check_spans(spans)
+        span_ms = {sp["name"]: sp["duration_ms"] for sp in spans}
+        print(f"  one traced fast-lane request over a new {conv_tokens}-token prompt (a full "
+              f"encode): spans (parent) {tree}; ms " + ", ".join(
+                  f"{name} {ms:.3f}" for name, ms in span_ms.items()), flush=True)
+        lookups = lookup_counter(collector.METRICS.exposition().decode()) - lookups0
+        if lookups != calls:
+            raise AssertionError(f"the exposition counts {lookups} lookups, {calls} were made")
+        print(f"  generate_latest: kvtpu_kvcache_index_lookup_requests_total rose by "
+              f"{lookups:.0f}, the {calls} scoring requests made", flush=True)
+    finally:
+        for indexer in indexers.values():
+            indexer.shutdown()
+    return {"keys_per_index": keys_added, "seed_keys_per_s": len(indexers) * keys_added / seed_s,
+            "rss_mib": [rss0 / 2**20, rss1 / 2**20], "cells": cells, "requests_checked": checked,
+            "hash_chain_ms": hash_ms, "hash_tokens": len(hash_tokens), "spans": tree,
+            "span_ms": span_ms,
+            "lookups": lookups, "card": smi}
+
+
 def main() -> int:
     import torch
 
@@ -2901,7 +3277,11 @@ def main() -> int:
     phase(f"12e. sharded: MoEConfig() on {SHARD_MOE_PLAN} inside activate(mesh)")
     tp_moe = sharded_moe(torch)
 
-    phase("13. kernels")
+    phase(f"13. read path: the Indexer over {READ_PODS} pods x {READ_CONVS_PER_POD} "
+          f"conversations of {READ_CONV_TOKENS} tokens, three lanes")
+    read = read_path(smi)
+
+    phase("14. kernels")
     kernels = [
         dict(
             name="flash_prefill",
@@ -2964,7 +3344,7 @@ def main() -> int:
     sharded = {"tp_serving": tp_serving, "tp_sp_ring": tp_ring, "moe": tp_moe, **sharded_train}
     print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "offload": offloaded,
                       "autograd_guard": guard, "training": trained, "moe": moe_summary,
-                      "sharded": sharded,
+                      "sharded": sharded, "read_path": read,
                       "layers": LAYERS, "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,13 +19,6 @@ semantics.
 The engine->request map stays a single LRU: it is only touched by the
 event write path (adds, evictions, parent resolution), never by scoring
 reads, so it does not contend with the read path.
-
-Copied from the JAX reference's ``kvcache/kvblock/in_memory.py`` with
-plain ``threading.Lock``s (its ``lockorder``/``raceguard``
-instrumentation is not ported yet) and without the surfaces of parts
-not ported yet: the score memo's version vector and chain touch, and
-the replication follower's slice-scoped purge.  Every cross-shard walk
-still takes shard locks one at a time in ascending shard order.
 """
 
 from __future__ import annotations
@@ -38,7 +31,24 @@ from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.index import (
     InMemoryIndexConfig,
     PodEntry,
 )
+from llm_d_kv_cache_manager_tpu_torch.utils import lockorder
 from llm_d_kv_cache_manager_tpu_torch.utils.lru import LRUCache
+
+# The global acquisition order of this backend, declared once for both
+# halves of KV006: the comments feed the static analyzer, the
+# ``lockorder`` calls arm the runtime watchdog (asserted under the
+# concurrency storms with KVTPU_LOCK_ORDER_DEBUG=1).  Shard stripes
+# are LRUCache instances acquired in ascending shard-index order by
+# every cross-shard operation below (never nested — the rank check is
+# armed in case that ever changes).  A shard lock is never held across
+# a pod-cache call, but a pod-cache lock IS held while its bounded
+# ``entries`` LRU takes its own lock (add_all/snapshot/purge), so the
+# pod-cache lock precedes LRUCache._lock globally.
+# kvlint: lock-order: LRUCache._lock ascending
+lockorder.declare_ascending("LRUCache._lock")
+# kvlint: lock-order: _PodCache.lock < LRUCache._lock
+lockorder.declare_order("_PodCache.lock", "LRUCache._lock")
+
 
 class _PodCache:
     """Bounded recency set of PodEntry for one block key."""
@@ -47,7 +57,9 @@ class _PodCache:
 
     def __init__(self, capacity: int) -> None:
         self.entries: LRUCache[PodEntry, None] = LRUCache(capacity)
-        self.lock = threading.Lock()
+        self.lock = lockorder.tracked(
+            threading.Lock(), "_PodCache.lock"
+        )
         # Cached immutable snapshot of the entries, rebuilt lazily after
         # each mutation.  Read WITHOUT the lock by design: a reader
         # either sees a fully-built tuple published before the last
@@ -116,12 +128,35 @@ class InMemoryIndex(Index):
         self._mask = n_shards - 1
         per_shard = max(1, -(-self.config.size // n_shards))
         self._shards: List[LRUCache[int, _PodCache]] = [
-            LRUCache(per_shard) for _ in range(n_shards)
+            LRUCache(per_shard, lock_rank=i) for i in range(n_shards)
         ]
         self._engine_to_request: LRUCache[int, int] = LRUCache(
             self.config.size
         )
+        # Shard grouping memo for lookup_chain, keyed on key-TUPLE
+        # identity: the fast lane re-presents the same memoized key
+        # tuple request after request, and its shard grouping is a pure
+        # function of the keys.  Entries hold a strong ref and are
+        # validated with ``is`` (id() reuse can never alias); bounded
+        # by wholesale clear; single-key dict ops only (benign under
+        # the GIL).  Lists (fresh per request) are never cached.
+        self._group_cache: Dict[int, tuple] = {}
+        # Per-shard mutation counters backing the indexer's score memo
+        # (docs/performance.md): every score-relevant mutation — entry
+        # add/remove, capacity eviction, restore, purge — bumps its
+        # shard AFTER the mutation is visible, so an optimistic reader
+        # that captured the vector BEFORE its walk can never validate
+        # a result the mutation invalidated.  Recency touches do not
+        # bump (they change eviction order, not scores; the eviction
+        # itself bumps when it happens).  Deliberately lock-free: a
+        # racing ``+= 1`` pair can lose an increment, but counters only
+        # ever advance, so a completed bump still always differs from
+        # any vector captured before it — equality validation stays
+        # sound — and a global lock here would re-serialize exactly the
+        # reader/writer paths the shard striping de-convoys.
+        self._versions: List[int] = [0] * n_shards
 
+    _GROUP_CACHE_MAX = 1024
 
     # -- shard plumbing -------------------------------------------------
 
@@ -143,8 +178,9 @@ class InMemoryIndex(Index):
         out: List[Optional[_PodCache]] = [None] * len(request_keys)
         # Ascending shard order here and in every other cross-shard
         # walk: the locks are taken sequentially today, so this is
-        # deadlock-proofing by construction should a walk ever become
-        # two-phase, at the cost of one tiny sort per call.
+        # deadlock-proofing by construction (KV006's ascending
+        # declaration above holds even if a walk ever becomes
+        # two-phase), at the cost of one tiny sort per call.
         for shard_index in sorted(groups):
             positions, keys = groups[shard_index]
             values = self._shards[shard_index].peek_many(keys)
@@ -155,7 +191,13 @@ class InMemoryIndex(Index):
     def _chain_groups(
         self, request_keys: Sequence[int]
     ) -> Dict[int, Tuple[List[int], List[int]]]:
-        """shard index -> (positions, keys) for one key sequence."""
+        """shard index -> (positions, keys) for one key sequence; the
+        grouping is memoized for tuples (see ``_group_cache``)."""
+        is_tuple = type(request_keys) is tuple
+        if is_tuple:
+            cached = self._group_cache.get(id(request_keys))
+            if cached is not None and cached[0] is request_keys:
+                return cached[1]
         groups: Dict[int, Tuple[List[int], List[int]]] = {}
         mask = self._mask
         for i, key in enumerate(request_keys):
@@ -164,7 +206,38 @@ class InMemoryIndex(Index):
                 group = groups[key & mask] = ([], [])
             group[0].append(i)
             group[1].append(key)
+        if is_tuple:
+            cache = self._group_cache
+            if len(cache) >= self._GROUP_CACHE_MAX:
+                cache.clear()
+            # gil-atomic: single-key dict put; value is pure in the key
+            cache[id(request_keys)] = (request_keys, groups)
         return groups
+
+    def _bump_shards(self, shard_indices) -> None:
+        """Advance the mutation version of each shard in
+        ``shard_indices`` (duplicates allowed; called after the
+        mutation is visible)."""
+        versions = self._versions
+        for shard_index in shard_indices:
+            # gil-atomic: lone-advance counter; a lost ++ still differs
+            # from every vector captured before this bump
+            versions[shard_index] += 1
+
+    def version_vector(self) -> Tuple[int, ...]:
+        """Point-in-time per-shard mutation versions.  Equal vectors
+        before and after an optimistic read prove no score-relevant
+        mutation landed in between (the indexer's score-memo
+        validation; see docs/performance.md).  The fixed-length list
+        snapshots atomically under the GIL; see ``_versions`` for why
+        the counters need no lock."""
+        return tuple(self._versions)
+
+    def touch_chain(self, request_keys: Sequence[int]) -> None:
+        """Refresh recency for a previously-consumed chain (the score
+        memo's hit path): keeps LRU eviction order identical to the
+        walk the memo elides; missing keys are ignored."""
+        self._touch_keys(request_keys)
 
     def _touch_keys(self, request_keys: Sequence[int]) -> None:
         """Batched recency refresh, grouped per shard."""
@@ -342,6 +415,8 @@ class InMemoryIndex(Index):
             )
             for pod_cache, entries in zip(caches, entry_lists):
                 pod_cache.add_all(entries)
+        if groups:
+            self._bump_shards(groups.keys())
 
     def evict(self, engine_key: int, entries: Sequence[PodEntry]) -> None:
         if not entries:
@@ -364,6 +439,7 @@ class InMemoryIndex(Index):
             if current is not None and len(current) == 0:
                 shard.remove(request_key)
                 self._engine_to_request.remove(engine_key)
+        self._bump_shards((request_key & self._mask,))
 
     def get_request_key(self, engine_key: int) -> int:
         request_key = self._engine_to_request.get(engine_key)
@@ -404,6 +480,7 @@ class InMemoryIndex(Index):
         engine_map: Sequence[Tuple[int, int]],
     ) -> int:
         restored = 0
+        touched_shards: Set[int] = set()
         for request_key, pods in block_entries:
             if not pods:
                 continue
@@ -414,10 +491,54 @@ class InMemoryIndex(Index):
                     request_key, _PodCache(self.config.pod_cache_size)
                 )
             pod_cache.add_all(list(pods))
+            touched_shards.add(request_key & self._mask)
             restored += 1
         for engine_key, request_key in engine_map:
             self._engine_to_request.put(engine_key, request_key)
+        if touched_shards:
+            self._bump_shards(touched_shards)
         return restored
+
+    def request_keys(self) -> List[int]:
+        """Resident request keys, concatenated per shard — the
+        keys-only walk (no pod-cache snapshots, no entry lists) backing
+        slice-scoped scans like the replication follower's purge
+        replay.  Point-in-time per shard, like :meth:`dump_entries`."""
+        out: List[int] = []
+        for shard in self._shards:
+            out.extend(shard.keys())
+        return out
+
+    def purge_pod_keys(
+        self, pod_identifier: str, request_keys: Sequence[int]
+    ) -> int:
+        """Purge one pod's entries restricted to ``request_keys``.
+
+        The replication follower's slice-scoped purge
+        (docs/replication.md): replaying a PEER's pod-wide purge record
+        against the whole local index would wipe admissions this
+        replica applied to its OWN slice after the purge — so the
+        follower purges only the keys of the peer's slice.  Keys whose
+        pod set empties are removed exactly like :meth:`purge_pod`'s.
+        """
+        removed = 0
+        touched: Set[int] = set()
+        for request_key in request_keys:
+            shard = self._shard(request_key)
+            pod_cache = shard.get(request_key)
+            if pod_cache is None:
+                continue
+            victims, now_empty = pod_cache.purge(pod_identifier)
+            removed += victims
+            if victims:
+                touched.add(request_key & self._mask)
+            if now_empty:
+                current = shard.get(request_key)
+                if current is not None and len(current) == 0:
+                    shard.remove(request_key)
+        if touched:
+            self._bump_shards(touched)
+        return removed
 
     def purge_pod(self, pod_identifier: str) -> int:
         removed = 0
@@ -438,4 +559,9 @@ class InMemoryIndex(Index):
                     current = shard.get(request_key)
                     if current is not None and len(current) == 0:
                         shard.remove(request_key)
+        # Bump every shard AFTER the sweep (administrative op; shards
+        # untouched by the purge over-invalidate the score memo, which
+        # only costs a re-walk) — bumping first would let a concurrent
+        # walk memoize partially-purged state under the new vector.
+        self._bump_shards(range(len(self._shards)))
         return removed

@@ -12,18 +12,18 @@ chain.  Lookups from prompts produce request keys, so routing works
 regardless of per-engine hash configuration; the engine->request mapping
 exists so evictions (which carry engine keys) can find the entry.
 
-Copied from the JAX reference's ``kvcache/kvblock/index.py`` (the port
-imports nothing of that package); only the in-memory backend is ported.
-
 TPU tier vocabulary: events from TPU pods carry ``Medium`` in
 {"hbm", "host", "shared_storage"}; GPU-era names ("gpu", "cpu") are accepted
 for wire compatibility and mapped by the scorer's weight table.
+
+Copied from the JAX reference's ``kvcache/kvblock/index.py``.  The Redis
+backend is not ported yet: ``IndexConfig(redis_config=...)`` raises.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.token_processor import (
@@ -34,7 +34,10 @@ __all__ = [
     "EMPTY_BLOCK_HASH",
     "PodEntry",
     "Index",
+    "IndexConfig",
     "InMemoryIndexConfig",
+    "CostAwareIndexConfig",
+    "RedisIndexConfig",
     "new_index",
 ]
 
@@ -179,11 +182,78 @@ class InMemoryIndexConfig:
     shards: int = 8
 
 
-def new_index(config: Optional[InMemoryIndexConfig] = None) -> Index:
-    """Build the in-memory index backend (the only backend ported so
-    far)."""
-    from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import (
-        InMemoryIndex,
-    )
+@dataclass
+class CostAwareIndexConfig:
+    # Approximate memory budget for the index, in bytes (default 2 GiB).
+    max_cost_bytes: int = 2 * 1024 * 1024 * 1024
+    pod_cache_size: int = 10
+    # Predictive eviction ranking (tiering/eviction.py): an object with
+    # ``select_victim(candidates, now) -> index`` and a ``sample`` size,
+    # called under the index lock with an LRU-ordered (key, byte-cost)
+    # sample — it must take no locks of its own (it ranks against an
+    # immutable policy snapshot).  None keeps the pristine
+    # pop-LRU-first path, bit-identical to pre-tiering behavior (the
+    # parity oracle; docs/tiering.md).
+    eviction_policy: Optional[object] = None
 
-    return InMemoryIndex(config)
+
+@dataclass
+class RedisIndexConfig:
+    # Accepts bare host:port or redis:// | rediss:// | valkey:// |
+    # valkeys:// | unix:// URLs, with optional user:pass@ credentials and
+    # /db suffix (reference: redis.go:61-119 via go-redis ParseURL).
+    address: str = "127.0.0.1:6379"
+    # "redis" or "valkey"; valkey:// URLs are rewritten to redis:// with the
+    # same host/port (valkeys:// to rediss://).
+    flavor: str = "redis"
+    # TLS options for rediss:// endpoints.
+    tls_ca_file: Optional[str] = None
+    tls_insecure_skip_verify: bool = False
+
+
+@dataclass
+class IndexConfig:
+    """Backend selection; priority cost-aware > redis > in-memory
+    (reference: kvblock/index.go:59-105)."""
+
+    in_memory_config: Optional[InMemoryIndexConfig] = field(
+        default_factory=InMemoryIndexConfig
+    )
+    cost_aware_config: Optional[CostAwareIndexConfig] = None
+    redis_config: Optional[RedisIndexConfig] = None
+    enable_metrics: bool = False
+
+
+def new_index(config: Optional[IndexConfig] = None) -> Index:
+    """Build the configured index backend, optionally metrics-wrapped."""
+    if config is None:
+        config = IndexConfig()
+
+    index: Index
+    if config.cost_aware_config is not None:
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.cost_aware import (
+            CostAwareMemoryIndex,
+        )
+
+        index = CostAwareMemoryIndex(config.cost_aware_config)
+    elif config.redis_config is not None:
+        # Never a fallback onto the in-memory backend: a caller that
+        # asked for a shared index must not score against a private one.
+        raise NotImplementedError(
+            "the Redis index backend is not ported yet (ROADMAP.md, "
+            "Queue A: kvblock/redis_index.py)"
+        )
+    else:
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import (
+            InMemoryIndex,
+        )
+
+        index = InMemoryIndex(config.in_memory_config)
+
+    if config.enable_metrics:
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.instrumented import (
+            InstrumentedIndex,
+        )
+
+        index = InstrumentedIndex(index)
+    return index

@@ -16,11 +16,12 @@ token_processor.go:75-159) and, transitively, vLLM's chunked token database:
 * an explicit ``parent_key`` continues an existing chain (used by the event
   write path to chain off a stored parent block).
 
-Copied from the JAX reference's ``kvcache/kvblock/token_processor.py``
-(the port imports nothing of that package).  Only the pure-Python chain
-is carried over; the reference's optional native C++ fast path is not.
-Keys are bit-identical to the reference's for the same tokens, model
-and ``hash_seed`` (pinned by tests/test_torch_index_path.py).
+The hot loop runs in the native C++ library (``native_hash_chain``, see
+``llm_d_kv_cache_manager_tpu_torch.native``); the pure-Python chain is the
+parity oracle for tests and takes ids outside uint32.  Copied from the JAX
+reference's ``kvcache/kvblock/token_processor.py``, with one difference: a
+native library that fails to build raises here instead of leaving the
+processor on the Python chain; ``use_native=False`` asks for that chain.
 """
 
 from __future__ import annotations
@@ -87,7 +88,11 @@ class TokenProcessor(Protocol):
 class ChunkedTokenDatabase:
     """Chunked, chained block hashing compatible with the fleet's engines."""
 
-    def __init__(self, config: Optional[TokenProcessorConfig] = None) -> None:
+    def __init__(
+        self,
+        config: Optional[TokenProcessorConfig] = None,
+        use_native: bool = True,
+    ) -> None:
         self.config = config or TokenProcessorConfig()
         if self.config.block_size <= 0:
             raise ValueError(
@@ -96,6 +101,18 @@ class ChunkedTokenDatabase:
         self._init_hash = fnv1a_64(self.config.hash_seed.encode("utf-8"))
         # Per-model chain roots are deterministic; memoize them.
         self._model_init_cache: dict = {}
+        self._native_chain = None
+        if use_native:
+            from llm_d_kv_cache_manager_tpu_torch.native import get_library
+            from llm_d_kv_cache_manager_tpu_torch.native.engine import (
+                native_hash_chain,
+            )
+
+            # Trigger the (possibly slow) first build here at
+            # construction, not inside the first scoring request; a
+            # failed build raises.
+            get_library()
+            self._native_chain = native_hash_chain
 
     @property
     def block_size(self) -> int:
@@ -143,6 +160,11 @@ class ChunkedTokenDatabase:
             prefix = self.model_init_hash(model_name)
 
         size = self.config.block_size
+        if self._native_chain is not None:
+            keys = self._native_chain(prefix, tokens, size)
+            if keys is not None:
+                return keys
+
         n_chunks = len(tokens) // size
         keys = []
         for i in range(n_chunks):

@@ -9,19 +9,18 @@ TPU tier weights default to HBM > host DRAM > shared storage, with the
 GPU-era names accepted as aliases so mixed fleets and recorded event streams
 keep scoring correctly.
 
-Copied from the JAX reference's ``kvcache/scorer.py``, logging through
-the standard ``logging`` module.
+Copied from the JAX reference's ``kvcache/scorer.py``.
 """
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence
 
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.index import PodEntry
+from llm_d_kv_cache_manager_tpu_torch.utils.logging import get_logger
 
-logger = logging.getLogger(__name__)
+logger = get_logger("kvcache.scorer")
 
 LONGEST_PREFIX_MATCH = "longest-prefix-match"
 

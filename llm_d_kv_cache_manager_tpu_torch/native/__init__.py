@@ -3,9 +3,10 @@
 ``get_library()`` returns the ctypes handle to the port's
 ``libkvtpu_native`` (built from ``src/`` at first use, see ``build.py``).
 Unlike the JAX package's loader it never returns None: a failed build
-raises, so no caller slips onto the pure-Python engine unnoticed.  The
-Python engine is an explicit choice (``KVTPU_DISABLE_NATIVE=1``, read by
-``engine.OffloadEngine``).
+raises, so no caller slips onto the pure-Python engine or hash chain
+unnoticed.  The Python engine is an explicit choice
+(``KVTPU_DISABLE_NATIVE=1``, read by ``engine.OffloadEngine``), as the
+Python hash chain is (``ChunkedTokenDatabase(use_native=False)``).
 """
 
 from __future__ import annotations
@@ -19,9 +20,21 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the engine entries the port calls (the library also
-    exports the block-hash chain, which the port's token processor does
-    in Python)."""
+    """Declare the entries the port calls: the block-hash chain (the
+    token processor's keys), XXH64 (the prefix store's chunk keys) and
+    the offload engine."""
+    lib.kvtpu_hash_chain.restype = ctypes.c_size_t
+    lib.kvtpu_hash_chain.argtypes = [
+        ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint32),
+        ctypes.c_size_t,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_uint64),
+    ]
+
+    lib.kvtpu_xxh64.restype = ctypes.c_uint64
+    lib.kvtpu_xxh64.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64]
+
     lib.kvtpu_engine_create.restype = ctypes.c_void_p
     lib.kvtpu_engine_create.argtypes = [ctypes.c_size_t, ctypes.c_int]
     lib.kvtpu_engine_destroy.argtypes = [ctypes.c_void_p]

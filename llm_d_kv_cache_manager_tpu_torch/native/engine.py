@@ -1,5 +1,7 @@
-"""Python surface of the native I/O engine.
+"""Python surface of the native library.
 
+``native_hash_chain`` hashes token ids into chained block keys for the
+token processor (``kvcache/kvblock/token_processor.py``).
 ``OffloadEngine`` runs async host-buffer <-> file jobs on the
 NUMA-pinned native I/O pool.  The pure-Python ``_PythonEngine``
 (ThreadPoolExecutor + Python file I/O) stays as an explicit choice,
@@ -19,7 +21,7 @@ import os
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from enum import IntEnum
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -33,6 +35,41 @@ class JobStatus(IntEnum):
     SUCCEEDED = 1
     FAILED = 2
     UNKNOWN = 3
+
+
+def native_hash_chain(
+    parent_hash: int, tokens: Sequence[int], block_size: int
+) -> Optional[List[int]]:
+    """Chunk-hash via the native library.  None when an id is not an
+    integer in uint32's range, so the caller takes the Python chain (an
+    unsafe cast would wrap silently and diverge from it); a library that
+    fails to build raises (``get_library``)."""
+    lib = get_library()
+    try:
+        raw = np.asarray(tokens)
+        if not np.issubdtype(raw.dtype, np.integer):
+            return None
+        if raw.dtype != np.uint32 and raw.size and (
+            raw.min() < 0 or raw.max() > 0xFFFFFFFF
+        ):
+            return None
+        token_array = raw.astype(np.uint32, copy=False)
+        if not token_array.flags["C_CONTIGUOUS"]:
+            token_array = np.ascontiguousarray(token_array)
+    except (OverflowError, ValueError, TypeError):
+        return None
+    n_chunks = len(token_array) // block_size
+    if n_chunks == 0:
+        return []
+    out = np.empty(n_chunks, dtype=np.uint64)
+    written = lib.kvtpu_hash_chain(
+        ctypes.c_uint64(parent_hash & 0xFFFFFFFFFFFFFFFF),
+        token_array.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        len(token_array),
+        block_size,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+    )
+    return out[:written].tolist()
 
 
 def store_file(

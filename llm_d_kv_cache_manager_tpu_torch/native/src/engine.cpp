@@ -155,6 +155,10 @@ size_t kvtpu_hash_chain(uint64_t parent_hash, const uint32_t* tokens,
                            out_keys);
 }
 
+uint64_t kvtpu_xxh64(const uint8_t* data, size_t len, uint64_t seed) {
+  return kvtpu::xxh64(data, len, seed);
+}
+
 void* kvtpu_engine_create(size_t n_threads, int numa_node) {
   return new kvtpu::OffloadEngine(n_threads, numa_node);
 }

@@ -40,6 +40,10 @@ void encode_chunk_payload(uint64_t parent, const uint32_t* tokens,
 size_t hash_chain(uint64_t parent_hash, const uint32_t* tokens,
                   size_t n_tokens, size_t block_size, uint64_t* out_keys);
 
+// XXH64 of `len` bytes with `seed` (Yann Collet's xxHash, 64-bit): the
+// prefix store's chained text-chunk keys (tokenization/prefixstore).
+uint64_t xxh64(const uint8_t* data, size_t len, uint64_t seed);
+
 // ---------------------------------------------------------------------------
 // NUMA
 // ---------------------------------------------------------------------------

@@ -4,10 +4,7 @@ Capability parity with the hashicorp/golang-lru caches the reference builds
 on (reference: pkg/kvcache/kvblock/in_memory.go:24,
 pkg/tokenization/prefixstore/lru_store.go:26) — but implemented on
 ``OrderedDict`` with a single lock, which is the idiomatic CPython shape.
-
-Copied from the JAX reference's ``utils/lru.py`` with a plain
-``threading.Lock``: the reference's lock-order watchdog (``lockorder``)
-is not ported yet.
+Copied from the JAX reference's ``utils/lru.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +22,8 @@ from typing import (
     Tuple,
     TypeVar,
 )
+
+from llm_d_kv_cache_manager_tpu_torch.utils import lockorder
 
 K = TypeVar("K", bound=Hashable)
 V = TypeVar("V")
@@ -44,12 +43,20 @@ class LRUCache(Generic[K, V]):
         self,
         capacity: int,
         on_evict: Optional[Callable[[K, V], None]] = None,
+        *,
+        lock_rank: Optional[int] = None,
     ) -> None:
         if capacity <= 0:
             raise ValueError(f"LRU capacity must be positive, got {capacity}")
         self._capacity = capacity
         self._data: "OrderedDict[K, V]" = OrderedDict()  # guarded-by: _lock
-        self._lock = threading.Lock()
+        # ``lock_rank`` orders instances under the lock-order watchdog
+        # (utils/lockorder.py): striped owners pass their stripe index
+        # so same-name nesting asserts ascending acquisition.  With the
+        # watchdog off, tracked() returns the bare Lock unchanged.
+        self._lock = lockorder.tracked(
+            threading.Lock(), "LRUCache._lock", lock_rank
+        )
         self._on_evict = on_evict
 
     def __len__(self) -> int:

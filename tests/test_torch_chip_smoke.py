@@ -12,6 +12,7 @@ faults of the sharded training check."""
 import pathlib
 import runpy
 
+import numpy as np
 import pytest
 import torch
 
@@ -384,3 +385,115 @@ def test_sharded_training_faults_move_the_losses():
     assert abs(faults["wo_dropped_first_loss"] - clean[0]) > 1e-4 * clean[0]
     assert lost[0] == pytest.approx(clean[0], rel=1e-6)
     assert all(abs(a - b) > 1e-5 * b for a, b in zip(lost[1:], clean[1:]))
+
+
+# ---------------------------------------------- phase 13: the read path
+
+
+def test_read_path_at_a_small_size():
+    """Phase 13 end to end at a small size: the fleet seeding, the three
+    lanes' scores equal on every request and equal to their expected
+    value (the warm turns' from the tier weights), the native and Python
+    chains, the traced request's spans and the exposition's lookups."""
+    out = smoke["read_path"]("cpu", pods_n=3, convs=2, conv_tokens=256, turns=3,
+                             turn_tokens=32, cold=2, min_requests=10)
+    assert out["keys_per_index"] == 3 * 2 * 256 // 16
+    # each workload's prompts once to warm, then repeated to >= 10 timed
+    assert out["requests_checked"] == (3 + 3 * 4) + (2 + 2 * 5) + (4 + 4 * 3)
+    assert out["lookups"] == 3 * out["requests_checked"] + 1
+    assert set(out["cells"]) == {"warm_multi_turn", "cold", "mixed"}
+    for cells in out["cells"].values():
+        assert set(cells) == {"fast", "fast_no_memo", "straight"}
+        assert all(c["requests"] >= 10 and 0 < c["p50_ms"] <= c["p99_ms"]
+                   for c in cells.values())
+
+
+def test_seed_fleet_puts_each_conversation_on_its_pod_and_tier():
+    index_mod = port("kvcache.kvblock.index")
+    indexers = [smoke["read_path_indexer"](fast, block_size=4) for fast in (True, False)]
+    try:
+        rng = np.random.default_rng(1)
+        added, seconds = smoke["seed_fleet"](indexers, rng, ["p0", "p1"], 3, 40)
+        assert added == 2 * 3 * 10 and seconds > 0
+        rng = np.random.default_rng(1)
+        for pod in ("p0", "p1"):
+            for j in range(3):
+                ids = rng.integers(1, smoke["READ_VOCAB"], 40).tolist()
+                keys = indexers[0].token_processor.tokens_to_kv_block_keys(0, ids,
+                                                                             smoke["MODEL_NAME"])
+                for indexer in indexers:
+                    found = indexer.kv_block_index.lookup(keys)
+                    assert sorted(found) == sorted(keys)
+                    assert {(e.pod_identifier, e.device_tier) for pods in found.values()
+                            for e in pods} == {(pod, ("hbm", "host")[j % 2])}
+    finally:
+        for indexer in indexers:
+            indexer.shutdown()
+
+
+def test_prefix_store_model_predicts_the_pools_tokens():
+    """``PrefixStoreModel`` (the independent count behind the expected
+    scores of phases 5 and 13) against the tokenization pool itself over
+    a growing conversation and unrelated prompts."""
+    indexer = smoke["read_path_indexer"](True, block_size=4)
+    model = smoke["PrefixStoreModel"]()
+    rng = np.random.default_rng(2)
+    words = smoke["words"]
+    try:
+        convo = rng.integers(1, 128256, 600).tolist()
+        prompts = [words(convo[:n]) for n in (300, 340, 380, 420, 600, 300)]
+        prompts += [words(rng.integers(1, 128256, 200).tolist()), prompts[2], "t5"]
+        for prompt in prompts:
+            got = indexer.tokenization_pool.tokenize(prompt, smoke["MODEL_NAME"])
+            assert model.served(prompt) == got, prompt[:40]
+        served, in_full = smoke["store_served_tokens"](prompts[1], prompts[0])
+        assert not in_full and len(served) < 300
+        assert smoke["store_served_tokens"](prompts[0]) == (convo[:300], True)
+    finally:
+        indexer.shutdown()
+
+
+def test_expected_scores_use_the_scorers_tier_weights():
+    got = smoke["expected_read_scores"](5, ["a", "b", "c"], [("a", "hbm"), ("b", "host")])
+    assert got == {"a": 5.0, "b": 0.8 + 0.8 + 0.8 + 0.8 + 0.8, "c": 0.0}
+    assert smoke["tier_score"](0, 0.8) == 0.0
+
+
+def _spans():
+    return [{"name": n, "parent": p} for n, p in [
+        ("tokenize.prefix_probe", "tokenize"), ("tokenize.queue_wait", "tokenize"),
+        ("tokenize.encode", "tokenize"), ("tokenize", None), ("hash_blocks", None),
+        ("index_lookup", None), ("score", None)]]
+
+
+@pytest.mark.parametrize("fault", [None, "rename", "reparent", "drop", "twice"])
+def test_check_spans_rejects_a_changed_tree(fault):
+    spans = _spans()
+    if fault == "rename":
+        spans[4]["name"] = "hash"
+    elif fault == "reparent":
+        spans[2]["parent"] = None
+    elif fault == "drop":
+        del spans[5]
+    elif fault == "twice":
+        spans.append({"name": "score", "parent": None})
+    if fault is None:
+        assert smoke["check_spans"](spans)["tokenize.encode"] == "tokenize"
+    else:
+        with pytest.raises(AssertionError, match="span"):
+            smoke["check_spans"](spans)
+
+
+def test_lookup_counter_reads_the_exposition():
+    text = ("# TYPE kvtpu_kvcache_index_lookup_requests_total counter\n"
+            "kvtpu_kvcache_index_lookup_requests_total 17.0\n")
+    assert smoke["lookup_counter"](text) == 17.0
+    with pytest.raises(AssertionError):
+        smoke["lookup_counter"]("kvtpu_other_total 1.0\n")
+    assert smoke["percentile_ms"]([0.001, 0.002, 0.003], 50) == 2.0
+
+
+def test_word_tokenizer_offsets_index_the_prompt_bytes():
+    enc = smoke["WordTokenizer"]().encode("t12 t7 t300", "m", True)
+    assert enc.tokens == [12, 7, 300]
+    assert ["t12 t7 t300"[a:b] for a, b in enc.offsets] == ["t12", "t7", "t300"]

@@ -85,7 +85,8 @@ def test_random_index_workload_matches_reference(seed, shards):
     rng = random.Random(seed)
     cfg = dict(size=96, pod_cache_size=2, shards=shards)
     jax_index = jax_new_index(IndexConfig(in_memory_config=JaxIndexConfig(**cfg)))
-    port_index = index_mod.new_index(index_mod.InMemoryIndexConfig(**cfg))
+    port_index = index_mod.new_index(
+        index_mod.IndexConfig(in_memory_config=index_mod.InMemoryIndexConfig(**cfg)))
     jax_db = JaxDatabase(JaxTokenConfig(block_size=4, hash_seed="7"))
     port_db = tp.ChunkedTokenDatabase(tp.TokenProcessorConfig(block_size=4, hash_seed="7"))
     jax_scorer = jax_new_scorer(JaxScorerConfig())
@@ -144,14 +145,16 @@ def test_restore_round_trip_matches_reference():
     rng = random.Random(5)
     cfg = dict(size=64, pod_cache_size=3, shards=4)
     jax_index = jax_new_index(IndexConfig(in_memory_config=JaxIndexConfig(**cfg)))
-    port_index = index_mod.new_index(index_mod.InMemoryIndexConfig(**cfg))
+    port_index = index_mod.new_index(
+        index_mod.IndexConfig(in_memory_config=index_mod.InMemoryIndexConfig(**cfg)))
     for i in range(40):
         keys = [rng.getrandbits(64) for _ in range(3)]
         entry = (f"pod-{i % 3}", rng.choice(TIERS))
         jax_index.add(keys, keys, [JaxPodEntry(*entry)])
         port_index.add(keys, keys, [index_mod.PodEntry(*entry)])
     dump = jax_index.dump_entries()
-    fresh = index_mod.new_index(index_mod.InMemoryIndexConfig(**cfg))
+    fresh = index_mod.new_index(
+        index_mod.IndexConfig(in_memory_config=index_mod.InMemoryIndexConfig(**cfg)))
     blocks = [(k, [index_mod.PodEntry(p.pod_identifier, p.device_tier) for p in pods])
               for k, pods in dump[0]]
     assert fresh.restore_entries(blocks, dump[1]) == len(blocks)

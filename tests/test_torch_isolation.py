@@ -49,7 +49,7 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
     for name in ("parallel.mesh", "parallel.sharding", "ops.ring_attention", "ops.ring_flash",
                  "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
-    for name in OFFLOAD_MODULES:
+    for name in OFFLOAD_MODULES + READ_PATH_MODULES:
         assert f"{PACKAGE}.{name}" in result["modules"]
     assert result["loaded"] == []
 
@@ -59,6 +59,79 @@ OFFLOAD_MODULES = (
     "offload.manager", "offload.staging", "offload.host_tier", "offload.worker",
     "offload.staging_engine", "offload.spec", "utils.victim",
 )
+READ_PATH_MODULES = (
+    "utils.logging", "utils.lockorder", "utils.lru", "metrics", "metrics.collector", "obs",
+    "obs.recorder", "obs.trace", "kvcache.kvblock.index", "kvcache.kvblock.in_memory",
+    "kvcache.kvblock.cost_aware", "kvcache.kvblock.instrumented",
+    "kvcache.kvblock.token_processor", "kvcache.scorer", "kvcache.indexer", "preprocessing",
+    "preprocessing.chat_templating", "tokenization", "tokenization.tokenizers",
+    "tokenization.pool", "tokenization.prefixstore", "tokenization.prefixstore.lru_store",
+    "tokenization.prefixstore.trie_store", "analytics", "analytics.windows",
+    "analytics.ledger",
+)
+# What the H100's machine lacks (ROADMAP.md, rules of Queue A).
+ABSENT_ON_THE_CARD = ("prometheus_client", "xxhash", "tokenizers", "transformers", "msgpack",
+                      "zmq")
+
+
+def test_read_path_scores_without_the_libraries_the_card_lacks():
+    """In a fresh interpreter where ``prometheus_client``, ``xxhash``,
+    ``tokenizers``, ``transformers``, ``msgpack`` and ``zmq`` cannot be
+    imported (as on the H100's machine), every module of the read path
+    imports, and the Indexer scores a prompt with a word tokenizer,
+    straight and on the fast lane, and exposes its metrics."""
+    script = f"""
+import importlib, json, sys
+for name in {ABSENT_ON_THE_CARD!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+for name in {READ_PATH_MODULES!r}:
+    importlib.import_module({PACKAGE!r} + "." + name)
+im = importlib.import_module({PACKAGE!r} + ".kvcache.indexer")
+index = importlib.import_module({PACKAGE!r} + ".kvcache.kvblock.index")
+tp = importlib.import_module({PACKAGE!r} + ".kvcache.kvblock.token_processor")
+tokenizers = importlib.import_module({PACKAGE!r} + ".tokenization.tokenizers")
+collector = importlib.import_module({PACKAGE!r} + ".metrics.collector")
+
+class Words:
+    def type(self):
+        return "word"
+    def encode(self, prompt, model_name, add_special_tokens):
+        words = prompt.split(" ")
+        ends = [sum(len(w) + 1 for w in words[:i + 1]) - 1 for i in range(len(words))]
+        return tokenizers.Encoding([int(w[1:]) for w in words],
+                                   [(e - len(w), e) for w, e in zip(words, ends)])
+
+out = []
+for fast in (True, False):
+    indexer = im.Indexer(im.IndexerConfig(
+        token_processor_config=tp.TokenProcessorConfig(block_size=4),
+        kvblock_index_config=index.IndexConfig(enable_metrics=True),
+        read_path_fast_lane=fast), tokenizer=Words())
+    indexer.run()
+    try:
+        tokens = list(range(1, 41))
+        keys = indexer.token_processor.tokens_to_kv_block_keys(0, tokens, "m")
+        indexer.kv_block_index.add(keys, keys, [index.PodEntry("pod-a", "hbm")])
+        prompt = " ".join(f"t{{t}}" for t in tokens)
+        out.append(indexer.get_pod_scores(prompt, "m", ["pod-a", "pod-b"]))
+    finally:
+        indexer.shutdown()
+text = collector.METRICS.exposition().decode()
+blocked = sorted(n for n in {ABSENT_ON_THE_CARD!r} if sys.modules.get(n) is not None)
+print(json.dumps({{"scores": out, "blocked_loaded": blocked,
+                  "lookups": "kvtpu_kvcache_index_lookup_requests_total 2.0" in text}}))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"scores": [{"pod-a": 10.0, "pod-b": 0.0}] * 2, "blocked_loaded": [],
+                      "lookups": True}
 
 
 def test_native_engine_builds_from_the_ports_own_sources():
