@@ -49,7 +49,14 @@ Phases (any failure exits non-zero):
      (``get_pod_scores`` over the prompt's text; A misses with every pod
      at 0.0, B hits pod-a, its score over the blocks of the tokens the
      prefix store serves from A's text, and reuses its 512 prefix
-     blocks), a miss, a hit, 8 decode steps replayed
+     blocks); each pod publishes the blocks it wrote as KV events
+     (``BlockStored`` with its own ``sha256_cbor`` hashes, evictions as
+     ``BlockRemoved``), framed ``kv@<pod>@<model>`` with a seq, which
+     reach the index only through ``parse_event_message`` and the event
+     pool of a ``PrecisePrefixCacheScorer`` built around the Indexer (the
+     event lag, publish to keys in the index, printed apart from TTFT);
+     the scorer's ``score`` of B's completion gives pod-a 1.0, pod-b 0.0;
+     a miss, a hit, 8 decode steps replayed
      from one captured CUDA graph (``make_decode_step``), which must
      launch the prefill kernel once per layer per request and the
      decode kernel once per layer per step (counted from the kernels the
@@ -120,9 +127,11 @@ Phases (any failure exits non-zero):
      2);
  13. read path, on the host: three Indexers (fast lane, fast lane without
      the score memo, straight path) over metrics-wrapped in-memory
-     indexes seeded through ``kv_block_index.add`` with 4 pods x 64
-     random 8192-token conversations (131,072 keys, hbm and host; seeding
-     rate and process RSS); bench.py's read-path traffic (a resident
+     indexes seeded with 4 pods x 64 random 8192-token conversations
+     (131,072 keys, hbm and host) published as KV events (one
+     ``BlockStored`` per 2048-token chunk) through a pool each, the
+     entries those of the chains (seeding rate and process RSS);
+     bench.py's read-path traffic (a resident
      conversation's 8 turns on pod-0 hbm and pod-1 host, 24 cold 8192-token
      prompts, the two alternated), at least 200 requests a cell, p50 and
      p99 ms; every request's scores equal across the lanes and to their
@@ -132,7 +141,21 @@ Phases (any failure exits non-zero):
      ``tokenize.prefix_probe`` and ``tokenize.encode`` under it,
      ``hash_blocks``, ``index_lookup``, ``score``); the exposition's lookup
      counter equal to the scoring requests made;
- 14. one JSON line listing each kernel's numbers;
+ 14. write path, on the host, from phase 13's fleet: (a) its frames seeded
+     into fresh indexes through ``parse_event_message`` and
+     ``Pool.add_tasks`` in poller bursts, lock-free decode on and off,
+     each index's request-key entries equal to phase 13's (events/s,
+     blocks/s, decode and apply ms a message, RSS); (b) bench.py's event
+     storm (1000 pods, the shared 2-block 32-token payload, 3 s at 6000
+     messages/s, then unthrottled if nothing was shed), a quiet pod under
+     its budget never shed (applied rate, drops by reason, sheds by pod);
+     (c) a pod stores a chunk whose removal is lost with 5 frames: the
+     tracker reports a gap of 5, ``ResyncManager`` marks the pod suspect,
+     purges and re-applies its inventory, its entries those before the
+     gap (staleness ms); (d) ``IndexAuditor`` over the four pods: no
+     divergence, then exactly N phantom and M wrong-tier blocks after N
+     blocks leave one pod's inventory unannounced and M change tier;
+ 15. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
@@ -143,6 +166,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import hashlib
 import importlib
 import json
 import math
@@ -150,9 +174,11 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -326,8 +352,20 @@ def ptxas_lines(log: str):
     return [(k, f"{used.get(k, '?')}; {props.get(k, '?')}") for k in order]
 
 
-def phase(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+# Host-clock seconds of each phase, by the title's leading number.
+PHASE_SECONDS = {}
+_phase_start = [None, None]  # (title, perf_counter) of the phase running
+
+
+def phase(title: str = None) -> None:
+    """Close the running phase (its seconds into PHASE_SECONDS) and open
+    ``title`` (None: only close)."""
+    now = time.perf_counter()
+    if _phase_start[0] is not None:
+        PHASE_SECONDS[_phase_start[0].split(" ")[0].rstrip(".")] = round(now - _phase_start[1], 1)
+    _phase_start[:] = [title, now]
+    if title is not None:
+        print(f"\n== {title}", flush=True)
 
 
 def eager_ms(torch, fn, iters: int) -> float:
@@ -738,6 +776,192 @@ def ring_partial_case(torch, peaks, B, Tq, Tk, H, Hkv, D, offset, dtype, timing)
     return add_rates(row, flops)
 
 
+# ---------------------------------------------- KV events (phases 5, 13, 14)
+
+
+EVENT_CHUNK_TOKENS = 2048  # one BlockStored per 2048-token prefill chunk
+POLLER_BURST = 64  # kvevents/poller.py:MAX_RECV_PER_SOCKET, a poller's burst
+
+
+def engine_hashes(parent, tokens, block_size: int):
+    """The block hashes a ``sha256_cbor`` engine (vLLM) publishes for the
+    full blocks of ``tokens`` that follow the block hashed ``parent``
+    (None at a sequence's start): SHA-256 over the canonical CBOR of
+    (parent hash, block tokens, None), chained block to block."""
+    encode = port("kvcache.kvblock.cbor_canonical").encode_canonical
+    out = []
+    for start in range(0, len(tokens) - block_size + 1, block_size):
+        parent = hashlib.sha256(encode([parent, tokens[start:start + block_size], None])).digest()
+        out.append(parent)
+    return out
+
+
+class EventStream:
+    """One pod's KV-event stream as its engine frames it,
+    ``[b"kv@<pod>@<model>", seq (u64 big-endian), msgpack(EventBatch)]``
+    with seq counting from 1: ``kvevents/publisher.py``'s framing,
+    without the socket (the card's machine has no pyzmq)."""
+
+    def __init__(self, pod: str, model: str = MODEL_NAME) -> None:
+        self.pod = pod
+        self.topic = f"kv@{pod}@{model}".encode()
+        self.seq = 0
+
+    def frame(self, *events, payload: bytes = None) -> list:
+        """The next frame: ``events`` as one batch, or a payload encoded
+        before."""
+        if payload is None:
+            payload = port("kvevents.events").EventBatch(ts=time.time(),
+                                                         events=list(events)).encode()
+        self.seq += 1
+        return [self.topic, struct.pack(">Q", self.seq), payload]
+
+    def skip(self, count: int) -> None:
+        """``count`` frames lost on the wire: the next seq jumps."""
+        self.seq += count
+
+
+class EventSink:
+    """A subscriber of one pool, as a poller is: each pod's frames go
+    through ``parse_event_message`` with that pod's ``TopicSeqTracker``
+    (and the gap listener), then one ``Pool.add_tasks`` a burst."""
+
+    def __init__(self, pool, on_gap=None) -> None:
+        self.pool = pool
+        self.on_gap = on_gap
+        self.trackers = {}
+
+    def deliver(self, pod: str, frames) -> int:
+        zs = port("kvevents.zmq_subscriber")
+        tracker = self.trackers.setdefault(pod, zs.TopicSeqTracker())
+        messages = [zs.parse_event_message(parts, endpoint=f"sim://{pod}", pod_identifier=pod,
+                                           tracker=tracker, on_gap=self.on_gap)
+                    for parts in frames]
+        messages = [m for m in messages if m is not None]
+        self.pool.add_tasks(messages)
+        return len(messages)
+
+
+def feed(sinks, frames_by_pod, burst: int = POLLER_BURST) -> int:
+    """Deliver every pod's frames to every sink, ``burst`` frames of one
+    pod at a time, the pods in turn (a poller's round over its sockets).
+    Returns the frames delivered to each sink."""
+    sent = dict.fromkeys(frames_by_pod, 0)
+    live = [pod for pod, frames in frames_by_pod.items() if frames]
+    while live:
+        still = []
+        for pod in live:
+            start = sent[pod]
+            chunk = frames_by_pod[pod][start:start + burst]
+            for sink in sinks:
+                sink.deliver(pod, chunk)
+            sent[pod] = start + len(chunk)
+            if sent[pod] < len(frames_by_pod[pod]):
+                still.append(pod)
+        live = still
+    return sum(sent.values())
+
+
+def event_fleet(rng, pods, convs: int, tokens: int, block_size: int, tiers=("hbm", "host")):
+    """``convs`` random conversations of ``tokens`` tokens on each pod,
+    conversation j on ``tiers[j % len(tiers)]``, as the pods' engines
+    publish them: one ``BlockStored`` per EVENT_CHUNK_TOKENS prefill
+    chunk, chained by parent, one batch a frame.  Returns the chains
+    ``(pod, tier, token ids)``, each pod's frames and stream, its
+    inventory (``InventoryBlock`` per chunk, as resync and the auditor
+    pull it) and the block count."""
+    events, resync = port("kvevents.events"), port("kvevents.resync")
+    chains, frames, inventory, streams, blocks = [], {}, {}, {}, 0
+    for pod in pods:
+        stream = streams[pod] = EventStream(pod)
+        frames[pod], inventory[pod] = [], []
+        for j in range(convs):
+            ids = rng.integers(1, READ_VOCAB, tokens).tolist()
+            tier = tiers[j % len(tiers)]
+            chains.append((pod, tier, ids))
+            parent = None
+            for start in range(0, len(ids), EVENT_CHUNK_TOKENS):
+                hashes = engine_hashes(parent, ids[start:start + EVENT_CHUNK_TOKENS], block_size)
+                if not hashes:
+                    break
+                chunk = ids[start:start + len(hashes) * block_size]
+                frames[pod].append(stream.frame(events.BlockStored(
+                    block_hashes=hashes, parent_block_hash=parent, token_ids=chunk,
+                    block_size=block_size, medium=tier)))
+                inventory[pod].append(resync.InventoryBlock(
+                    block_hashes=hashes, token_ids=chunk, block_size=block_size,
+                    parent_block_hash=parent, medium=tier))
+                parent = hashes[-1]
+                blocks += len(hashes)
+    return dict(chains=chains, frames=frames, streams=streams, inventory=inventory,
+                blocks=blocks, chunks_per_conv=-(-(tokens // block_size * block_size)
+                                                 // EVENT_CHUNK_TOKENS))
+
+
+def event_pool(index, hasher, **config):
+    """A started ``Pool`` over ``index`` (the write path's workers)."""
+    kv = port("kvevents.pool")
+    pool = kv.Pool(index, hasher, kv.PoolConfig(**config))
+    pool.start()
+    return pool
+
+
+def seed_by_events(indexers, frames_by_pod) -> float:
+    """Every Indexer's index seeded from the same frames, each through
+    its own pool and subscriber; returns the seconds until every pool
+    drained."""
+    pools = [event_pool(ix.kv_block_index, ix.token_processor) for ix in indexers]
+    try:
+        t0 = time.perf_counter()
+        feed([EventSink(pool) for pool in pools], frames_by_pod)
+        for pool in pools:
+            pool.drain()
+        return time.perf_counter() - t0
+    finally:
+        for pool in pools:
+            pool.shutdown()
+
+
+def index_entries(index, pod: str = None) -> dict:
+    """``{request key: {(pod, tier)}}`` of an index (of one pod's
+    entries, when ``pod`` is given), from ``dump_entries``."""
+    out = {}
+    for key, entries in index.dump_entries()[0]:
+        held = {(e.pod_identifier, e.device_tier) for e in entries
+                if pod is None or e.pod_identifier == pod}
+        if held:
+            out[key] = held
+    return out
+
+
+def expected_entries(hasher, chains) -> dict:
+    """What seeding ``chains`` must leave in an index: each
+    conversation's request keys, from the hash chain over its tokens
+    alone, held by its pod on its tier."""
+    out = {}
+    for pod, tier, ids in chains:
+        for key in hasher.tokens_to_kv_block_keys(0, ids, MODEL_NAME):
+            out.setdefault(key, set()).add((pod, tier))
+    return out
+
+
+def host_state() -> dict:
+    """What the host phases share the process with: live threads, objects
+    the cyclic collector tracks, its full collections so far, the load."""
+    threads = {}
+    for thread in threading.enumerate():
+        name = re.sub(r"[-_]?\d+$", "", thread.name)
+        threads[name] = threads.get(name, 0) + 1
+    return {"threads": threads, "gc_tracked": len(gc.get_objects()),
+            "gc_full_collections": gc.get_stats()[2]["collections"],
+            "loadavg": os.getloadavg()}
+
+
+def label_totals(counter, label: str) -> dict:
+    """A labeled counter's values by one label."""
+    return {s.labels[label]: s.value for family in counter.collect() for s in family.samples}
+
+
 # --------------------------------------------------------------- phase 5
 
 
@@ -834,9 +1058,38 @@ def show_breakdown(what: str, wall_ms: float, busy) -> dict:
     return dict(busy, wall_ms=wall_ms, idle_share=idle)
 
 
+class EngineEvents:
+    """What a serving pod's engine publishes: its own ``sha256_cbor``
+    hash of each cached block (``engine``, by the block's request key)
+    and its event stream."""
+
+    def __init__(self, pod: str) -> None:
+        self.stream = EventStream(pod)
+        self.engine = {}
+
+    def publish(self, keys, tokens, fresh: int, evicted, bs: int) -> list:
+        """The frame the engine publishes after a prefill that wrote the
+        blocks ``keys[fresh:]`` of ``tokens``: the evicted blocks as one
+        ``BlockRemoved``, the new full blocks as one ``BlockStored``
+        chained to the cached block before them, both on ``gpu``."""
+        events = port("kvevents.events")
+        out = []
+        gone = [self.engine.pop(k) for k in evicted if k in self.engine]
+        if gone:
+            out.append(events.BlockRemoved(block_hashes=gone, medium="gpu"))
+        parent = self.engine[keys[fresh - 1]] if fresh else None
+        new_tokens = tokens[fresh * bs:len(keys) * bs]
+        hashes = engine_hashes(parent, new_tokens, bs)
+        self.engine.update(zip(keys[fresh:], hashes))
+        out.append(events.BlockStored(block_hashes=hashes, parent_block_hash=parent,
+                                      token_ids=new_tokens, block_size=bs, medium="gpu"))
+        return self.stream.frame(*out)
+
+
 class SimPod:
     """One simulated serving pod: paged pool + local prefix cache (the
-    fleet benchmark's pod loop, over the port's ``KVCachePool``)."""
+    fleet benchmark's pod loop, over the port's ``KVCachePool``), and
+    the KV events its engine publishes."""
 
     def __init__(self, name: str, cfg, pool_blocks: int) -> None:
         pool_mod = port("models.kv_cache_pool")
@@ -854,6 +1107,7 @@ class SimPod:
         # plus the reverse map so reuse evicts the old resident.
         self.cached = {}
         self._block_owner = {}
+        self.events = EngineEvents(name)
 
     def alloc(self, n: int):
         """Bump-allocate n blocks; returns (ids, evicted block hashes)."""
@@ -971,7 +1225,8 @@ def serving(torch, params, cfg):
         """Route and prefill one prompt: the Indexer scores its text
         (tokenize, hash, look up, score), then the chosen pod continues
         over its cached prefix (hit) or prefills the whole prompt (miss),
-        and the new blocks are registered in the Indexer's index."""
+        and publishes its new blocks as KV events, which reach the
+        Indexer's index through the scorer's event pool."""
         t_start = time.perf_counter()
         scores = indexer.get_pod_scores(words(tokens), MODEL_NAME, names)
         t_routed = time.perf_counter()
@@ -983,14 +1238,14 @@ def serving(torch, params, cfg):
         keys = hasher.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH, tokens, MODEL_NAME)
         cached = pod.cached_prefix_blocks(keys)
         if cached:  # hit: continue over the cached prefix
-            new_ids, _ = pod.alloc(len(keys) - len(cached))
+            new_ids, evicted = pod.alloc(len(keys) - len(cached))
             ids = cached + new_ids
             prefix_len = len(cached) * bs
             logits, _ = llama.prefill_continue(
                 params, torch.tensor([tokens[prefix_len:]]), pod.pool.kv,
                 torch.tensor([ids], dtype=torch.int32), prefix_len, cfg)
         else:  # miss: prefill the whole prompt
-            new_ids, _ = pod.alloc(len(keys))
+            new_ids, evicted = pod.alloc(len(keys))
             ids = new_ids
             logits, _ = llama.prefill_paged(
                 params, torch.tensor([tokens]), pod.pool.kv,
@@ -999,11 +1254,23 @@ def serving(torch, params, cfg):
         ttft = time.perf_counter() - t_start
         fresh = len(cached)
         pod.commit(keys[fresh:], ids[fresh:])
-        indexer.kv_block_index.add(keys[fresh:], keys[fresh:],
-                                   [index_mod.PodEntry(pod.name, "gpu")])
+        # The engine publishes what it wrote; the blocks reach the index
+        # once the scorer's pool has applied the frame (drain).
+        frame = pod.events.publish(keys, tokens, fresh, evicted, bs)
+        stages0 = scorer.events_pool.stage_stats()
+        t_pub = time.perf_counter()
+        sink.deliver(pod.name, [frame])
+        scorer.events_pool.drain()
+        lag = time.perf_counter() - t_pub
+        stages = {k: v - stages0[k] for k, v in scorer.events_pool.stage_stats().items()}
+        last = tp_mod.engine_hash_to_uint64(pod.events.engine[keys[-1]])
+        if indexer.kv_block_index.get_request_key(last) != keys[-1]:
+            raise AssertionError(f"{pod.name}'s published blocks are not in the index")
         return dict(pod=pod, keys=keys, ids=ids, logits=logits, first=first,
                     ttft_ms=ttft * 1e3, route_ms=(t_routed - t_start) * 1e3,
-                    reused=len(cached), scores=scores)
+                    reused=len(cached), scores=scores, lag_ms=lag * 1e3,
+                    published=len(keys) - fresh, evicted=len(evicted),
+                    decode_ms=stages["decode_s"] * 1e3, apply_ms=stages["apply_s"] * 1e3)
 
     # Warm-up outside the measured run, at every shape it will use (a
     # full prefill, a continuation, a batch-2 decode) on pod-b's pool
@@ -1027,12 +1294,22 @@ def serving(torch, params, cfg):
     fc.flash_gqa_attention_cuda.launches = 0
     pc.paged_decode_attention_cuda.launches = 0
 
-    indexer.run()
+    # The scheduler's scorer around the Indexer: its event pool is the
+    # only way blocks reach the index; no sockets (discover_pods off).
+    sched = port("scheduler.precise_scorer")
+    scorer = sched.PrecisePrefixCacheScorer(
+        sched.PrecisePrefixCacheScorerConfig(discover_pods=False), indexer=indexer)
+    sink = EventSink(scorer.events_pool)
     try:
         a = serve(prompt_a, pods[0])
         b = serve(prompt_b, pods[1])
+        candidates = [sched.Pod(f"default/{p.name}", p.name) for p in pods]
+        normalized = scorer.score(sched.LLMRequest(
+            target_model=MODEL_NAME, completions=sched.CompletionsBody(prompt=words(prompt_b))),
+            candidates)
+        normalized = {pod.address: score for pod, score in normalized.items()}
     finally:
-        indexer.shutdown()  # its token processor stays: phases 7 and 12a hash with it
+        scorer.shutdown()  # the token processor stays: phases 7 and 12a hash with it
     print(f"  request A: Indexer scores {a['scores']} -> {a['pod'].name}, reused "
           f"{a['reused']} blocks (miss: prefill_paged over {len(prompt_a)} tokens), TTFT "
           f"{a['ttft_ms']:.1f} ms (routing through the Indexer {a['route_ms']:.1f} ms)",
@@ -1054,6 +1331,15 @@ def serving(torch, params, cfg):
         raise AssertionError("request B must hit A's pod on the whole prefix")
     if b["scores"] != want_b:
         raise AssertionError(f"unexpected scores for B: {b['scores']}, expected {want_b}")
+    for name, req in (("A", a), ("B", b)):
+        print(f"  event lag, request {name}: {req['pod'].name} published {req['published']} "
+              f"blocks ({req['evicted']} evicted) in one frame; {req['lag_ms']:.2f} ms from the "
+              f"publish to the keys in the index (decode {req['decode_ms']:.2f} ms, apply "
+              f"{req['apply_ms']:.2f} ms in the pool)", flush=True)
+    print(f"  PrecisePrefixCacheScorer.score(B's completion, both pods): {normalized}",
+          flush=True)
+    if normalized != {names[0]: 1.0, names[1]: 0.0}:
+        raise AssertionError(f"the scheduler's scores for B: {normalized}")
     if a["logits"].shape != (1, len(prompt_a), cfg.vocab_size) or logits_b.shape != (
             1, SUFFIX_TOKENS, cfg.vocab_size):
         raise AssertionError("unexpected logits shapes")
@@ -1239,6 +1525,10 @@ def serving(torch, params, cfg):
         "ttft_hit_ms": b["ttft_ms"],
         "route_miss_ms": a["route_ms"],
         "route_hit_ms": b["route_ms"],
+        "event_lag_ms": {"miss": a["lag_ms"], "hit": b["lag_ms"]},
+        "event_decode_ms": {"miss": a["decode_ms"], "hit": b["decode_ms"]},
+        "event_apply_ms": {"miss": a["apply_ms"], "hit": b["apply_ms"]},
+        "scheduler_scores": normalized,
         "decode_ms_per_step": ms_per_step,
         "decode_eager_ms_per_step": eager_ms_per_step,
         "decode_capture_s": capture_s,
@@ -2868,27 +3158,6 @@ def read_path_indexer(fast: bool, memo: bool = True, block_size: int = READ_BLOC
     return indexer
 
 
-def seed_fleet(indexers, rng, pods, convs: int, tokens: int, tiers=("hbm", "host")):
-    """``convs`` random conversations of ``tokens`` tokens on each pod of
-    every Indexer's index, conversation j on ``tiers[j % len(tiers)]``,
-    added through ``kv_block_index.add``; the keys come from the first
-    Indexer's token processor (all share one key space).  Returns the
-    keys added to each index and the seconds the adds took."""
-    index_mod = port("kvcache.kvblock.index")
-    hasher = indexers[0].token_processor
-    chains = []
-    for pod in pods:
-        for j in range(convs):
-            ids = rng.integers(1, READ_VOCAB, tokens).tolist()
-            keys = hasher.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH, ids, MODEL_NAME)
-            chains.append((keys, index_mod.PodEntry(pod, tiers[j % len(tiers)])))
-    t0 = time.perf_counter()
-    for indexer in indexers:
-        for keys, entry in chains:
-            indexer.kv_block_index.add(keys, keys, [entry])
-    return sum(len(keys) for keys, _ in chains), time.perf_counter() - t0
-
-
 def read_traffic(rng, conv_tokens: int, turns: int, turn_tokens: int, cold: int):
     """The conversation's token ids and the three workloads' prompts:
     its turns (the conversation so far after each), cold prompts of
@@ -2971,6 +3240,7 @@ def read_path(smi: str, pods_n=READ_PODS, convs=READ_CONVS_PER_POD,
 
     collector = port("metrics.collector")
     tp = port("kvcache.kvblock.token_processor")
+    index_mod = port("kvcache.kvblock.index")
     trace_mod = port("obs.trace")
     rng = np.random.default_rng(SEED)
     pods = [f"pod-{i}" for i in range(pods_n)]
@@ -2983,23 +3253,39 @@ def read_path(smi: str, pods_n=READ_PODS, convs=READ_CONVS_PER_POD,
         lanes = list(indexers.values())
         if indexers["fast"]._score_memo is None or indexers["fast_no_memo"]._score_memo:
             raise AssertionError("the score memo is not where it was asked for")
-        keys_added, seed_s = seed_fleet(lanes, rng, pods, convs, conv_tokens)
+        t0 = time.perf_counter()
+        fleet = event_fleet(rng, pods, convs, conv_tokens, block)
+        publish_s = time.perf_counter() - t0
+        keys_added = fleet["blocks"]
+        seed_s = seed_by_events(lanes, fleet["frames"])
         rss1 = collector.update_process_metrics()["rss_bytes"]
+        # Phase 14 seeds fresh indexes from the same frames and holds them
+        # to this one.
+        fleet["entries"] = index_entries(lanes[0].kv_block_index)
+        if fleet["entries"] != expected_entries(lanes[0].token_processor, fleet["chains"]):
+            raise AssertionError("the event-seeded index differs from the fleet's chains")
         print(f"  on {smi}: {len(lanes)} Indexers' in-memory indexes, each {pods_n} pods x "
               f"{convs} conversations of {conv_tokens} tokens = {keys_added} keys "
-              f"({conv_tokens // block} blocks a conversation, tiers hbm/host), seeded "
-              f"through kv_block_index.add at {len(lanes) * keys_added / seed_s:.0f} keys/s "
-              f"({seed_s:.2f} s); process RSS {rss0 / 2**20:.0f} -> {rss1 / 2**20:.0f} MiB",
-              flush=True)
+              f"({conv_tokens // block} blocks a conversation, tiers hbm/host), published as "
+              f"{sum(map(len, fleet['frames'].values()))} frames of one BlockStored "
+              f"({EVENT_CHUNK_TOKENS}-token chunks; engine hashes and encoding {publish_s:.2f} s) "
+              f"and seeded through a pool each at {len(lanes) * keys_added / seed_s:.0f} keys/s "
+              f"({seed_s:.2f} s), each index's entries those of the chains; process RSS "
+              f"{rss0 / 2**20:.0f} -> {rss1 / 2**20:.0f} MiB", flush=True)
         convo, workloads = read_traffic(rng, conv_tokens, turns, turn_tokens, cold)
-        index_mod = port("kvcache.kvblock.index")
-        convo_keys = lanes[0].token_processor.tokens_to_kv_block_keys(
-            index_mod.EMPTY_BLOCK_HASH, convo, MODEL_NAME)
         holders = [(pods[0], "hbm"), (pods[1], "host")]
-        for indexer in lanes:
-            for pod, tier in holders:
-                indexer.kv_block_index.add(convo_keys, convo_keys,
-                                           [index_mod.PodEntry(pod, tier)])
+        # The resident conversation, as its two holders publish it.
+        convo_frames = {}
+        for pod, tier in holders:
+            stream, parent, convo_frames[pod] = fleet["streams"][pod], None, []
+            for start in range(0, len(convo), EVENT_CHUNK_TOKENS):
+                chunk = convo[start:start + EVENT_CHUNK_TOKENS]
+                hashes = engine_hashes(parent, chunk, block)
+                convo_frames[pod].append(stream.frame(port("kvevents.events").BlockStored(
+                    block_hashes=hashes, parent_block_hash=parent,
+                    token_ids=chunk[:len(hashes) * block], block_size=block, medium=tier)))
+                parent = hashes[-1]
+        seed_by_events(lanes, convo_frames)
         warm_set = set(workloads["warm_multi_turn"])
         model = PrefixStoreModel()
         calls, cells, checked = 0, {}, 0
@@ -3085,10 +3371,309 @@ def read_path(smi: str, pods_n=READ_PODS, convs=READ_CONVS_PER_POD,
         for indexer in indexers.values():
             indexer.shutdown()
     return {"keys_per_index": keys_added, "seed_keys_per_s": len(indexers) * keys_added / seed_s,
+            "publish_s": publish_s, "fleet": fleet,
             "rss_mib": [rss0 / 2**20, rss1 / 2**20], "cells": cells, "requests_checked": checked,
             "hash_chain_ms": hash_ms, "hash_tokens": len(hash_tokens), "spans": tree,
             "span_ms": span_ms,
             "lookups": lookups, "card": smi}
+
+
+# --------------------------------------------------------------- phase 14
+
+
+# bench.py:bench_event_storm's shapes (STORM_PODS, STORM_PUBLISH_S,
+# STORM_RATE, STORM_BLOCK_SIZE; _StormFleet's shared payload).
+STORM_PODS = 1000
+STORM_SECONDS = 3.0
+STORM_RATE = 6000.0
+STORM_BLOCK = 16
+# The quiet pod's pace: fewer messages in a window than the fair share of
+# a shard (max_queue_depth // its ~250 lanes = 16), so under its budget
+# however slowly the pool drains.
+QUIET_EVERY_S = 0.5
+GAP_SEQS = 5
+AUDIT_PHANTOM = 40  # blocks dropped from one pod's inventory, with no BlockRemoved
+AUDIT_WRONG_TIER = 24  # blocks of that pod moved to the other tier
+
+
+def storm_payload(tokens, block_hashes) -> bytes:
+    """One frame's payload: a root ``BlockStored`` of ``tokens``."""
+    events = port("kvevents.events")
+    return events.EventBatch(ts=0.0, events=[events.BlockStored(
+        block_hashes=block_hashes, parent_block_hash=None, token_ids=tokens,
+        block_size=STORM_BLOCK)]).encode()
+
+
+def storm(pool, index, hasher, pods: int, seconds: float, rate, tag: str = "",
+          quiet_every: float = QUIET_EVERY_S):
+    """bench.py's event storm into ``pool``: ``pods`` pods publish the
+    shared 2-block, 32-token payload at ``rate`` messages/s (None: as fast
+    as this thread offers them) in poller bursts (up to POLLER_BURST
+    frames of one pod, the pods in turn), beside a quiet pod that stores
+    a new 2-block chain every ``quiet_every`` s (pod names carry ``tag``,
+    one per window).  Returns what was offered
+    and applied in the window, the drops by reason, the sheds by pod, and
+    whether every quiet message reached the index."""
+    metrics = port("metrics.collector").METRICS
+    sink = EventSink(pool)
+    streams = [EventStream(f"storm{tag}-{i}") for i in range(pods)]
+    quiet = EventStream(f"storm{tag}-quiet")
+    shared = storm_payload(list(range(2 * STORM_BLOCK)), [0xBEEF, 0xCAFE])
+    dropped0 = label_totals(metrics.kvevents_dropped, "reason")
+    shed0 = label_totals(metrics.kvevents_pod_shed, "pod")
+    stages0 = pool.stage_stats()
+    sent, turn, quiet_chains = 0, 0, []
+    t0 = time.perf_counter()
+    next_quiet = t0
+    while True:
+        now = time.perf_counter()
+        if now - t0 >= seconds:
+            break
+        if now >= next_quiet:
+            n = len(quiet_chains)
+            tokens = [100_000 + 2 * STORM_BLOCK * n + i for i in range(2 * STORM_BLOCK)]
+            quiet_chains.append(tokens)
+            sink.deliver(quiet.pod, [quiet.frame(
+                payload=storm_payload(tokens, [2**40 + 2 * n, 2**40 + 2 * n + 1]))])
+            next_quiet += quiet_every
+            continue
+        due = POLLER_BURST if rate is None else int((now - t0) * rate) - sent
+        if due <= 0:
+            time.sleep(0.0005)
+            continue
+        stream = streams[turn % pods]
+        turn += 1
+        burst = min(due, POLLER_BURST)
+        sink.deliver(stream.pod, [stream.frame(payload=shared) for _ in range(burst)])
+        sent += burst
+    window = time.perf_counter() - t0
+    stages1 = pool.stage_stats()
+    pool.drain()
+    dropped = {k: v - dropped0.get(k, 0.0) for k, v in
+               label_totals(metrics.kvevents_dropped, "reason").items()}
+    sheds = {k: v - shed0.get(k, 0.0) for k, v in
+             label_totals(metrics.kvevents_pod_shed, "pod").items()}
+    sheds = {k: v for k, v in sheds.items() if v and k.startswith(f"storm{tag}-")}
+    held = index_entries(index, quiet.pod)
+    quiet_landed = sum(
+        all(key in held for key in hasher.tokens_to_kv_block_keys(0, tokens, MODEL_NAME))
+        for tokens in quiet_chains)
+    applied = stages1["apply_msgs"] - stages0["apply_msgs"]
+    return {
+        "rate_asked": rate, "window_s": window, "offered": sent + len(quiet_chains),
+        "offered_per_s": (sent + len(quiet_chains)) / window, "applied_in_window": applied,
+        "applied_per_s": applied / window,
+        "decode_us_per_msg": (stages1["decode_s"] - stages0["decode_s"]) * 1e6 / max(
+            1, stages1["decode_msgs"] - stages0["decode_msgs"]),
+        "apply_us_per_msg": (stages1["apply_s"] - stages0["apply_s"]) * 1e6 / max(1, applied),
+        "dropped": {k: v for k, v in dropped.items() if v}, "pods_shed": len(sheds),
+        "sheds": sum(sheds.values()), "max_pod_sheds": max(sheds.values(), default=0.0),
+        "quiet_sent": len(quiet_chains), "quiet_shed": sheds.get(quiet.pod, 0.0),
+        "quiet_in_index": quiet_landed,
+    }
+
+
+def pod_inventory(fleet):
+    """The inventory source of resync and the auditor over ``fleet``'s
+    inventories (a pod's current blocks, engine hashes and tokens)."""
+    resync = port("kvevents.resync")
+    return resync.CallableInventorySource(
+        lambda pod: resync.PodInventory(pod, MODEL_NAME, list(fleet["inventory"][pod])))
+
+
+def plant_divergence(blocks, per_conv: int, phantom: int, wrong_tier: int):
+    """One pod's inventory (``per_conv`` chunks a conversation) with
+    ``phantom`` blocks dropped from the end of its first conversation (no
+    BlockRemoved published: the index still claims them) and the last
+    ``wrong_tier`` blocks of its second moved to the other tier."""
+    resync = port("kvevents.resync")
+    blocks = list(blocks)
+    last = blocks[per_conv - 1]
+    keep = len(last.block_hashes) - phantom
+    bs = last.block_size
+    blocks[per_conv - 1] = resync.InventoryBlock(
+        last.block_hashes[:keep], last.token_ids[:keep * bs], bs, last.parent_block_hash,
+        last.medium)
+    i = 2 * per_conv - 1
+    moved = blocks[i]
+    keep = len(moved.block_hashes) - wrong_tier
+    other = "host" if moved.medium == "hbm" else "hbm"
+    blocks[i:i + 1] = [
+        resync.InventoryBlock(moved.block_hashes[:keep], moved.token_ids[:keep * bs], bs,
+                              moved.parent_block_hash, moved.medium),
+        resync.InventoryBlock(moved.block_hashes[keep:], moved.token_ids[keep * bs:], bs,
+                              moved.block_hashes[keep - 1], other)]
+    return blocks
+
+
+def write_path(smi: str, fleet, storm_pods=STORM_PODS, storm_seconds=STORM_SECONDS,
+               storm_rate=STORM_RATE, phantom=AUDIT_PHANTOM, wrong_tier=AUDIT_WRONG_TIER,
+               block=READ_BLOCK) -> dict:
+    """Phase 14: the KV-event write path at fleet scale, on the host, from
+    phase 13's fleet (its frames, inventories and index entries)."""
+    import numpy as np
+
+    collector = port("metrics.collector")
+    events = port("kvevents.events")
+    im, index_mod = port("kvcache.kvblock.in_memory"), port("kvcache.kvblock.index")
+    tp, resync = port("kvcache.kvblock.token_processor"), port("kvevents.resync")
+    auditor_mod = port("analytics.auditor")
+    hasher = tp.ChunkedTokenDatabase(tp.TokenProcessorConfig(block_size=block, hash_seed="0"))
+    pods = sorted(fleet["frames"])
+    n_frames = sum(map(len, fleet["frames"].values()))
+    out = {"card": smi, "frames": n_frames, "blocks": fleet["blocks"]}
+
+    # (a) Seeding a fresh index through events, lock-free decode on and off.
+    out["seeding"], kept = {}, None
+    for lockfree in (True, False):
+        index = im.InMemoryIndex(index_mod.InMemoryIndexConfig())
+        pool = event_pool(index, hasher, lockfree_decode=lockfree)
+        sink = EventSink(pool)
+        rss0 = collector.update_process_metrics()["rss_bytes"]
+        t0 = time.perf_counter()
+        feed([sink], fleet["frames"])
+        pool.drain()
+        seconds = time.perf_counter() - t0
+        rss1 = collector.update_process_metrics()["rss_bytes"]
+        stages = pool.stage_stats()
+        equal = index_entries(index) == fleet["entries"]
+        row = out["seeding"]["lockfree_on" if lockfree else "lockfree_off"] = {
+            "seconds": seconds, "events_per_s": n_frames / seconds,
+            "blocks_per_s": fleet["blocks"] / seconds,
+            "decode_ms_per_msg": stages["decode_s"] * 1e3 / stages["decode_msgs"],
+            "apply_ms_per_msg": stages["apply_s"] * 1e3 / stages["apply_msgs"],
+            "rss_mib": [rss0 / 2**20, rss1 / 2**20], "entries_equal": equal}
+        print(f"  (a) seeding, lock-free decode {'on' if lockfree else 'off'}: {n_frames} frames "
+              f"of one BlockStored ({fleet['blocks']} blocks) through parse_event_message -> "
+              f"Pool.add_tasks in bursts of {POLLER_BURST}: {seconds:.2f} s, "
+              f"{row['events_per_s']:.0f} events/s, {row['blocks_per_s']:.0f} blocks/s; decode "
+              f"{row['decode_ms_per_msg']:.3f} ms, apply {row['apply_ms_per_msg']:.3f} ms a "
+              f"message; RSS {rss0 / 2**20:.0f} -> {rss1 / 2**20:.0f} MiB; request-key entries "
+              f"equal to phase 13's: {equal}", flush=True)
+        if not equal:
+            raise AssertionError("the event-seeded index differs from phase 13's")
+        if lockfree:
+            kept = (index, pool, sink)
+        else:
+            pool.shutdown()
+    index, pool, sink = kept
+    try:
+        # (b) The storm, on an index of its own.
+        storm_index = im.InMemoryIndex(index_mod.InMemoryIndexConfig())
+        storm_hasher = tp.ChunkedTokenDatabase(tp.TokenProcessorConfig(block_size=STORM_BLOCK))
+        storm_pool = event_pool(storm_index, storm_hasher)
+        out["storm"] = []
+        try:
+            for tag, rate in (("a", storm_rate), ("b", None)):
+                cell = storm(storm_pool, storm_index, storm_hasher, storm_pods, storm_seconds,
+                             rate, tag)
+                out["storm"].append(cell)
+                print(f"  (b) storm, {storm_pods} pods + 1 quiet, "
+                      f"{'offered at ' + format(rate, '.0f') + '/s' if rate else 'unthrottled'}: "
+                      f"{cell['offered']} messages in {cell['window_s']:.2f} s "
+                      f"({cell['offered_per_s']:.0f}/s offered), {cell['applied_per_s']:.0f}/s "
+                      f"applied in the window (decode {cell['decode_us_per_msg']:.1f} us, apply "
+                      f"{cell['apply_us_per_msg']:.1f} us a message); dropped {cell['dropped']}, "
+                      f"{cell['pods_shed']} pods shed ({cell['sheds']:.0f} messages, at most "
+                      f"{cell['max_pod_sheds']:.0f} a pod); the quiet pod: {cell['quiet_sent']} "
+                      f"sent, {cell['quiet_shed']:.0f} shed, {cell['quiet_in_index']} in the "
+                      f"index", flush=True)
+                if cell["quiet_shed"] or cell["quiet_in_index"] != cell["quiet_sent"]:
+                    raise AssertionError("the storm shed the quiet pod under its budget")
+                if cell["dropped"]:
+                    break  # the pool no longer keeps up: the offered rate suffices
+        finally:
+            storm_pool.shutdown()
+
+        # (c) A gap on one pod's stream, then the resync from its inventory.
+        pod = pods[-1]
+        before = index_entries(index, pod)
+        manager = resync.ResyncManager(pool, pod_inventory(fleet),
+                                       resync.ResyncConfig(max_attempts=1, apply_timeout_s=120))
+        manager.start()
+        marked = []  # mark_suspect's answers: True when the gap newly marks the pod
+        sink.on_gap = lambda gap_pod, topic, lost: marked.append(manager.mark_suspect(gap_pod))
+        try:
+            stream = fleet["streams"][pod]
+            rng = np.random.default_rng(SEED + 14)
+            extra = rng.integers(1, READ_VOCAB, EVENT_CHUNK_TOKENS).tolist()
+            hashes = engine_hashes(None, extra, block)
+            # A chunk the pod stored and then evicted: the store arrives,
+            # the removal is among the lost frames.
+            sink.deliver(pod, [stream.frame(events.BlockStored(
+                block_hashes=hashes, parent_block_hash=None, token_ids=extra,
+                block_size=block, medium="hbm"))])
+            pool.drain()
+            stale = len(index_entries(index, pod)) - len(before)
+            stream.skip(GAP_SEQS)
+            first = fleet["inventory"][pod][0]
+            t_gap = time.perf_counter()
+            sink.deliver(pod, [stream.frame(events.BlockStored(
+                block_hashes=first.block_hashes, parent_block_hash=None,
+                token_ids=first.token_ids, block_size=block, medium=first.medium))])
+            gap = sink.trackers[pod].gap_count
+            suspect = marked == [True]
+            deadline = time.monotonic() + 120
+            while manager.stats()["resyncs_ok"] < 1 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            staleness = time.perf_counter() - t_gap
+            stats = manager.stats()
+        finally:
+            sink.on_gap = None
+            manager.close()
+        after = index_entries(index, pod)
+        whole = index_entries(index) == fleet["entries"]
+        out["resync"] = {"pod": pod, "gap": gap, "suspect": suspect, "stale_blocks": stale,
+                         "staleness_ms": staleness * 1e3, "stats": stats,
+                         "entries_restored": after == before, "index_equal": whole}
+        print(f"  (c) gap: {pod} stored a {len(hashes)}-block chunk whose removal was lost with "
+              f"{GAP_SEQS} frames; TopicSeqTracker gap {gap}, suspect {suspect}; "
+              f"ResyncManager purged the pod and re-applied its {len(fleet['inventory'][pod])} "
+              f"inventory chunks: staleness {staleness * 1e3:.1f} ms (gap to repaired), "
+              f"{stats['resyncs_ok']} ok / {stats['resyncs_failed']} failed; the pod's entries "
+              f"equal to those before the gap: {after == before}; whole index equal to phase "
+              f"13's: {whole}", flush=True)
+        if (gap != GAP_SEQS or not suspect or stale != len(hashes) or stats["resyncs_ok"] != 1
+                or stats["suspect"] or after != before or not whole):
+            raise AssertionError(f"gap and resync: {out['resync']}")
+
+        # (d) The auditor over the four pods, clean, then planted.
+        inventories = fleet["inventory"]
+        auditor = auditor_mod.IndexAuditor(index, hasher, pod_inventory(fleet),
+                                           auditor_mod.AuditorConfig(interval_s=0))
+        t0 = time.perf_counter()
+        clean = auditor.run_cycle()
+        clean_s = time.perf_counter() - t0
+        victim = pods[1 % len(pods)]
+        original = inventories[victim]
+        inventories[victim] = plant_divergence(original, fleet["chunks_per_conv"], phantom,
+                                               wrong_tier)
+        try:
+            planted = auditor.run_cycle()
+        finally:
+            inventories[victim] = original
+        auditor.close()
+        counts = lambda r: (r.outcome, r.phantom, r.missing, r.wrong_tier)  # noqa: E731
+        out["audit"] = {
+            "pods": [r.pod for r in clean], "cycle_ms": clean_s * 1e3,
+            "pod_ms": {r.pod: r.duration_s * 1e3 for r in clean},
+            "blocks_per_pod": {r.pod: r.inventory_blocks for r in clean},
+            "clean": {r.pod: r.to_dict()["divergence_ratio"] for r in clean},
+            "planted": {r.pod: counts(r) for r in planted}}
+        print(f"  (d) audit of {len(clean)} pods ({sorted(set(out['audit']['blocks_per_pod'].values()))} "
+              f"blocks each): divergence {out['audit']['clean']}; one cycle {clean_s * 1e3:.1f} ms, "
+              f"per pod " + ", ".join(f"{ms:.1f}" for ms in out["audit"]["pod_ms"].values())
+              + f" ms; after dropping {phantom} blocks of {victim}'s inventory (no BlockRemoved) "
+              f"and moving {wrong_tier} to the other tier: (outcome, phantom, missing, "
+              f"wrong_tier) {out['audit']['planted']}", flush=True)
+        want = {p: ("clean", 0, 0, 0) for p in pods}
+        want[victim] = ("divergent", phantom, 0, wrong_tier)
+        if (sorted(out["audit"]["pods"]) != pods or any(out["audit"]["clean"].values())
+                or out["audit"]["planted"] != want):
+            raise AssertionError(f"audit: {out['audit']}")
+    finally:
+        pool.shutdown()
+    return out
 
 
 def main() -> int:
@@ -3279,9 +3864,17 @@ def main() -> int:
 
     phase(f"13. read path: the Indexer over {READ_PODS} pods x {READ_CONVS_PER_POD} "
           f"conversations of {READ_CONV_TOKENS} tokens, three lanes")
+    print(f"  host before phase 13: {host_state()}", flush=True)
     read = read_path(smi)
+    fleet = read.pop("fleet")
 
-    phase("14. kernels")
+    phase(f"14. write path: phase 13's fleet as KV events, a storm of {STORM_PODS} pods, "
+          f"a gap and its resync, the auditor")
+    print(f"  host before phase 14: {host_state()}", flush=True)
+    write = write_path(smi, fleet)
+    del fleet
+
+    phase("15. kernels")
     kernels = [
         dict(
             name="flash_prefill",
@@ -3338,14 +3931,17 @@ def main() -> int:
                    + list(ring_tp.values()) + ring_edge),
         ),
     ]
+    phase()
+    print(f"  seconds a phase: {PHASE_SECONDS}", flush=True)
     summary = {k: v for k, v in serve.items() if k != "launches"}
     ring_summary = {k: v for k, v in ring.items() if k != "launches"}
     moe_summary = {k: v for k, v in moe_run.items() if k != "launches"}
     sharded = {"tp_serving": tp_serving, "tp_sp_ring": tp_ring, "moe": tp_moe, **sharded_train}
     print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "offload": offloaded,
                       "autograd_guard": guard, "training": trained, "moe": moe_summary,
-                      "sharded": sharded, "read_path": read,
-                      "layers": LAYERS, "seconds": round(time.perf_counter() - t_all, 1)}),
+                      "sharded": sharded, "read_path": read, "write_path": write,
+                      "layers": LAYERS, "phase_seconds": PHASE_SECONDS,
+                      "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -185,6 +185,16 @@ class _Metric:
                     self._children[key] = child
         return child
 
+    def remove(self, *values: str) -> None:
+        """Drop one label set's series (a no-op when it does not exist),
+        as ``prometheus_client``'s ``remove``."""
+        if not self._labelnames:
+            raise ValueError(f"{self.name} has no labels")
+        if len(values) != len(self._labelnames):
+            raise ValueError(f"{self.name} takes labels {self._labelnames}")
+        with self._children_lock:
+            self._children.pop(tuple(str(value) for value in values), None)
+
     def _series(self) -> List["_Metric"]:
         if not self._labelnames:
             return [self]

@@ -413,8 +413,9 @@ def test_seed_fleet_puts_each_conversation_on_its_pod_and_tier():
     indexers = [smoke["read_path_indexer"](fast, block_size=4) for fast in (True, False)]
     try:
         rng = np.random.default_rng(1)
-        added, seconds = smoke["seed_fleet"](indexers, rng, ["p0", "p1"], 3, 40)
-        assert added == 2 * 3 * 10 and seconds > 0
+        fleet = smoke["event_fleet"](rng, ["p0", "p1"], 3, 40, 4)
+        seconds = smoke["seed_by_events"](indexers, fleet["frames"])
+        assert fleet["blocks"] == 2 * 3 * 10 and seconds > 0
         rng = np.random.default_rng(1)
         for pod in ("p0", "p1"):
             for j in range(3):
@@ -497,3 +498,183 @@ def test_word_tokenizer_offsets_index_the_prompt_bytes():
     enc = smoke["WordTokenizer"]().encode("t12 t7 t300", "m", True)
     assert enc.tokens == [12, 7, 300]
     assert ["t12 t7 t300"[a:b] for a, b in enc.offsets] == ["t12", "t7", "t300"]
+
+
+# -------------------------------------------- phases 5 and 14: KV events
+
+
+def _direct_entries(chains, block=4):
+    """What direct ``kv_block_index.add`` calls of each chain leave: the
+    reference's index seeded without events."""
+    from llm_d_kv_cache_manager_tpu.kvcache.kvblock import (
+        ChunkedTokenDatabase, TokenProcessorConfig)
+    from llm_d_kv_cache_manager_tpu.kvcache.kvblock.in_memory import InMemoryIndex
+    from llm_d_kv_cache_manager_tpu.kvcache.kvblock.index import PodEntry
+
+    index = InMemoryIndex()
+    db = ChunkedTokenDatabase(TokenProcessorConfig(block_size=block, hash_seed="0"))
+    for pod, tier, ids in chains:
+        keys = db.tokens_to_kv_block_keys(0, ids, smoke["MODEL_NAME"])
+        index.add(keys, keys, [PodEntry(pod, tier)])
+    return smoke["index_entries"](index)
+
+
+def test_fleet_seeded_by_events_equals_the_fleet_seeded_by_direct_adds(monkeypatch):
+    """Phase 13's fleet at a small size (several 2048-token chunks cut to
+    64 tokens), published as frames and applied by a pool: the same
+    entries as direct adds of the same chains (in the reference's index),
+    whatever the burst."""
+    monkeypatch.setitem(smoke["event_fleet"].__globals__, "EVENT_CHUNK_TOKENS", 64)
+    fleet = smoke["event_fleet"](np.random.default_rng(3), ["p0", "p1", "p2"], 3, 200, 4)
+    assert fleet["blocks"] == 3 * 3 * 50 and fleet["chunks_per_conv"] == 4
+    assert [len(f) for f in fleet["frames"].values()] == [12, 12, 12]
+    want = _direct_entries(fleet["chains"])
+    indexer = smoke["read_path_indexer"](True, block_size=4)
+    try:
+        for burst in (1, 5, 64):
+            im, index_mod = port("kvcache.kvblock.in_memory"), port("kvcache.kvblock.index")
+            index = im.InMemoryIndex(index_mod.InMemoryIndexConfig())
+            pool = smoke["event_pool"](index, indexer.token_processor)
+            try:
+                sink = smoke["EventSink"](pool)
+                assert smoke["feed"]([sink], fleet["frames"], burst) == 36
+                pool.drain()
+            finally:
+                pool.shutdown()
+            assert smoke["index_entries"](index) == want
+            assert smoke["expected_entries"](indexer.token_processor, fleet["chains"]) == want
+            assert {t.gap_count for t in sink.trackers.values()} == {0}
+    finally:
+        indexer.shutdown()
+
+
+def test_engine_hashes_are_sha256_over_canonical_cbor_and_frames_the_publishers():
+    import hashlib
+    import struct
+
+    from llm_d_kv_cache_manager_tpu.kvcache.kvblock.cbor_canonical import encode_canonical
+
+    tokens = list(range(1, 13))
+    hashes = smoke["engine_hashes"](None, tokens, 4)
+    parent = None
+    for i, h in enumerate(hashes):
+        parent = hashlib.sha256(encode_canonical([parent, tokens[4 * i:4 * i + 4], None])).digest()
+        assert h == parent
+    assert smoke["engine_hashes"](hashes[0], tokens[4:], 4) == hashes[1:]
+    assert smoke["engine_hashes"](None, tokens[:3], 4) == []
+    stream = smoke["EventStream"]("pod-x")
+    stream.skip(2)
+    topic, seq, payload = stream.frame(payload=b"p")
+    assert (topic, seq, payload) == (b"kv@pod-x@" + smoke["MODEL_NAME"].encode(),
+                                     struct.pack(">Q", 3), b"p")
+
+
+def test_engine_events_publish_what_the_pod_wrote():
+    """Phase 5's publishing at a small size: A's miss as one
+    ``BlockStored`` from the root, B's hit chained to A's last prefix
+    block, an eviction as ``BlockRemoved``; through the scorer's pool the
+    index then routes B to pod-a and the scheduler scores 1.0 / 0.0."""
+    tp = port("kvcache.kvblock.token_processor")
+    im, sched = port("kvcache.indexer"), port("scheduler")
+    indexer = im.Indexer(im.IndexerConfig(token_processor_config=tp.TokenProcessorConfig(
+        block_size=4, hash_seed="0")), tokenizer=smoke["WordTokenizer"]())
+    scorer = sched.PrecisePrefixCacheScorer(
+        sched.PrecisePrefixCacheScorerConfig(discover_pods=False), indexer=indexer)
+    model = smoke["MODEL_NAME"]
+    try:
+        sink = smoke["EventSink"](scorer.events_pool)
+        pod = smoke["EngineEvents"]("pod-a")
+        prefix = list(range(1, 33))
+        a, b = prefix + [50, 51, 52, 53], prefix + [60, 61, 62, 63]
+        keys_a = indexer.token_processor.tokens_to_kv_block_keys(0, a, model)
+        keys_b = indexer.token_processor.tokens_to_kv_block_keys(0, b, model)
+        sink.deliver("pod-a", [pod.publish(keys_a, a, 0, [], 4)])
+        scorer.events_pool.drain()
+        frame = pod.publish(keys_b, b, 8, [keys_a[-1]], 4)
+        batch = port("kvevents.events").decode_event_batch(frame[2])
+        assert [e[0] for e in batch.events] == ["BlockRemoved", "BlockStored"]
+        sink.deliver("pod-a", [frame])
+        scorer.events_pool.drain()
+        index = indexer.kv_block_index
+        for key in keys_b:
+            assert index.get_request_key(tp.engine_hash_to_uint64(pod.engine[key])) == key
+        assert keys_a[-1] not in pod.engine
+        pods = [sched.Pod("ns/a", "pod-a"), sched.Pod("ns/b", "pod-b")]
+        got = scorer.score(sched.LLMRequest(target_model=model, completions=sched.CompletionsBody(
+            prompt=smoke["words"](b))), pods)
+        assert {p.address: s for p, s in got.items()} == {"pod-a": 1.0, "pod-b": 0.0}
+        assert sink.trackers["pod-a"].gap_count == 0
+    finally:
+        scorer.shutdown()
+
+
+@pytest.mark.parametrize("rate", [3000.0, None])
+def test_storm_feeder_counts(rate):
+    """The storm at a small size: what was offered equals the storm
+    pods' bursts plus the quiet pod's messages; every offered message is
+    applied or shed; the quiet pod (fewer messages than its fair share)
+    is never shed and all of its chains reach the index."""
+    im, index_mod = port("kvcache.kvblock.in_memory"), port("kvcache.kvblock.index")
+    tp = port("kvcache.kvblock.token_processor")
+    index = im.InMemoryIndex(index_mod.InMemoryIndexConfig())
+    hasher = tp.ChunkedTokenDatabase(tp.TokenProcessorConfig(block_size=smoke["STORM_BLOCK"]))
+    pool = smoke["event_pool"](index, hasher, max_queue_depth=64)
+    try:
+        before = pool.stage_stats()["apply_msgs"]
+        cell = smoke["storm"](pool, index, hasher, 20, 0.3, rate, tag=f"t{rate}",
+                              quiet_every=0.1)
+        applied = pool.stage_stats()["apply_msgs"] - before
+    finally:
+        pool.shutdown()
+    assert 1 <= cell["quiet_sent"] <= 3 and cell["quiet_shed"] == 0
+    assert cell["quiet_in_index"] == cell["quiet_sent"]
+    assert applied + cell["sheds"] == cell["offered"]
+    assert sum(cell["dropped"].values()) == cell["sheds"]
+    if rate is not None:  # never ahead of the asked rate
+        assert cell["offered"] - cell["quiet_sent"] <= rate * cell["window_s"]
+
+
+@pytest.mark.parametrize("phantom,wrong_tier", [(3, 2), (5, 7)])
+def test_planted_divergence_counts_exactly(phantom, wrong_tier, monkeypatch):
+    """The auditor over a small event-seeded fleet: clean, then exactly
+    ``phantom`` phantom and ``wrong_tier`` wrong-tier blocks on the pod
+    whose inventory lost and moved them, nothing on the others."""
+    monkeypatch.setitem(smoke["event_fleet"].__globals__, "EVENT_CHUNK_TOKENS", 64)
+    fleet = smoke["event_fleet"](np.random.default_rng(4), ["p0", "p1", "p2"], 2, 128, 4)
+    tp, im = port("kvcache.kvblock.token_processor"), port("kvcache.kvblock.in_memory")
+    auditor_mod = port("analytics.auditor")
+    hasher = tp.ChunkedTokenDatabase(tp.TokenProcessorConfig(block_size=4, hash_seed="0"))
+    index = im.InMemoryIndex()
+    pool = smoke["event_pool"](index, hasher)
+    try:
+        smoke["feed"]([smoke["EventSink"](pool)], fleet["frames"])
+        pool.drain()
+    finally:
+        pool.shutdown()
+    auditor = auditor_mod.IndexAuditor(index, hasher, smoke["pod_inventory"](fleet),
+                                       auditor_mod.AuditorConfig(interval_s=0))
+    assert all((r.outcome, r.inventory_blocks) == ("clean", 64) for r in auditor.run_cycle())
+    fleet["inventory"]["p1"] = smoke["plant_divergence"](
+        fleet["inventory"]["p1"], fleet["chunks_per_conv"], phantom, wrong_tier)
+    got = {r.pod: (r.outcome, r.phantom, r.missing, r.wrong_tier, r.unresolvable)
+           for r in auditor.run_cycle()}
+    assert got == {"p0": ("clean", 0, 0, 0, 0), "p2": ("clean", 0, 0, 0, 0),
+                   "p1": ("divergent", phantom, 0, wrong_tier, 0)}
+
+
+def test_write_path_at_a_small_size(monkeypatch):
+    """Phase 14 end to end at a small size, from phase 13's fleet: the
+    seeding's entries, the storm's quiet pod, the gap of 5 and the resync
+    restoring the pod, the audit's planted counts."""
+    monkeypatch.setitem(smoke["event_fleet"].__globals__, "EVENT_CHUNK_TOKENS", 128)
+    read = smoke["read_path"]("cpu", pods_n=3, convs=2, conv_tokens=256, turns=2,
+                              turn_tokens=32, cold=1, min_requests=4)
+    fleet = read.pop("fleet")
+    out = smoke["write_path"]("cpu", fleet, storm_pods=10, storm_seconds=0.2, storm_rate=500.0,
+                              phantom=3, wrong_tier=2)
+    assert all(row["entries_equal"] for row in out["seeding"].values())
+    assert out["frames"] == 3 * 2 * 2 and out["blocks"] == 3 * 2 * 16
+    assert out["resync"]["gap"] == 5 and out["resync"]["entries_restored"]
+    assert out["resync"]["stale_blocks"] == 128 // 16
+    assert out["audit"]["planted"]["pod-1"] == ("divergent", 3, 0, 2)
+    assert all(c["quiet_shed"] == 0 for c in out["storm"])

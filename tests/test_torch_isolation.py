@@ -49,7 +49,7 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
     for name in ("parallel.mesh", "parallel.sharding", "ops.ring_attention", "ops.ring_flash",
                  "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
-    for name in OFFLOAD_MODULES + READ_PATH_MODULES:
+    for name in OFFLOAD_MODULES + READ_PATH_MODULES + WRITE_PATH_MODULES:
         assert f"{PACKAGE}.{name}" in result["modules"]
     assert result["loaded"] == []
 
@@ -68,6 +68,12 @@ READ_PATH_MODULES = (
     "tokenization.pool", "tokenization.prefixstore", "tokenization.prefixstore.lru_store",
     "tokenization.prefixstore.trie_store", "analytics", "analytics.windows",
     "analytics.ledger",
+)
+WRITE_PATH_MODULES = (
+    "kvevents", "kvevents.msgpack_codec", "kvevents.events", "kvevents.pool",
+    "kvevents.resync", "kvevents.zmq_subscriber", "kvevents.publisher", "kvevents.poller",
+    "kvevents.subscriber_manager", "kvevents.pod_reconciler", "analytics.auditor",
+    "scheduler", "scheduler.precise_scorer", "utils.ttl_cache",
 )
 # What the H100's machine lacks (ROADMAP.md, rules of Queue A).
 ABSENT_ON_THE_CARD = ("prometheus_client", "xxhash", "tokenizers", "transformers", "msgpack",
@@ -132,6 +138,76 @@ print(json.dumps({{"scores": out, "blocked_loaded": blocked,
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"scores": [{"pod-a": 10.0, "pod-b": 0.0}] * 2, "blocked_loaded": [],
                       "lookups": True}
+
+
+def test_write_path_scores_without_the_libraries_the_card_lacks():
+    """The write path's twin of the test above: with the same libraries
+    blocked, every module of the write path imports, a payload encoded by
+    the port's codec goes through ``parse_event_message`` into the pool
+    of a ``PrecisePrefixCacheScorer`` (no pod discovery) and the scorer
+    scores the stored prompt; a ``Publisher`` and ``ensure_subscriber``,
+    which need a socket, raise ``ImportError``."""
+    script = f"""
+import importlib, json, struct, sys
+for name in {ABSENT_ON_THE_CARD!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+mod = lambda name: importlib.import_module({PACKAGE!r} + "." + name)
+for name in {WRITE_PATH_MODULES!r}:
+    mod(name)
+im, tp, tokenizers = mod("kvcache.indexer"), mod("kvcache.kvblock.token_processor"), mod(
+    "tokenization.tokenizers")
+events, zs, sched = mod("kvevents.events"), mod("kvevents.zmq_subscriber"), mod("scheduler")
+
+class Words:
+    def type(self):
+        return "word"
+    def encode(self, prompt, model_name, add_special_tokens):
+        words = prompt.split(" ")
+        ends = [sum(len(w) + 1 for w in words[:i + 1]) - 1 for i in range(len(words))]
+        return tokenizers.Encoding([int(w[1:]) for w in words],
+                                   [(e - len(w), e) for w, e in zip(words, ends)])
+
+indexer = im.Indexer(im.IndexerConfig(
+    token_processor_config=tp.TokenProcessorConfig(block_size=4)), tokenizer=Words())
+scorer = sched.PrecisePrefixCacheScorer(
+    sched.PrecisePrefixCacheScorerConfig(discover_pods=False), indexer=indexer)
+raised = []
+try:
+    tokens = list(range(1, 41))
+    payload = events.EventBatch(ts=0.0, events=[events.BlockStored(
+        block_hashes=[b"h" * 31 + bytes([i]) for i in range(10)], parent_block_hash=None,
+        token_ids=tokens, block_size=4, medium="gpu")]).encode()
+    message = zs.parse_event_message([b"kv@pod-a@m", struct.pack(">Q", 1), payload],
+                                     endpoint="sim", pod_identifier="pod-a",
+                                     tracker=zs.TopicSeqTracker())
+    scorer.events_pool.add_tasks([message])
+    scorer.events_pool.drain()
+    pods = [sched.Pod("ns/a", "pod-a"), sched.Pod("ns/b", "pod-b")]
+    got = scorer.score(sched.LLMRequest(target_model="m", completions=sched.CompletionsBody(
+        prompt=" ".join(f"t{{t}}" for t in tokens))), pods)
+    scores = {{pod.address: value for pod, value in got.items()}}
+    for make in (lambda: mod("kvevents.publisher").Publisher("tcp://127.0.0.1:0", "p", "m"),
+                 lambda: scorer.subscribers.ensure_subscriber("p", "tcp://127.0.0.1:1")):
+        try:
+            make()
+        except ImportError as exc:
+            raised.append("pyzmq" in str(exc))
+finally:
+    scorer.shutdown()
+blocked = sorted(n for n in {ABSENT_ON_THE_CARD!r} if sys.modules.get(n) is not None)
+print(json.dumps({{"scores": scores, "raised": raised, "blocked_loaded": blocked}}))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"scores": {"pod-a": 1.0, "pod-b": 0.0}, "raised": [True, True],
+                      "blocked_loaded": []}
 
 
 def test_native_engine_builds_from_the_ports_own_sources():

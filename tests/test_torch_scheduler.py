@@ -1,0 +1,206 @@
+"""The port's scheduler plugin against the JAX package's, on the CPU: the
+``PrecisePrefixCacheScorer`` fed through its own event pool scores
+completions and chat bodies (tiny tokenizer, its chat template) to the
+reference's normalised scores; ``TTLCache`` fires the reference's expiry
+callbacks; ``tiering=True`` is refused, not ignored."""
+
+import time
+
+import pytest
+
+from llm_d_kv_cache_manager_tpu.kvcache import indexer as ref_indexer
+from llm_d_kv_cache_manager_tpu.kvcache.kvblock import token_processor as ref_tp
+from llm_d_kv_cache_manager_tpu.kvevents import events as ref_events
+from llm_d_kv_cache_manager_tpu.kvevents import pool as ref_pool
+from llm_d_kv_cache_manager_tpu import scheduler as ref_scheduler
+from llm_d_kv_cache_manager_tpu.tokenization import pool as ref_tok_pool
+from llm_d_kv_cache_manager_tpu.tokenization import tokenizers as ref_tokenizers
+from llm_d_kv_cache_manager_tpu.utils import ttl_cache as ref_ttl
+from tests.helpers.tiny_tokenizer import build_transformers_tokenizer, save_tokenizer_json
+from tests.helpers.torch_port import port
+
+MODEL = "test-model"
+PROMPT = "the quick brown fox jumps over the lazy dog"
+BLOCK = 4
+
+
+def mods(side: str) -> dict:
+    if side == "ref":
+        return dict(indexer=ref_indexer, tp=ref_tp, events=ref_events, pool=ref_pool,
+                    scheduler=ref_scheduler, tok_pool=ref_tok_pool,
+                    tokenizers=ref_tokenizers, ttl=ref_ttl)
+    return {name: port(path) for name, path in (
+        ("indexer", "kvcache.indexer"), ("tp", "kvcache.kvblock.token_processor"),
+        ("events", "kvevents.events"), ("pool", "kvevents.pool"), ("scheduler", "scheduler"),
+        ("tok_pool", "tokenization.pool"), ("tokenizers", "tokenization.tokenizers"),
+        ("ttl", "utils.ttl_cache"))}
+
+
+@pytest.fixture()
+def scorers(tmp_path):
+    """A reference and a port scorer, each around an Indexer on the tiny
+    fast tokenizer with its chat template, no pod discovery (no
+    sockets)."""
+    tokenizer_dir = save_tokenizer_json(str(tmp_path), MODEL)
+    out = {}
+    try:
+        for side in ("ref", "port"):
+            m = mods(side)
+            indexer = m["indexer"].Indexer(
+                m["indexer"].IndexerConfig(
+                    token_processor_config=m["tp"].TokenProcessorConfig(block_size=BLOCK),
+                    tokenizers_pool_config=m["tok_pool"].TokenizationPoolConfig(
+                        workers=2, model_name=MODEL)),
+                tokenizer=m["tokenizers"].LocalFastTokenizer(tokenizer_dir))
+            indexer.chat_processor.register_tokenizer(MODEL, build_transformers_tokenizer())
+            s = m["scheduler"]
+            out[side] = s.PrecisePrefixCacheScorer(
+                s.PrecisePrefixCacheScorerConfig(discover_pods=False), indexer=indexer)
+        yield out
+    finally:
+        for scorer in out.values():
+            scorer.shutdown()
+
+
+def publish(scorers, text, address, truncate=None, medium=None):
+    """Every scorer's pool applies a ``BlockStored`` of ``text``'s full
+    blocks, as ``address``'s engine publishes it."""
+    for side, scorer in scorers.items():
+        m = mods(side)
+        tokens = scorer.indexer.tokenization_pool.tokenize(text, MODEL, None)
+        n = len(tokens) // BLOCK if truncate is None else truncate
+        payload = m["events"].EventBatch(ts=0.0, events=[m["events"].BlockStored(
+            block_hashes=[(sum(map(ord, address)) << 20) + i for i in range(n)],
+            parent_block_hash=None, token_ids=tokens[:n * BLOCK], block_size=BLOCK,
+            medium=medium)]).encode()
+        scorer.events_pool.add_tasks([m["pool"].Message(
+            topic=f"kv@{address}@{MODEL}", payload=payload, pod_identifier=address,
+            model_name=MODEL, seq=1)])
+        scorer.events_pool.drain()
+
+
+def score(scorers, build):
+    """``build(scheduler module)`` -> (request, pods); both scorers'
+    normalised scores by pod address, which must be equal."""
+    got = {}
+    for side, scorer in scorers.items():
+        request, pods = build(mods(side)["scheduler"])
+        got[side] = {pod.address: value for pod, value in scorer.score(request, pods).items()}
+    assert got["port"] == got["ref"]
+    return got["port"]
+
+
+def _pods(s):
+    return [s.Pod("ns/pod-a", "10.0.0.1"), s.Pod("ns/pod-b", "10.0.0.2"),
+            s.Pod("ns/pod-c", "10.0.0.3")]
+
+
+def test_completions_scores_are_the_references(scorers):
+    publish(scorers, PROMPT, "10.0.0.1")
+    publish(scorers, PROMPT, "10.0.0.2", truncate=1, medium="host")
+    got = score(scorers, lambda s: (s.LLMRequest(target_model=MODEL, completions=s.CompletionsBody(
+        prompt=PROMPT)), _pods(s)))
+    assert got["10.0.0.1"] == 1.0 and 0 < got["10.0.0.2"] < 1.0 and got["10.0.0.3"] == 0.0
+
+
+def test_chat_scores_are_the_references(scorers):
+    def render(s):
+        conversation = [{"role": "user", "content": "hello world"},
+                        {"role": "assistant", "content": PROMPT}]
+        return s.LLMRequest(target_model=MODEL, chat_completions=s.ChatCompletionsBody(
+            messages=[s.ChatMessage(**m) for m in conversation]))
+
+    for side, scorer in scorers.items():
+        chat = port("preprocessing.chat_templating") if side == "port" else __import__(
+            "llm_d_kv_cache_manager_tpu.preprocessing.chat_templating",
+            fromlist=["ApplyChatTemplateRequest"])
+        rendered = scorer.indexer.chat_processor.apply_chat_template(
+            MODEL, chat.ApplyChatTemplateRequest(conversation=[
+                {"role": "user", "content": "hello world"},
+                {"role": "assistant", "content": PROMPT}]))
+        publish({side: scorer}, rendered, "10.0.0.2")
+    got = score(scorers, lambda s: (render(s), _pods(s)))
+    assert got == {"10.0.0.1": 0.0, "10.0.0.2": 1.0, "10.0.0.3": 0.0}
+    # Both bodies set: chat semantics win, as in the reference.
+    both = score(scorers, lambda s: (s.LLMRequest(
+        target_model=MODEL, completions=s.CompletionsBody(prompt="dog"),
+        chat_completions=render(s).chat_completions), _pods(s)))
+    assert both == got
+
+
+def test_empty_requests_and_a_cold_index(scorers):
+    assert score(scorers, lambda s: (None, _pods(s))) == {}
+    assert score(scorers, lambda s: (s.LLMRequest(target_model=MODEL), _pods(s))) == {}
+    cold = score(scorers, lambda s: (s.LLMRequest(target_model=MODEL, completions=s.CompletionsBody(
+        prompt=PROMPT)), _pods(s)))
+    assert cold == dict.fromkeys(["10.0.0.1", "10.0.0.2", "10.0.0.3"], 0.0)
+
+
+def test_tiering_is_refused():
+    s = port("scheduler")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        s.PrecisePrefixCacheScorer(s.PrecisePrefixCacheScorerConfig(tiering=True,
+                                                                    discover_pods=False))
+
+
+class Clock:
+    """A monotonic clock the test moves by hand."""
+
+    def __init__(self):
+        self.now = 100.0
+
+    def monotonic(self):
+        return self.now
+
+
+def _ttl_story(side: str, monkeypatch):
+    """Set, refresh, read, sweep and delete over a short TTL on a clock
+    moved by hand; the expiry callbacks fired and the values read."""
+    ttl = mods(side)["ttl"]
+    clock = Clock()
+    monkeypatch.setattr(ttl, "time", clock)
+    evicted, reads = [], []
+    cache = ttl.TTLCache(0.15, on_evict=lambda k, v: evicted.append((k, v)))
+    cache.set("a", 1)
+    cache.set("b", 2, ttl_seconds=60)
+    cache.set("c", 3)
+    reads.append(cache.get("a"))
+    clock.now += 0.08
+    cache.set("c", 4)  # refreshed: outlives "a"
+    clock.now += 0.1
+    reads.append(cache.get("a"))  # expired on read: fires
+    reads.append(cache.get("c"))
+    swept = cache.sweep()
+    reads.append(cache.delete("b"))  # explicit removal: no callback
+    clock.now += 0.1
+    swept += cache.sweep()
+    cache.set("d", 5)
+    cache.set("e", 6)
+
+    def raising(k, v):
+        evicted.append(("raised", k))
+        raise RuntimeError("callback bug")
+
+    cache._on_evict = raising
+    clock.now += 0.2
+    swept += cache.sweep()  # a raising callback does not stop the sweep
+    return evicted, reads, swept, sorted(cache.keys())
+
+
+def test_ttl_cache_fires_the_references_callbacks(monkeypatch):
+    got, want = _ttl_story("port", monkeypatch), _ttl_story("ref", monkeypatch)
+    assert got == want
+    assert want[0][:2] == [("a", 1), ("c", 4)] and want[1] == [1, None, 4, True]
+
+
+def test_ttl_sweeper_thread_evicts_and_stops():
+    ttl = mods("port")["ttl"]
+    evicted = []
+    cache = ttl.TTLCache(0.05, on_evict=lambda k, v: evicted.append(k))
+    cache.start_sweeper(0.02)
+    cache.set("x", 1)
+    deadline = time.monotonic() + 5
+    while not evicted and time.monotonic() < deadline:
+        time.sleep(0.01)
+    cache.close()
+    assert evicted == ["x"] and cache._sweeper is None
