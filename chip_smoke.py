@@ -81,6 +81,25 @@ Phases (any failure exits non-zero):
      tier, each time bit-equal to pod-a's blocks, and continues request B
      over them, which must give phase 5's hit logits; store, load and
      offload-hit TTFT timed, and the copies apart against their bounds;
+ 7b. tiering and transfer, over phase 5's Indexer and event pool and
+     phase 7's pods: a ``PolicyEngine`` attached to the Indexer learns
+     B's family from scored requests; a ``StagedDemotionTarget`` over
+     pod-a's pool demotes its 512 prefix blocks (128 groups keyed by
+     phase 7's file hashes) in two ``DemotionWorker`` cycles: hbm ->
+     host (device gathers into a host tier, every group equal to phase
+     7's files) and host -> shared storage (files equal to phase 7's
+     one-shot tree, the host tier freed), the events reaching the index
+     as pod-a's so B's score goes 1.0 -> 0.8 -> 0.5 a block; a connector
+     over pod-c with ``policy_engine=`` loads the files (the advisor
+     counts the loads and the demotion's stores) and the advisor prices
+     B's prefix; a ``TransferEngine`` sharing the advisor plans B from
+     an overloaded pod-a to pod-c (a priced directive, or the warm-up
+     pre-placement when the price says recompute, both printed), pod-c
+     loads the bytes, the plan executes through the event pool, B
+     routes to pod-c and continues there on the prefill kernel (32
+     launches) within the model-level limit of phase 5's hit; a cold
+     pod warms up; walls split, advice and the registry's series
+     printed;
   8. autograd guard, on the training configuration: with params that
      require grad, the forward on the prefill kernel, the ring forward
      and the decode kernel's wrapper raise before any launch; under
@@ -780,6 +799,7 @@ def ring_partial_case(torch, peaks, B, Tq, Tk, H, Hkv, D, offset, dtype, timing)
 
 
 EVENT_CHUNK_TOKENS = 2048  # one BlockStored per 2048-token prefill chunk
+DEVICE_MEDIUM = "gpu"  # the medium vLLM pods on GPUs publish their device tier under
 POLLER_BURST = 64  # kvevents/poller.py:MAX_RECV_PER_SOCKET, a poller's burst
 
 
@@ -1071,18 +1091,18 @@ class EngineEvents:
         """The frame the engine publishes after a prefill that wrote the
         blocks ``keys[fresh:]`` of ``tokens``: the evicted blocks as one
         ``BlockRemoved``, the new full blocks as one ``BlockStored``
-        chained to the cached block before them, both on ``gpu``."""
+        chained to the cached block before them, both on ``DEVICE_MEDIUM``."""
         events = port("kvevents.events")
         out = []
         gone = [self.engine.pop(k) for k in evicted if k in self.engine]
         if gone:
-            out.append(events.BlockRemoved(block_hashes=gone, medium="gpu"))
+            out.append(events.BlockRemoved(block_hashes=gone, medium=DEVICE_MEDIUM))
         parent = self.engine[keys[fresh - 1]] if fresh else None
         new_tokens = tokens[fresh * bs:len(keys) * bs]
         hashes = engine_hashes(parent, new_tokens, bs)
         self.engine.update(zip(keys[fresh:], hashes))
         out.append(events.BlockStored(block_hashes=hashes, parent_block_hash=parent,
-                                      token_ids=new_tokens, block_size=bs, medium="gpu"))
+                                      token_ids=new_tokens, block_size=bs, medium=DEVICE_MEDIUM))
         return self.stream.frame(*out)
 
 
@@ -1091,7 +1111,7 @@ class SimPod:
     fleet benchmark's pod loop, over the port's ``KVCachePool``), and
     the KV events its engine publishes."""
 
-    def __init__(self, name: str, cfg, pool_blocks: int) -> None:
+    def __init__(self, name: str, cfg, pool_blocks: int, device: str = "cuda") -> None:
         pool_mod = port("models.kv_cache_pool")
         self.name = name
         self.pool_blocks = pool_blocks
@@ -1100,7 +1120,7 @@ class SimPod:
                 cfg.n_layers, pool_blocks, cfg.block_size, cfg.n_kv_heads,
                 cfg.head_dim, cfg.dtype,
             ),
-            device="cuda",
+            device=device,
         )
         self._next_block = 0
         # Engine-side prefix cache: chained block hash -> pool block id,
@@ -1308,8 +1328,11 @@ def serving(torch, params, cfg):
             target_model=MODEL_NAME, completions=sched.CompletionsBody(prompt=words(prompt_b))),
             candidates)
         normalized = {pod.address: score for pod, score in normalized.items()}
-    finally:
-        scorer.shutdown()  # the token processor stays: phases 7 and 12a hash with it
+    except BaseException:
+        scorer.shutdown()
+        raise
+    # The scorer (its Indexer and event pool) lives on for phase 7b,
+    # which shuts it down; phases 7 and 12a hash with its token processor.
     print(f"  request A: Indexer scores {a['scores']} -> {a['pod'].name}, reused "
           f"{a['reused']} blocks (miss: prefill_paged over {len(prompt_a)} tokens), TTFT "
           f"{a['ttft_ms']:.1f} ms (routing through the Indexer {a['route_ms']:.1f} ms)",
@@ -1542,6 +1565,10 @@ def serving(torch, params, cfg):
         "offload_inputs": dict(pod_a=pod_a, prefix_ids=prefix_ids, prefix_kv=prefix_kv,
                                prompt_b=prompt_b, keys_b=b["keys"], logits_b=logits_b,
                                first_b=first_b, hasher=hasher),
+        "tiering_inputs": dict(scorer=scorer, indexer=indexer, pods=pods, prompt_a=prompt_a,
+                               prompt_b=prompt_b, keys_b=b["keys"], prefix_ids=prefix_ids,
+                               logits_b=logits_b, first_b=first_b, ttft_miss_ms=a["ttft_ms"],
+                               route_miss_ms=a["route_ms"]),
         "sharded_inputs": dict(prompt_a=prompt_a, prompt_b=prompt_b, ids_a=ids_a, ids_b=ids_b,
                                keys_a=a["keys"], keys_b=b["keys"], hasher=hasher,
                                miss_tail=miss_tail, logits_b=logits_b, table=table,
@@ -1764,6 +1791,7 @@ def offload(torch, params, cfg, peaks, served):
           f"({source}); {len(hashes)} files of {bpf} blocks ({OFFLOAD_BLOCK} tokens), "
           f"{OFFLOAD_THREADS} I/O threads", flush=True)
     connectors = []
+    kept = False  # the one-shot tree outlives the phase once it succeeded
 
     def connector(pool, name, lanes, host_bytes=0):
         """A connector over ``pool`` writing under ``roots[name]``, and the
@@ -2003,11 +2031,13 @@ def offload(torch, params, cfg, peaks, served):
               f"tokens {sorted({r['token'] for r in continuation.values()})}, phase 5's "
               f"{served['first_b']}", flush=True)
         del finals
+        kept = True
     finally:
         for conn in connectors:
             conn.close()
-        for root in roots.values():
-            shutil.rmtree(root, ignore_errors=True)
+        for name, root in roots.items():
+            if not (kept and name == "one_shot"):
+                shutil.rmtree(root, ignore_errors=True)
 
     # 5. The device and link halves apart, on the same 1 GiB.
     def events_ms(fn, iters=3):
@@ -2091,7 +2121,387 @@ def offload(torch, params, cfg, peaks, served):
             "host": host, "host_tier_load_steps": tier_steps,
             "host_tier_staged_store_ms": staged_tier_store_ms,
             "continuation": continuation, "ttft_miss_ms": served["ttft_miss_ms"],
-            "ttft_hit_ms": served["ttft_hit_ms"]}
+            "ttft_hit_ms": served["ttft_hit_ms"],
+            # Phase 7b's: pod-c, the one-shot tree (its to delete) and B's
+            # continuation on pod-c.
+            "tiering_inputs": dict(pod_c=pod_c, one_shot_root=roots["one_shot"], hashes=hashes,
+                                   ids_c=ids_c, table_c=table_c, suffix=suffix, bpf=bpf)}
+
+
+# --------------------------------------------------------------- phase 7b
+
+
+FEED_SCORES = 3  # B scored this many times before the demotion cycles
+DEMOTE_HOST_IDLE_S = 30.0
+DEMOTE_STORAGE_IDLE_S = 120.0
+GROUPS_IDLE_S = 600.0  # the prefix groups' age at registration
+COLD_POD = "pod-d"
+WARMUP_CYCLES = 16
+TIERING_SERIES = ("offload_jobs", "offload_bytes", "tiering_demotions", "tiering_demotion_bytes",
+                  "tiering_advice", "tiering_evictions", "transfer_plans", "transfer_executions",
+                  "transfer_bytes", "transfer_warmup_moves", "transfer_cold_pods")
+
+
+class TimedPool:
+    """A pool as the demotion target sees it, with the seconds its
+    device gathers took (one gather and copy to the host a group)."""
+
+    def __init__(self, pool) -> None:
+        self.pool = pool
+        self.block_nbytes = pool.block_nbytes
+        self.gather_s = 0.0
+
+    def gather_block_major(self, block_ids):
+        t0 = time.perf_counter()
+        out = self.pool.gather_block_major(block_ids)
+        self.gather_s += time.perf_counter() - t0
+        return out
+
+
+class TimedCache:
+    """A host tier whose admissions (``put``) are timed."""
+
+    def __init__(self, cache) -> None:
+        self.cache = cache
+        self.put_s = 0.0
+
+    def put(self, key, group) -> bool:
+        t0 = time.perf_counter()
+        ok = self.cache.put(key, group)
+        self.put_s += time.perf_counter() - t0
+        return ok
+
+    def __getattr__(self, name):
+        return getattr(self.cache, name)
+
+
+def register_prefix_groups(target, pod, keys, tokens, file_hashes, block_ids, bpf: int,
+                           bs: int, family, now: float) -> int:
+    """Register a pod's prefix as groups of ``bpf`` blocks, each keyed by
+    its file hash, with the engine hashes the pod published for them
+    (chained to the group before it) and the group's tokens."""
+    for g, group_key in enumerate(file_hashes):
+        lo, hi = g * bpf, min((g + 1) * bpf, len(block_ids))
+        target.register_pool_group(
+            group_key, block_ids=block_ids[lo:hi],
+            engine_hashes=[pod.events.engine[k] for k in keys[lo:hi]],
+            token_ids=tokens[lo * bs:hi * bs], block_size=bs,
+            parent_hash=pod.events.engine[keys[lo - 1]] if lo else None,
+            family=family, now=now)
+    return len(file_hashes)
+
+
+def demotion_rung(worker, now: float, events_pool, pool: TimedPool, cache: TimedCache,
+                  writes: list) -> dict:
+    """One demotion cycle at ``now`` and the event pool drained after
+    it: moves, and the wall split into device gathers, host admissions,
+    file writes (the store observations of this cycle), the event lag
+    (the cycle's end to its events applied) and the rest."""
+    gather0, put0, writes0 = pool.gather_s, cache.put_s, len(writes)
+    t0 = time.perf_counter()
+    moves = worker.run_cycle(now=now)
+    t1 = time.perf_counter()
+    events_pool.drain()
+    t2 = time.perf_counter()
+    row = {"moves": moves, "wall_ms": (t2 - t0) * 1e3,
+           "gather_ms": (pool.gather_s - gather0) * 1e3,
+           "admit_ms": (cache.put_s - put0) * 1e3,
+           "write_ms": sum(s for _, s in writes[writes0:]) * 1e3,
+           "event_lag_ms": (t2 - t1) * 1e3}
+    row["other_ms"] = row["wall_ms"] - sum(row[k] for k in (
+        "gather_ms", "admit_ms", "write_ms", "event_lag_ms"))
+    return row
+
+
+def series_totals(metrics, names=TIERING_SERIES) -> dict:
+    """{series{labels}: value} of the registry's tiering, transfer and
+    offload series."""
+    out = {}
+    for name in names:
+        for family in getattr(metrics, name).collect():
+            for sample in family.samples:
+                labels = ",".join(f"{k}={v}" for k, v in sorted(sample.labels.items()))
+                out[f"{sample.name}{{{labels}}}" if labels else sample.name] = sample.value
+    return out
+
+
+def tiering_transfer(torch, params, cfg, t):
+    """Phase 7b: predictive tiering and KV transfer over phase 5's
+    Indexer and event pool and phase 7's pods and one-shot tree.  (a) a
+    PolicyEngine learns B's family from scored requests; (b) a demotion
+    cycle gathers pod-a's prefix groups into a host tier, (c) the next
+    writes them to files, each rung's events moving pod-a's score; (d) a
+    connector over pod-c with the engine attached loads them (the
+    advisor's load and store observations) and the advisor prices B's
+    prefix; (e) a TransferEngine plans B from overloaded pod-a to pod-c,
+    pod-c loads the bytes, the plan executes, B routes to pod-c and
+    continues there; (f) a cold pod warms up.  Runs on the pods' device:
+    the card, or the CPU at a small size (the tests)."""
+    llama = port("models.llama")
+    tiering, transfer = port("tiering"), port("transfer")
+    spec_mod, worker_mod = port("offload.spec"), port("offload.worker")
+    metrics = port("metrics.collector").METRICS
+    fc = port("ops.flash_cuda")
+    succeeded = port("native.engine").JobStatus.SUCCEEDED
+    indexer, events_pool = t["indexer"], t["scorer"].events_pool
+    pod_a, pod_b = t["pods"][0], t["pods"][1]
+    pod_c, hashes, bpf = t["pod_c"], t["hashes"], t["bpf"]
+    on_card = pod_a.pool.kv.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    bs = cfg.block_size
+    prefix_ids = t["prefix_ids"]
+    keys = t["keys_b"][:len(prefix_ids)]
+    prefix_tokens = len(prefix_ids) * bs
+    prompt = words(t["prompt_b"])
+    names = [pod_a.name, pod_b.name]
+    served, _ = store_served_tokens(prompt, words(t["prompt_a"]))
+    # The blocks a router score of B counts: those of the tokens the
+    # prefix store serves (phase 5), inside the prefix pod-a holds.
+    scored = min(len(served) // bs, len(prefix_ids))
+    totals0 = series_totals(metrics)
+    fc.flash_gqa_attention_cuda.launches = 0
+
+    # (a) Feed: every request sampled; B's family learned from scoring.
+    ledger = indexer.cache_stats
+    ledger.config.sample_rate = 1.0
+    engine = tiering.PolicyEngine(ledger=ledger, config=tiering.TieringConfig(
+        refresh_s=0.0, advisor=tiering.AdvisorConfig(block_tokens=bs),
+        demotion=tiering.DemotionConfig(demote_host_idle_s=DEMOTE_HOST_IDLE_S,
+                                        demote_storage_idle_s=DEMOTE_STORAGE_IDLE_S,
+                                        max_moves_per_cycle=len(hashes))))
+    indexer.set_policy_engine(engine)
+    for _ in range(FEED_SCORES):
+        scores = indexer.get_pod_scores(prompt, MODEL_NAME, names)
+    family = ledger.family_key(keys, len(keys))
+    prediction = engine.feed.prediction(family)
+    print(f"  (a) feed: B scored {FEED_SCORES} times through the Indexer with a PolicyEngine "
+          f"attached; B's family {family:016x}: {prediction}; pod-a's score "
+          f"{scores[pod_a.name]} over the {scored} blocks the prefix store serves", flush=True)
+    if prediction is None or scores != {pod_a.name: tier_score(scored, 1.0), pod_b.name: 0.0}:
+        raise AssertionError(f"feed: prediction {prediction}, scores {scores}")
+
+    root = tempfile.mkdtemp(prefix="kv-tiering-")
+    transfers = None
+    conn = spec_mod.TPUOffloadConnector(spec_mod.TPUOffloadSpec(
+        shared_storage_path=root, model_name=MODEL_NAME, device_block_size=bs,
+        offloaded_block_size=bpf * bs, threads_per_chip=OFFLOAD_THREADS, staging_lanes=2,
+        staging_slots=2, dtype=cfg.dtype), pod_c.pool, policy_engine=engine)
+    try:
+        if not conn.engine.is_native:
+            raise AssertionError("the connector is not on the native I/O engine")
+        if on_card and not conn.staging.uses_pinned:
+            raise AssertionError("the staged connector is not on the pinned path")
+        tree7 = read_tree(t["one_shot_root"])
+        rel = {h: os.path.relpath(conn.file_mapper.get_file_name(h), root) for h in hashes}
+
+        # (b) hbm -> host: the target gathers pod-a's groups into its host
+        # tier; its events reach the index as pod-a's, through the pool.
+        timed_pool = TimedPool(pod_a.pool)
+        cache = TimedCache(port("offload.host_tier").HostTierCache(
+            HOST_TIER_BYTES, eviction_policy=engine.eviction_policy("host_tier")))
+        writes = []
+
+        def observe_store(nbytes, seconds, device_s):
+            writes.append((nbytes, seconds))
+            engine.advisor.observe_store(nbytes, seconds, device_s)
+
+        target = tiering.StagedDemotionTarget(
+            capacity_bytes=pod_a.pool_blocks * pod_a.pool.block_nbytes, pool=timed_pool,
+            file_mapper=conn.file_mapper, host_cache=cache,
+            event_sink=tiering.pool_event_sink(events_pool, pod_a.name, MODEL_NAME),
+            feed=engine.feed, store_rtt_observer=observe_store, device_medium=DEVICE_MEDIUM)
+        now = time.monotonic()
+        register_prefix_groups(target, pod_a, keys, t["prompt_b"], hashes, prefix_ids, bpf, bs,
+                               family, now - GROUPS_IDLE_S)
+        worker = engine.start_demotion(target, start=False)
+        rungs = {}
+        rungs["hbm_to_host"] = demotion_rung(worker, now, events_pool, timed_pool, cache, writes)
+        off_host = [h for h in hashes if cache.get(h) is None
+                    or cache.get(h).tobytes() != tree7[rel[h]]]
+        scores = indexer.get_pod_scores(prompt, MODEL_NAME, names)
+        row = rungs["hbm_to_host"]
+        print(f"  (b) hbm -> host: {row['moves']} groups of {bpf} blocks in one cycle, wall "
+              f"{row['wall_ms']:.1f} ms = gathers {row['gather_ms']:.1f} + host admissions "
+              f"{row['admit_ms']:.1f} + event lag {row['event_lag_ms']:.1f} + other "
+              f"{row['other_ms']:.1f}; host-tier groups not equal to phase 7's files: "
+              f"{len(off_host)}; tiers {target.tiers()}; pod-a's score {scores[pod_a.name]}",
+              flush=True)
+        if (row["moves"] != len(hashes) or off_host
+                or scores[pod_a.name] != tier_score(scored, 0.8)):
+            raise AssertionError(f"hbm -> host: {row['moves']} moves, {len(off_host)} groups "
+                                 f"off, scores {scores}")
+
+        # (c) host -> shared storage, at a later now.
+        rungs["host_to_storage"] = demotion_rung(worker, now + DEMOTE_STORAGE_IDLE_S,
+                                                 events_pool, timed_pool, cache, writes)
+        tree = read_tree(root)
+        bad = tree_mismatches(tree, tree7)
+        left = cache.stats()
+        scores = indexer.get_pod_scores(prompt, MODEL_NAME, names)
+        row = rungs["host_to_storage"]
+        print(f"  (c) host -> shared storage: {row['moves']} groups, wall {row['wall_ms']:.1f} "
+              f"ms = file writes {row['write_ms']:.1f} ({len(tree)} files, "
+              f"{sum(map(len, tree.values())) / row['write_ms'] / 1e6:.2f} GB/s) + event lag "
+              f"{row['event_lag_ms']:.1f} + other {row['other_ms']:.1f}; files differing from "
+              f"phase 7's one-shot tree: {len(bad)}; host tier left {left['entries']} groups, "
+              f"{left['bytes']} bytes; pod-a's score {scores[pod_a.name]}", flush=True)
+        if (row["moves"] != len(hashes) or bad or len(tree) != len(hashes) or left["entries"]
+                or scores[pod_a.name] != tier_score(scored, 0.5)):
+            raise AssertionError(f"host -> storage: {row['moves']} moves, {len(bad)} files "
+                                 f"differ, host tier {left}, scores {scores}")
+        del tree, tree7
+
+        # (d) Compute or load: pod-c loads the demoted files through the
+        # connector whose observers are the advisor's own.
+        jobs = iter(range(1, 1 << 30))
+        idx_c = torch.tensor(t["ids_c"], device=pod_c.pool.kv.device)
+        idx_a = torch.tensor(prefix_ids, device=pod_a.pool.kv.device)
+
+        def load_prefix():
+            pod_c.pool.kv[:, idx_c] = 0
+            sync()
+            t0 = time.perf_counter()
+            job = next(jobs)
+            conn.load_handler.transfer_async(job, worker_mod.group_blocks_per_file(
+                hashes, t["ids_c"], bpf))
+            status = conn.load_handler.wait(job)
+            sync()
+            wall = time.perf_counter() - t0
+            same = bool(torch.equal(pod_c.pool.kv[:, idx_c], pod_a.pool.kv[:, idx_a]))
+            if status != succeeded or not same:
+                raise AssertionError(f"load into pod-c: {status.name}, bytes equal: {same}")
+            return wall
+
+        load_ms = load_prefix() * 1e3
+        prefill_s = (t["ttft_miss_ms"] - t["route_miss_ms"]) / 1e3
+        engine.advisor.observe_prefill(len(t["prompt_a"]), prefill_s)
+        stats = engine.advisor.stats()
+        advice = {tier: engine.advisor.advise(len(prefix_ids), tier).to_dict()
+                  for tier in ("host", "shared_storage")}
+        print(f"  (d) pod-c loaded the {len(hashes)} demoted files through a connector with "
+              f"the PolicyEngine attached in {load_ms:.1f} ms (bytes equal pod-a's); the "
+              f"advisor saw {stats['rtt']['observations']} load(s) and "
+              f"{stats['rtt_store']['observations']} store(s), bytes_per_block "
+              f"{stats['bytes_per_block']}, prefill {stats['prefill_tokens_per_s']} tokens/s "
+              f"(phase 5's miss: {len(t['prompt_a'])} tokens in {prefill_s * 1e3:.1f} ms)",
+              flush=True)
+        for tier, view in advice.items():
+            print(f"      advise({len(prefix_ids)}, {tier}): {view['action']}, load_s "
+                  f"{view['load_s']}, recompute_s {view['recompute_s']}, hybrid_s "
+                  f"{view['hybrid_s']}, load_blocks {view['load_blocks']} ({view['reason']})",
+                  flush=True)
+        if (stats["rtt"]["observations"] != 1 or stats["rtt_store"]["observations"]
+                != len(writes) or len(writes) != len(hashes)
+                or stats["bytes_per_block"] != pod_a.pool.block_nbytes
+                or any(v["load_s"] is None or v["recompute_s"] is None
+                       for v in advice.values())):
+            raise AssertionError(f"advisor: {stats}, {len(writes)} writes, advice {advice}")
+
+        # (e) Transfer: pod-a is overloaded, pod-b busy, pod-c idle.
+        transfers = transfer.TransferEngine(advisor=engine.advisor, ledger=ledger,
+                                            config=transfer.TransferConfig())
+        indexer.set_transfer_engine(transfers)
+        transfers.attach_executor(indexer.kv_block_index, events_pool, MODEL_NAME,
+                                  start_warmup=False, device_medium=DEVICE_MEDIUM)
+        threshold = transfers.config.load_threshold
+        loads = {pod_a.name: 2 * threshold, pod_b.name: threshold / 2, pod_c.name: 0.0}
+        candidates = names + [pod_c.name]
+        t0 = time.perf_counter()
+        _, directive = indexer.get_pod_scores_planned(prompt, MODEL_NAME, candidates,
+                                                      pod_loads=loads)
+        t1 = time.perf_counter()
+        if directive is None or directive["outcome"] not in ("planned", "recompute-cheaper"):
+            raise AssertionError(f"transfer planning: {directive}")
+        # The directive without its block keys (the chain's, one a block).
+        directive = {k: v for k, v in directive.items() if k != "block_keys"}
+        print(f"  (e) get_pod_scores_planned(B, pod_loads={loads}): {directive}; the planner's "
+              f"prices for the chain: {transfers.planner.price(scored)}", flush=True)
+        if directive["planned"]:
+            plan = transfers.planner.get(directive["plan_id"])
+            how = via = "the priced directive"
+        else:
+            # Recompute priced cheaper: the copy is the one a warm-up
+            # pre-placement makes (no price gate), from the catalog's
+            # record of B's family, which the planned call just noted.
+            record = transfers.catalog.get(family)
+            plan = transfers.planner.plan_warmup(
+                source_pod=record.holder_pod, target_pod=pod_c.name,
+                block_keys=record.block_keys, engine_hashes=record.engine_hashes,
+                token_ids=record.token_ids, block_size=record.block_size, tier=record.tier)
+            how = "a warm-up pre-placement plan (the price said recompute: no priced directive)"
+            via = "the pre-placement"
+        if (plan.source_pod, plan.target_pod, plan.blocks) != (pod_a.name, pod_c.name, scored):
+            raise AssertionError(f"plan {plan.to_dict()}")
+        t2 = time.perf_counter()
+        load_prefix()  # the bytes first: the index never names a pod without them
+        t3 = time.perf_counter()
+        executed = transfers.executor.execute(plan)
+        events_pool.drain()
+        t4 = time.perf_counter()
+        scores = indexer.get_pod_scores(prompt, MODEL_NAME, candidates)
+        routed = max(sorted(scores), key=scores.get)
+        t5 = time.perf_counter()
+        logits, _ = llama.prefill_continue(params, torch.tensor([t["suffix"]]), pod_c.pool.kv,
+                                           t["table_c"], prefix_tokens, cfg)
+        first = int(logits[0, -1].argmax())
+        t6 = time.perf_counter()
+        launches = fc.flash_gqa_attention_cuda.launches
+        split = {"plan_ms": (t1 - t0) * 1e3, "load_ms": (t3 - t2) * 1e3,
+                 "execute_ms": (t4 - t3) * 1e3, "route_ms": (t5 - t4) * 1e3,
+                 "continue_ms": (t6 - t5) * 1e3}
+        ttft_ms = sum(split.values())
+        print(f"      executed {how} {plan.plan_id} ({plan.blocks} blocks, "
+              f"{plan.nbytes / 2**30:.3f} GiB, tier {plan.tier}): {executed}; scores {scores} "
+              f"-> {routed}; pod-c's TTFT via {via} {ttft_ms:.1f} ms = plan "
+              f"{split['plan_ms']:.1f} + load {split['load_ms']:.1f} + execute and apply "
+              f"{split['execute_ms']:.1f} + route {split['route_ms']:.1f} + continuation and "
+              f"token {split['continue_ms']:.1f}; prefill kernel launches {launches}", flush=True)
+        if not executed or routed != pod_c.name or scores[pod_c.name] != tier_score(scored, 1.0):
+            raise AssertionError(f"transfer: executed {executed}, scores {scores}")
+        if on_card and launches != cfg.n_layers:
+            raise AssertionError(f"pod-c's continuation launched the prefill kernel {launches} "
+                                 f"times, expected {cfg.n_layers}")
+        err = check_logits("pod-c's continuation via the transfer vs phase 5's hit", logits,
+                           t["logits_b"])
+        gap = check_next_token("pod-c's next token", first, t["logits_b"][0, -1], err)
+        del logits
+
+        # (f) Warm-up: a cold pod registers and the worker drains its queue.
+        moves0 = metrics.transfer_warmup_moves.collect()[0].samples[0].value
+        queued = transfers.register_cold_pod(COLD_POD)
+        moved, cycles = 0, 0
+        while transfers.warmup.status()["cold_pods"] and cycles < WARMUP_CYCLES:
+            moved += transfers.run_warmup_cycle()
+            cycles += 1
+        events_pool.drain()
+        counted = metrics.transfer_warmup_moves.collect()[0].samples[0].value - moves0
+        warm = indexer.get_pod_scores(prompt, MODEL_NAME, candidates + [COLD_POD])
+        print(f"  (f) warm-up: {COLD_POD} registered cold, {queued} plans queued, {moved} moves "
+              f"in {cycles} cycles (transfer_warmup_moves_total +{counted:g}); its score "
+              f"{warm[COLD_POD]}; status {transfers.warmup.status()['cold_pods']}", flush=True)
+        if (transfers.warmup.status()["cold_pods"] or not moved or counted != moved
+                or warm[COLD_POD] <= 0.0):
+            raise AssertionError(f"warm-up: {moved} moves, counter +{counted}, scores {warm}")
+    finally:
+        conn.close()
+        engine.close()
+        if transfers is not None:
+            transfers.close()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(t["one_shot_root"], ignore_errors=True)
+    totals = series_totals(metrics)
+    moved_series = {k: v - totals0.get(k, 0.0) for k, v in totals.items()
+                    if v != totals0.get(k, 0.0)}
+    print(f"  registry, this phase: {moved_series}", flush=True)
+    return {"launches": {"flash_prefill": launches}, "scored_blocks": scored,
+            "family_prediction": None if prediction is None else dataclasses.asdict(prediction),
+            "rungs": rungs, "load_ms": load_ms, "advice": advice,
+            "advisor": engine.advisor.stats(), "directive": directive, "executed_plan": how,
+            "transfer_ttft_ms": ttft_ms, "transfer_split_ms": split, "routed": routed,
+            "continuation_max_abs_err": err, "continuation_token_gap": gap,
+            "warmup": {"queued": queued, "moves": moved, "cycles": cycles},
+            "series": moved_series}
+
 
 
 # --------------------------------------------------------------- phases 8-11
@@ -3814,6 +4224,7 @@ def main() -> int:
     serve = serving(torch, params, cfg)
     offload_inputs = serve.pop("offload_inputs")
     sharded_inputs = serve.pop("sharded_inputs")
+    tiering_inputs = serve.pop("tiering_inputs")
     torch.cuda.empty_cache()
 
     phase(f"6. ring prefill: forward(sp_mesh=sp {RING_SP} on one card) over "
@@ -3822,8 +4233,16 @@ def main() -> int:
 
     phase("7. offload: store pod-a's prefix, serve it on pod-c")
     offload_inputs.update(ttft_miss_ms=serve["ttft_miss_ms"], ttft_hit_ms=serve["ttft_hit_ms"])
-    offloaded = offload(torch, params, cfg, peaks, offload_inputs)
-    del offload_inputs
+    try:
+        offloaded = offload(torch, params, cfg, peaks, offload_inputs)
+        del offload_inputs
+        tiering_inputs.update(offloaded.pop("tiering_inputs"))
+
+        phase("7b. tiering and transfer: demote pod-a's prefix, plan and serve B on pod-c")
+        tiered = tiering_transfer(torch, params, cfg, tiering_inputs)
+    finally:
+        tiering_inputs["scorer"].shutdown()
+    del tiering_inputs
     gc_cuda(torch)
 
     phase(f"12a. sharded: tp {SHARD_TP} serving on one card (phase 5's requests), "
@@ -3883,8 +4302,10 @@ def main() -> int:
             replaces="llm_d_kv_cache_manager_tpu/ops/flash_pallas.py:49",
             launches=(serve["launches"]["flash_prefill"] + moe_run["launches"]["flash_prefill"]
                       + tp_serving["launches"]["flash_prefill"]
-                      + tp_moe["launches"]["flash_prefill"]),
+                      + tp_moe["launches"]["flash_prefill"]
+                      + tiered["launches"]["flash_prefill"]),
             launches_by_path={"llama_serving": serve["launches"]["flash_prefill"],
+                              "llama_tiering_transfer": tiered["launches"]["flash_prefill"],
                               "moe_forward": moe_run["launches"]["flash_prefill"],
                               "llama_serving_tp": tp_serving["launches"]["flash_prefill"],
                               "moe_forward_ep_tp": tp_moe["launches"]["flash_prefill"]},
@@ -3937,7 +4358,9 @@ def main() -> int:
     ring_summary = {k: v for k, v in ring.items() if k != "launches"}
     moe_summary = {k: v for k, v in moe_run.items() if k != "launches"}
     sharded = {"tp_serving": tp_serving, "tp_sp_ring": tp_ring, "moe": tp_moe, **sharded_train}
+    tiering_summary = {k: v for k, v in tiered.items() if k != "launches"}
     print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "offload": offloaded,
+                      "tiering": tiering_summary,
                       "autograd_guard": guard, "training": trained, "moe": moe_summary,
                       "sharded": sharded, "read_path": read, "write_path": write,
                       "layers": LAYERS, "phase_seconds": PHASE_SECONDS,

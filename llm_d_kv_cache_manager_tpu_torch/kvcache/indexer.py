@@ -33,10 +33,11 @@ bit-identical — docs/replication.md).
 Copied from the JAX reference's ``kvcache/indexer.py``; its scores are
 bit-identical to the reference's for the same index contents and
 tokenizer (tests/test_torch_indexer.py).  The UDS tokenizer backend is not
-ported yet: ``IndexerConfig.uds_tokenizer_path`` raises.  Capture, tiering
-and transfer engines attach through ``set_capture``,
-``set_policy_engine`` and ``set_transfer_engine`` as any object with the
-reference's methods.
+ported yet: ``IndexerConfig.uds_tokenizer_path`` raises.  The port's
+``tiering.PolicyEngine`` and ``transfer.TransferEngine`` attach through
+``set_policy_engine`` and ``set_transfer_engine``; a capture engine
+attaches through ``set_capture`` as any object with the reference's
+methods.
 """
 
 from __future__ import annotations

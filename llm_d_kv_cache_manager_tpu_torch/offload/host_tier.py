@@ -44,10 +44,10 @@ class HostTierCache:
     ) -> None:
         self.max_bytes = max_bytes
         self._on_evict = on_evict
-        # Pluggable eviction ranking (the JAX package's
-        # tiering/eviction.py policies fit): called under our lock with
-        # an LRU-ordered (file_hash, nbytes) sample, takes no locks of
-        # its own.  None = pristine pop-LRU-first (the parity oracle).
+        # Pluggable eviction ranking (tiering/eviction.py's policies):
+        # called under our lock with an LRU-ordered (file_hash, nbytes)
+        # sample, takes no locks of its own.  None = pristine
+        # pop-LRU-first (the parity oracle).
         self._eviction_policy = eviction_policy
         self._entries: "OrderedDict[int, np.ndarray]" = OrderedDict()  # guarded-by: _lock
         self._bytes = 0  # guarded-by: _lock

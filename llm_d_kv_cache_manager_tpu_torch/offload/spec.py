@@ -11,10 +11,13 @@ The names ``TPUOffloadSpec``/``TPUOffloadConnector`` are the JAX
 package's, kept so a reader finds the counterpart; here the pool is a
 ``KVCachePool`` on one GPU (or the CPU, for tests).  On a CUDA pool the
 connector always runs the native I/O engine and, with staging lanes, the
-pinned side-stream copies.  The JAX package's ``policy_engine`` hook
-(``tiering/``) is not ported; its three plain-callable feeds are
-constructor arguments here: ``rtt_observer`` (loads),
-``store_rtt_observer`` (stores) and ``eviction_policy`` (host tier).
+pinned side-stream copies.  ``policy_engine`` (a
+``tiering.PolicyEngine``) wires predictive tiering in as the JAX
+package's connector does: the host tier evicts by its predictive policy,
+and every load and store completion feeds its compute-or-load advisor.
+Without an engine, the same three feeds are plain constructor
+arguments: ``rtt_observer`` (loads), ``store_rtt_observer`` (stores) and
+``eviction_policy`` (host tier).
 """
 
 from __future__ import annotations
@@ -115,6 +118,7 @@ class TPUOffloadConnector:
         rtt_observer: Optional[Callable[[int, float], None]] = None,
         store_rtt_observer: Optional[StoreRttObserver] = None,
         eviction_policy=None,
+        policy_engine=None,
     ) -> None:
         if pool.config.block_size != spec.device_block_size:
             raise ValueError(
@@ -155,6 +159,26 @@ class TPUOffloadConnector:
         self.engine = OffloadEngine(
             n_threads=spec.threads_per_chip, numa_node=spec.numa_node
         )
+        # Predictive tiering (tiering/engine.py): when attached, the
+        # host tier evicts by predicted-next-use x byte-cost and every
+        # load and store completion feeds the compute-or-load advisor.
+        self.policy_engine = policy_engine
+        if policy_engine is not None:
+            if (rtt_observer, store_rtt_observer, eviction_policy) != (
+                None, None, None
+            ):
+                raise ValueError(
+                    "pass policy_engine or the plain feeds (rtt_observer, "
+                    "store_rtt_observer, eviction_policy), not both"
+                )
+            eviction_policy = policy_engine.eviction_policy(
+                backend="host_tier"
+            )
+            advisor = policy_engine.advisor
+            rtt_observer = advisor.observe_load
+            store_rtt_observer = advisor.observe_store
+            if advisor.config.bytes_per_block <= 0:
+                advisor.config.bytes_per_block = pool.block_nbytes
         self.staging_budget = StagingBudget(
             int(spec.max_staging_memory_gb * (1 << 30))
         )

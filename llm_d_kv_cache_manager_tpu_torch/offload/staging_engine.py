@@ -55,8 +55,10 @@ them.  No harvest may run while another thread captures a CUDA graph
 over the same pool (``llama.make_decode_step``): a CUDA call from
 another thread during capture is an error.
 
-This is the JAX package's ``offload/staging_engine.py`` without its
-metrics and trace spans (not ported yet).
+A transfer that finds every lane busy counts once in
+``offload_staging_lane_waits_total``; each staged group's gather and
+copy is an ``offload.stage.dma`` span under the handler's
+``offload.stage`` span, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -70,11 +72,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from llm_d_kv_cache_manager_tpu_torch.metrics.collector import METRICS
 from llm_d_kv_cache_manager_tpu_torch.models.kv_cache_pool import KVCachePool
 from llm_d_kv_cache_manager_tpu_torch.native.engine import (
     JobStatus,
     OffloadEngine,
 )
+from llm_d_kv_cache_manager_tpu_torch.obs.trace import span as obs_span
 from llm_d_kv_cache_manager_tpu_torch.offload.file_mapper import FileMapper
 from llm_d_kv_cache_manager_tpu_torch.utils.device import to_numpy
 
@@ -248,12 +252,16 @@ class StagingEngine:
 
     def _acquire_lane(self) -> _Lane:
         deadline = time.monotonic() + self.config.lane_wait_s
+        waited = False
         with self._cond:
             while True:
                 for lane in self._lanes:
                     if not lane.busy:
                         lane.busy = True
                         return lane
+                if not waited:
+                    waited = True
+                    METRICS.offload_staging_lane_waits.inc()
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     raise StagingSaturated(
@@ -472,7 +480,13 @@ class StagingEngine:
                 lane.cursor = (lane.cursor + 1) % len(lane.slots)
                 self._retire_slot(slot)
                 t0 = time.perf_counter()
-                host = self._stage_store_group(slot, list(ids))
+                # Child of the handler's offload.stage span (flat span
+                # model: dotted children attribute time inside a stage).
+                with obs_span(
+                    "offload.stage.dma", parent="offload.stage"
+                ) as span:
+                    host = self._stage_store_group(slot, list(ids))
+                    span.set_attr("blocks", len(ids))
                 device_s += time.perf_counter() - t0
                 if on_group is not None:
                     on_group(file_hash, host)

@@ -31,8 +31,10 @@ gather for all layers), so the host path transposes at the boundary.
 bf16 blocks travel as their ``uint16`` bit patterns (numpy has no
 bfloat16), which are the same bytes the JAX package writes.
 
-This is the JAX package's ``offload/worker.py`` without its metrics and
-trace spans (not ported yet).
+Each job counts in ``offload_jobs_total`` at harvest and, on success, in
+``offload_bytes_total``; a sampled job is one ``offload.store`` or
+``offload.load`` trace with an ``offload.stage`` span (submit side) and
+an ``offload.io`` span (submit to harvest), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,10 +46,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from llm_d_kv_cache_manager_tpu_torch.metrics.collector import METRICS
 from llm_d_kv_cache_manager_tpu_torch.models.kv_cache_pool import KVCachePool
 from llm_d_kv_cache_manager_tpu_torch.native.engine import (
     JobStatus,
     OffloadEngine,
+)
+from llm_d_kv_cache_manager_tpu_torch.obs.trace import (
+    TRACER,
+    span as obs_span,
+    use_trace,
 )
 from llm_d_kv_cache_manager_tpu_torch.offload.file_mapper import FileMapper
 
@@ -143,12 +151,27 @@ class _HandlerBase:
         # through the staging engine rather than raw engine ids.
         self._staging = staging
         self._staged: set = set()
-        # io-start stamps of every job: the RTT observers need real
-        # submit->harvest latencies.
+        # Sampled per-job traces: job_id -> (trace, io-start stamp).
+        # Submit-to-harvest, same single-submitter discipline as the
+        # other per-job dicts here.
+        self._job_traces: Dict[int, Tuple[object, float]] = {}
+        # io-start stamps of every job, traced or not: the RTT observers
+        # need real submit->harvest latencies.
         self._io_started: Dict[int, float] = {}
 
-    def _io_start(self, job_id: int) -> None:
-        self._io_started[job_id] = time.perf_counter()
+    def _trace_submit(self, name: str, job_id: int, n_blocks: int):
+        """Sampled trace for one offload job; None when unsampled."""
+        job_trace = TRACER.start_trace(name)
+        if job_trace is not None:
+            job_trace.set_attr("job_id", job_id)
+            job_trace.set_attr("blocks", n_blocks)
+        return job_trace
+
+    def _trace_io_start(self, job_id: int, job_trace) -> None:
+        now = time.perf_counter()
+        self._io_started[job_id] = now
+        if job_trace is not None:
+            self._job_traces[job_id] = (job_trace, now)
 
     def _io_elapsed(self, job_id: int) -> Optional[float]:
         """Submit->harvest seconds for a completing job (None for
@@ -157,6 +180,21 @@ class _HandlerBase:
         if started is None:
             return None
         return time.perf_counter() - started
+
+    def _trace_finish(self, job_id: int, status: JobStatus) -> None:
+        """Close the job's io span at harvest.  The io span covers
+        engine submit -> completion harvest: actual file/copy time plus
+        any idle-until-harvest slack, which is exactly the latency the
+        serving step experiences."""
+        entry = self._job_traces.pop(job_id, None)
+        if entry is None:
+            return
+        job_trace, io_start = entry
+        job_trace.add_completed("offload.io", io_start)
+        job_trace.set_attr("status", status.name.lower())
+        job_trace.finish(
+            "ok" if status == JobStatus.SUCCEEDED else "error"
+        )
 
     def _budget_acquire(self, job_id: int, nbytes: int) -> None:
         if self._budget is not None and nbytes > 0:
@@ -226,47 +264,52 @@ class DeviceToStorageHandler(_HandlerBase):
         all_ids: List[int] = []
         for _, ids in groups:
             all_ids.extend(ids)
+        job_trace = self._trace_submit("offload.store", job_id, len(all_ids))
         # Gate on the staging budget before the gather allocates.
         self._budget_acquire(
             job_id, len(all_ids) * self.pool.block_nbytes
         )
         if self._staging is not None:
-            self._transfer_async_staged(job_id, groups)
+            self._transfer_async_staged(job_id, groups, job_trace)
             return
         device_t0 = time.perf_counter()
-        # One gather + one copy to the host for the whole job.
-        host = self.pool.gather_to_host(all_ids)  # [L, n, 2, bs, h, d]
+        with use_trace(job_trace), obs_span("offload.stage") as stage:
+            # One gather + one copy to the host for the whole job.
+            host = self.pool.gather_to_host(all_ids)  # [L, n, 2, bs, h, d]
 
-        paths: List[str] = []
-        buffers: List[np.ndarray] = []
-        cursor = 0
-        for file_hash, ids in groups:
-            paths.append(self.file_mapper.get_file_name(file_hash))
-            chunk = host[:, cursor : cursor + len(ids)]
-            # Layer-major gather -> block-major file bytes (see
-            # module docstring: head-of-file == first blocks).
-            buffers.append(np.ascontiguousarray(np.moveaxis(chunk, 1, 0)))
-            cursor += len(ids)
-        device_s = time.perf_counter() - device_t0
-        if self._host_cache is not None:
-            admitted = [
-                file_hash
-                for (file_hash, _), buffer in zip(groups, buffers)
-                if self._host_cache.put(file_hash, buffer)
-            ]
-            # Advertise only what the budget actually admitted.
-            if admitted and self._event_sink is not None:
-                self._event_sink(admitted, HOST_MEDIUM)
+            paths: List[str] = []
+            buffers: List[np.ndarray] = []
+            cursor = 0
+            for file_hash, ids in groups:
+                paths.append(self.file_mapper.get_file_name(file_hash))
+                chunk = host[:, cursor : cursor + len(ids)]
+                # Layer-major gather -> block-major file bytes (see
+                # module docstring: head-of-file == first blocks).
+                buffers.append(
+                    np.ascontiguousarray(np.moveaxis(chunk, 1, 0))
+                )
+                cursor += len(ids)
+            device_s = time.perf_counter() - device_t0
+            if self._host_cache is not None:
+                admitted = [
+                    file_hash
+                    for (file_hash, _), buffer in zip(groups, buffers)
+                    if self._host_cache.put(file_hash, buffer)
+                ]
+                # Advertise only what the budget actually admitted.
+                if admitted and self._event_sink is not None:
+                    self._event_sink(admitted, HOST_MEDIUM)
+            stage.set_attr("files", len(paths))
         self._job_hashes[job_id] = (
             [h for h, _ in groups],
             sum(buffer.nbytes for buffer in buffers),
             device_s,
         )
-        self._io_start(job_id)
+        self._trace_io_start(job_id, job_trace)
         self.engine.store(job_id, paths, buffers, skip_existing=True)
 
     def _transfer_async_staged(
-        self, job_id: int, groups: Sequence[FileBlockGroup]
+        self, job_id: int, groups: Sequence[FileBlockGroup], job_trace
     ) -> None:
         """Staging-engine path: per-group pinned-slot pipeline; the
         host-tier admission hook copies (slots are reused)."""
@@ -286,8 +329,11 @@ class DeviceToStorageHandler(_HandlerBase):
             None,  # device split measured by the staging engine
         )
         self._staged.add(job_id)
-        self._io_start(job_id)
-        self._staging.store(job_id, groups, on_group=on_group)
+        self._trace_io_start(job_id, job_trace)
+        with use_trace(job_trace), obs_span("offload.stage") as stage:
+            stage.set_attr("files", len(groups))
+            stage.set_attr("staged", True)
+            self._staging.store(job_id, groups, on_group=on_group)
         if admitted and self._event_sink is not None:
             self._event_sink(admitted, HOST_MEDIUM)
 
@@ -296,6 +342,7 @@ class DeviceToStorageHandler(_HandlerBase):
 
     def on_finished(self, job_id: int, status: JobStatus) -> JobStatus:
         self._budget_release(job_id)
+        self._trace_finish(job_id, status)
         io_seconds = self._io_elapsed(job_id)
         staged = self._staging_stats(job_id)
         hashes, nbytes, device_s = self._job_hashes.pop(
@@ -311,6 +358,7 @@ class DeviceToStorageHandler(_HandlerBase):
                 job_id,
                 status.name,
             )
+        METRICS.offload_jobs.labels("store", status.name.lower()).inc()
         if status != JobStatus.SUCCEEDED:
             return status
         if staged is not None:
@@ -329,6 +377,9 @@ class DeviceToStorageHandler(_HandlerBase):
                 self._rtt_observer(nbytes, io_seconds, device_s)
             except Exception:  # noqa: BLE001 — advisory feed only
                 logger.exception("store rtt observer failed")
+        # Counted on success only, symmetric with the load path (bytes
+        # deduped by skip_existing still transit the gather and copy).
+        METRICS.offload_bytes.labels("store").inc(nbytes)
         if hashes and self._event_sink is not None:
             self._event_sink(hashes, SHARED_STORAGE_MEDIUM)
         return status
@@ -369,73 +420,83 @@ class StorageToDeviceHandler(_HandlerBase):
     ) -> None:
         c = self.pool.config
         n_blocks = sum(len(ids) for _, ids in groups)
+        job_trace = self._trace_submit("offload.load", job_id, n_blocks)
         self._budget_acquire(job_id, n_blocks * self.pool.block_nbytes)
         if self._staging is not None:
-            self._transfer_async_staged(job_id, groups)
+            self._transfer_async_staged(job_id, groups, job_trace)
             return
-        paths: List[str] = []
-        buffers: List[np.ndarray] = []
-        file_buffers: List[np.ndarray] = []
-        all_ids: List[int] = []
-        for file_hash, ids in groups:
-            cached = (
-                self._host_cache.get(file_hash)
-                if self._host_cache is not None
-                else None
-            )
-            if cached is not None and cached.shape[0] >= len(ids):
-                # Host-tier hit: a partial request reads the group's
-                # head blocks (block-major layout invariant).
-                buffers.append(cached[: len(ids)])
-            else:
-                buffer = np.empty(
-                    (
-                        len(ids),
-                        c.num_layers,
-                        2,
-                        c.block_size,
-                        c.num_kv_heads,
-                        c.head_dim,
-                    ),
-                    dtype=host_dtype(c.dtype),
+        with use_trace(job_trace), obs_span("offload.stage") as stage:
+            paths: List[str] = []
+            buffers: List[np.ndarray] = []
+            file_buffers: List[np.ndarray] = []
+            all_ids: List[int] = []
+            for file_hash, ids in groups:
+                cached = (
+                    self._host_cache.get(file_hash)
+                    if self._host_cache is not None
+                    else None
                 )
-                buffers.append(buffer)
-                file_buffers.append(buffer)
-                paths.append(self.file_mapper.get_file_name(file_hash))
-            all_ids.extend(ids)
+                if cached is not None and cached.shape[0] >= len(ids):
+                    # Host-tier hit: a partial request reads the group's
+                    # head blocks (block-major layout invariant).
+                    buffers.append(cached[: len(ids)])
+                else:
+                    buffer = np.empty(
+                        (
+                            len(ids),
+                            c.num_layers,
+                            2,
+                            c.block_size,
+                            c.num_kv_heads,
+                            c.head_dim,
+                        ),
+                        dtype=host_dtype(c.dtype),
+                    )
+                    buffers.append(buffer)
+                    file_buffers.append(buffer)
+                    paths.append(self.file_mapper.get_file_name(file_hash))
+                all_ids.extend(ids)
+            stage.set_attr("files", len(paths))
+            stage.set_attr("host_tier_hits", len(buffers) - len(file_buffers))
         # file_nbytes = what the engine actually reads from storage;
         # the RTT observer must see ONLY these bytes (a host-tier-hit-
         # heavy job pairs a near-zero io time with its full payload,
         # which would collapse a per-byte cost estimate).
         file_nbytes = sum(buffer.nbytes for buffer in file_buffers)
         self._pending[job_id] = (all_ids, buffers, file_nbytes)
-        self._io_start(job_id)
+        self._trace_io_start(job_id, job_trace)
         # Zero-file jobs still register so get_finished reports them.
         self.engine.load(job_id, paths, file_buffers)
 
     def _transfer_async_staged(
-        self, job_id: int, groups: Sequence[FileBlockGroup]
+        self, job_id: int, groups: Sequence[FileBlockGroup], job_trace
     ) -> None:
         """Staging-engine path: host-tier hits scatter immediately,
         file-backed groups pipeline through the lane slots (the
         staging engine scatters each as its read lands)."""
         file_groups: List[FileBlockGroup] = []
-        for file_hash, ids in groups:
-            cached = (
-                self._host_cache.get(file_hash)
-                if self._host_cache is not None
-                else None
-            )
-            if cached is not None and cached.shape[0] >= len(ids):
-                # Host-tier hit: head blocks of the cached group
-                # (block-major layout invariant), device-bound now
-                # — serialized with the staging engine's
-                # harvest-time scatters.
-                self._staging.scatter_block_major(
-                    list(ids), cached[: len(ids)]
+        host_hits = 0
+        with use_trace(job_trace), obs_span("offload.stage") as stage:
+            for file_hash, ids in groups:
+                cached = (
+                    self._host_cache.get(file_hash)
+                    if self._host_cache is not None
+                    else None
                 )
-            else:
-                file_groups.append((file_hash, ids))
+                if cached is not None and cached.shape[0] >= len(ids):
+                    # Host-tier hit: head blocks of the cached group
+                    # (block-major layout invariant), device-bound now
+                    # — serialized with the staging engine's
+                    # harvest-time scatters.
+                    self._staging.scatter_block_major(
+                        list(ids), cached[: len(ids)]
+                    )
+                    host_hits += 1
+                else:
+                    file_groups.append((file_hash, ids))
+            stage.set_attr("files", len(file_groups))
+            stage.set_attr("host_tier_hits", host_hits)
+            stage.set_attr("staged", True)
         file_nbytes = (
             sum(len(ids) for _, ids in file_groups)
             * self.pool.block_nbytes
@@ -449,7 +510,7 @@ class StorageToDeviceHandler(_HandlerBase):
             file_nbytes,
         )
         self._staged.add(job_id)
-        self._io_start(job_id)
+        self._trace_io_start(job_id, job_trace)
         self._staging.load(job_id, file_groups)
 
     def owns(self, job_id: int) -> bool:
@@ -457,9 +518,11 @@ class StorageToDeviceHandler(_HandlerBase):
 
     def on_finished(self, job_id: int, status: JobStatus) -> JobStatus:
         self._budget_release(job_id)
+        self._trace_finish(job_id, status)
         io_seconds = self._io_elapsed(job_id)
         staged = self._staging_stats(job_id)
         pending = self._pending.pop(job_id, None)
+        METRICS.offload_jobs.labels("load", status.name.lower()).inc()
         if pending is None:
             # An unknown load completion means the scatter for those
             # blocks never runs — the pool is silently missing data the
@@ -474,6 +537,11 @@ class StorageToDeviceHandler(_HandlerBase):
         if status != JobStatus.SUCCEEDED:
             return status
         block_ids, buffers, file_nbytes = pending
+        METRICS.offload_bytes.labels("load").inc(
+            len(block_ids) * self.pool.block_nbytes
+            if staged is not None
+            else sum(buffer.nbytes for buffer in buffers)
+        )
         if staged is not None:
             # The staging engine measured the file window directly —
             # tighter than submit->harvest (no idle-until-poll slack).

@@ -14,13 +14,13 @@ A scheduler embeds this as a scorer plugin:
     ...
     scores = scorer.score(request, pods)   # every scheduling cycle
 
-Copied from the JAX reference's ``scheduler/precise_scorer.py``.  The
-port has no ``tiering/`` package yet (ROADMAP.md, Queue A item 12), so
-``tiering=True`` raises ``NotImplementedError`` instead of attaching a
-policy engine.  With ``discover_pods=False`` and no ``zmq_endpoint`` the
-scorer never makes a socket: its pool is fed by whoever calls
-``events_pool.add_tasks`` (``zmq_subscriber.parse_event_message`` ->
-``Pool.add_tasks``, what a poller does).
+Copied from the JAX reference's ``scheduler/precise_scorer.py``:
+``tiering=True`` attaches a ``tiering.PolicyEngine`` on the indexer's
+ledger (``scorer.policy_engine``).  With ``discover_pods=False`` and no
+``zmq_endpoint`` the scorer never makes a socket: its pool is fed by
+whoever calls ``events_pool.add_tasks``
+(``zmq_subscriber.parse_event_message`` -> ``Pool.add_tasks``, what a
+poller does).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from llm_d_kv_cache_manager_tpu_torch.obs.trace import TRACER, use_trace
 from llm_d_kv_cache_manager_tpu_torch.preprocessing.chat_templating import (
     ApplyChatTemplateRequest,
 )
+from llm_d_kv_cache_manager_tpu_torch.tiering import PolicyEngine
 from llm_d_kv_cache_manager_tpu_torch.utils.logging import get_logger
 from llm_d_kv_cache_manager_tpu_torch.utils.ttl_cache import TTLCache
 
@@ -136,17 +137,15 @@ class PrecisePrefixCacheScorer:
         indexer: Optional[Indexer] = None,
     ) -> None:
         self.config = config or PrecisePrefixCacheScorerConfig()
-        if self.config.tiering:
-            # Never a silent no-op: a caller that asked for compute-or-load
-            # advice must not get a scorer without it.
-            raise NotImplementedError(
-                "predictive tiering is not ported yet (ROADMAP.md, Queue A "
-                "item 12: tiering/)"
-            )
         self.indexer = indexer or Indexer(self.config.indexer_config)
         self.indexer.run()
 
         self.policy_engine = None
+        if self.config.tiering:
+            self.policy_engine = PolicyEngine(
+                ledger=self.indexer.cache_stats
+            )
+            self.indexer.set_policy_engine(self.policy_engine)
 
         self.events_pool = Pool(
             self.indexer.kv_block_index,
@@ -177,6 +176,8 @@ class PrecisePrefixCacheScorer:
             self._subscriptions.stop_sweeper()
         self.subscribers.shutdown()
         self.events_pool.shutdown()
+        if self.policy_engine is not None:
+            self.policy_engine.close()
         self.indexer.shutdown()
 
     # -- subscriber lifecycle --

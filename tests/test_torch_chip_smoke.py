@@ -7,8 +7,10 @@ comparison, rate and bound arithmetic, mount lookup and file helpers,
 phases 8-11's model FLOP count of a train step, expert-pick
 comparison, nested-state walks, byte totals and comparisons, and phase
 12's launch counts per shard, shard-slice comparison and the planted
-faults of the sharded training check."""
+faults of the sharded training check; phase 7b's helpers and the whole
+phase on CPU pools at a small configuration."""
 
+import inspect
 import pathlib
 import runpy
 
@@ -678,3 +680,132 @@ def test_write_path_at_a_small_size(monkeypatch):
     assert out["resync"]["stale_blocks"] == 128 // 16
     assert out["audit"]["planted"]["pod-1"] == ("divergent", 3, 0, 2)
     assert all(c["quiet_shed"] == 0 for c in out["storm"])
+
+
+# --------------------------------------------------------------- phase 7b
+
+
+def test_phase_7b_names_the_pods_device_medium_to_the_port():
+    """The pods publish their device tier under ``DEVICE_MEDIUM``, and
+    phase 7b hands that name to the port's demotion target and transfer
+    executor, with no renaming of its own between them and the index."""
+    events = port("kvevents.events")
+    engine = smoke["EngineEvents"]("pod-x")
+    engine.publish([1, 2], list(range(8)), 0, [], 4)
+    frame = engine.publish([1, 2, 3], list(range(12)), 2, [1], 4)
+    batch = events.decode_event_batch(bytes(frame[-1]))
+    published = [events.decode_event(e) for e in batch.events]
+    assert [type(e).__name__ for e in published] == ["BlockRemoved", "BlockStored"]
+    assert {e.medium for e in published} == {smoke["DEVICE_MEDIUM"]}
+    source = inspect.getsource(smoke["tiering_transfer"])
+    assert source.count("device_medium=DEVICE_MEDIUM") == 2
+    assert "engine_medium_sink" not in smoke
+
+
+def test_timed_pool_and_cache_delegate_and_time():
+    pool = port("models.kv_cache_pool").KVCachePool(
+        port("models.kv_cache_pool").KVCachePoolConfig(1, 4, 2, 1, 4, "float32"), device="cpu")
+    timed = smoke["TimedPool"](pool)
+    assert timed.block_nbytes == pool.block_nbytes
+    assert timed.gather_block_major([1, 2]).shape == (2, 1, 2, 2, 1, 4) and timed.gather_s > 0
+    cache = smoke["TimedCache"](port("offload.host_tier").HostTierCache(1 << 10))
+    assert cache.put(7, np.zeros(16, np.uint8)) and cache.put_s > 0
+    assert cache.contains(7) and cache.stats()["entries"] == 1
+
+
+def test_series_totals_reads_labeled_and_plain_counters():
+    metrics = port("metrics.collector").KVCacheMetrics()
+    metrics.tiering_advice.labels(action="load").inc(2)
+    metrics.transfer_warmup_moves.inc()
+    got = smoke["series_totals"](metrics, ("tiering_advice", "transfer_warmup_moves"))
+    assert got == {"kvtpu_tiering_advice_total{action=load}": 2.0,
+                   "kvtpu_transfer_warmup_moves_total": 1.0}
+
+
+def _tiny_tiering_inputs(tmp_path, miss_ms):
+    """Phases 5 and 7's state at a small size on the CPU: pod-a served A
+    (a miss) and B (a hit) routed by an Indexer whose blocks arrive as
+    the pods' events; pod-c and a one-shot tree of B's prefix."""
+    llama, index_mod = port("models.llama"), port("kvcache.kvblock.index")
+    im, tp, sched = (port("kvcache.indexer"), port("kvcache.kvblock.token_processor"),
+                     port("scheduler.precise_scorer"))
+    spec_mod, worker = port("offload.spec"), port("offload.worker")
+    cfg = llama.LlamaConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=96, dtype="float32")
+    bs, model = cfg.block_size, smoke["MODEL_NAME"]
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pods = [smoke["SimPod"](f"pod-{n}", cfg, 64, device="cpu") for n in "ab"]
+    pod_a = pods[0]
+    indexer = im.Indexer(im.IndexerConfig(token_processor_config=tp.TokenProcessorConfig(
+        block_size=bs, hash_seed="0")), tokenizer=smoke["WordTokenizer"]())
+    scorer = sched.PrecisePrefixCacheScorer(
+        sched.PrecisePrefixCacheScorerConfig(discover_pods=False), indexer=indexer)
+    sink = smoke["EventSink"](scorer.events_pool)
+    rng = np.random.default_rng(0)
+    draw = lambda n: [int(x) for x in rng.integers(1, cfg.vocab_size, n)]  # noqa: E731
+    prefix = draw(16 * bs)
+    prompt_a, prompt_b = prefix + draw(bs), prefix + draw(bs)
+    out = {}
+    for name, tokens in (("a", prompt_a), ("b", prompt_b)):
+        indexer.get_pod_scores(smoke["words"](tokens), model, ["pod-a", "pod-b"])
+        keys = indexer.token_processor.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH,
+                                                               tokens, model)
+        cached = pod_a.cached_prefix_blocks(keys)
+        new_ids, evicted = pod_a.alloc(len(keys) - len(cached))
+        ids = cached + new_ids
+        if cached:
+            logits, _ = llama.prefill_continue(
+                params, torch.tensor([tokens[len(cached) * bs:]]), pod_a.pool.kv,
+                torch.tensor([ids], dtype=torch.int32), len(cached) * bs, cfg)
+        else:
+            logits, _ = llama.prefill_paged(params, torch.tensor([tokens]), pod_a.pool.kv,
+                                            torch.tensor([ids], dtype=torch.int32), cfg)
+        pod_a.commit(keys[len(cached):], ids[len(cached):])
+        sink.deliver(pod_a.name, [pod_a.events.publish(keys, tokens, len(cached), evicted, bs)])
+        scorer.events_pool.drain()
+        out[name] = dict(keys=keys, ids=ids, logits=logits)
+    prefix_ids = out["b"]["ids"][:16]
+    hashes = smoke["group_file_hashes"](out["b"]["keys"][:16], 4)
+    root = tmp_path / "one_shot"
+    conn = spec_mod.TPUOffloadConnector(spec_mod.TPUOffloadSpec(
+        shared_storage_path=str(root), model_name=model, device_block_size=bs,
+        offloaded_block_size=4 * bs, threads_per_chip=2, dtype=cfg.dtype), pod_a.pool)
+    conn.store_handler.transfer_async(1, worker.group_blocks_per_file(hashes, prefix_ids, 4))
+    assert conn.store_handler.wait(1).name == "SUCCEEDED"
+    conn.close()
+    ids_c = list(range(20, 36))
+    return params, cfg, dict(
+        scorer=scorer, indexer=indexer, pods=pods, prompt_a=prompt_a, prompt_b=prompt_b,
+        keys_b=out["b"]["keys"], prefix_ids=prefix_ids, logits_b=out["b"]["logits"],
+        first_b=int(out["b"]["logits"][0, -1].argmax()), ttft_miss_ms=miss_ms,
+        route_miss_ms=1.0, pod_c=smoke["SimPod"]("pod-c", cfg, 64, device="cpu"),
+        one_shot_root=str(root), hashes=hashes, ids_c=ids_c,
+        table_c=torch.tensor([ids_c + [40]], dtype=torch.int32), suffix=prompt_b[16 * bs:],
+        bpf=4)
+
+
+@pytest.mark.parametrize("miss_ms,planned", [(1e4, True), (1.5, False)],
+                         ids=["slow_prefill_plans", "fast_prefill_recomputes"])
+def test_tiering_transfer_at_a_small_size(tmp_path, miss_ms, planned):
+    """Phase 7b end to end on CPU pools: both rungs move the bytes and the
+    score (1.0 -> 0.8 -> 0.5 a block), the advisor counts the load and
+    the stores, B goes to pod-c through a priced directive (a slow
+    prefill) or the pre-placement plan (a prefill so fast that the price
+    says recompute), continues there as on pod-a, and a cold pod warms."""
+    params, cfg, t = _tiny_tiering_inputs(tmp_path, miss_ms)
+    try:
+        out = smoke["tiering_transfer"](torch, params, cfg, t)
+    finally:
+        t["scorer"].shutdown()
+    assert out["directive"]["planned"] is planned
+    assert out["directive"]["outcome"] == ("planned" if planned else "recompute-cheaper")
+    assert out["routed"] == "pod-c" and out["continuation_max_abs_err"] == 0.0
+    assert [r["moves"] for r in out["rungs"].values()] == [4, 4]
+    assert out["advisor"]["rtt"]["observations"] == 2
+    assert out["advisor"]["rtt_store"]["observations"] == 4
+    assert out["warmup"]["moves"] == 1 and out["scored_blocks"] == 16
+    assert not (tmp_path / "one_shot").exists()
+    series = out["series"]
+    assert series["kvtpu_tiering_demotions_total{transition=hbm_to_host}"] == 4
+    assert series["kvtpu_tiering_demotions_total{transition=host_to_storage}"] == 4
+    assert series["kvtpu_transfer_warmup_moves_total"] == 1

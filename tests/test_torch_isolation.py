@@ -49,7 +49,7 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
     for name in ("parallel.mesh", "parallel.sharding", "ops.ring_attention", "ops.ring_flash",
                  "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
-    for name in OFFLOAD_MODULES + READ_PATH_MODULES + WRITE_PATH_MODULES:
+    for name in OFFLOAD_MODULES + READ_PATH_MODULES + WRITE_PATH_MODULES + TIERING_MODULES:
         assert f"{PACKAGE}.{name}" in result["modules"]
     assert result["loaded"] == []
 
@@ -75,6 +75,11 @@ WRITE_PATH_MODULES = (
     "kvevents.subscriber_manager", "kvevents.pod_reconciler", "analytics.auditor",
     "scheduler", "scheduler.precise_scorer", "utils.ttl_cache",
 )
+TIERING_MODULES = (
+    "tiering", "tiering.policy_feed", "tiering.eviction", "tiering.advisor",
+    "tiering.demotion", "tiering.staged_target", "tiering.engine", "transfer",
+    "transfer.planner", "transfer.directives", "transfer.warmup", "transfer.engine",
+)
 # What the H100's machine lacks (ROADMAP.md, rules of Queue A).
 ABSENT_ON_THE_CARD = ("prometheus_client", "xxhash", "tokenizers", "transformers", "msgpack",
                       "zmq")
@@ -91,7 +96,7 @@ import importlib, json, sys
 for name in {ABSENT_ON_THE_CARD!r}:
     sys.modules[name] = None
 sys.path.insert(0, {str(REPO)!r})
-for name in {READ_PATH_MODULES!r}:
+for name in {READ_PATH_MODULES + TIERING_MODULES!r}:
     importlib.import_module({PACKAGE!r} + "." + name)
 im = importlib.import_module({PACKAGE!r} + ".kvcache.indexer")
 index = importlib.import_module({PACKAGE!r} + ".kvcache.kvblock.index")
@@ -207,6 +212,102 @@ print(json.dumps({{"scores": scores, "raised": raised, "blocked_loaded": blocked
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"scores": {"pod-a": 1.0, "pod-b": 0.0}, "raised": [True, True],
+                      "blocked_loaded": []}
+
+
+def test_tiering_and_transfer_run_without_the_libraries_the_card_lacks():
+    """With the same libraries blocked, every tiering and transfer module
+    imports; a ``PolicyEngine`` on an Indexer's ledger learns a scored
+    chain, a demotion cycle moves a group hbm -> host through
+    ``pool_event_sink`` (the port's codec and event pool) and the score
+    follows (1.0 -> 0.8 a block), and a ``TransferEngine`` plans and
+    executes a copy to another pod, whose score rises."""
+    script = f"""
+import importlib, json, sys, time
+for name in {ABSENT_ON_THE_CARD!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+mod = lambda name: importlib.import_module({PACKAGE!r} + "." + name)
+for name in {TIERING_MODULES!r}:
+    mod(name)
+im, tp, tokenizers = mod("kvcache.indexer"), mod("kvcache.kvblock.token_processor"), mod(
+    "tokenization.tokenizers")
+events, pool_mod, ledger_mod = mod("kvevents.events"), mod("kvevents.pool"), mod(
+    "analytics.ledger")
+tiering, transfer = mod("tiering"), mod("transfer")
+
+class Words:
+    def type(self):
+        return "word"
+    def encode(self, prompt, model_name, add_special_tokens):
+        words = prompt.split(" ")
+        ends = [sum(len(w) + 1 for w in words[:i + 1]) - 1 for i in range(len(words))]
+        return tokenizers.Encoding([int(w[1:]) for w in words],
+                                   [(e - len(w), e) for w, e in zip(words, ends)])
+
+ledger = ledger_mod.CacheStatsLedger(ledger_mod.LedgerConfig(sample_rate=1.0))
+indexer = im.Indexer(im.IndexerConfig(
+    token_processor_config=tp.TokenProcessorConfig(block_size=4)), tokenizer=Words(),
+    cache_stats_ledger=ledger)
+indexer.run()
+pool = pool_mod.Pool(indexer.kv_block_index, indexer.token_processor, pool_mod.PoolConfig())
+pool.start()
+out = []
+try:
+    tokens = list(range(1, 41))
+    prompt = " ".join(f"t{{t}}" for t in tokens)
+    hashes = [0x100 + i for i in range(10)]
+    tiering.pool_event_sink(pool, "pod-a", "m")([events.BlockStored(
+        block_hashes=hashes, parent_block_hash=None, token_ids=tokens, block_size=4,
+        medium="hbm")])
+    pool.drain()
+    engine = tiering.PolicyEngine(ledger=ledger, config=tiering.TieringConfig(refresh_s=0.0))
+    indexer.set_policy_engine(engine)
+    out.append(indexer.get_pod_scores(prompt, "m", ["pod-a", "pod-b"]))
+    state = tiering.PodTierState(10_000, event_sink=tiering.pool_event_sink(pool, "pod-a", "m"),
+                                 feed=engine.feed)
+    state.register_group(0xF11E, hashes, tokens, 4096, block_size=4, now=time.monotonic() - 60)
+    worker = engine.start_demotion(state, tiering.DemotionConfig(
+        demote_host_idle_s=0.0, require_prediction=False), start=False)
+    moved = worker.run_cycle()
+    pool.drain()
+    out.append(indexer.get_pod_scores(prompt, "m", ["pod-a", "pod-b"]))
+    advisor = tiering.ComputeOrLoadAdvisor(tiering.AdvisorConfig(
+        bytes_per_block=1024, block_tokens=4, prefill_tokens_per_s=50.0))
+    advisor.observe_load(4096, 0.001)
+    plans = transfer.TransferEngine(advisor=advisor, config=transfer.TransferConfig(
+        load_threshold=2.0))
+    indexer.set_transfer_engine(plans)
+    plans.attach_executor(indexer.kv_block_index, pool, "m", start_warmup=False)
+    _, directive = indexer.get_pod_scores_planned(prompt, "m", ["pod-a", "pod-b"],
+                                                  pod_loads={{"pod-a": 9.0}})
+    executed = plans.executor.execute(plans.planner.get(directive["plan_id"]))
+    pool.drain()
+    out.append(indexer.get_pod_scores(prompt, "m", ["pod-a", "pod-b"]))
+    engine.close()
+    plans.close()
+finally:
+    pool.shutdown()
+    indexer.shutdown()
+blocked = sorted(n for n in {ABSENT_ON_THE_CARD!r} if sys.modules.get(n) is not None)
+print(json.dumps({{"scores": out, "moved": moved, "observed":
+                  engine.feed.stats()["observed_chains"], "target": directive["target_pod"],
+                  "executed": executed, "blocked_loaded": blocked}}))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    host = 0.0
+    for _ in range(10):  # the scorer sums the host weight block by block
+        host += 0.8
+    assert result == {"scores": [{"pod-a": 10.0, "pod-b": 0.0}, {"pod-a": host, "pod-b": 0.0},
+                                 {"pod-a": host, "pod-b": 10.0}],
+                      "moved": 1, "observed": 4, "target": "pod-b", "executed": True,
                       "blocked_loaded": []}
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from llm_d_kv_cache_manager_tpu.metrics.collector import METRICS as JAX_METRICS
 from llm_d_kv_cache_manager_tpu.models.kv_cache_pool import (
     KVCachePool as JaxPool,
     KVCachePoolConfig as JaxPoolConfig,
@@ -30,6 +31,7 @@ from llm_d_kv_cache_manager_tpu.offload.spec import (
 from llm_d_kv_cache_manager_tpu.offload.worker import (
     group_blocks_per_file as jax_group_blocks_per_file,
 )
+from llm_d_kv_cache_manager_tpu.obs.trace import TRACER as JAX_TRACER
 from tests.helpers.torch_port import port
 
 pool_mod = port("models.kv_cache_pool")
@@ -539,3 +541,77 @@ def test_disabled_host_tier_publishes_storage_only(tmp_path):
     assert conn.store_handler.wait(1) == JobStatus.SUCCEEDED
     assert events == ["shared_storage"]
     conn.close()
+
+
+# ------------------------------------------------------ counters and spans
+
+
+def _offload_counts(metrics):
+    """{(series, labels): value} of the offload counters."""
+    out = {}
+    for counter in (metrics.offload_jobs, metrics.offload_bytes,
+                    metrics.offload_staging_lane_waits):
+        for family in counter.collect():
+            for sample in family.samples:
+                if not sample.name.endswith("_created"):
+                    out[(sample.name, tuple(sorted(sample.labels.items())))] = sample.value
+    return out
+
+
+def _traced_round_trip(tmp_path, pool, connector, metrics, tracer, lanes, dtype):
+    """A store of three files, a load of them into other blocks and a
+    load of a missing file, every job traced: the counters' movement
+    and each trace's name, status, attributes and spans (names,
+    parents, attributes; not times)."""
+    pool.scatter_from_host(STORE_IDS, random_blocks(dtype, len(STORE_IDS), seed=4))
+    before = _offload_counts(metrics)
+    rate = tracer.config.sample_rate
+    tracer.configure(sample_rate=1.0)
+    tracer.reset()
+    conn = connector(tmp_path, pool, lanes)
+    try:
+        conn.store_handler.transfer_async(1, group_blocks_per_file(
+            STORE_HASHES, STORE_IDS, BLOCKS_PER_FILE))
+        assert conn.store_handler.wait(1) == JobStatus.SUCCEEDED
+        conn.load_handler.transfer_async(2, group_blocks_per_file(
+            STORE_HASHES, [20, 21, 22, 23, 24], BLOCKS_PER_FILE))
+        assert conn.load_handler.wait(2) == JobStatus.SUCCEEDED
+        conn.load_handler.transfer_async(3, group_blocks_per_file([0xDEAD], [25, 26], 2))
+        assert conn.load_handler.wait(3) == JobStatus.FAILED
+    finally:
+        conn.close()
+        tracer.configure(sample_rate=rate)
+    after = _offload_counts(metrics)
+    moved = {key: value - before.get(key, 0.0) for key, value in after.items()
+             if value != before.get(key, 0.0)}
+    traces = []
+    for trace in reversed(tracer.recorder.recent()):
+        view = trace.to_dict()
+        traces.append((view["name"], view["status"], sorted(view["attributes"].items()), [
+            (s["name"], s["parent"], sorted(s["attributes"].items())) for s in view["spans"]]))
+    tracer.reset()
+    return moved, traces
+
+
+@pytest.mark.parametrize("lanes", [0, 2], ids=["one_shot", "staged"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_offload_counters_and_spans_match_reference(tmp_path, dtype, lanes):
+    """The same store and loads through both connectors move
+    ``offload_jobs_total`` and ``offload_bytes_total`` alike and leave
+    the same ``offload.store`` / ``offload.load`` traces: an
+    ``offload.stage`` span (with ``offload.stage.dma`` children when
+    staged) and an ``offload.io`` span each."""
+    ours = _traced_round_trip(tmp_path / "port", port_pool(dtype), port_connector,
+                              port("metrics.collector").METRICS, port("obs.trace").TRACER,
+                              lanes, dtype)
+    theirs = _traced_round_trip(tmp_path / "jax", jax_pool(dtype), jax_connector, JAX_METRICS,
+                                JAX_TRACER, lanes, dtype)
+    assert ours == theirs
+    moved, traces = ours
+    nbytes = len(STORE_IDS) * port_pool(dtype).block_nbytes
+    assert moved[("kvtpu_offload_bytes_total", (("direction", "store"),))] == nbytes
+    assert moved[("kvtpu_offload_jobs_total", (("direction", "load"), ("status", "failed")))] == 1
+    assert [t[0] for t in traces] == ["offload.store", "offload.load", "offload.load"]
+    spans = {name for trace in traces for name, _, _ in trace[3]}
+    assert spans == ({"offload.stage", "offload.io", "offload.stage.dma"} if lanes
+                     else {"offload.stage", "offload.io"})

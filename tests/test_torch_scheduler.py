@@ -2,7 +2,8 @@
 ``PrecisePrefixCacheScorer`` fed through its own event pool scores
 completions and chat bodies (tiny tokenizer, its chat template) to the
 reference's normalised scores; ``TTLCache`` fires the reference's expiry
-callbacks; ``tiering=True`` is refused, not ignored."""
+callbacks; ``tiering=True`` attaches a tiering ``PolicyEngine`` on the
+indexer's ledger, as the reference does, and scores as the reference."""
 
 import time
 
@@ -36,11 +37,11 @@ def mods(side: str) -> dict:
         ("ttl", "utils.ttl_cache"))}
 
 
-@pytest.fixture()
-def scorers(tmp_path):
+def build_scorers(tmp_path, **config):
     """A reference and a port scorer, each around an Indexer on the tiny
     fast tokenizer with its chat template, no pod discovery (no
-    sockets)."""
+    sockets); ``config`` goes to both scorers' configs.  The caller
+    shuts them down."""
     tokenizer_dir = save_tokenizer_json(str(tmp_path), MODEL)
     out = {}
     try:
@@ -55,7 +56,19 @@ def scorers(tmp_path):
             indexer.chat_processor.register_tokenizer(MODEL, build_transformers_tokenizer())
             s = m["scheduler"]
             out[side] = s.PrecisePrefixCacheScorer(
-                s.PrecisePrefixCacheScorerConfig(discover_pods=False), indexer=indexer)
+                s.PrecisePrefixCacheScorerConfig(discover_pods=False, **config),
+                indexer=indexer)
+    except BaseException:
+        for scorer in out.values():
+            scorer.shutdown()
+        raise
+    return out
+
+
+@pytest.fixture()
+def scorers(tmp_path):
+    out = build_scorers(tmp_path)
+    try:
         yield out
     finally:
         for scorer in out.values():
@@ -136,11 +149,35 @@ def test_empty_requests_and_a_cold_index(scorers):
     assert cold == dict.fromkeys(["10.0.0.1", "10.0.0.2", "10.0.0.3"], 0.0)
 
 
-def test_tiering_is_refused():
-    s = port("scheduler")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        s.PrecisePrefixCacheScorer(s.PrecisePrefixCacheScorerConfig(tiering=True,
-                                                                    discover_pods=False))
+def test_tiering_is_refused(tmp_path, monkeypatch):
+    """``tiering=True`` is not refused: both scorers attach a
+    ``PolicyEngine`` bound to their indexer's ledger, score alike, and
+    their feeds learn the same chains (every request sampled).
+
+    The name dates from when the port refused ``tiering=True`` and is
+    kept so that the check's history stays under one name; what it
+    checks now is that the engine is attached."""
+    monkeypatch.setenv("CACHESTATS_SAMPLE_RATE", "1")
+    monkeypatch.setenv("TIERING_REFRESH_S", "0")
+    pair = build_scorers(tmp_path, tiering=True)
+    try:
+        engines = {side: scorer.policy_engine for side, scorer in pair.items()}
+        assert type(engines["port"]) is port("tiering").PolicyEngine
+        for side, scorer in pair.items():
+            assert scorer.indexer.policy_engine is engines[side]
+            assert engines[side].feed.ledger is scorer.indexer.cache_stats
+        publish(pair, PROMPT, "10.0.0.1")
+        for _ in range(2):
+            got = score(pair, lambda s: (s.LLMRequest(
+                target_model=MODEL, completions=s.CompletionsBody(prompt=PROMPT)), _pods(s)))
+        assert got == {"10.0.0.1": 1.0, "10.0.0.2": 0.0, "10.0.0.3": 0.0}
+        feeds = {side: engine.feed.stats() for side, engine in engines.items()}
+        for stats in feeds.values():
+            stats.pop("snapshot")
+        assert feeds["port"] == feeds["ref"] and feeds["port"]["observed_chains"] == 2
+    finally:
+        for scorer in pair.values():
+            scorer.shutdown()
 
 
 class Clock:
