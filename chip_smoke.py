@@ -174,6 +174,27 @@ Phases (any failure exits non-zero):
      gap (staleness ms); (d) ``IndexAuditor`` over the four pods: no
      divergence, then exactly N phantom and M wrong-tier blocks after N
      blocks leave one pod's inventory unannounced and M change tier;
+ 14b. persistence, on the host, from phase 13's fleet: its frames (and the
+     resident conversation's) through a pool with the port's ``Journal``
+     tapped in, a snapshot published at half the frames and the rest
+     journaled; a restart (fresh index, ``recover()``) whose
+     ``dump_entries()`` must equal the live index's and whose scores of
+     phase 13's requests, in phase 13's order, must equal its fast lane's
+     (snapshot bytes and write ms, recovery split into the snapshot's load
+     and the journal's replay, the second half's hit rate warm against a
+     fresh index: bench.py's ``bench_indexer_restart`` regime); then the
+     journal's last record cut short: the prefix replays and the report
+     names the torn tail;
+ 14c. cluster, on the host: a 3-replica ``LocalCluster`` (strict wire,
+     journal-fed followers) seeded with the same frames through a pool
+     over its ``RemoteIndex`` (entries equal to phase 13's), phase 13's
+     requests through ``Indexer(kv_block_index=RemoteIndex)``, every score
+     equal to phase 13's in-memory fast lane, with the owner of the
+     conversation's first key killed through its transport half-way (ring
+     version and failover counter one up, the hit-rate dip printed); p50
+     and p99 beside phase 13's, ``rpc_stats()``; then a purge of pod-1,
+     which neither the followers nor a fresh replay of each journal
+     brings back;
  15. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
@@ -918,10 +939,11 @@ def event_fleet(rng, pods, convs: int, tokens: int, block_size: int, tiers=("hbm
                                                  // EVENT_CHUNK_TOKENS))
 
 
-def event_pool(index, hasher, **config):
-    """A started ``Pool`` over ``index`` (the write path's workers)."""
+def event_pool(index, hasher, journal=None, **config):
+    """A started ``Pool`` over ``index`` (the write path's workers), with
+    ``journal`` tapped in after each apply when given."""
     kv = port("kvevents.pool")
-    pool = kv.Pool(index, hasher, kv.PoolConfig(**config))
+    pool = kv.Pool(index, hasher, kv.PoolConfig(**config), journal=journal)
     pool.start()
     return pool
 
@@ -3551,10 +3573,10 @@ def sharded_moe(torch):
 READ_LANES = (("fast", True, True), ("fast_no_memo", True, False), ("straight", False, True))
 
 
-def read_path_indexer(fast: bool, memo: bool = True, block_size: int = READ_BLOCK):
+def read_path_indexer(fast: bool, memo: bool = True, block_size: int = READ_BLOCK, index=None):
     """One Indexer of phase 13: the word tokenizer, a metrics-wrapped
-    in-memory index (so its lookups reach the exposition), the fast lane
-    or the straight path, the score memo on or off."""
+    in-memory index (so its lookups reach the exposition) or ``index``,
+    the fast lane or the straight path, the score memo on or off."""
     im, tp = port("kvcache.indexer"), port("kvcache.kvblock.token_processor")
     index_mod = port("kvcache.kvblock.index")
     indexer = im.Indexer(
@@ -3563,7 +3585,7 @@ def read_path_indexer(fast: bool, memo: bool = True, block_size: int = READ_BLOC
                                                            hash_seed="0"),
             kvblock_index_config=index_mod.IndexConfig(enable_metrics=True),
             read_path_fast_lane=fast, score_memo_size=None if memo else 0),
-        tokenizer=WordTokenizer())
+        tokenizer=WordTokenizer(), kv_block_index=index)
     indexer.run()
     return indexer
 
@@ -3696,6 +3718,11 @@ def read_path(smi: str, pods_n=READ_PODS, convs=READ_CONVS_PER_POD,
                     token_ids=chunk[:len(hashes) * block], block_size=block, medium=tier)))
                 parent = hashes[-1]
         seed_by_events(lanes, convo_frames)
+        # Phases 14b-14c seed their indexes from the same frames, drive the
+        # same requests in the same order and hold them to these.
+        traffic = {"convo_frames": convo_frames, "entries": index_entries(
+            lanes[0].kv_block_index), "pods": pods, "block": block, "sequences": {},
+            "timed_from": {}, "scores": {}}
         warm_set = set(workloads["warm_multi_turn"])
         model = PrefixStoreModel()
         calls, cells, checked = 0, {}, 0
@@ -3719,6 +3746,9 @@ def read_path(smi: str, pods_n=READ_PODS, convs=READ_CONVS_PER_POD,
                     "p99_ms": percentile_ms(latencies, 99),
                     "scores_per_s": len(latencies) / sum(latencies),
                 }
+            traffic["sequences"][workload] = sequence
+            traffic["timed_from"][workload] = timed_from
+            traffic["scores"][workload] = scores["fast"]
             for i, prompt in enumerate(sequence):
                 served = model.served(prompt)
                 want = (expected_read_scores(len(served) // block, pods, holders)
@@ -3777,6 +3807,7 @@ def read_path(smi: str, pods_n=READ_PODS, convs=READ_CONVS_PER_POD,
             raise AssertionError(f"the exposition counts {lookups} lookups, {calls} were made")
         print(f"  generate_latest: kvtpu_kvcache_index_lookup_requests_total rose by "
               f"{lookups:.0f}, the {calls} scoring requests made", flush=True)
+        traffic["cells"] = {workload: lanes["fast"] for workload, lanes in cells.items()}
     finally:
         for indexer in indexers.values():
             indexer.shutdown()
@@ -3785,7 +3816,7 @@ def read_path(smi: str, pods_n=READ_PODS, convs=READ_CONVS_PER_POD,
             "rss_mib": [rss0 / 2**20, rss1 / 2**20], "cells": cells, "requests_checked": checked,
             "hash_chain_ms": hash_ms, "hash_tokens": len(hash_tokens), "spans": tree,
             "span_ms": span_ms,
-            "lookups": lookups, "card": smi}
+            "lookups": lookups, "card": smi, "traffic": traffic}
 
 
 # --------------------------------------------------------------- phase 14
@@ -4086,6 +4117,441 @@ def write_path(smi: str, fleet, storm_pods=STORM_PODS, storm_seconds=STORM_SECON
     return out
 
 
+# ------------------------------------------------------- phases 14b-14c
+
+
+RESTART_TORN_BYTES = 5  # 14b cuts the journal's last record short by this much
+CLUSTER_REPLICAS = ("replica-0", "replica-1", "replica-2")
+CATCH_UP_S = 300.0  # the longest 14c waits for the followers to reach their peers' journals
+PURGED_POD = "pod-1"  # 14c purges the pod holding the conversation on host
+
+
+def phase13_frames(fleet, traffic) -> dict:
+    """Every pod's frames in phase 13's order: its conversations, then
+    (pod-0, pod-1) the resident conversation."""
+    return {pod: list(frames) + list(traffic["convo_frames"].get(pod, ()))
+            for pod, frames in fleet["frames"].items()}
+
+
+def phase13_requests(traffic):
+    """Phase 13's requests in the order its fast lane scored them:
+    ``(workload, i, prompt, timed)``, ``timed`` after the warming pass."""
+    for workload, sequence in traffic["sequences"].items():
+        for i, prompt in enumerate(sequence):
+            yield workload, i, prompt, i >= traffic["timed_from"][workload]
+
+
+def drive_traffic(indexer, traffic, before=None):
+    """Phase 13's requests through ``indexer`` in phase 13's order (its
+    prefix store then serves what phase 13's did); ``before(n)`` runs
+    ahead of the n-th request.  Returns each workload's scores and timed
+    latencies (s)."""
+    scores, latencies = {}, {}
+    for n, (workload, _, prompt, timed) in enumerate(phase13_requests(traffic)):
+        if before is not None:
+            before(n)
+        t0 = time.perf_counter()
+        scores.setdefault(workload, []).append(
+            indexer.get_pod_scores(prompt, MODEL_NAME, traffic["pods"]))
+        if timed:
+            latencies.setdefault(workload, []).append(time.perf_counter() - t0)
+    return scores, latencies
+
+
+def score_mismatches(got, traffic) -> list:
+    """``(workload, i, got, phase 13's)`` of every request whose scores
+    differ from phase 13's fast lane."""
+    return [(workload, i, g, w) for workload, want in traffic["scores"].items()
+            for i, (g, w) in enumerate(zip(got.get(workload, []), want)) if g != w] + [
+        (workload, "count", len(got.get(workload, [])), len(want))
+        for workload, want in traffic["scores"].items()
+        if len(got.get(workload, [])) != len(want)]
+
+
+def hit_rate(scores) -> float:
+    """Share of requests whose best pod scored above 0."""
+    scores = list(scores)
+    return sum(1 for s in scores if max(s.values(), default=0.0) > 0) / max(len(scores), 1)
+
+
+def flat_scores(scores, traffic) -> list:
+    return [scores[workload][i] for workload, i, _, _ in phase13_requests(traffic)]
+
+
+def without_record(entries: dict, record) -> dict:
+    """``entries`` ({key: {(pod, tier)}}) without the effect of one
+    applied add record: its entries off its request keys."""
+    out = {key: set(held) for key, held in entries.items()}
+    for key in record.request_keys:
+        for entry in record.entries:
+            out.get(key, set()).discard((entry.pod_identifier, entry.device_tier))
+    return {key: held for key, held in out.items() if held}
+
+
+class DroppedRecord:
+    """A journal that, once ``armed``, loses the next add record and
+    passes everything else to ``journal``: the planted fault 14b's gates
+    must catch."""
+
+    def __init__(self, journal) -> None:
+        self.journal, self.armed = journal, False
+
+    def record_add(self, *args, **kwargs):
+        if self.armed:
+            self.armed = False
+            return
+        self.journal.record_add(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.journal, name)
+
+
+class RestoreClock:
+    """The index ``recover`` restores into, seen through the time at
+    which its ``restore_entries`` returned: before it, the snapshot's
+    load; after it, the journal's replay."""
+
+    def __init__(self, index) -> None:
+        self.index, self.restored_at = index, None
+
+    def restore_entries(self, block_entries, engine_map):
+        restored = self.index.restore_entries(block_entries, engine_map)
+        self.restored_at = time.perf_counter()
+        return restored
+
+    def __getattr__(self, name):
+        return getattr(self.index, name)
+
+
+def journal_root(prefix: str):
+    """A fresh temporary directory and the mount it lies on."""
+    root = tempfile.mkdtemp(prefix=prefix)
+    with open("/proc/mounts") as handle:
+        return root, mount_of(root, handle.read())
+
+
+def persistence_phase(smi: str, fleet, traffic, drop_record: bool = False,
+                      torn_bytes: int = RESTART_TORN_BYTES) -> dict:
+    """Phase 14b: phase 13's index through the port's snapshot and
+    journal, and a warm restart from them (bench.py's
+    ``bench_indexer_restart`` regime), on the host."""
+    persistence, journal_mod = port("persistence"), port("persistence.journal")
+    in_memory = port("kvcache.kvblock.in_memory")
+    block = traffic["block"]
+    root, mount = journal_root("kv-persistence-")
+    config = persistence.PersistenceConfig(directory=root)
+    frames = phase13_frames(fleet, traffic)
+    first = {pod: f[:len(f) // 2] for pod, f in frames.items()}
+    rest = {pod: f[len(f) // 2:] for pod, f in frames.items()}
+    out = {"card": smi, "mount": mount, "frames": sum(map(len, frames.values()))}
+    try:
+        live = read_path_indexer(True, True, block)
+        manager = persistence.PersistenceManager(config)
+        journal = DroppedRecord(manager.journal) if drop_record else manager.journal
+        # One worker: the journal's order is then the order of the applies, so
+        # each key's holders replay in the order they were added.
+        pool = event_pool(live.kv_block_index, live.token_processor, journal=journal,
+                          concurrency=1)
+        try:
+            sink = EventSink(pool)
+            t0 = time.perf_counter()
+            feed([sink], first)
+            pool.drain()
+            seed_first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            info = manager.snapshot(live.kv_block_index)
+            snapshot_s = time.perf_counter() - t0
+            if drop_record:
+                journal.armed = True
+            t0 = time.perf_counter()
+            feed([sink], rest)
+            pool.drain()
+            seed_rest_s = time.perf_counter() - t0
+        finally:
+            pool.shutdown()
+            manager.close()
+            live.shutdown()
+        live_dump = dump_content(live.kv_block_index)
+        if index_entries(live.kv_block_index) != traffic["entries"]:
+            raise AssertionError("14b: the journaled index's entries differ from phase 13's")
+        segments = journal_mod.list_segments(config.journal_dir)
+        journal_bytes = sum(os.path.getsize(path) for _, path in segments)
+        out.update(seed_first_s=seed_first_s, seed_rest_s=seed_rest_s,
+                   snapshot={"bytes": info.size_bytes, "write_ms": snapshot_s * 1e3,
+                             "block_keys": info.block_keys,
+                             "engine_mappings": info.engine_mappings},
+                   journal={"segments": len(segments), "bytes": journal_bytes})
+        print(f"  on {smi}: {out['frames']} frames (phase 13's, in its order) through a pool with "
+              f"the port's Journal tapped in, under {root} on {mount[1]} ({mount[0]}, from "
+              f"{mount[2]}): first half {seed_first_s:.2f} s, snapshot {info.size_bytes} bytes "
+              f"({info.block_keys} block keys, {info.engine_mappings} engine mappings) written in "
+              f"{snapshot_s * 1e3:.1f} ms incl. fsync, second half {seed_rest_s:.2f} s into "
+              f"{len(segments)} journal segments ({journal_bytes} bytes)", flush=True)
+
+        warm = read_path_indexer(True, True, block)
+        cold = read_path_indexer(True, True, block)
+        try:
+            clock = RestoreClock(warm.kv_block_index)
+            t0 = time.perf_counter()
+            report = persistence.recover(clock, config)
+            done = time.perf_counter()
+            load_s, replay_s = clock.restored_at - t0, done - clock.restored_at
+            out["recovery"] = {
+                "ms": (done - t0) * 1e3, "snapshot_load_ms": load_s * 1e3,
+                "replay_ms": replay_s * 1e3, "records_replayed": report.records_replayed,
+                "records_skipped": report.records_skipped,
+                "replay_records_per_s": report.records_replayed / replay_s,
+                "block_keys_restored": report.block_keys_restored, "status": report.status}
+            print(f"  restart: recover() {out['recovery']['ms']:.1f} ms = snapshot load and "
+                  f"restore {load_s * 1e3:.1f} ms + journal replay {replay_s * 1e3:.1f} ms "
+                  f"({report.records_replayed} records, {report.records_skipped} skipped, "
+                  f"{out['recovery']['replay_records_per_s']:.0f} records/s); {report.status}",
+                  flush=True)
+            if report.status != "warm" or report.torn_tails or report.rejected_snapshots:
+                raise AssertionError(f"14b: recovery {report.to_dict()}")
+            if dump_content(warm.kv_block_index) != live_dump:
+                raise AssertionError("14b: dump_entries() after recovery differs from the live "
+                                     "index's")
+            clean_entries = index_entries(warm.kv_block_index)
+            warm_scores, warm_lat = drive_traffic(warm, traffic)
+            bad = score_mismatches(warm_scores, traffic)
+            if bad:
+                raise AssertionError(f"14b: {len(bad)} requests score unlike phase 13's, e.g. "
+                                     f"{bad[:2]}")
+            ordered = flat_scores(warm_scores, traffic)
+            second = [prompt for _, _, prompt, _ in phase13_requests(traffic)][len(ordered) // 2:]
+            cold_scores = [cold.get_pod_scores(p, MODEL_NAME, traffic["pods"]) for p in second]
+            out["hit_rate"] = {"cold": hit_rate(cold_scores),
+                               "warm": hit_rate(ordered[len(ordered) // 2:]),
+                               "requests": len(second)}
+            out["warm_p50_ms"] = {w: percentile_ms(lat, 50) for w, lat in warm_lat.items()}
+            print(f"  dump_entries() after recovery equal to the live index's ({live_dump[2]} "
+                  f"keys, their holders in order, and the engine mappings); phase 13's "
+                  f"{len(ordered)} requests in its order score equal to its fast lane's, "
+                  f"request by request (p50 " + ", ".join(
+                      f"{w} {ms:.3f}" for w, ms in out["warm_p50_ms"].items()) + " ms); the second "
+                  f"half's {len(second)} requests hit {out['hit_rate']['warm']:.3f} warm against "
+                  f"{out['hit_rate']['cold']:.3f} cold (a fresh index)", flush=True)
+        finally:
+            warm.shutdown()
+            cold.shutdown()
+
+        records = list(journal_mod.iter_journal(config.journal_dir))
+        last_id, path = segments[-1]
+        size = os.path.getsize(path)
+        with open(path, "r+b") as handle:
+            handle.truncate(size - torn_bytes)
+        torn_index = in_memory.InMemoryIndex()
+        torn = persistence.recover(torn_index, config)
+        want = without_record(clean_entries, records[-1])
+        out["torn"] = {"cut_bytes": torn_bytes, "segment": last_id,
+                       "records_replayed": torn.records_replayed, "torn_tails": torn.torn_tails}
+        print(f"  the journal's last record cut short by {torn_bytes} bytes: recover() replays "
+              f"{torn.records_replayed} of {report.records_replayed} records and names "
+              f"{torn.torn_tails}", flush=True)
+        if (torn.records_replayed != report.records_replayed - 1 or len(torn.torn_tails) != 1
+                or not torn.torn_tails[0].startswith(f"{path}@")
+                or index_entries(torn_index) != want):
+            raise AssertionError(f"14b: torn-tail recovery {torn.to_dict()}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def dump_content(index):
+    """What ``dump_entries()`` holds, as plain data: each request key's
+    holders in order, the engine-key mappings, and the two counts.  The
+    order of the keys is the index's LRU order, which a replay does not
+    keep: the pool applies a message as one batch of mappings and one of
+    entries, the journal replays it as one ``add``."""
+    blocks, engine_map = index.dump_entries()
+    return ({key: [(e.pod_identifier, e.device_tier) for e in entries]
+             for key, entries in blocks}, sorted(map(tuple, engine_map)),
+            len(blocks), len(engine_map))
+
+
+class StaleReplica:
+    """A replica transport whose lookup replies hold one stale entry: the
+    first key's ``hbm`` holders come back on ``host``, the tier before a
+    move.  The planted fault 14c's score gate must catch."""
+
+    def __init__(self, transport) -> None:
+        self.transport = transport
+
+    def call_vv(self, method, args, traceparent=None, timeout=None):
+        payload, spans, vector = self.transport.call_vv(method, args, traceparent, timeout)
+        if method == "lookup" and payload:
+            key, entries = payload[0]
+            stale = [[pod, "host" if tier == "hbm" else tier] for pod, tier in entries]
+            payload = [[key, stale]] + list(payload[1:])
+        return payload, spans, vector
+
+    def call(self, method, args):
+        return self.call_vv(method, args)[0]
+
+    def __getattr__(self, name):
+        return getattr(self.transport, name)
+
+
+def followers_caught_up(cluster, timeout_s: float) -> float:
+    """Waits until every follower's tail position is the end of its
+    peer's journal; returns the seconds waited."""
+    journal_mod = port("persistence.journal")
+    t0 = time.perf_counter()
+    while True:
+        behind = []
+        for follower in cluster.followers:
+            segments = journal_mod.list_segments(follower.journal_dir)
+            end = [segments[-1][0], os.path.getsize(segments[-1][1])] if segments else None
+            if segments and follower.status()["position"] != end:
+                behind.append(follower.peer_id)
+        if not behind:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"14c: followers of {behind} still behind after {timeout_s} s")
+        time.sleep(0.02)
+
+
+def cluster_phase(smi: str, fleet, traffic, stale: bool = False,
+                  replicas=CLUSTER_REPLICAS, catch_up_s: float = CATCH_UP_S) -> dict:
+    """Phase 14c: phase 13's fleet and traffic through a 3-replica
+    ``LocalCluster`` (strict wire, journal-fed followers), a replica
+    killed mid-traffic, then a purge replayed, on the host."""
+    cluster_mod, replication = port("cluster"), port("cluster.replication")
+    in_memory = port("kvcache.kvblock.in_memory")
+    root, mount = journal_root("kv-cluster-")
+    wrap = (lambda rid, t: StaleReplica(t) if rid == replicas[0] else t) if stale else None
+    cluster = cluster_mod.LocalCluster(replicas, journal_root=root, strict_wire=True,
+                                       transport_wrap=wrap)
+    cluster.start(heartbeat=False)
+    remote = cluster.remote_index
+    indexer = read_path_indexer(True, True, traffic["block"], index=remote)
+    frames = phase13_frames(fleet, traffic)
+    out = {"card": smi, "mount": mount, "replicas": list(replicas)}
+    try:
+        pool = event_pool(remote, indexer.token_processor)
+        try:
+            t0 = time.perf_counter()
+            feed([EventSink(pool)], frames)
+            pool.drain()
+            seed_s = time.perf_counter() - t0
+        finally:
+            pool.shutdown()
+        caught_s = followers_caught_up(cluster, catch_up_s)
+        keys = len(traffic["entries"])
+        local = {rid: len(r.index.dump_entries()[0]) for rid, r in cluster.replicas.items()}
+        out["seeding"] = {"seconds": seed_s, "keys_per_s": keys / seed_s,
+                          "followers_caught_up_s": caught_s, "replica_keys": local}
+        print(f"  on {smi}: LocalCluster({len(replicas)} replicas, strict wire, followers "
+              f"polling, journals under {root} on {mount[1]} ({mount[0]})); phase 13's "
+              f"{sum(map(len, frames.values()))} frames through a pool over the RemoteIndex: "
+              f"{seed_s:.2f} s, {keys / seed_s:.0f} keys/s; followers at their peers' journal "
+              f"ends {caught_s:.2f} s later; keys a replica (own slice and standby) {local}",
+              flush=True)
+        if index_entries(remote) != traffic["entries"]:
+            raise AssertionError("14c: the cluster's entries differ from phase 13's")
+
+        total = sum(len(s) for s in traffic["sequences"].values())
+        # Half-way through the last workload (the mixed one, half of it warm
+        # turns), so the requests after the kill include hits.
+        kill_at = total - len(list(traffic["sequences"].values())[-1]) // 2
+        first_key = indexer.token_processor.tokens_to_kv_block_keys(
+            0, [int(w[1:]) for w in traffic["sequences"]["warm_multi_turn"][0].split(" ")],
+            MODEL_NAME)[0]
+        victim = cluster.membership.ring().owner(first_key)
+        before = cluster.membership.status()
+        kill_s = []
+
+        def kill(n):
+            if n == kill_at:
+                kill_s.append(time.perf_counter())
+                cluster.kill(victim, notice=False)
+
+        scores, latencies = drive_traffic(indexer, traffic, before=kill)
+        # A request the score memo serves reaches the victim only through
+        # its recency touch, which runs off the request's thread: let those
+        # land before reading the membership.
+        deadline = time.perf_counter() + 10.0
+        while (cluster.membership.status()["failovers"] == before["failovers"]
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        after = cluster.membership.status()
+        bad = score_mismatches(scores, traffic)
+        ordered, want = flat_scores(scores, traffic), flat_scores(traffic["scores"], traffic)
+        window = slice(kill_at, min(total, kill_at + 50))
+        out["traffic"] = {
+            w: {"p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99),
+                "requests": len(lat)} for w, lat in latencies.items()}
+        stats = remote.rpc_stats()
+        out["rpc"] = {"fanout": stats["fanout"], "critical_path": stats["critical_path"],
+                      "reroutes": stats["reroutes"]}
+        out["failover"] = {
+            "victim": victim, "at_request": kill_at,
+            "ring_version": [before["ring_version"], after["ring_version"]],
+            "failovers": [before["failovers"], after["failovers"]],
+            "hit_rate_dip": hit_rate(want[window]) - hit_rate(ordered[window])}
+        print("  phase 13's requests in its order through Indexer(kv_block_index=RemoteIndex), "
+              "fast lane, pipelined chunk drive: " + "; ".join(
+                  f"{w} p50 {c['p50_ms']:.3f} ms p99 {c['p99_ms']:.3f} ms (phase 13's fast lane "
+                  f"{traffic['cells'][w]['p50_ms']:.3f} / {traffic['cells'][w]['p99_ms']:.3f})"
+                  for w, c in out["traffic"].items()), flush=True)
+        print(f"  rpc_stats: fanout {stats['fanout']}; critical path "
+              f"{stats['critical_path']}; reroutes {stats['reroutes']}", flush=True)
+        print(f"  {victim} (owner of the conversation's first key) killed through its transport "
+              f"before request {kill_at} of {total}: ring version "
+              f"{before['ring_version']} -> {after['ring_version']}, failovers "
+              f"{before['failovers']} -> {after['failovers']}; hit rate over the next "
+              f"{window.stop - window.start} requests {hit_rate(ordered[window]):.3f} against "
+              f"phase 13's {hit_rate(want[window]):.3f} (dip "
+              f"{out['failover']['hit_rate_dip']:.3f})", flush=True)
+        if bad:
+            raise AssertionError(f"14c: {len(bad)} requests score unlike phase 13's in-memory "
+                                 f"fast lane, e.g. {bad[:2]}")
+        if (after["ring_version"] != before["ring_version"] + 1
+                or after["failovers"] != before["failovers"] + 1):
+            raise AssertionError(f"14c: failover {out['failover']}")
+        print(f"  every score equal to phase 13's in-memory fast lane, before and after the "
+              f"failover ({total} requests)", flush=True)
+
+        removed = remote.purge_pod(PURGED_POD)
+        replay_wait = followers_caught_up(cluster, catch_up_s)
+        held = {pod for entries in index_entries(remote).values() for pod, _ in entries}
+        replayed, records = [], 0
+        for rid in cluster.membership.alive():
+            fresh = in_memory.InMemoryIndex()
+            follower = replication.ReplicationFollower(rid, cluster.journal_dirs[rid], fresh)
+            while True:
+                read = follower.sync_once()
+                records += read
+                if not read:
+                    break
+            replayed.append({pod for entries in index_entries(fresh).values()
+                             for pod, _ in entries})
+        warm_prompts = set(traffic["sequences"]["warm_multi_turn"])
+        last_score = {}
+        for workload, i, prompt, _ in phase13_requests(traffic):
+            if prompt in warm_prompts:
+                last_score[prompt] = dict(traffic["scores"][workload][i], **{PURGED_POD: 0.0})
+        rescored = {p: indexer.get_pod_scores(p, MODEL_NAME, traffic["pods"])
+                    for p in last_score}
+        out["purge"] = {"pod": PURGED_POD, "removed": removed, "followers_s": replay_wait,
+                        "replayed_records": records,
+                        "resurrected": PURGED_POD in held or any(PURGED_POD in r
+                                                                 for r in replayed)}
+        print(f"  purge of {PURGED_POD} through the RemoteIndex: {removed} entries removed; "
+              f"followers replayed it in {replay_wait:.2f} s; a fresh replay of every alive "
+              f"replica's whole journal ({records} records) and the cluster hold "
+              f"{PURGED_POD}: {out['purge']['resurrected']}; the warm turns rescored with "
+              f"{PURGED_POD} at 0.0", flush=True)
+        if out["purge"]["resurrected"] or rescored != last_score:
+            raise AssertionError(f"14c: purged entries of {PURGED_POD} returned")
+    finally:
+        indexer.shutdown()
+        cluster.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4286,12 +4752,23 @@ def main() -> int:
     print(f"  host before phase 13: {host_state()}", flush=True)
     read = read_path(smi)
     fleet = read.pop("fleet")
+    traffic = read.pop("traffic")
 
     phase(f"14. write path: phase 13's fleet as KV events, a storm of {STORM_PODS} pods, "
           f"a gap and its resync, the auditor")
     print(f"  host before phase 14: {host_state()}", flush=True)
     write = write_path(smi, fleet)
-    del fleet
+
+    phase("14b. persistence: phase 13's index through a snapshot and the journal, a warm "
+          "restart, a torn tail")
+    print(f"  host before phase 14b: {host_state()}", flush=True)
+    persisted = persistence_phase(smi, fleet, traffic)
+
+    phase(f"14c. cluster: phase 13's fleet and traffic through {len(CLUSTER_REPLICAS)} "
+          f"replicas, one killed mid-traffic, a purge replayed")
+    print(f"  host before phase 14c: {host_state()}", flush=True)
+    clustered = cluster_phase(smi, fleet, traffic)
+    del fleet, traffic
 
     phase("15. kernels")
     kernels = [
@@ -4363,6 +4840,7 @@ def main() -> int:
                       "tiering": tiering_summary,
                       "autograd_guard": guard, "training": trained, "moe": moe_summary,
                       "sharded": sharded, "read_path": read, "write_path": write,
+                      "persistence": persisted, "cluster": clustered,
                       "layers": LAYERS, "phase_seconds": PHASE_SECONDS,
                       "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)

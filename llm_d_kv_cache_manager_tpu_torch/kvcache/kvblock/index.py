@@ -16,8 +16,7 @@ TPU tier vocabulary: events from TPU pods carry ``Medium`` in
 {"hbm", "host", "shared_storage"}; GPU-era names ("gpu", "cpu") are accepted
 for wire compatibility and mapped by the scorer's weight table.
 
-Copied from the JAX reference's ``kvcache/kvblock/index.py``.  The Redis
-backend is not ported yet: ``IndexConfig(redis_config=...)`` raises.
+Copied from the JAX reference's ``kvcache/kvblock/index.py``.
 """
 
 from __future__ import annotations
@@ -237,12 +236,11 @@ def new_index(config: Optional[IndexConfig] = None) -> Index:
 
         index = CostAwareMemoryIndex(config.cost_aware_config)
     elif config.redis_config is not None:
-        # Never a fallback onto the in-memory backend: a caller that
-        # asked for a shared index must not score against a private one.
-        raise NotImplementedError(
-            "the Redis index backend is not ported yet (ROADMAP.md, "
-            "Queue A: kvblock/redis_index.py)"
+        from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.redis_index import (
+            RedisIndex,
         )
+
+        index = RedisIndex(config.redis_config)
     else:
         from llm_d_kv_cache_manager_tpu_torch.kvcache.kvblock.in_memory import (
             InMemoryIndex,

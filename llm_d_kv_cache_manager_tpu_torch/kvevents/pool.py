@@ -72,11 +72,11 @@ inventory snapshot* through the same batched-apply surface live events
 use.  Resync commands are never shed (shedding one would strand the
 pod suspect forever); a shutdown drop reports failure to the waiter.
 
-Copied from the JAX reference's ``kvevents/pool.py``.  The port has no
-``persistence/`` or ``obs/capture`` yet: ``journal=`` and the capture
-hook stay duck-typed, and the pool calls the same methods
-(``record_add``, ``record_evict``, ``record_purge``,
-``record_admitted_messages``, ``record_kvevents_batch``) on whatever
+Copied from the JAX reference's ``kvevents/pool.py``.  ``journal=`` takes
+the port's ``persistence.Journal`` (``record_add``, ``record_evict``,
+``record_purge``), as the reference's takes its own.  The port has no
+``obs/capture`` yet: the capture hook stays duck-typed, and the pool calls
+``record_admitted_messages`` and ``record_kvevents_batch`` on whatever
 object it is given.
 """
 

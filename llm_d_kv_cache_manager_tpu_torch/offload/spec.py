@@ -22,6 +22,7 @@ arguments: ``rtt_observer`` (loads), ``store_rtt_observer`` (stores) and
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -49,6 +50,26 @@ from llm_d_kv_cache_manager_tpu_torch.offload.worker import (
 )
 
 
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default
+
+
 @dataclass
 class TPUOffloadSpec:
     """Connector configuration (the ``--kv-transfer-config`` analogue)."""
@@ -71,13 +92,15 @@ class TPUOffloadSpec:
     # completions free room.
     max_staging_memory_gb: float = 150.0
     # Per-GPU staging-lane pipeline (offload/staging_engine.py).  0
-    # disables (the one-shot gather path, the parity oracle).  slots:
-    # pipeline depth per lane (2 = double buffering); lane_wait_s:
-    # saturation watchdog.  The JAX package also reads these from
-    # OFFLOAD_STAGING_* for its vLLM adapter, which is not ported.
-    staging_lanes: int = 0
-    staging_slots: int = DEFAULT_SLOTS_PER_LANE
-    staging_lane_wait_s: float = DEFAULT_LANE_WAIT_S
+    # disables (the one-shot gather path, the parity oracle); -1
+    # resolves from OFFLOAD_STAGING_LANES (default 0).  slots: pipeline
+    # depth per lane (-1 = OFFLOAD_STAGING_SLOTS, default 2 = double
+    # buffering); lane_wait_s: saturation watchdog
+    # (-1 = OFFLOAD_STAGING_WATCHDOG_S, default 60).  Explicit values
+    # win over the environment.
+    staging_lanes: int = -1
+    staging_slots: int = -1
+    staging_lane_wait_s: float = -1.0
     dtype: str = "bfloat16"
     tp_size: int = 1
     pp_size: int = 1
@@ -90,6 +113,16 @@ class TPUOffloadSpec:
                 "offloaded_block_size must be a multiple of "
                 f"device_block_size ({self.offloaded_block_size} % "
                 f"{self.device_block_size} != 0)"
+            )
+        if self.staging_lanes < 0:
+            self.staging_lanes = _env_int("OFFLOAD_STAGING_LANES", 0)
+        if self.staging_slots < 0:
+            self.staging_slots = _env_int(
+                "OFFLOAD_STAGING_SLOTS", DEFAULT_SLOTS_PER_LANE
+            )
+        if self.staging_lane_wait_s < 0:
+            self.staging_lane_wait_s = _env_float(
+                "OFFLOAD_STAGING_WATCHDOG_S", DEFAULT_LANE_WAIT_S
             )
         if self.staging_lanes < 0:
             raise ValueError(

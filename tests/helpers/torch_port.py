@@ -10,6 +10,7 @@ to a pip distribution, keeps seeing only the names it knows.
 from __future__ import annotations
 
 import importlib
+from types import SimpleNamespace
 
 import torch
 
@@ -24,3 +25,16 @@ torch.set_num_threads(1)
 def port(name: str):
     """``port("ops.attention")`` is the port's ``ops/attention.py``."""
     return importlib.import_module(f"{PACKAGE}.{name}")
+
+
+def namespace(side: str, ref_modules: dict, names: dict):
+    """A flat namespace of ``names`` ({module path: (name, ...)}) taken
+    from the JAX package (``side == "ref"``, its modules given in
+    ``ref_modules`` by the same paths) or from the port (``"port"``), so
+    one test body runs against either package as ``m.Name``."""
+    ns = SimpleNamespace(side=side)
+    for path, wanted in names.items():
+        module = ref_modules[path] if side == "ref" else port(path)
+        for name in wanted:
+            setattr(ns, name, getattr(module, name))
+    return ns

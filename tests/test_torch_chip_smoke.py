@@ -809,3 +809,50 @@ def test_tiering_transfer_at_a_small_size(tmp_path, miss_ms, planned):
     assert series["kvtpu_tiering_demotions_total{transition=hbm_to_host}"] == 4
     assert series["kvtpu_tiering_demotions_total{transition=host_to_storage}"] == 4
     assert series["kvtpu_transfer_warmup_moves_total"] == 1
+
+
+# --------------------------------------------------------- phases 14b-14c
+
+
+def small_fleet(monkeypatch):
+    """Phase 13 at a small size, for its fleet and its traffic."""
+    monkeypatch.setitem(smoke["event_fleet"].__globals__, "EVENT_CHUNK_TOKENS", 128)
+    read = smoke["read_path"]("cpu", pods_n=3, convs=2, conv_tokens=256, turns=2,
+                              turn_tokens=32, cold=1, min_requests=4)
+    return read.pop("fleet"), read.pop("traffic")
+
+
+def test_persistence_phase_at_a_small_size(monkeypatch):
+    """Phase 14b end to end at a small size: the journaled index's
+    snapshot and tail recover to equal dumps and phase 13's scores, the
+    warm second half hits where a fresh index does not, and the torn
+    tail is named; a dropped journal record must fail the dump gate."""
+    fleet, traffic = small_fleet(monkeypatch)
+    out = smoke["persistence_phase"]("cpu", fleet, traffic)
+    frames = sum(map(len, fleet["frames"].values())) + sum(
+        map(len, traffic["convo_frames"].values()))
+    assert out["frames"] == frames
+    assert out["recovery"]["status"] == "warm" and out["recovery"]["records_replayed"] > 0
+    assert out["snapshot"]["block_keys"] > 0 and out["snapshot"]["bytes"] > 0
+    assert out["hit_rate"]["cold"] == 0.0 < out["hit_rate"]["warm"]
+    assert out["torn"]["records_replayed"] == out["recovery"]["records_replayed"] - 1
+    assert len(out["torn"]["torn_tails"]) == 1 and "torn record" in out["torn"]["torn_tails"][0]
+    with pytest.raises(AssertionError, match="dump_entries"):
+        smoke["persistence_phase"]("cpu", fleet, traffic, drop_record=True)
+
+
+def test_cluster_phase_at_a_small_size(monkeypatch):
+    """Phase 14c end to end at a small size: the cluster's entries and
+    every score equal phase 13's across a replica killed half-way (ring
+    version and failovers one up), and the purged pod never returns; one
+    replica answering a stale entry must fail the score gate."""
+    fleet, traffic = small_fleet(monkeypatch)
+    out = smoke["cluster_phase"]("cpu", fleet, traffic, catch_up_s=60.0)
+    assert out["failover"]["ring_version"] == [0, 1]
+    assert out["failover"]["failovers"] == [0, 1]
+    assert out["failover"]["hit_rate_dip"] == 0.0
+    assert out["purge"]["removed"] > 0 and not out["purge"]["resurrected"]
+    assert set(out["traffic"]) == {"warm_multi_turn", "cold", "mixed"}
+    assert {"rpc_ewma_us", "armed"} <= set(out["rpc"]["fanout"])
+    with pytest.raises(AssertionError, match="score unlike"):
+        smoke["cluster_phase"]("cpu", fleet, traffic, stale=True, catch_up_s=60.0)

@@ -23,6 +23,7 @@ from llm_d_kv_cache_manager_tpu.metrics import collector as jax_collector
 from llm_d_kv_cache_manager_tpu.preprocessing import chat_templating as jax_chat
 from llm_d_kv_cache_manager_tpu.tokenization import pool as jax_pool
 from llm_d_kv_cache_manager_tpu.tokenization import tokenizers as jax_tokenizers
+from tests.helpers.miniresp import MiniRespServer
 from tests.helpers.tiny_tokenizer import (
     build_transformers_tokenizer,
     save_tokenizer_json,
@@ -197,16 +198,24 @@ def test_version_vector_and_slice_purge_match_reference(seed, shards):
 
 def test_new_index_dispatch_matches_reference():
     """``new_index(IndexConfig)`` picks the same backend class as the
-    reference's; Redis is not ported and raises, never falling back."""
-    for fields in ({}, {"cost_aware_config": "CostAwareIndexConfig"}, {"enable_metrics": True}):
-        built = {}
-        for name, pkg in SIDES.items():
-            kwargs = {k: (getattr(pkg.index, v)() if isinstance(v, str) else v)
-                      for k, v in fields.items()}
-            built[name] = type(pkg.index.new_index(pkg.index.IndexConfig(**kwargs))).__name__
-        assert built["port"] == built["jax"], fields
-    with pytest.raises(NotImplementedError, match="redis_index"):
-        PORT.index.new_index(PORT.index.IndexConfig(redis_config=PORT.index.RedisIndexConfig()))
+    reference's, Redis included: against a ``miniresp`` server the port
+    builds its own ``RedisIndex``, never falling back onto an in-memory
+    index."""
+    server = MiniRespServer()
+    try:
+        for fields in ({}, {"cost_aware_config": "CostAwareIndexConfig"},
+                       {"enable_metrics": True}, {"redis_config": "RedisIndexConfig"}):
+            built = {}
+            for name, pkg in SIDES.items():
+                kwargs = {k: (getattr(pkg.index, v)() if isinstance(v, str) else v)
+                          for k, v in fields.items()}
+                if "redis_config" in kwargs:
+                    kwargs["redis_config"].address = server.address
+                index = pkg.index.new_index(pkg.index.IndexConfig(**kwargs))
+                built[name] = (type(index).__name__, type(index).__module__.split(".", 1)[1])
+            assert built["port"] == built["jax"], fields
+    finally:
+        server.close()
 
 
 def test_port_indexer_runs_with_the_score_memo():

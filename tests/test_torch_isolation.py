@@ -49,7 +49,8 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
     for name in ("parallel.mesh", "parallel.sharding", "ops.ring_attention", "ops.ring_flash",
                  "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
-    for name in OFFLOAD_MODULES + READ_PATH_MODULES + WRITE_PATH_MODULES + TIERING_MODULES:
+    for name in (OFFLOAD_MODULES + READ_PATH_MODULES + WRITE_PATH_MODULES + TIERING_MODULES
+                 + PERSISTENCE_MODULES + CLUSTER_MODULES):
         assert f"{PACKAGE}.{name}" in result["modules"]
     assert result["loaded"] == []
 
@@ -79,6 +80,14 @@ TIERING_MODULES = (
     "tiering", "tiering.policy_feed", "tiering.eviction", "tiering.advisor",
     "tiering.demotion", "tiering.staged_target", "tiering.engine", "transfer",
     "transfer.planner", "transfer.directives", "transfer.warmup", "transfer.engine",
+)
+PERSISTENCE_MODULES = (
+    "persistence", "persistence.snapshot", "persistence.journal", "persistence.recovery",
+    "kvcache.kvblock.redis_index",
+)
+CLUSTER_MODULES = (
+    "cluster", "cluster.ring", "cluster.replica", "cluster.membership", "cluster.replication",
+    "cluster.remote_index", "cluster.ingest", "cluster.harness",
 )
 # What the H100's machine lacks (ROADMAP.md, rules of Queue A).
 ABSENT_ON_THE_CARD = ("prometheus_client", "xxhash", "tokenizers", "transformers", "msgpack",
@@ -309,6 +318,104 @@ print(json.dumps({{"scores": out, "moved": moved, "observed":
                                  {"pod-a": host, "pod-b": 10.0}],
                       "moved": 1, "observed": 4, "target": "pod-b", "executed": True,
                       "blocked_loaded": []}
+
+
+def test_persistence_and_cluster_run_without_the_libraries_the_card_lacks():
+    """With the same libraries blocked, and ``redis`` and ``cbor2`` as
+    well, every persistence and cluster module imports; an event pool with
+    the port's ``Journal`` tapped in fills an index, a snapshot plus the
+    journal recover it into a fresh one, and a 3-replica strict-wire
+    ``LocalCluster`` takes the same events and scores as the index does,
+    also after one replica is killed."""
+    script = f"""
+import importlib, json, sys, tempfile
+for name in {ABSENT_ON_THE_CARD + ("redis", "cbor2")!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+mod = lambda name: importlib.import_module({PACKAGE!r} + "." + name)
+for name in {PERSISTENCE_MODULES + CLUSTER_MODULES!r}:
+    mod(name)
+persistence, cluster, events = mod("persistence"), mod("cluster"), mod("kvevents.events")
+pool_mod, in_memory, tp = mod("kvevents.pool"), mod("kvcache.kvblock.in_memory"), mod(
+    "kvcache.kvblock.token_processor")
+db = tp.ChunkedTokenDatabase(tp.TokenProcessorConfig(block_size=4))
+tokens = list(range(1, 41))
+keys = db.tokens_to_kv_block_keys(0, tokens, "m")
+
+def feed(index, journal=None):
+    pool = pool_mod.Pool(index, db, pool_mod.PoolConfig(concurrency=1), journal=journal)
+    pool.start()
+    batch = events.EventBatch(ts=0.0, events=[events.BlockStored(
+        block_hashes=list(range(100, 110)), parent_block_hash=None, token_ids=tokens,
+        block_size=4, medium="gpu")])
+    pool.add_task(pool_mod.Message(topic="kv@pod-a@m", payload=batch.encode(),
+                                   pod_identifier="pod-a", model_name="m", seq=1))
+    pool.drain()
+    pool.shutdown()
+
+def found(index):
+    return sorted(index.lookup(keys))
+
+with tempfile.TemporaryDirectory() as root:
+    config = persistence.PersistenceConfig(directory=root)
+    manager = persistence.PersistenceManager(config)
+    live = in_memory.InMemoryIndex()
+    feed(live, manager.journal)
+    manager.snapshot(live)
+    manager.close()
+    restored = in_memory.InMemoryIndex()
+    report = persistence.recover(restored, config)
+    local = cluster.LocalCluster(journal_root=root + "/cluster", strict_wire=True)
+    try:
+        feed(local.remote_index)
+        before = found(local.remote_index)
+        local.sync_followers()
+        local.kill(local.membership.ring().owner(keys[0]), notice=False)
+        after = found(local.remote_index)
+        ring_version = local.membership.ring().version
+    finally:
+        local.close()
+blocked = sorted(n for n in {ABSENT_ON_THE_CARD + ("redis", "cbor2")!r}
+                 if sys.modules.get(n) is not None)
+print(json.dumps({{"live": found(live), "restored": found(restored),
+                  "status": report.status, "before": before, "after": after,
+                  "ring_version": ring_version, "blocked_loaded": blocked}}))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(result["live"]) == 10
+    assert result["restored"] == result["before"] == result["after"] == result["live"]
+    assert (result["status"], result["ring_version"], result["blocked_loaded"]) == ("warm", 1, [])
+
+
+@pytest.mark.parametrize("package", ["ops", "parallel"])
+def test_package_exports_the_references_names(package):
+    """The port's ``ops`` and ``parallel`` export exactly the reference's
+    ``__all__``, and each name is the port's function or class, not a
+    submodule; importing them builds no kernel."""
+    import importlib
+    import types
+
+    reference = importlib.import_module(f"llm_d_kv_cache_manager_tpu.{package}")
+    ours = port(package)
+    assert list(ours.__all__) == list(reference.__all__)
+    for name in ours.__all__:
+        value = getattr(ours, name)
+        assert not isinstance(value, types.ModuleType), name
+        assert callable(value) or isinstance(value, str), name
+        assert isinstance(value, str) == isinstance(getattr(reference, name), str), name
+        if isinstance(value, str):
+            assert value == getattr(reference, name)
+        else:
+            assert value.__module__.startswith(PACKAGE + "."), name
+    build = port("ops._build")
+    assert not getattr(build, "_LIBS", {}), "importing the ops package built a kernel"
 
 
 def test_native_engine_builds_from_the_ports_own_sources():

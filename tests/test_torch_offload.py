@@ -201,15 +201,39 @@ def test_spec_validation_matches_the_reference(tmp_path, monkeypatch):
     theirs = JaxSpec(str(tmp_path), "m")
     assert (ours.staging_lanes, ours.staging_slots, ours.staging_lane_wait_s) == (
         theirs.staging_lanes, theirs.staging_slots, theirs.staging_lane_wait_s) == (0, 2, 60.0)
-    # The port reads no environment (the vLLM adapter that sets these is
-    # not ported) and refuses staging settings it cannot run.
-    for name, value in zip(names, ("3", "5", "7.5")):
+    # What the environment resolves must still be runnable: a negative
+    # lane count or a non-positive slot count or watchdog raises.
+    for name, value in zip(names, ("-3", "2", "60")):
         monkeypatch.setenv(name, value)
-    ours = spec_mod.TPUOffloadSpec(str(tmp_path), "m")
-    assert (ours.staging_lanes, ours.staging_slots, ours.staging_lane_wait_s) == (0, 2, 60.0)
-    for bad in ({"staging_lanes": -1}, {"staging_slots": 0}, {"staging_lane_wait_s": 0.0}):
+    with pytest.raises(ValueError, match="staging_lanes"):
+        spec_mod.TPUOffloadSpec(str(tmp_path), "m")
+    for bad in ({"staging_slots": 0}, {"staging_lane_wait_s": 0.0}):
         with pytest.raises(ValueError, match="staging_"):
-            spec_mod.TPUOffloadSpec(str(tmp_path), "m", **bad)
+            spec_mod.TPUOffloadSpec(str(tmp_path), "m", staging_lanes=1, **bad)
+
+
+STAGING_ENV = ("OFFLOAD_STAGING_LANES", "OFFLOAD_STAGING_SLOTS", "OFFLOAD_STAGING_WATCHDOG_S")
+
+
+@pytest.mark.parametrize("env", [("2", "3", "7.5"), None], ids=["set", "unset"])
+def test_default_spec_reads_the_staging_environment_as_the_reference_does(
+        tmp_path, monkeypatch, env):
+    """A default ``TPUOffloadSpec()`` resolves lanes, slots and the
+    watchdog from ``OFFLOAD_STAGING_*`` as the JAX package's does (equal
+    fields, exactly), and explicit values win over the environment in
+    both."""
+    for name, value in zip(STAGING_ENV, env or (None,) * 3):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    fields = lambda spec: (spec.staging_lanes, spec.staging_slots, spec.staging_lane_wait_s)
+    ours = fields(spec_mod.TPUOffloadSpec(str(tmp_path), "m"))
+    theirs = fields(JaxSpec(str(tmp_path), "m"))
+    assert ours == theirs == ((2, 3, 7.5) if env else (0, 2, 60.0))
+    explicit = dict(staging_lanes=1, staging_slots=4, staging_lane_wait_s=9.0)
+    assert fields(spec_mod.TPUOffloadSpec(str(tmp_path), "m", **explicit)) == fields(
+        JaxSpec(str(tmp_path), "m", **explicit)) == (1, 4, 9.0)
 
 
 def test_connector_rejects_pools_it_cannot_describe(tmp_path):
