@@ -65,6 +65,24 @@ Phases (any failure exits non-zero):
      tokens and pool bytes; then the prefix-hit contract, chunked
      prefill and decode are checked against fresh full passes and the
      device time of each step is broken down by kernel category;
+ 5c. serving through the service, right after phase 5's checks: the
+     port's ``api.http_service.serve`` over a metrics-wrapped Indexer on
+     phase 5's index (filled only by the pods' KV events); request C, phase 5's
+     8192-token prefix and 256 new tokens (``padded_words``: its text is
+     new to the prefix store, so the pool tokenizes it in full), by
+     ``POST /score_completions?explain=1`` with a sampled traceparent over
+     a keep-alive connection, its scores exactly those of
+     ``get_pod_scores`` in-process and pod-a's 512 prefix blocks; pod-a
+     continues C on the prefill kernel (one launch a layer) and decodes
+     4 tokens eagerly on the decode kernel (one launch a layer a step),
+     each decode call and each call of a second run of the continuation
+     (its logits bit-equal) held against the plain version on its inputs;
+     TTFT from the POST to the first token, the HTTP round trip apart;
+     pod-a publishes C's 16 new blocks as KV events and C's second score
+     over HTTP rises by exactly those 16 at the device tier's weight;
+     ``/debug/traces/<id>`` holds the reference's span tree, the lookup
+     counter on ``/metrics`` rises by the scoring requests made, and
+     ``/healthz`` carries the event-plane block;
   6. ring prefill: the 8192-token prompt through the striped and the
      contiguous ring and through the dense forward; each ring must
      launch the partial kernel exactly 16 (striped) or 10 (contiguous)
@@ -195,6 +213,26 @@ Phases (any failure exits non-zero):
      and p99 beside phase 13's, ``rpc_stats()``; then a purge of pod-1,
      which neither the followers nor a fresh replay of each journal
      brings back;
+ 14d. service, on the host: a fresh fast-lane Indexer and event pool with
+     the port's ``InputCaptureRecorder`` tapped in, seeded with phase 13's
+     frames, behind ``api.http_service.serve`` with an ``SloEngine`` of
+     the fleet defaults, a started ``SamplingProfiler``, a ``GaugeTimeline``
+     of the default series and an ``IncidentManager``; phase 13's requests
+     in its order by ``POST /score_completions`` over one keep-alive
+     connection, each response equal to phase 13's fast lane's (p50 and p99
+     beside its in-process ones, the server's own ``get_pod_scores`` time
+     split out of each); ``POST /admin/incident`` writes a bundle
+     whose ``capture.cbor`` (every frame and request, nothing truncated)
+     ``load_capture`` and ``replay_capture`` replay with every recorded
+     score and the index state reproduced (replay ms and records/s); the
+     timed requests again from one client process, from 4 at once and
+     from 4 threads of the script (requests/s, p99, every answer phase
+     13's); ``/debug/``, ``/debug/slo``,
+     ``/debug/profile`` (the ``http-handler`` and ``events`` roles
+     attributed) and ``/debug/timeline`` answer; last, the what-if
+     engine's ``reference_ab()`` over
+     ``tests/testdata/whatif_reference.cbor``, its ``gate_headlines``
+     equal to ``WHATIF_r01.json``'s;
  15. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
@@ -207,6 +245,7 @@ import copy
 import dataclasses
 import gc
 import hashlib
+import http.client
 import importlib
 import json
 import math
@@ -1587,6 +1626,8 @@ def serving(torch, params, cfg):
         "offload_inputs": dict(pod_a=pod_a, prefix_ids=prefix_ids, prefix_kv=prefix_kv,
                                prompt_b=prompt_b, keys_b=b["keys"], logits_b=logits_b,
                                first_b=first_b, hasher=hasher),
+        "http_inputs": dict(scorer=scorer, sink=sink, indexer=indexer, pods=pods, prefix=prefix,
+                            route_hit_ms=b["route_ms"], ttft_hit_ms=b["ttft_ms"]),
         "tiering_inputs": dict(scorer=scorer, indexer=indexer, pods=pods, prompt_a=prompt_a,
                                prompt_b=prompt_b, keys_b=b["keys"], prefix_ids=prefix_ids,
                                logits_b=logits_b, first_b=first_b, ttft_miss_ms=a["ttft_ms"],
@@ -1598,6 +1639,273 @@ def serving(torch, params, cfg):
                                miss_ms=a["ttft_ms"], hit_ms=b["ttft_ms"],
                                decode_ms=ms_per_step),
     }
+
+
+# -------------------------------------------------------------- phase 5c
+
+
+HTTP_DECODE_STEPS = 4  # C's decode steps on the decode kernel, eager
+
+
+def padded_words(tokens) -> str:
+    """``tokens`` as fixed-width words (``t000123``), the last one padded
+    further so that the text is a whole number of the prefix store's
+    STORE_CHUNK_BYTES chunks.  The words differ from ``words``' for the
+    same ids, so such a text shares no chunk with a ``words`` text in the
+    store: the pool tokenizes it in full once, and from then on the store
+    serves every one of its tokens (none ends in a partial chunk)."""
+    width = len(str(max(tokens))) + 1  # every word carries a leading zero
+    text = [f"t{t:0{width}d}" for t in tokens]
+    pad = -(len(text) * (width + 2) - 1) % STORE_CHUNK_BYTES
+    text[-1] = f"t{tokens[-1]:0{width + pad}d}"
+    return " ".join(text)
+
+
+class HttpClient:
+    """One keep-alive HTTP/1.1 connection to a service on the loopback."""
+
+    def __init__(self, server, timeout: float = 120.0) -> None:
+        self.conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                               timeout=timeout)
+
+    def call(self, method: str, path: str, body=None, headers=None):
+        """``(status, payload)``: JSON bodies parsed, others as bytes."""
+        data = json.dumps(body).encode() if body is not None else None
+        self.conn.request(method, path, body=data,
+                          headers={"Content-Type": "application/json", **(headers or {})})
+        response = self.conn.getresponse()
+        raw = response.read()
+        if "json" in (response.getheader("Content-Type") or ""):
+            return response.status, json.loads(raw)
+        return response.status, raw
+
+    def ok(self, method: str, path: str, body=None, headers=None):
+        status, payload = self.call(method, path, body, headers)
+        if status != 200:
+            raise AssertionError(f"{method} {path}: HTTP {status}: {payload!r:.300}")
+        return payload
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+class HeldCalls:
+    """While on, every call the model module makes to a kernel wrapper
+    through its ``name`` goes to the wrapper as before (it launches and
+    counts as usual) and is kept, inputs and output, so that ``hold`` can
+    compare each output afterwards with the wrapper's plain version on the
+    same inputs (those comparisons launch no kernel and count nothing)."""
+
+    def __init__(self, module, name: str, plain, kind: str) -> None:
+        self.module, self.name, self.plain, self.kind = module, name, plain, kind
+        self.wrapper = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def held(*args, **kwargs):
+            out = self.wrapper(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+
+        setattr(self.module, self.name, held)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.wrapper)
+
+    def hold(self, what: str) -> dict:
+        """Fail unless every kept output is finite and within ``LIMITS``
+        of the plain version's on the same inputs."""
+        if not self.calls:  # the CPU's prefill takes the tiled op, not the wrapper
+            print(f"  {what}: no call to hold", flush=True)
+            return {"calls": 0}
+        errs, worst, finite = [], [], True
+        for args, kwargs, out in self.calls:
+            err, ratio = err_over_limit(out, self.plain(*args, **kwargs),
+                                        *LIMITS[self.kind, str(args[0].dtype)[6:]])
+            errs.append(err)
+            worst.append(ratio)
+            finite = finite and bool(out.float().isfinite().all())
+        limit = limit_text(*LIMITS[self.kind, str(self.calls[0][0][0].dtype)[6:]])
+        print(f"  {what}: {len(self.calls)} calls held against the plain version on the same "
+              f"inputs: max_abs_err {max(errs):.6g}, worst err/limit {max(worst):.4g} (limit "
+              f"{limit}){'' if finite else ' NOT FINITE'}", flush=True)
+        if not finite or not max(worst) <= 1.0:
+            raise AssertionError(f"5c: {what}: an output is past its limit ({max(worst)}) or "
+                                 f"not finite")
+        return {"calls": len(self.calls), "max_abs_err": max(errs),
+                "worst_err_over_limit": max(worst), "limit": limit}
+
+
+def serving_http(torch, params, cfg, t) -> dict:
+    """Phase 5c: request C routed through the port's HTTP service
+    (``api.http_service.serve``) on phase 5's Indexer, whose index only
+    the pods' KV events fill; pod-a continues C on the prefill kernel,
+    decodes it on the decode kernel and publishes its new blocks.  Every
+    kernel call on the way is held against its plain version."""
+    llama, index_mod = port("models.llama"), port("kvcache.kvblock.index")
+    fc, pc = port("ops.flash_cuda"), port("ops.paged_decode_cuda")
+    service, indexer_mod = port("api.http_service"), port("kvcache.indexer")
+    instrumented = port("kvcache.kvblock.instrumented")
+    scorer, sink, pods = t["scorer"], t["sink"], t["pods"]
+    # The service's Indexer: phase 5's index (which the scorer's event
+    # pool fills) behind the metrics wrapper, the service's default
+    # (ENABLE_METRICS), so that /metrics counts its lookups; phase 5's
+    # own Indexer and its routing times stay as they were.
+    indexer = indexer_mod.Indexer(
+        t["indexer"].config, token_processor=t["indexer"].token_processor,
+        tokenizer=WordTokenizer(),
+        kv_block_index=instrumented.InstrumentedIndex(t["indexer"].kv_block_index))
+    pod_a, bs, layers = pods[0], cfg.block_size, cfg.n_layers
+    names = [p.name for p in pods]
+    device = pod_a.pool.kv.device
+    suffix_tokens, decode_steps = SUFFIX_TOKENS, HTTP_DECODE_STEPS
+    # C's suffix from its own generator: phase 5's draws stay as they were.
+    rng = torch.Generator().manual_seed(SEED + 5)
+    tokens = t["prefix"] + torch.randint(1, cfg.vocab_size, (suffix_tokens,),
+                                         generator=rng).tolist()
+    prompt = padded_words(tokens)
+    keys = indexer.token_processor.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH, tokens,
+                                                           MODEL_NAME)
+    n_prefix = len(t["prefix"]) // bs
+    suffix_blocks = len(keys) - n_prefix
+    pool_stats = scorer.events_pool.stage_stats
+    server = service.serve(indexer, host="127.0.0.1", port=0, event_plane_status=lambda: {
+        "pollers": 0, "subscriptions": len(sink.trackers), "stages": pool_stats()})
+    client = HttpClient(server)
+    try:
+        lookups0 = lookup_counter(client.ok("GET", "/metrics").decode())
+        trace_id = f"{SEED + 5:032x}"
+        body = {"prompt": prompt, "model": MODEL_NAME, "pods": names}
+        held_prefill = HeldCalls(llama, "flash_gqa_attention_cuda",
+                                 fc.flash_gqa_attention_plain, "prefill")
+        held_decode = HeldCalls(llama, "paged_decode_attention_cuda",
+                                pc.paged_decode_attention_plain, "decode")
+        fc.flash_gqa_attention_cuda.launches = 0
+        pc.paged_decode_attention_cuda.launches = 0
+        t_post = time.perf_counter()
+        routed = client.ok("POST", "/score_completions?explain=1", body,
+                           {"traceparent": f"00-{trace_id}-{1:016x}-01"})
+        t_routed = time.perf_counter()
+        scores = routed["scores"]
+        pod = next(p for p in pods if p.name == max(sorted(scores), key=scores.get))
+        cached = pod.cached_prefix_blocks(keys)
+        new_ids, evicted = pod.alloc(len(keys) - len(cached))
+        ids = cached + new_ids
+        logits, _ = llama.prefill_continue(
+            params, torch.tensor([tokens[len(cached) * bs:]]), pod.pool.kv,
+            torch.tensor([ids], dtype=torch.int32), len(cached) * bs, cfg)
+        first = int(logits[0, -1].argmax())
+        t_first = time.perf_counter()
+        # C decodes on its pod, eagerly: one decode_step a token.
+        extra, extra_evicted = pod.alloc(-(-decode_steps // bs))
+        table = torch.tensor([ids + extra], dtype=torch.int32, device=device)
+        step_tokens, generated, finite = torch.tensor([first], device=device), [first], True
+        t_dec = time.perf_counter()
+        with held_decode:
+            for step in range(decode_steps):
+                ctx = torch.tensor([len(tokens) + step + 1], dtype=torch.int32, device=device)
+                step_logits = llama.decode_step(params, step_tokens, pod.pool.kv, table, ctx,
+                                                cfg)[0]
+                finite = finite and bool(step_logits.isfinite().all())
+                step_tokens = step_logits.argmax(-1)
+                generated.append(int(step_tokens[0]))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t_dec) * 1e3 / decode_steps
+        launches = {"flash_prefill": fc.flash_gqa_attention_cuda.launches,
+                    "paged_decode": pc.paged_decode_attention_cuda.launches}
+        # Each kernel call of C's decode against the plain version, on its
+        # own inputs: the pool views a decode call read have since been
+        # written only at positions past its context.  The continuation's
+        # calls are held in a second run of it, made after the count was
+        # read (keeping each layer's gathered K and V, 1.1 GB, alive inside
+        # the timed run made C's continuation 4x slower on an H100): the
+        # same tokens, pool and blocks (the decode wrote only past them),
+        # so the same calls, and the run's logits must be bit-equal to the
+        # main path's.
+        with held_prefill:
+            again, _ = llama.prefill_continue(
+                params, torch.tensor([tokens[len(cached) * bs:]]), pod.pool.kv,
+                torch.tensor([ids], dtype=torch.int32), len(cached) * bs, cfg)
+        rerun_equal = torch.equal(again, logits)
+        del again
+        held = {"flash_prefill": held_prefill.hold(
+                    f"C's continuation run again (logits bit-equal to the main path's: "
+                    f"{rerun_equal}), prefill kernel"),
+                "paged_decode": held_decode.hold(f"C's {decode_steps} decode steps at batch 1, "
+                                                 f"decode kernel")}
+        del held_prefill, held_decode
+        in_process = indexer.get_pod_scores(prompt, MODEL_NAME, names)
+        # Pod-a publishes C's new blocks; they reach the index through the
+        # scorer's event pool, as phase 5's did.
+        pod.commit(keys[len(cached):], ids[len(cached):])
+        sink.deliver(pod.name, [pod.events.publish(keys, tokens, len(cached),
+                                                   evicted + extra_evicted, bs)])
+        scorer.events_pool.drain()
+        rescored = client.ok("POST", "/score_completions", body)
+        trace = client.ok("GET", f"/debug/traces/{trace_id}")
+        lookups = lookup_counter(client.ok("GET", "/metrics").decode()) - lookups0
+        health = client.ok("GET", "/healthz")
+    finally:
+        client.close()
+        server.shutdown()
+        server.server_close()
+        indexer.shutdown()
+    ttft_ms = (t_first - t_post) * 1e3
+    round_trip_ms = (t_routed - t_post) * 1e3
+    explain = routed["explain"]
+    want = dict.fromkeys(names, 0.0)
+    want[pod_a.name] = tier_score(n_prefix, 1.0)
+    want_after = dict(want, **{pod_a.name: tier_score(len(keys), 1.0)})
+    print(f"  request C ({len(tokens)} tokens: phase 5's {len(t['prefix'])}-token prefix and "
+          f"{suffix_tokens} new ones) by POST /score_completions?explain=1 with a sampled "
+          f"traceparent over one keep-alive connection: scores {scores} -> {pod.name}, equal "
+          f"to get_pod_scores in-process: {scores == in_process}; reused {len(cached)} blocks, "
+          f"prefill_continue over {len(tokens) - len(cached) * bs} tokens", flush=True)
+    print(f"  C's TTFT {ttft_ms:.1f} ms from the POST to the first token: the HTTP round trip "
+          f"{round_trip_ms:.2f} ms (the server's scoring {explain['duration_ms']:.2f} ms of it) "
+          f"+ the continuation {(t_first - t_routed) * 1e3:.1f} ms; phase 5 routed B "
+          f"in-process in {t['route_hit_ms']:.2f} ms (TTFT {t['ttft_hit_ms']:.1f} ms)",
+          flush=True)
+    print(f"  C decodes {decode_steps} tokens eagerly (decode_step a token, no graph): "
+          f"{decode_ms:.2f} ms/step, tokens {generated}; kernel launches {launches}",
+          flush=True)
+    if scores != in_process or scores != want or pod is not pod_a:
+        raise AssertionError(f"5c: C's scores over HTTP {scores}, in-process {in_process}, "
+                             f"expected {want} with {pod_a.name} chosen")
+    if explain["pods"][pod_a.name]["blocks_matched"] != n_prefix or explain["block_keys"] != len(
+            keys):
+        raise AssertionError(f"5c: explain {explain['pods']}, {explain['block_keys']} keys")
+    if len(cached) != n_prefix or logits.shape != (1, suffix_tokens, cfg.vocab_size) or not (
+            bool(logits.isfinite().all()) and finite and rerun_equal):
+        raise AssertionError("5c: C's continuation or decode went wrong")
+    calls = {name: h["calls"] for name, h in held.items()}
+    if device.type == "cuda" and not launches == calls == {
+            "flash_prefill": layers, "paged_decode": decode_steps * layers}:
+        raise AssertionError(f"5c: kernel launches {launches}, calls held {calls}, expected "
+                             f"{layers} prefill and {decode_steps * layers} decode")
+    print(f"  {pod_a.name} published C's {suffix_blocks} new blocks as KV events; C rescored "
+          f"over HTTP: {rescored} (+{rescored[pod_a.name] - scores[pod_a.name]} for "
+          f"{pod_a.name})", flush=True)
+    if rescored != want_after:
+        raise AssertionError(f"5c: C's second score {rescored}, expected {want_after} "
+                             f"({suffix_blocks} more blocks at the device tier's weight)")
+    tree = check_spans(trace["spans"])
+    print(f"  GET /debug/traces/{trace_id}: {trace['name']}, spans (parent) {tree}", flush=True)
+    requests_made = 3  # two POSTs and the in-process score
+    print(f"  /metrics: kvtpu_kvcache_index_lookup_requests_total rose by {lookups:.0f}, the "
+          f"{requests_made} scoring requests made; /healthz event_plane "
+          f"{sorted(health.get('event_plane', {}))}", flush=True)
+    if lookups != requests_made:
+        raise AssertionError(f"5c: {lookups} lookups counted, {requests_made} made")
+    if "stages" not in health.get("event_plane", {}):
+        raise AssertionError(f"5c: /healthz without the event-plane block: {sorted(health)}")
+    return {"launches": launches, "scores": scores, "rescored": rescored, "ttft_ms": ttft_ms,
+            "http_round_trip_ms": round_trip_ms, "server_scoring_ms": explain["duration_ms"],
+            "continuation_ms": (t_first - t_routed) * 1e3, "decode_ms_per_step": decode_ms,
+            "in_process_route_hit_ms": t["route_hit_ms"], "spans": tree,
+            "lookups": lookups, "decoded": generated, "held": held}
 
 
 # --------------------------------------------------------------- phase 6
@@ -3573,10 +3881,12 @@ def sharded_moe(torch):
 READ_LANES = (("fast", True, True), ("fast_no_memo", True, False), ("straight", False, True))
 
 
-def read_path_indexer(fast: bool, memo: bool = True, block_size: int = READ_BLOCK, index=None):
+def read_path_indexer(fast: bool, memo: bool = True, block_size: int = READ_BLOCK, index=None,
+                      capture=None):
     """One Indexer of phase 13: the word tokenizer, a metrics-wrapped
     in-memory index (so its lookups reach the exposition) or ``index``,
-    the fast lane or the straight path, the score memo on or off."""
+    the fast lane or the straight path, the score memo on or off, and
+    ``capture`` (an ``obs.InputCaptureRecorder``) tapped into its scoring."""
     im, tp = port("kvcache.indexer"), port("kvcache.kvblock.token_processor")
     index_mod = port("kvcache.kvblock.index")
     indexer = im.Indexer(
@@ -3585,7 +3895,7 @@ def read_path_indexer(fast: bool, memo: bool = True, block_size: int = READ_BLOC
                                                            hash_seed="0"),
             kvblock_index_config=index_mod.IndexConfig(enable_metrics=True),
             read_path_fast_lane=fast, score_memo_size=None if memo else 0),
-        tokenizer=WordTokenizer(), kv_block_index=index)
+        tokenizer=WordTokenizer(), kv_block_index=index, capture_recorder=capture)
     indexer.run()
     return indexer
 
@@ -4552,6 +4862,351 @@ def cluster_phase(smi: str, fleet, traffic, stale: bool = False,
     return out
 
 
+# -------------------------------------------------------------- phase 14d
+
+
+SERVICE_CLIENTS = 4  # 14d's concurrent keep-alive clients
+SERVICE_PROFILE_HZ = 50.0
+CAPTURE_MAX_BYTES = 1 << 30  # both rings hold phase 13's frames and requests whole
+SERVICE_ROLES = ("http-handler", "events")  # thread roles /debug/profile must attribute
+WHATIF_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "WHATIF_r01.json")
+
+
+def concurrent_requests(server, requests, clients: int):
+    """``requests`` ((prompt, pods) pairs) split over ``clients`` threads,
+    each with its own keep-alive connection: (scores in request order,
+    each request's seconds, the wall seconds of the whole)."""
+    scores, latencies = [None] * len(requests), [None] * len(requests)
+    errors = []
+
+    def run(k: int) -> None:
+        client = HttpClient(server)
+        try:
+            for n in range(k, len(requests), clients):
+                prompt, pods = requests[n]
+                t0 = time.perf_counter()
+                scores[n] = client.ok("POST", "/score_completions",
+                                      {"prompt": prompt, "model": MODEL_NAME, "pods": pods})
+                latencies[n] = time.perf_counter() - t0
+        except BaseException as exc:  # noqa: BLE001 - raised on the caller's thread
+            errors.append(exc)
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(k,), name=f"client-{k}")
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return scores, latencies, wall
+
+
+# One client of phase 14d in its own interpreter: argv is the service's
+# port, the job file ({"model", "requests": [[prompt, pods], ...]}), this
+# client's number k, the number of clients and its result file.  It
+# connects, says "ready", waits for a line on stdin, sends requests k,
+# k + clients, ... over its one keep-alive connection and writes their
+# scores, their seconds and its first send and last answer on the
+# system-wide monotonic clock.
+CLIENT_SCRIPT = r"""
+import http.client, json, sys, time
+port, job, k, clients, out = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+with open(job) as handle:
+    job = json.load(handle)
+conn = http.client.HTTPConnection("127.0.0.1", int(port), timeout=120)
+conn.connect()
+print("ready", flush=True)
+sys.stdin.readline()
+result = {"scores": {}, "seconds": {}}
+result["start"] = time.monotonic()
+for n in range(k, len(job["requests"]), clients):
+    prompt, pods = job["requests"][n]
+    body = json.dumps({"prompt": prompt, "model": job["model"], "pods": pods}).encode()
+    t0 = time.monotonic()
+    conn.request("POST", "/score_completions", body=body,
+                 headers={"Content-Type": "application/json"})
+    response = conn.getresponse()
+    raw = response.read()
+    result["seconds"][n] = time.monotonic() - t0
+    if response.status != 200:
+        sys.exit(f"request {n}: HTTP {response.status}: {raw[:300]!r}")
+    result["scores"][n] = json.loads(raw)
+result["end"] = time.monotonic()
+conn.close()
+with open(out, "w") as handle:
+    json.dump(result, handle)
+"""
+
+
+def client_processes(server, requests, clients: int, root: str):
+    """``requests`` ((prompt, pods) pairs) split over ``clients`` client
+    processes, each with its own keep-alive connection, let go together
+    once every one has connected: (scores in request order, each
+    request's seconds, the seconds from the first send to the last
+    answer)."""
+    job = os.path.join(root, "requests.json")
+    with open(job, "w") as handle:
+        json.dump({"model": MODEL_NAME, "requests": requests}, handle)
+    outs = [os.path.join(root, f"client-{k}.json") for k in range(clients)]
+    procs = []
+    try:
+        for k in range(clients):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CLIENT_SCRIPT, str(server.server_address[1]), job,
+                 str(k), str(clients), outs[k]],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True))
+        for k, proc in enumerate(procs):
+            if proc.stdout.readline().strip() != "ready":
+                raise AssertionError(f"14d: client process {k} did not connect")
+        for proc in procs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        for k, proc in enumerate(procs):
+            if proc.wait(timeout=600) != 0:
+                raise AssertionError(f"14d: client process {k} exited {proc.returncode}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdin.close()
+            proc.stdout.close()
+    scores, latencies, spans = [None] * len(requests), [None] * len(requests), []
+    for out in outs:
+        with open(out) as handle:
+            result = json.load(handle)
+        for n, value in result["scores"].items():
+            scores[int(n)] = value
+            latencies[int(n)] = result["seconds"][n]
+        spans.append((result["start"], result["end"]))
+    return scores, latencies, max(end for _, end in spans) - min(start for start, _ in spans)
+
+
+def service_phase(smi: str, fleet, traffic) -> dict:
+    """Phase 14d: phase 13's fleet and traffic through the port's HTTP
+    service with its observability plane wired in (an SLO engine, the
+    sampling profiler, a gauge timeline, input capture and an incident
+    manager), on the host; the incident's capture replayed, and the
+    what-if engine's reference A/B."""
+    obs, service = port("obs"), port("api.http_service")
+    kv = port("kvevents.pool")
+    block, pods = traffic["block"], traffic["pods"]
+    frames = phase13_frames(fleet, traffic)
+    out = {"card": smi, "frames": sum(map(len, frames.values())), "clients": SERVICE_CLIENTS}
+    capture = obs.InputCaptureRecorder(
+        obs.CaptureConfig(window_s=3600.0, max_bytes=CAPTURE_MAX_BYTES),
+        meta={"block_size": block, "hash_seed": "0", "model": MODEL_NAME})
+    profiler = obs.SamplingProfiler(obs.ProfilerConfig(hz=SERVICE_PROFILE_HZ))
+    root = tempfile.mkdtemp(prefix="kv-incidents-")
+    indexer = read_path_indexer(True, True, block, capture=capture)
+    pool = kv.Pool(indexer.kv_block_index, indexer.token_processor, kv.PoolConfig(),
+                   capture=capture)
+    timeline = obs.GaugeTimeline(window_s=600)
+    slo, server = None, None
+    try:
+        profiler.start()
+        pool.start()
+        sink = EventSink(pool)
+        t0 = time.perf_counter()
+        feed([sink], frames)
+        pool.drain()
+        seed_s = time.perf_counter() - t0
+        if index_entries(indexer.kv_block_index) != traffic["entries"]:
+            raise AssertionError("14d: the captured index's entries differ from phase 13's")
+        obs.register_default_series(timeline, pool=pool)
+        timeline.start()
+        slo = obs.default_fleet_slos(window_fast_s=10.0, window_slow_s=60.0, pool=pool)
+        slo.start(1.0)
+        incidents = obs.IncidentManager(
+            root, capture=capture, index=indexer.kv_block_index, min_interval_s=0.0,
+            sources={"profile": lambda: profiler.status(top=20),
+                     "slo": lambda: slo.last_payload() or {"no_data": True}})
+        server = service.serve(
+            indexer, host="127.0.0.1", port=0, slo=slo, profiler=profiler, timeline=timeline,
+            capture=capture, incidents=incidents, event_plane_status=lambda: {
+                "pollers": 0, "subscriptions": len(sink.trackers), "stages": pool.stage_stats()})
+        print(f"  on {smi}: a fresh fast-lane Indexer with the port's InputCaptureRecorder "
+              f"tapped into it and its event pool, seeded from phase 13's {out['frames']} "
+              f"frames in {seed_s:.2f} s (its entries phase 13's), behind serve() with an SLO "
+              f"engine, the sampling profiler ({SERVICE_PROFILE_HZ:.0f} Hz), a gauge timeline "
+              f"and an incident manager", flush=True)
+
+        # Phase 13's requests in its order over one keep-alive connection,
+        # each with the server's own time in it: the handler's call of
+        # get_pod_scores (capture recording included), timed around it.
+        server_s, scoring = [], indexer.get_pod_scores
+
+        def timed_scoring(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return scoring(*args, **kwargs)
+            finally:
+                server_s.append(time.perf_counter() - t0)
+
+        indexer.get_pod_scores = timed_scoring
+        client = HttpClient(server)
+        try:
+            got, latencies, inside = {}, {}, {}
+            for workload, i, prompt, timed in phase13_requests(traffic):
+                t0 = time.perf_counter()
+                got.setdefault(workload, []).append(client.ok(
+                    "POST", "/score_completions",
+                    {"prompt": prompt, "model": MODEL_NAME, "pods": pods}))
+                if timed:
+                    latencies.setdefault(workload, []).append(time.perf_counter() - t0)
+                    inside.setdefault(workload, []).append(server_s[-1])
+        finally:
+            client.close()
+            del indexer.get_pod_scores  # the class's method again
+        bad = score_mismatches(got, traffic)
+        if bad:
+            raise AssertionError(f"14d: {len(bad)} requests over HTTP score unlike phase 13's, "
+                                 f"e.g. {bad[:2]}")
+        if len(server_s) != sum(map(len, got.values())):
+            raise AssertionError(f"14d: {len(server_s)} scoring calls in the server for "
+                                 f"{sum(map(len, got.values()))} requests")
+        cells = {w: {"requests": len(lat), "p50_ms": percentile_ms(lat, 50),
+                     "p99_ms": percentile_ms(lat, 99),
+                     "server_p50_ms": percentile_ms(inside[w], 50),
+                     "server_p99_ms": percentile_ms(inside[w], 99),
+                     "outside_p50_ms": percentile_ms(
+                         [a - b for a, b in zip(lat, inside[w])], 50),
+                     "in_process_p50_ms": traffic["cells"][w]["p50_ms"],
+                     "in_process_p99_ms": traffic["cells"][w]["p99_ms"]}
+                 for w, lat in latencies.items()}
+        out["sequential"] = cells
+        print(f"  phase 13's {sum(map(len, got.values()))} requests in its order by POST "
+              f"/score_completions over one keep-alive connection, each response equal to "
+              f"phase 13's fast lane's: " + "; ".join(
+                  f"{w} p50 {c['p50_ms']:.3f} ms p99 {c['p99_ms']:.3f} ms, of which the "
+                  f"server's get_pod_scores p50 {c['server_p50_ms']:.3f} p99 "
+                  f"{c['server_p99_ms']:.3f} ms and the rest (HTTP, JSON, handler) p50 "
+                  f"{c['outside_p50_ms']:.3f} ms (phase 13 in-process "
+                  f"{c['in_process_p50_ms']:.3f} / {c['in_process_p99_ms']:.3f} ms)"
+                  for w, c in cells.items()), flush=True)
+
+        # The incident right after phase 13's requests: its capture holds
+        # every frame and every one of those requests.
+        client = HttpClient(server)
+        try:
+            t0 = time.perf_counter()
+            manifest = client.ok("POST", "/admin/incident", {"reason": "phase 14d"})
+            incident_s = time.perf_counter() - t0
+            detail = client.ok("GET", f"/debug/incidents/{manifest['id']}")
+        finally:
+            client.close()
+        path = os.path.join(root, manifest["id"], "capture.cbor")
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        artifact = obs.load_capture(path)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report = obs.replay_capture(artifact, mode="single")
+        replay_s = time.perf_counter() - t0
+        records = len(artifact["records"])
+        scored = sum(1 for record in artifact["records"] if record[0] == 1)
+        out["incident"] = {"id": manifest["id"], "files": manifest["files"],
+                           "bundle_ms": incident_s * 1e3, "capture_bytes": size,
+                           "truncated": artifact["truncated"], "records": records,
+                           "scores": scored, "load_ms": load_s * 1e3,
+                           "replay_ms": replay_s * 1e3, "replay_records_per_s": records / replay_s,
+                           "replay": report.to_dict()}
+        print(f"  POST /admin/incident: bundle {manifest['id']} ({manifest['files']}, "
+              f"{len(detail['inventory'])} files) in {incident_s * 1e3:.0f} ms; capture.cbor "
+              f"{size} bytes, {records} records ({scored} scoring requests), truncated "
+              f"{artifact['truncated']}; load_capture {load_s * 1e3:.0f} ms, "
+              f"replay_capture(single) {replay_s * 1e3:.0f} ms ({records / replay_s:.0f} "
+              f"records/s): {report.scores_compared} scores and the index state compared, "
+              f"ok {report.ok}", flush=True)
+        want_scored = sum(map(len, got.values()))
+        if artifact["truncated"] or scored != want_scored:
+            raise AssertionError(f"14d: the capture holds {scored} of {want_scored} scoring "
+                                 f"requests, truncated {artifact['truncated']}")
+        if not report.ok or report.scores_compared != scored or not report.state_compared:
+            raise AssertionError(f"14d: the incident's replay {report.to_dict()}")
+        del artifact
+
+        # The timed requests again from concurrent clients: every prompt's
+        # answer is then the one phase 13 gave it once its store was warm.
+        steady = {}
+        for workload, i, prompt, timed in phase13_requests(traffic):
+            if timed:
+                steady[prompt] = traffic["scores"][workload][i]
+        requests = [(prompt, pods) for workload, i, prompt, timed in phase13_requests(traffic)
+                    if timed]
+        # Each client on its own keep-alive connection: one client process,
+        # then SERVICE_CLIENTS processes (the service's own rate), then as
+        # many threads of this process (which share its interpreter).
+        out["clients"] = {}
+        for what, drive in (
+                ("1 process", lambda: client_processes(server, requests, 1, root)),
+                (f"{SERVICE_CLIENTS} processes",
+                 lambda: client_processes(server, requests, SERVICE_CLIENTS, root)),
+                (f"{SERVICE_CLIENTS} threads of this process",
+                 lambda: concurrent_requests(server, requests, SERVICE_CLIENTS))):
+            scores, lat, wall = drive()
+            wrong = [n for n, (prompt, _) in enumerate(requests) if scores[n] != steady[prompt]]
+            if wrong:
+                raise AssertionError(f"14d: {len(wrong)} responses to {what} differ from "
+                                     f"phase 13's, e.g. request {wrong[0]}: {scores[wrong[0]]}")
+            row = out["clients"][what] = {
+                "requests": len(requests), "requests_per_s": len(requests) / wall,
+                "p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99)}
+            print(f"  the {len(requests)} timed requests again from {what}, each client on "
+                  f"its own keep-alive connection: {row['requests_per_s']:.1f} requests/s "
+                  f"(first send to last answer), p50 {row['p50_ms']:.3f} ms, p99 "
+                  f"{row['p99_ms']:.3f} ms, every response equal to phase 13's", flush=True)
+
+        client = HttpClient(server)
+        try:
+            surfaces = client.ok("GET", "/debug/")
+            slo_view = client.ok("GET", "/debug/slo")
+            profile = client.ok("GET", "/debug/profile")
+            timeline_view = client.ok("GET", "/debug/timeline?series=score_requests_total")
+            enabled = sorted(v["path"] for v in surfaces["surfaces"] if v["enabled"])
+            roles = profile["roles"]
+            missing = [role for role in SERVICE_ROLES if not roles.get(role)]
+            print(f"  GET /debug/ lists {enabled} enabled; /debug/slo state "
+                  f"{slo_view.get('state')}; /debug/profile {profile['samples']} samples, "
+                  f"{profile['attributed_fraction']:.3f} attributed, roles {roles}; "
+                  f"/debug/timeline score_requests_total "
+                  f"{len(timeline_view['series'].get('score_requests_total', {}).get('points', []))}"
+                  f" points", flush=True)
+            if missing:
+                raise AssertionError(f"14d: /debug/profile attributes no samples to {missing}")
+        finally:
+            client.close()
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if slo is not None:
+            slo.close()
+        timeline.close()
+        profiler.close()
+        pool.shutdown()
+        indexer.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+    whatif = port("obs.whatif")
+    t0 = time.perf_counter()
+    live = whatif.gate_headlines(whatif.reference_ab())
+    ab_s = time.perf_counter() - t0
+    with open(WHATIF_BASELINE) as handle:
+        recorded = json.load(handle)["headlines"]
+    out["whatif"] = {"headlines": live, "seconds": ab_s}
+    print(f"  the port's reference_ab() over {whatif.reference_capture_path()} in "
+          f"{ab_s:.2f} s: gate_headlines {live}, WHATIF_r01.json's {recorded}", flush=True)
+    if live != recorded:
+        raise AssertionError(f"14d: reference_ab's headlines {live}, recorded {recorded}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4691,6 +5346,17 @@ def main() -> int:
     offload_inputs = serve.pop("offload_inputs")
     sharded_inputs = serve.pop("sharded_inputs")
     tiering_inputs = serve.pop("tiering_inputs")
+    http_inputs = serve.pop("http_inputs")
+    torch.cuda.empty_cache()
+
+    phase("5c. serving through the service: request C by POST /score_completions, "
+          "continued and decoded on pod-a")
+    try:
+        served_http = serving_http(torch, params, cfg, http_inputs)
+    except BaseException:
+        tiering_inputs["scorer"].shutdown()
+        raise
+    del http_inputs
     torch.cuda.empty_cache()
 
     phase(f"6. ring prefill: forward(sp_mesh=sp {RING_SP} on one card) over "
@@ -4768,6 +5434,11 @@ def main() -> int:
           f"replicas, one killed mid-traffic, a purge replayed")
     print(f"  host before phase 14c: {host_state()}", flush=True)
     clustered = cluster_phase(smi, fleet, traffic)
+
+    phase(f"14d. service: phase 13's fleet and traffic through serve() with the "
+          f"observability plane, {SERVICE_CLIENTS} clients, an incident replayed, what-if")
+    print(f"  host before phase 14d: {host_state()}", flush=True)
+    serviced = service_phase(smi, fleet, traffic)
     del fleet, traffic
 
     phase("15. kernels")
@@ -4780,8 +5451,10 @@ def main() -> int:
             launches=(serve["launches"]["flash_prefill"] + moe_run["launches"]["flash_prefill"]
                       + tp_serving["launches"]["flash_prefill"]
                       + tp_moe["launches"]["flash_prefill"]
-                      + tiered["launches"]["flash_prefill"]),
+                      + tiered["launches"]["flash_prefill"]
+                      + served_http["launches"]["flash_prefill"]),
             launches_by_path={"llama_serving": serve["launches"]["flash_prefill"],
+                              "llama_serving_http": served_http["launches"]["flash_prefill"],
                               "llama_tiering_transfer": tiered["launches"]["flash_prefill"],
                               "moe_forward": moe_run["launches"]["flash_prefill"],
                               "llama_serving_tp": tp_serving["launches"]["flash_prefill"],
@@ -4797,8 +5470,10 @@ def main() -> int:
             route="cuda",
             source="llm_d_kv_cache_manager_tpu_torch/csrc/paged_decode.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/paged_decode_pallas.py:40",
-            launches=serve["launches"]["paged_decode"] + tp_serving["launches"]["paged_decode"],
+            launches=(serve["launches"]["paged_decode"] + tp_serving["launches"]["paged_decode"]
+                      + served_http["launches"]["paged_decode"]),
             launches_by_path={"llama_serving": serve["launches"]["paged_decode"],
+                              "llama_serving_http": served_http["launches"]["paged_decode"],
                               "llama_serving_tp": tp_serving["launches"]["paged_decode"]},
             **{k: decode_serving[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms", "eager_ms", "tflops",
@@ -4836,11 +5511,13 @@ def main() -> int:
     moe_summary = {k: v for k, v in moe_run.items() if k != "launches"}
     sharded = {"tp_serving": tp_serving, "tp_sp_ring": tp_ring, "moe": tp_moe, **sharded_train}
     tiering_summary = {k: v for k, v in tiered.items() if k != "launches"}
-    print(json.dumps({"serving": summary, "ring_prefill": ring_summary, "offload": offloaded,
+    http_summary = {k: v for k, v in served_http.items() if k != "launches"}
+    print(json.dumps({"serving": summary, "serving_http": http_summary,
+                      "ring_prefill": ring_summary, "offload": offloaded,
                       "tiering": tiering_summary,
                       "autograd_guard": guard, "training": trained, "moe": moe_summary,
                       "sharded": sharded, "read_path": read, "write_path": write,
-                      "persistence": persisted, "cluster": clustered,
+                      "persistence": persisted, "cluster": clustered, "service": serviced,
                       "layers": LAYERS, "phase_seconds": PHASE_SECONDS,
                       "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)

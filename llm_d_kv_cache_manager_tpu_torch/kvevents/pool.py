@@ -74,10 +74,9 @@ pod suspect forever); a shutdown drop reports failure to the waiter.
 
 Copied from the JAX reference's ``kvevents/pool.py``.  ``journal=`` takes
 the port's ``persistence.Journal`` (``record_add``, ``record_evict``,
-``record_purge``), as the reference's takes its own.  The port has no
-``obs/capture`` yet: the capture hook stays duck-typed, and the pool calls
-``record_admitted_messages`` and ``record_kvevents_batch`` on whatever
-object it is given.
+``record_purge``), as the reference's takes its own.  ``capture=`` (or
+:meth:`Pool.set_capture`) takes the port's ``obs.capture.InputCaptureRecorder``:
+the pool calls its ``record_admitted_messages`` and ``record_kvevents_batch``.
 """
 
 from __future__ import annotations

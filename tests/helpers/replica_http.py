@@ -1,8 +1,9 @@
 """A loopback ``POST /replica`` server for the cluster tests.
 
-The JAX package serves a replica's wire endpoint from its HTTP service
-(``api/http_service.py``); the port has no HTTP service yet.  This stdlib
-``http.server`` stands in for it in the tests: each request body goes to
+Each package serves a replica's wire endpoint from its HTTP service
+(``api/http_service.py``).  This stdlib ``http.server`` is the transport's
+counterpart without the service, so the transport's cases test it alone:
+each request body goes to
 ``replica.handle_wire`` and its bytes come back as the response, so an
 ``HttpReplicaTransport`` talks to a real socket on 127.0.0.1.
 """

@@ -8,11 +8,15 @@ phases 8-11's model FLOP count of a train step, expert-pick
 comparison, nested-state walks, byte totals and comparisons, and phase
 12's launch counts per shard, shard-slice comparison and the planted
 faults of the sharded training check; phase 7b's helpers and the whole
-phase on CPU pools at a small configuration."""
+phase on CPU pools at a small configuration; phases 5c and 14d (the HTTP
+service) whole at a small size, with a planted fault for 14d."""
 
 import inspect
+import json
 import pathlib
 import runpy
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -856,3 +860,132 @@ def test_cluster_phase_at_a_small_size(monkeypatch):
     assert {"rpc_ewma_us", "armed"} <= set(out["rpc"]["fanout"])
     with pytest.raises(AssertionError, match="score unlike"):
         smoke["cluster_phase"]("cpu", fleet, traffic, stale=True, catch_up_s=60.0)
+
+
+# ------------------------------------------------------ phases 5c and 14d
+
+
+def test_padded_words_fill_whole_store_chunks_and_keep_the_ids():
+    tokenizer = smoke["WordTokenizer"]()
+    for tokens in ([7], [1, 22, 333], list(range(1, 500, 7))):
+        text = smoke["padded_words"](tokens)
+        assert len(text.encode()) % smoke["STORE_CHUNK_BYTES"] == 0
+        assert tokenizer.encode(text, "m", False).tokens == tokens
+        assert all(word[1] == "0" for word in text.split(" "))
+        served, in_full = smoke["store_served_tokens"](text, text)
+        assert served == tokens and not in_full
+
+
+def _tiny_http_inputs():
+    """Phase 5's state at a small size on the CPU: pod-a served A (a miss)
+    routed by an Indexer whose blocks arrive as the pods' events."""
+    llama, index_mod = port("models.llama"), port("kvcache.kvblock.index")
+    im, tp, sched = (port("kvcache.indexer"), port("kvcache.kvblock.token_processor"),
+                     port("scheduler.precise_scorer"))
+    cfg = llama.LlamaConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=96, dtype="float32")
+    bs, model = cfg.block_size, smoke["MODEL_NAME"]
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pods = [smoke["SimPod"](f"pod-{n}", cfg, 64, device="cpu") for n in "ab"]
+    pod_a = pods[0]
+    indexer = im.Indexer(im.IndexerConfig(
+        token_processor_config=tp.TokenProcessorConfig(block_size=bs, hash_seed="0")),
+        tokenizer=smoke["WordTokenizer"]())
+    scorer = sched.PrecisePrefixCacheScorer(
+        sched.PrecisePrefixCacheScorerConfig(discover_pods=False), indexer=indexer)
+    sink = smoke["EventSink"](scorer.events_pool)
+    rng = np.random.default_rng(0)
+    prefix = [int(x) for x in rng.integers(1, cfg.vocab_size, 16 * bs)]
+    prompt_a = prefix + [int(x) for x in rng.integers(1, cfg.vocab_size, bs)]
+    indexer.get_pod_scores(smoke["words"](prompt_a), model, ["pod-a", "pod-b"])
+    keys = indexer.token_processor.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH, prompt_a,
+                                                           model)
+    ids, evicted = pod_a.alloc(len(keys))
+    llama.prefill_paged(params, torch.tensor([prompt_a]), pod_a.pool.kv,
+                        torch.tensor([ids], dtype=torch.int32), cfg)
+    pod_a.commit(keys, ids)
+    sink.deliver(pod_a.name, [pod_a.events.publish(keys, prompt_a, 0, evicted, bs)])
+    scorer.events_pool.drain()
+    return params, cfg, dict(scorer=scorer, sink=sink, indexer=indexer, pods=pods, prefix=prefix,
+                             route_hit_ms=1.0, ttft_hit_ms=2.0)
+
+
+def test_serving_http_at_a_small_size():
+    """Phase 5c end to end on CPU pools: C over HTTP scores as in-process
+    (pod-a's 16 prefix blocks), pod-a continues and decodes it, and after
+    its events C's second score over HTTP counts its 16 new blocks; the
+    trace holds the reference's span tree and /metrics the three lookups;
+    every decode call was held against the plain version."""
+    params, cfg, t = _tiny_http_inputs()
+    try:
+        out = smoke["serving_http"](torch, params, cfg, t)
+    finally:
+        t["scorer"].shutdown()
+    assert out["scores"] == {"pod-a": 16.0, "pod-b": 0.0}
+    assert out["rescored"] == {"pod-a": 32.0, "pod-b": 0.0}
+    assert out["lookups"] == 3 and len(out["decoded"]) == 5
+    assert out["spans"]["tokenize.encode"] == "tokenize"
+    # On CPU tensors the wrappers run their plain versions and count
+    # nothing, and the prefill takes the tiled op, not the wrapper.
+    assert out["launches"] == {"flash_prefill": 0, "paged_decode": 0}
+    assert out["held"]["flash_prefill"] == {"calls": 0}
+    assert out["held"]["paged_decode"]["calls"] == smoke["HTTP_DECODE_STEPS"] * cfg.n_layers
+    assert out["held"]["paged_decode"]["max_abs_err"] == 0.0
+
+
+def test_serving_http_rejects_a_decode_call_unlike_the_plain_version(monkeypatch):
+    """A planted fault: the decode wrapper the model calls returns its
+    output scaled by 1.05 at C's batch of one; 5c's hold must reject it,
+    and the service's threads stop on the way out."""
+    llama = port("models.llama")
+    wrapper = llama.paged_decode_attention_cuda
+    monkeypatch.setattr(llama, "paged_decode_attention_cuda",
+                        lambda *args: wrapper(*args) * 1.05)
+    params, cfg, t = _tiny_http_inputs()
+    before = {thread.name for thread in threading.enumerate()}
+    try:
+        with pytest.raises(AssertionError, match="decode kernel: an output is past its limit"):
+            smoke["serving_http"](torch, params, cfg, t)
+    finally:
+        t["scorer"].shutdown()
+    time.sleep(0.5)
+    left = {thread.name for thread in threading.enumerate() if thread.is_alive()} - before
+    assert not [name for name in left if name.startswith("kvtpu-")], left
+
+
+def test_service_phase_at_a_small_size(monkeypatch):
+    """Phase 14d end to end at a small size: every response over HTTP (one
+    connection, then four concurrent clients) equals phase 13's, the
+    incident's capture holds every request and replays clean, the debug
+    surfaces answer with the handler and event roles profiled, and the
+    port's reference A/B gives WHATIF_r01.json's headlines."""
+    fleet, traffic = small_fleet(monkeypatch)
+    out = smoke["service_phase"]("cpu", fleet, traffic)
+    n = sum(len(traffic["scores"][w]) for w in traffic["scores"])
+    incident = out["incident"]
+    assert incident["truncated"] == [] and incident["scores"] == n
+    assert incident["replay"]["ok"] and incident["replay"]["state_compared"]
+    assert incident["files"] == ["capture.cbor", "profile.json", "slo.json"]
+    assert set(out["sequential"]) == set(traffic["scores"])
+    for cell in out["sequential"].values():  # the server's time lies inside the round trip
+        assert 0 < cell["server_p50_ms"] <= cell["p50_ms"] and cell["outside_p50_ms"] > 0
+    assert set(out["clients"]) == {"1 process", "4 processes", "4 threads of this process"}
+    assert all(row["requests"] == sum(c["requests"] for c in out["sequential"].values())
+               for row in out["clients"].values())
+    assert out["whatif"]["headlines"] == json.loads(
+        (REPO / "WHATIF_r01.json").read_text())["headlines"]
+
+
+def test_service_phase_rejects_an_answer_unlike_phase_13s(monkeypatch):
+    """A planted fault: phase 13's recorded scores for one request changed;
+    14d's gate must name the request over HTTP that now differs, and stop
+    its server and threads on the way out."""
+    fleet, traffic = small_fleet(monkeypatch)
+    workload = next(iter(traffic["scores"]))
+    traffic["scores"][workload][0] = dict.fromkeys(traffic["pods"], 9.0)
+    before = {t.name for t in threading.enumerate()}
+    with pytest.raises(AssertionError, match="score unlike phase 13's"):
+        smoke["service_phase"]("cpu", fleet, traffic)
+    time.sleep(0.5)
+    left = {t.name for t in threading.enumerate() if t.is_alive()} - before
+    assert not [name for name in left if name.startswith("kvtpu-")], left

@@ -7,23 +7,27 @@ processes and moves about 1/N of the keys on a membership change, a killed
 replica's slice fails over warm to its journal-fed follower, purges are
 never resurrected by replay, the event pool routes admissions to slice
 owners, and a 3-replica cluster scores bit-identically to one
-``InMemoryIndex``.  The replica endpoint is a stdlib HTTP server on the
-loopback (``tests/helpers/replica_http.py``) until the port has its HTTP
-service.  Then the two packages against each other, exactly: ring owners,
+``InMemoryIndex``.  The replica endpoint is each package's own HTTP
+service (``api.http_service.serve(replica=...)``) and, for the transport
+alone, a stdlib server on the loopback (``tests/helpers/replica_http.py``).
+Then the two packages against each other, exactly: ring owners,
 wire frames both ways, and a port cluster's scores against the
 reference's single index before and after a failover and a purge.
 """
 
 import itertools
+import json
 import random
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 import pytest
 
 from llm_d_kv_cache_manager_tpu import cluster as ref_cluster
+from llm_d_kv_cache_manager_tpu.api import http_service as ref_http_service
 from llm_d_kv_cache_manager_tpu.cluster import replica as ref_replica
 from llm_d_kv_cache_manager_tpu.cluster import replication as ref_replication
 from llm_d_kv_cache_manager_tpu.cluster import ring as ref_ring
@@ -42,6 +46,7 @@ from tests.helpers.torch_port import PACKAGE, namespace, port
 SIDES = ("ref", "port")
 PACKAGES = {"ref": "llm_d_kv_cache_manager_tpu", "port": PACKAGE}
 _REF = {
+    "api.http_service": ref_http_service,
     "cluster": ref_cluster,
     "cluster.replica": ref_replica,
     "cluster.replication": ref_replication,
@@ -56,6 +61,7 @@ _REF = {
     "tokenization.tokenizers": ref_tokenizers,
 }
 _NAMES = {
+    "api.http_service": ("serve",),
     "cluster": ("ClusterMembership", "HeartbeatMonitor", "LocalCluster", "RemoteIndex"),
     "cluster.replica": ("ClusterReplica", "HttpReplicaTransport", "LocalReplicaTransport",
                         "ReplicaError", "ReplicaUnavailable", "encode_request",
@@ -727,6 +733,58 @@ class TestWireAndHttp:
             remote.close()
         finally:
             server.close()
+
+    def test_http_replica_endpoint_with_token_gate(self, m):
+        """The server half: the package's own ``serve(replica=...)``
+        answers ``POST /replica`` behind the admin token and reports the
+        cluster role on ``/debug/cluster``."""
+        indexer = m.Indexer(m.IndexerConfig(cache_stats=False), tokenizer=WordTokenizer(m))
+        replica = m.ClusterReplica("r0", index=indexer.kv_block_index)
+        server = m.serve(
+            indexer,
+            host="127.0.0.1",
+            port=0,
+            admin_token="secret",
+            replica=replica,
+            cluster_status=lambda: {"role": "replica", "replica": "r0"},
+        )
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            good = m.HttpReplicaTransport(url, token="secret")
+            assert good.call("ping", []) == "r0"
+            good.call("add", [[1], [11], [["pod-a", "hbm"]]])
+            assert good.call("get_request_key", [1]) == [1, 11]
+
+            bad = m.HttpReplicaTransport(url)
+            with pytest.raises(m.ReplicaUnavailable):
+                bad.call("ping", [])  # 403 without the token
+
+            with urllib.request.urlopen(f"{url}/debug/cluster", timeout=30) as response:
+                payload = json.load(response)
+            assert payload["role"] == "replica"
+        finally:
+            server.shutdown()
+            server.server_close()
+            indexer.shutdown()
+
+    def test_remote_index_over_http_transport_to_the_service(self, m):
+        indexer = m.Indexer(m.IndexerConfig(cache_stats=False), tokenizer=WordTokenizer(m))
+        replica = m.ClusterReplica("r0", index=indexer.kv_block_index)
+        server = m.serve(indexer, host="127.0.0.1", port=0, replica=replica)
+        try:
+            membership = m.ClusterMembership(
+                {"r0": m.HttpReplicaTransport(f"http://127.0.0.1:{server.server_address[1]}")}
+            )
+            remote = m.RemoteIndex(membership)
+            remote.add([1, 2], [11, 12], [m.POD_A])
+            assert len(remote.lookup_chain([11, 12])) == 2
+            remote.evict(1, [m.POD_A])
+            assert remote.lookup([11, 12]).get(11) is None
+            remote.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+            indexer.shutdown()
 
 
 class TestDebugClusterRouterPayload:

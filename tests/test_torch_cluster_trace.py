@@ -1,7 +1,8 @@
 """Cross-replica trace stitching of the JAX package's
 ``tests/test_cluster_trace.py`` on both packages, on the CPU: traceparent
 round trips over the strict-wire codec and an HTTP transport on the
-loopback (a stdlib server around ``ClusterReplica.handle_wire``,
+loopback (to each package's own ``serve(replica=...)``, and to a stdlib
+server around ``ClusterReplica.handle_wire``,
 ``tests/helpers/replica_http.py``), killed-replica retries visible as
 re-routed spans, error-kind classification, and the piggyback knobs.
 ``m`` is either package's names; each case holds both to the reference's
@@ -13,6 +14,7 @@ import threading
 import pytest
 
 from llm_d_kv_cache_manager_tpu import cluster as ref_cluster
+from llm_d_kv_cache_manager_tpu.api import http_service as ref_http_service
 from llm_d_kv_cache_manager_tpu.cluster import membership as ref_membership
 from llm_d_kv_cache_manager_tpu.cluster import remote_index as ref_remote_index
 from llm_d_kv_cache_manager_tpu.cluster import replica as ref_replica
@@ -22,6 +24,7 @@ from llm_d_kv_cache_manager_tpu.kvcache.kvblock import token_processor as ref_to
 from llm_d_kv_cache_manager_tpu.kvevents import events as ref_events
 from llm_d_kv_cache_manager_tpu.kvevents import pool as ref_pool
 from llm_d_kv_cache_manager_tpu.metrics import collector as ref_collector
+from llm_d_kv_cache_manager_tpu.obs import slo as ref_slo
 from llm_d_kv_cache_manager_tpu.obs import trace as ref_trace
 from llm_d_kv_cache_manager_tpu.tokenization import tokenizers as ref_tokenizers
 from tests.helpers.replica_http import ReplicaHttpServer
@@ -29,6 +32,7 @@ from tests.helpers.torch_port import namespace
 
 SIDES = ("ref", "port")
 _REF = {
+    "api.http_service": ref_http_service,
     "cluster": ref_cluster,
     "cluster.membership": ref_membership,
     "cluster.remote_index": ref_remote_index,
@@ -39,10 +43,12 @@ _REF = {
     "kvevents.events": ref_events,
     "kvevents.pool": ref_pool,
     "metrics.collector": ref_collector,
+    "obs.slo": ref_slo,
     "obs.trace": ref_trace,
     "tokenization.tokenizers": ref_tokenizers,
 }
 _NAMES = {
+    "api.http_service": ("serve",),
     "cluster": ("LocalCluster",),
     "cluster.membership": ("ClusterMembership",),
     "cluster.remote_index": ("RemoteIndex",),
@@ -55,6 +61,7 @@ _NAMES = {
     "kvevents.events": ("BlockStored", "EventBatch"),
     "kvevents.pool": ("Message", "Pool", "PoolConfig"),
     "metrics.collector": ("METRICS",),
+    "obs.slo": ("counter_label_total",),
     "obs.trace": ("TRACER", "use_trace"),
     "tokenization.tokenizers": ("Encoding",),
 }
@@ -85,20 +92,6 @@ class WordTokenizer:
             offsets.append((pos, pos + len(word)))
             pos += len(word) + 1
         return self._encoding(tokens=tokens, offsets=offsets)
-
-
-def counter_label_total(counter, **labels) -> float:
-    """Sum of a labeled counter's ``_total`` samples matching ``labels``
-    (the reference's ``obs.slo.counter_label_total``, which the port
-    does not have yet)."""
-    total = 0.0
-    for metric in counter.collect():
-        for sample in metric.samples:
-            if sample.name.endswith("_total") and all(
-                sample.labels.get(k) == v for k, v in labels.items()
-            ):
-                total += sample.value
-    return total
 
 
 def traced(m, fn):
@@ -343,6 +336,39 @@ class TestScoreParityUnderTracing:
 
 
 class TestHttpTransportStitching:
+    def _serve_replica(self, m, replica_id="r0"):
+        indexer = m.Indexer(m.IndexerConfig(cache_stats=False), tokenizer=WordTokenizer(m))
+        replica = m.ClusterReplica(replica_id, index=indexer.kv_block_index)
+        server = m.serve(indexer, host="127.0.0.1", port=0, replica=replica)
+        return indexer, server
+
+    def test_traceparent_round_trip_over_the_service(self, m):
+        """The reference's case: the replica behind the package's own
+        ``serve()``, its spans stitched into the router's trace."""
+        indexer, server = self._serve_replica(m)
+        port = server.server_address[1]
+        try:
+            membership = m.ClusterMembership(
+                {"r0": m.HttpReplicaTransport(f"http://127.0.0.1:{port}")}
+            )
+            remote = m.RemoteIndex(membership)
+            remote.add([1, 2], [11, 12], [m.POD_A])
+            trace = traced(m, lambda: remote.lookup([11, 12]))
+            rpcs = spans_named(trace, "cluster.rpc")
+            assert any(
+                s["attributes"]["method"] == "lookup" for s in rpcs
+            )
+            server_side = spans_named(trace, "replica.lookup")
+            assert server_side
+            assert all(
+                s["attributes"]["replica"] == "r0" for s in server_side
+            )
+            remote.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+            indexer.shutdown()
+
     def test_traceparent_round_trip_over_real_http(self, m):
         server = ReplicaHttpServer(m.ClusterReplica("r0"))
         try:
@@ -379,7 +405,6 @@ class TestHttpTransportStitching:
         assert info.value.kind == "killed"
 
     def test_http_failure_lands_in_error_metric_and_debug(self, m):
-
         alive = m.ClusterReplica("alive")
         membership = m.ClusterMembership(
             {
@@ -388,7 +413,7 @@ class TestHttpTransportStitching:
             }
         )
         remote = m.RemoteIndex(membership)
-        before = counter_label_total(
+        before = m.counter_label_total(
             m.METRICS.cluster_rpc_errors, replica="dead"
         )
         # Drive keys until one routes to the dead replica and fails
@@ -398,7 +423,7 @@ class TestHttpTransportStitching:
             if not membership.is_alive("dead"):
                 break
         assert not membership.is_alive("dead")
-        after = counter_label_total(
+        after = m.counter_label_total(
             m.METRICS.cluster_rpc_errors, replica="dead"
         )
         assert after > before

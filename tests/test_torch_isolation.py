@@ -50,7 +50,7 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
                  "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
     for name in (OFFLOAD_MODULES + READ_PATH_MODULES + WRITE_PATH_MODULES + TIERING_MODULES
-                 + PERSISTENCE_MODULES + CLUSTER_MODULES):
+                 + PERSISTENCE_MODULES + CLUSTER_MODULES + SERVICE_MODULES):
         assert f"{PACKAGE}.{name}" in result["modules"]
     assert result["loaded"] == []
 
@@ -88,6 +88,10 @@ PERSISTENCE_MODULES = (
 CLUSTER_MODULES = (
     "cluster", "cluster.ring", "cluster.replica", "cluster.membership", "cluster.replication",
     "cluster.remote_index", "cluster.ingest", "cluster.harness",
+)
+SERVICE_MODULES = (
+    "obs.profiler", "obs.timeline", "obs.slo", "obs.capture", "obs.replay", "obs.whatif", "api",
+    "api.http_service",
 )
 # What the H100's machine lacks (ROADMAP.md, rules of Queue A).
 ABSENT_ON_THE_CARD = ("prometheus_client", "xxhash", "tokenizers", "transformers", "msgpack",
@@ -392,6 +396,124 @@ print(json.dumps({{"live": found(live), "restored": found(restored),
     assert len(result["live"]) == 10
     assert result["restored"] == result["before"] == result["after"] == result["live"]
     assert (result["status"], result["ring_version"], result["blocked_loaded"]) == ("warm", 1, [])
+
+
+def test_service_serves_captures_and_replays_without_the_libraries_the_card_lacks():
+    """With the same libraries blocked, every module of the service and its
+    observability plane imports; ``serve()`` with an SLO engine, a sampling
+    profiler, a gauge timeline, a capture recorder and an incident manager
+    scores over HTTP a prompt whose blocks came through the event pool,
+    exposes its metrics, writes an incident bundle on ``POST
+    /admin/incident``, and the bundle's capture replays clean."""
+    script = f"""
+import importlib, json, os, sys, tempfile, urllib.request
+for name in {ABSENT_ON_THE_CARD!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+mod = lambda name: importlib.import_module({PACKAGE!r} + "." + name)
+for name in {SERVICE_MODULES!r}:
+    mod(name)
+im, tp, index, tokenizers = mod("kvcache.indexer"), mod("kvcache.kvblock.token_processor"), mod(
+    "kvcache.kvblock.index"), mod("tokenization.tokenizers")
+events, pool_mod, obs, service = mod("kvevents.events"), mod("kvevents.pool"), mod("obs"), mod(
+    "api.http_service")
+
+class Words:
+    def type(self):
+        return "word"
+    def encode(self, prompt, model_name, add_special_tokens):
+        words = prompt.split(" ")
+        ends = [sum(len(w) + 1 for w in words[:i + 1]) - 1 for i in range(len(words))]
+        return tokenizers.Encoding([int(w[1:]) for w in words],
+                                   [(e - len(w), e) for w, e in zip(words, ends)])
+
+capture = obs.InputCaptureRecorder(obs.CaptureConfig(window_s=600.0, max_bytes=1 << 20),
+                                   meta={{"block_size": 4, "hash_seed": "", "model": "m"}})
+indexer = im.Indexer(im.IndexerConfig(
+    token_processor_config=tp.TokenProcessorConfig(block_size=4, hash_seed=""),
+    kvblock_index_config=index.IndexConfig(enable_metrics=True)), tokenizer=Words(),
+    capture_recorder=capture)
+indexer.run()
+pool = pool_mod.Pool(indexer.kv_block_index, indexer.token_processor, pool_mod.PoolConfig(),
+                     capture=capture)
+pool.start()
+profiler = obs.SamplingProfiler(obs.ProfilerConfig(hz=50))
+profiler.start()
+timeline = obs.GaugeTimeline(window_s=60)
+obs.register_default_series(timeline, pool=pool)
+timeline.start()
+slo = obs.default_fleet_slos(window_fast_s=1.0, window_slow_s=2.0, pool=pool)
+incidents = obs.IncidentManager(tempfile.mkdtemp(), capture=capture,
+                                index=indexer.kv_block_index, min_interval_s=0.0)
+server = service.serve(indexer, host="127.0.0.1", port=0, slo=slo, profiler=profiler,
+                       timeline=timeline, capture=capture, incidents=incidents)
+base = "http://127.0.0.1:%d" % server.server_address[1]
+
+def call(path, body=None):
+    data = json.dumps(body).encode() if body is not None else None
+    request = urllib.request.Request(base + path, data=data,
+                                     headers={{"Content-Type": "application/json"}})
+    with urllib.request.urlopen(request, timeout=30) as response:
+        raw = response.read()
+        return json.loads(raw) if "json" in response.getheader("Content-Type") else raw
+
+try:
+    tokens = list(range(1, 41))
+    pool.add_task(pool_mod.Message(topic="kv@pod-a@m", payload=events.EventBatch(
+        ts=0.0, events=[events.BlockStored(block_hashes=list(range(100, 110)),
+                                           parent_block_hash=None, token_ids=tokens,
+                                           block_size=4, medium="hbm")]).encode(),
+        pod_identifier="pod-a", model_name="m", seq=1))
+    pool.drain()
+    prompt = " ".join(f"t{{t}}" for t in tokens)
+    scores = call("/score_completions", {{"prompt": prompt, "model": "m"}})
+    health = call("/healthz")
+    metrics = call("/metrics").decode()
+    manifest = call("/admin/incident", {{"reason": "isolation"}})
+    bundle = os.path.join(incidents.directory, manifest["id"], "capture.cbor")
+    report = obs.replay_capture(obs.load_capture(bundle), mode="single")
+    surfaces = [call(path) is not None for path in ("/debug/slo", "/debug/profile",
+                                                     "/debug/timeline", "/debug/incidents")]
+finally:
+    server.shutdown()
+    server.server_close()
+    profiler.close()
+    timeline.close()
+    pool.shutdown()
+    indexer.shutdown()
+blocked = sorted(n for n in {ABSENT_ON_THE_CARD!r} if sys.modules.get(n) is not None)
+print(json.dumps({{"scores": scores, "blocks": sorted(k for k in ("slo", "capture", "incidents")
+                                                     if k in health),
+                  "lookups": "kvtpu_kvcache_index_lookup_requests_total 1.0" in metrics,
+                  "replay": [report.ok, report.scores_compared, report.state_compared],
+                  "surfaces": surfaces, "blocked_loaded": blocked}}))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"scores": {"pod-a": 10.0}, "blocks": ["capture", "incidents", "slo"],
+                      "lookups": True, "replay": [True, 1, True], "surfaces": [True] * 4,
+                      "blocked_loaded": []}
+
+
+def test_obs_exports_the_references_names():
+    """The port's ``obs`` exports exactly the reference's ``__all__``, each
+    name the port's own object."""
+    import importlib
+
+    reference = importlib.import_module("llm_d_kv_cache_manager_tpu.obs")
+    ours = port("obs")
+    assert list(ours.__all__) == list(reference.__all__)
+    for name in ours.__all__:
+        value = getattr(ours, name)
+        owner = value if isinstance(value, type) or callable(value) and hasattr(
+            value, "__module__") else type(value)
+        assert owner.__module__.startswith(PACKAGE + "."), name
 
 
 @pytest.mark.parametrize("package", ["ops", "parallel"])

@@ -833,7 +833,10 @@ def test_pool_taps_equal_journals(tmp_path, monkeypatch):
     """One seeded stream of KV events (stores with parents, removals)
     through both packages' event pools with a ``Journal`` tapped in: the
     journal files are byte-equal with the clock pinned and the indexes'
-    ``dump_entries()`` are equal (exact)."""
+    ``dump_entries()`` are equal (exact).  Each message is applied before
+    the next is queued: the pool drains its per-pod lanes round-robin, so
+    a backlog (a loaded machine) would interleave the two pods' records
+    differently in each package's run."""
     rng = random.Random(11)
     stream = []
     for i in range(60):
@@ -860,7 +863,7 @@ def test_pool_taps_equal_journals(tmp_path, monkeypatch):
                 batch = m.EventBatch(ts=1.0, events=[event])
                 pool.add_task(m.Message(topic=f"kv@{pod}@m", payload=batch.encode(),
                                         pod_identifier=pod, model_name="m", seq=seq))
-            pool.drain()
+                pool.drain()
         finally:
             pool.shutdown()
             journal.close()
