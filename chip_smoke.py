@@ -34,7 +34,8 @@ Phases (any failure exits non-zero):
      the kernel/library ratio and the share of the bound; at
      the serving shapes the same limit must reject a planted fault (one
      key tile skipped);
-  3. decode kernel vs its plain version (the serving batch, B=4, B=16,
+  3. decode kernel vs its plain version (the serving batch, B=1 at the
+     context of 5c's and 7c's last decode step, B=4, B=16,
      shuffled tables, ragged contexts down to 1, sequences that end on
      and just past a CTA's run, one inside a run beside one cut over
      all, G = 1 and 2, tables wider than any context), likewise, the
@@ -99,6 +100,21 @@ Phases (any failure exits non-zero):
      tier, each time bit-equal to pod-a's blocks, and continues request B
      over them, which must give phase 5's hit logits; store, load and
      offload-hit TTFT timed, and the copies apart against their bounds;
+ 7c. the vLLM connector, right after phase 7: the port's
+     ``offload.vllm_spec.TPUSharedStorageOffloadingSpec`` built from
+     duck-typed vLLM config objects with the reference's documented
+     settings (256-token files, 8 threads a chip, 16 GB of staging); (i)
+     over the serving pool's own tensors, ``pool.kv[l]`` a layer (the
+     standard layout), pod-a's 512 prefix blocks stored as 32 files of
+     32 MiB and loaded into 512 zeroed blocks of pod-c (byte-equal,
+     ``manager.lookup`` finds 32), B continued there on the prefill
+     kernel (logits bit-equal to phase 5's hit) and decoded 2 steps on
+     the decode kernel, every call held against its plain version; (ii)
+     FlashAttention's split-KV layout, 32 tensors ``[2, 512, 16, 8,
+     128]`` on the card filled from pod-a's prefix (64 views), through a
+     round trip; both sets of files byte-equal to each other and to the
+     files written from a host copy; store and load walls, GB/s against
+     PCIe, the per-view copies counted, beside phase 7's connector;
  7b. tiering and transfer, over phase 5's Indexer and event pool and
      phase 7's pods: a ``PolicyEngine`` attached to the Indexer learns
      B's family from scored requests; a ``StagedDemotionTarget`` over
@@ -233,6 +249,16 @@ Phases (any failure exits non-zero):
      engine's ``reference_ab()`` over
      ``tests/testdata/whatif_reference.cbor``, its ``gate_headlines``
      equal to ``WHATIF_r01.json``'s;
+ 14e. gRPC, on the host, when ``grpc`` and ``google.protobuf`` import
+     (else it prints which cannot and runs nothing): phase 13's fleet
+     behind ``api.indexer_service.serve`` on a Unix socket, its requests
+     by ``GetPodScores`` in its order, every answer equal to phase 13's
+     (p50 and p99 beside in-process and 14d's HTTP); a sampled traceparent
+     echoed in the initial metadata and its trace recorded; the tokenizer
+     sidecar (``services.uds_tokenizer.serve``) with the word tokenizer
+     registered behind an Indexer built with ``uds_tokenizer_path``, which
+     scores a sample of phase 13's requests as the word-tokenizer Indexer
+     over the same index does;
  15. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
@@ -241,6 +267,7 @@ Usage, from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -260,6 +287,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 SEED = 0
 LAYERS = 32  # Llama-3-8B's full depth
@@ -1625,7 +1653,7 @@ def serving(torch, params, cfg):
         "decode_max_abs_err": dec_err,
         "offload_inputs": dict(pod_a=pod_a, prefix_ids=prefix_ids, prefix_kv=prefix_kv,
                                prompt_b=prompt_b, keys_b=b["keys"], logits_b=logits_b,
-                               first_b=first_b, hasher=hasher),
+                               first_b=first_b, hasher=hasher, decode_b1=step_logits[0][1:2]),
         "http_inputs": dict(scorer=scorer, sink=sink, indexer=indexer, pods=pods, prefix=prefix,
                             route_hit_ms=b["route_ms"], ttft_hit_ms=b["ttft_ms"]),
         "tiering_inputs": dict(scorer=scorer, indexer=indexer, pods=pods, prompt_a=prompt_a,
@@ -1696,8 +1724,8 @@ class HeldCalls:
     compare each output afterwards with the wrapper's plain version on the
     same inputs (those comparisons launch no kernel and count nothing)."""
 
-    def __init__(self, module, name: str, plain, kind: str) -> None:
-        self.module, self.name, self.plain, self.kind = module, name, plain, kind
+    def __init__(self, module, name: str, plain, kind: str, tag: str = "5c") -> None:
+        self.module, self.name, self.plain, self.kind, self.tag = module, name, plain, kind, tag
         self.wrapper = getattr(module, name)
         self.calls = []
 
@@ -1731,8 +1759,8 @@ class HeldCalls:
               f"inputs: max_abs_err {max(errs):.6g}, worst err/limit {max(worst):.4g} (limit "
               f"{limit}){'' if finite else ' NOT FINITE'}", flush=True)
         if not finite or not max(worst) <= 1.0:
-            raise AssertionError(f"5c: {what}: an output is past its limit ({max(worst)}) or "
-                                 f"not finite")
+            raise AssertionError(f"{self.tag}: {what}: an output is past its limit "
+                                 f"({max(worst)}) or not finite")
         return {"calls": len(self.calls), "max_abs_err": max(errs),
                 "worst_err_over_limit": max(worst), "limit": limit}
 
@@ -2456,6 +2484,349 @@ def offload(torch, params, cfg, peaks, served):
             # continuation on pod-c.
             "tiering_inputs": dict(pod_c=pod_c, one_shot_root=roots["one_shot"], hashes=hashes,
                                    ids_c=ids_c, table_c=table_c, suffix=suffix, bpf=bpf)}
+
+
+# -------------------------------------------------------------- phase 7c
+
+
+# The connector's kv_connector_extra_config: the reference's documented
+# settings (offload/vllm_spec.py's docstring), 256 tokens a file.
+VLLM_FILE_TOKENS = 256
+VLLM_THREADS = 8
+VLLM_STAGING_GB = 16.0
+VLLM_DECODE_STEPS = 2  # B's decode steps on pod-c after the load, eager
+
+
+class PoolLayerBackend:
+    """The attention backend vLLM would ask about one layer of a
+    ``KVCachePool``, ``pool.kv[l]``: the standard layout, K and V inside
+    each block."""
+
+    @staticmethod
+    def get_kv_cache_shape(num_blocks, block_size, num_kv_heads, head_size):
+        return (num_blocks, 2, block_size, num_kv_heads, head_size)
+
+
+class FlashAttentionBackend:
+    """vLLM FlashAttention's split-KV layout, K and V as the two halves."""
+
+    @staticmethod
+    def get_kv_cache_shape(num_blocks, block_size, num_kv_heads, head_size):
+        return (2, num_blocks, block_size, num_kv_heads, head_size)
+
+
+def vllm_config(root: str, cfg, file_tokens: int = VLLM_FILE_TOKENS):
+    """Duck-typed vLLM config objects (as tests/test_vllm_spec.py shapes
+    them) for one pod of ``cfg`` whose offloading connector writes under
+    ``root``."""
+    return SimpleNamespace(
+        cache_config=SimpleNamespace(block_size=cfg.block_size, cache_dtype="auto"),
+        model_config=SimpleNamespace(model=MODEL_NAME, dtype=cfg.dtype),
+        parallel_config=SimpleNamespace(tensor_parallel_size=1, pipeline_parallel_size=1,
+                                        prefill_context_parallel_size=1, rank=0, world_size=1),
+        kv_transfer_config=SimpleNamespace(kv_connector_extra_config={
+            "shared_storage_path": root, "block_size": file_tokens,
+            "threads_per_chip": VLLM_THREADS, "max_staging_memory_gb": VLLM_STAGING_GB}))
+
+
+class ViewCopies:
+    """While on, counts the vLLM connector's per-view copies between the
+    card and the host: each ``KVTensorView.read`` of a device tensor is
+    one gather and one pageable device-to-host copy, each ``write`` one
+    pageable host-to-device copy and one indexed write (host clock of
+    each, the copies synchronous).  It may be entered again: the counts
+    add up."""
+
+    def __init__(self, view_cls) -> None:
+        self.view_cls = view_cls
+        self.counts = {"d2h": 0, "h2d": 0}
+        self.seconds = {"d2h": 0.0, "h2d": 0.0}
+
+    def __enter__(self):
+        self.read, self.write = self.view_cls.read, self.view_cls.write
+        copies, read, write = self, self.read, self.write
+
+        def counted(kind, fn):
+            def run(view, *args):
+                t0 = time.perf_counter()
+                out = fn(view, *args)
+                if getattr(view.tensor, "is_cuda", False):
+                    copies.counts[kind] += 1
+                    copies.seconds[kind] += time.perf_counter() - t0
+                return out
+            return run
+
+        self.view_cls.read = counted("d2h", read)
+        self.view_cls.write = counted("h2d", write)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.view_cls.read, self.view_cls.write = self.read, self.write
+
+
+def walls_ms(seconds: dict) -> dict:
+    return {f"{k[:-2]}_ms": v * 1e3 for k, v in seconds.items()}
+
+
+def vllm_store(spec_mod, config, caches, backend, block_ids, hashes, sync, copies=None):
+    """Store ``block_ids`` of ``caches`` through a fresh spec of
+    ``config`` (one vLLM worker's handlers), counting the transfer's
+    copies in ``copies`` (a ``ViewCopies``); returns the spec, its store
+    handler and the walls: the synchronous submit (every view's gather
+    and copy) and the file writes after it."""
+    spec = spec_mod.TPUSharedStorageOffloadingSpec(config, None)
+    (_, _, store), _ = spec.get_handlers(caches, {name: backend for name in caches})
+    sync()
+    with copies or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        if not store.transfer_async(1, (spec_mod.GPULoadStoreSpec(block_ids),
+                                        spec_mod.TPUSharedStorageLoadStoreSpec(hashes))):
+            raise AssertionError("7c: the store was refused by the staging budget")
+        t1 = time.perf_counter()
+        store.wait({1})
+        t2 = time.perf_counter()
+    return spec, store, {"submit_s": t1 - t0, "write_s": t2 - t1, "wall_s": t2 - t0}
+
+
+def vllm_load(spec_mod, config, caches, backend, block_ids, hashes, sync, copies=None):
+    """Look ``hashes`` up and load them into ``block_ids`` of ``caches``
+    through a fresh spec of ``config`` (the loading pod's worker),
+    counting the transfer's copies in ``copies``; returns the spec, the
+    lookup and the walls: the submit, and the file reads with the
+    scatter that runs at harvest."""
+    spec = spec_mod.TPUSharedStorageOffloadingSpec(config, None)
+    _, (_, _, load) = spec.get_handlers(caches, {name: backend for name in caches})
+    found = spec.get_manager().lookup(hashes)
+    sync()
+    with copies or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        if not load.transfer_async(2, (spec_mod.TPUSharedStorageLoadStoreSpec(hashes),
+                                       spec_mod.GPULoadStoreSpec(block_ids))):
+            raise AssertionError("7c: the load was refused by the staging budget")
+        t1 = time.perf_counter()
+        load.wait({2})
+        sync()
+        t2 = time.perf_counter()
+    return spec, load, found, {"submit_s": t1 - t0, "read_scatter_s": t2 - t1, "wall_s": t2 - t0}
+
+
+def vllm_offload(torch, params, cfg, t, phase7=None, file_tokens: int = VLLM_FILE_TOKENS):
+    """Phase 7c: pod-a's prefix through the port's vLLM ``OffloadingSpec``
+    (``offload.vllm_spec``) over the serving pool's own tensors: (i) the
+    pool as vLLM's per-layer tensors ``pool.kv[l]``, stored from pod-a
+    and loaded into zeroed blocks of pod-c, where B continues on the
+    prefill kernel and decodes on the decode kernel, every kernel call
+    held against its plain version; (ii) FlashAttention's split-KV
+    layout ``[2, N, ...]`` a layer, filled from pod-a's prefix, through
+    a round trip; both sets of files byte-equal to each other and to the
+    files the spec writes from a host copy of the same tensors.  Runs on
+    the pods' device: the card, or the CPU at a small size (the tests)."""
+    llama = port("models.llama")
+    spec_mod = port("offload.vllm_spec")
+    fc, pc = port("ops.flash_cuda"), port("ops.paged_decode_cuda")
+    pod_a, pod_c, prefix_ids = t["pod_a"], t["pod_c"], t["prefix_ids"]
+    ids_c, table_c = t["ids_c"], t["table_c"]
+    kv_a, kv_c = pod_a.pool.kv, pod_c.pool.kv
+    device = kv_a.device
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    bs, layers, n_prefix = cfg.block_size, cfg.n_layers, len(prefix_ids)
+    bpf = file_tokens // bs
+    hashes = group_file_hashes(t["keys_b"][:n_prefix], bpf)
+    idx_a, idx_c = torch.tensor(prefix_ids, device=device), torch.tensor(ids_c, device=device)
+    nbytes = n_prefix * pod_a.pool.block_nbytes
+    names = [f"model.layers.{layer}.self_attn.attn" for layer in range(layers)]
+    roots = {name: tempfile.mkdtemp(prefix=f"kv-vllm-{name}-")
+             for name in ("pool", "split", "host")}
+    configs = {name: vllm_config(root, cfg, file_tokens) for name, root in roots.items()}
+    out = {"bytes": nbytes, "files": len(hashes), "blocks_per_file": bpf}
+    handlers = []
+    try:
+        # (i) The serving pool itself: vLLM's per-layer tensors are views
+        # of pod-a's and pod-c's pools, so the load writes pod-c's pool.
+        kv_c[:, idx_c] = 0
+        copies = ViewCopies(spec_mod.KVTensorView)
+        spec, store, stored = vllm_store(
+            spec_mod, configs["pool"], dict(zip(names, kv_a.unbind(0))), PoolLayerBackend,
+            prefix_ids, hashes, sync, copies)
+        _, load, found, loaded = vllm_load(
+            spec_mod, configs["pool"], dict(zip(names, kv_c.unbind(0))), PoolLayerBackend,
+            ids_c, hashes, sync, copies)
+        handlers += [store, load]
+        same = bool(torch.equal(kv_c[:, idx_c], kv_a[:, idx_a]))
+        out["pool"] = {"views": len(store.views), "threads": store.engine.n_threads,
+                       "file_buffer_nbytes": spec.file_buffer_nbytes,
+                       "staging_budget_bytes": store.budget.max_bytes, "lookup": found,
+                       "copies": dict(copies.counts),
+                       "copy_ms": {k: v * 1e3 for k, v in copies.seconds.items()},
+                       "store": walls_ms(stored), "load": walls_ms(loaded),
+                       "store_rate": rate(nbytes, stored["wall_s"], PCIE_GEN5_X16),
+                       "load_rate": rate(nbytes, loaded["wall_s"], PCIE_GEN5_X16),
+                       "blocks_equal": same}
+        row = out["pool"]
+        print(f"  (i) the serving pool as vLLM's {row['views']} per-layer tensors pool.kv[l] "
+              f"{list(kv_a.shape[1:])} (standard layout): {len(hashes)} files of {bpf} blocks "
+              f"({file_tokens} tokens), {spec.file_buffer_nbytes / 2**20:.4g} MiB each; "
+              f"{row['threads']} I/O threads (threads_per_chip {VLLM_THREADS}, "
+              f"{os.cpu_count()} cores; a file buffer a thread fits the staging budget of "
+              f"{VLLM_STAGING_GB:.0f} GB, {row['staging_budget_bytes']} bytes: "
+              f"{row['file_buffer_nbytes'] * row['threads'] <= row['staging_budget_bytes']})",
+              flush=True)
+        print(f"  (i) store from pod-a: wall {row['store']['wall_ms']:.1f} ms = submit (every "
+              f"view's gather and pageable copy) {row['store']['submit_ms']:.1f} + file "
+              f"writes {row['store']['write_ms']:.1f}; {row['store_rate']['gbps']:.3f} GB/s, "
+              f"share of PCIe Gen5 x16 (64 GB/s) {row['store_rate']['share_of_bound']:.4f}",
+              flush=True)
+        print(f"  (i) load into pod-c's {len(ids_c)} zeroed blocks: manager.lookup found "
+              f"{found} of {len(hashes)} files; wall {row['load']['wall_ms']:.1f} ms = submit "
+              f"{row['load']['submit_ms']:.1f} + file reads and the per-view scatter "
+              f"{row['load']['read_scatter_ms']:.1f}; {row['load_rate']['gbps']:.3f} GB/s, "
+              f"share of PCIe {row['load_rate']['share_of_bound']:.4f}; pod-c's blocks equal "
+              f"pod-a's: {same}", flush=True)
+        print(f"  (i) copies between the card and the host: {row['copies']['d2h']} "
+              f"device-to-host ({row['copy_ms']['d2h']:.1f} ms of host clock in them) and "
+              f"{row['copies']['h2d']} host-to-device ({row['copy_ms']['h2d']:.1f} ms), each "
+              f"of one view's blocks of one file", flush=True)
+        if found != len(hashes) or not same:
+            raise AssertionError(f"7c: lookup {found} of {len(hashes)}, blocks equal {same}")
+        if on_card and row["copies"] != {"d2h": layers * len(hashes),
+                                          "h2d": layers * len(hashes)}:
+            raise AssertionError(f"7c: copies {row['copies']}, expected {layers * len(hashes)} "
+                                 f"each way")
+
+        # B continues on pod-c over the loaded prefix, then decodes; every
+        # kernel call held against the plain version on its inputs.
+        suffix = t["prompt_b"][n_prefix * bs:]
+        held_prefill = HeldCalls(llama, "flash_gqa_attention_cuda",
+                                 fc.flash_gqa_attention_plain, "prefill", tag="7c")
+        held_decode = HeldCalls(llama, "paged_decode_attention_cuda",
+                                pc.paged_decode_attention_plain, "decode", tag="7c")
+        fc.flash_gqa_attention_cuda.launches = 0
+        pc.paged_decode_attention_cuda.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        with held_prefill:
+            logits, _ = llama.prefill_continue(params, torch.tensor([suffix]), kv_c, table_c,
+                                               n_prefix * bs, cfg)
+        first = int(logits[0, -1].argmax())
+        sync()
+        continue_ms = (time.perf_counter() - t0) * 1e3
+        spare = int(table_c.max()) + 1  # a block past B's table, for the decode steps
+        table = torch.tensor([table_c[0].tolist() + [spare]], dtype=torch.int32, device=device)
+        step_tokens, decoded, step_logits = torch.tensor([first], device=device), [first], []
+        with held_decode:
+            for step in range(VLLM_DECODE_STEPS):
+                ctx = torch.tensor([len(t["prompt_b"]) + step + 1], dtype=torch.int32,
+                                   device=device)
+                step_logits.append(llama.decode_step(params, step_tokens, kv_c, table, ctx,
+                                                     cfg)[0])
+                step_tokens = step_logits[-1].argmax(-1)
+                decoded.append(int(step_tokens[0]))
+        sync()
+        launches = {"flash_prefill": fc.flash_gqa_attention_cuda.launches,
+                    "paged_decode": pc.paged_decode_attention_cuda.launches}
+        equal = bool(torch.equal(logits, t["logits_b"]))
+        held = {"flash_prefill": held_prefill.hold(
+                    "B's continuation on pod-c over the loaded prefix, prefill kernel"),
+                "paged_decode": held_decode.hold(
+                    f"B's {VLLM_DECODE_STEPS} decode steps on pod-c at batch 1, decode kernel")}
+        del held_prefill, held_decode
+        print(f"  B continued on pod-c over the loaded prefix ({len(suffix)} tokens, "
+              f"{continue_ms:.1f} ms): logits bit-equal to phase 5's hit on pod-a: {equal}; "
+              f"token {first}, phase 5's {t['first_b']}; decoded {decoded}; kernel launches "
+              f"{launches}", flush=True)
+        if not equal or first != t["first_b"]:
+            raise AssertionError("7c: B's continuation on pod-c is not bit-equal to phase 5's "
+                                 "hit")
+        if not all(bool(x.isfinite().all()) for x in step_logits):
+            raise AssertionError("7c: B's decode logits on pod-c are not finite")
+        if t.get("decode_b1") is not None:
+            out["decode_step1_max_abs_err"] = check_logits(
+                "B's decode step 1 on pod-c (batch 1, eager) vs phase 5's (batch 2, captured)",
+                step_logits[0], t["decode_b1"])
+        calls = {name: h["calls"] for name, h in held.items()}
+        if on_card and not launches == calls == {"flash_prefill": layers,
+                                                  "paged_decode": VLLM_DECODE_STEPS * layers}:
+            raise AssertionError(f"7c: kernel launches {launches}, calls held {calls}, expected "
+                                 f"{layers} prefill and {VLLM_DECODE_STEPS * layers} decode")
+        out.update(launches=launches, held=held, continuation_bit_equal=equal,
+                   continue_ms=continue_ms, decoded=decoded)
+        del logits, step_logits
+
+        # (ii) FlashAttention's split-KV layout, [2, N, bs, Hkv, D] a layer.
+        split = {}
+        for name, layer in zip(names, range(layers)):
+            split[name] = torch.stack([kv_a[layer, idx_a, 0], kv_a[layer, idx_a, 1]])
+        want = {name: tensor.clone() for name, tensor in split.items()}
+        block_ids = list(range(n_prefix))
+        copies = ViewCopies(spec_mod.KVTensorView)
+        _, store_ii, stored_ii = vllm_store(
+            spec_mod, configs["split"], split, FlashAttentionBackend, block_ids, hashes, sync,
+            copies)
+        for tensor in split.values():
+            tensor.zero_()
+        _, load_ii, found_ii, loaded_ii = vllm_load(
+            spec_mod, configs["split"], split, FlashAttentionBackend, block_ids, hashes, sync,
+            copies)
+        handlers += [store_ii, load_ii]
+        same_ii = all(torch.equal(split[name], want[name]) for name in names)
+        del split, want
+        out["split"] = {"views": len(store_ii.views), "lookup": found_ii,
+                        "copies": dict(copies.counts),
+                        "store": walls_ms(stored_ii), "load": walls_ms(loaded_ii),
+                        "store_rate": rate(nbytes, stored_ii["wall_s"], PCIE_GEN5_X16),
+                        "load_rate": rate(nbytes, loaded_ii["wall_s"], PCIE_GEN5_X16),
+                        "blocks_equal": same_ii}
+        row = out["split"]
+        print(f"  (ii) FlashAttention's split-KV layout, {layers} tensors "
+              f"[2, {n_prefix}, {bs}, {cfg.n_kv_heads}, {cfg.head_dim}] on {device} filled from "
+              f"pod-a's prefix ({row['views']} views): store {row['store']['wall_ms']:.1f} ms "
+              f"({row['store_rate']['gbps']:.3f} GB/s), load {row['load']['wall_ms']:.1f} ms "
+              f"({row['load_rate']['gbps']:.3f} GB/s); copies {row['copies']}; lookup "
+              f"{found_ii}; the tensors after the round trip equal before it: {same_ii}",
+              flush=True)
+        if found_ii != len(hashes) or not same_ii:
+            raise AssertionError(f"7c: split-KV round trip: lookup {found_ii}, equal {same_ii}")
+        if on_card and row["copies"] != {"d2h": 2 * layers * len(hashes),
+                                          "h2d": 2 * layers * len(hashes)}:
+            raise AssertionError(f"7c: split-KV copies {row['copies']}, expected "
+                                 f"{2 * layers * len(hashes)} each way")
+
+        # The same tensors from a host copy, through the same spec.
+        host = {name: kv_a[layer, idx_a].cpu() for layer, name in enumerate(names)}
+        _, store_host, _ = vllm_store(spec_mod, configs["host"], host, PoolLayerBackend,
+                                      block_ids, hashes, sync)
+        handlers.append(store_host)
+        del host
+        trees = {name: read_tree(root) for name, root in roots.items()}
+        sizes = sorted({len(v) for v in trees["pool"].values()})
+        mismatched = {"split": tree_mismatches(trees["split"], trees["pool"]),
+                      "host": tree_mismatches(trees["host"], trees["pool"])}
+        out["files_equal"] = {k: not v for k, v in mismatched.items()}
+        print(f"  files: {len(trees['pool'])} of {sizes} bytes from (i); (ii)'s differ from "
+              f"them in {len(mismatched['split'])} (per block, layer by layer, K then V in "
+              f"both); those written from a host copy of the same tensors differ in "
+              f"{len(mismatched['host'])}", flush=True)
+        if len(trees["pool"]) != len(hashes) or any(mismatched.values()) or sizes != [
+                bpf * pod_a.pool.block_nbytes]:
+            raise AssertionError(f"7c: files {len(trees['pool'])} of {sizes} bytes, mismatches "
+                                 f"{ {k: v[:2] for k, v in mismatched.items()} }")
+        del trees
+    finally:
+        for handler in handlers:
+            handler.engine.close()
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+    if phase7 is not None:
+        print(f"  beside phase 7's connector over the same 1 GiB (medians): store one-shot "
+              f"{phase7['store']['one_shot']['wall_ms']:.1f} ms, staged "
+              f"{phase7['store']['staged']['wall_ms']:.1f} ms; load one-shot "
+              f"{phase7['offload_hit']['one_shot']['load_ms']:.1f} ms, staged "
+              f"{phase7['offload_hit']['staged']['load_ms']:.1f} ms; pinned d2h "
+              f"{phase7['probes']['d2h_pinned']['gbps']:.2f} GB/s, pageable d2h "
+              f"{phase7['probes']['d2h_pageable']['gbps']:.2f} GB/s", flush=True)
+    return out
+
 
 
 # --------------------------------------------------------------- phase 7b
@@ -5207,6 +5578,180 @@ def service_phase(smi: str, fleet, traffic) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 14e
+
+
+GRPC_LIBRARIES = ("grpc", "google.protobuf")
+GRPC_UDS_SAMPLE = 64  # phase 13's requests scored again through the tokenizer sidecar
+
+
+def library_versions(names=GRPC_LIBRARIES) -> dict:
+    """{name: its version, or None when it cannot be imported here}."""
+    out = {}
+    for name in names:
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__", "unknown")
+        except ImportError:
+            out[name] = None
+    return out
+
+
+class HfWordTokenizer:
+    """The card's ``WordTokenizer`` behind the call that the sidecar's
+    ``Tokenize`` makes of a Hugging Face tokenizer
+    (``services/uds_tokenizer.py``): ids and char offsets (the words are
+    ASCII, so they are its byte offsets too)."""
+
+    def __call__(self, text, add_special_tokens=False, return_offsets_mapping=True):
+        encoding = WordTokenizer().encode(text, MODEL_NAME, add_special_tokens)
+        return {"input_ids": encoding.tokens, "offset_mapping": encoding.offsets}
+
+
+def grpc_phase(smi: str, fleet, traffic, http_cells=None, sample: int = GRPC_UDS_SAMPLE) -> dict:
+    """Phase 14e: phase 13's fleet and traffic through the port's gRPC
+    scoring service (``api.indexer_service``) on a Unix socket, every
+    answer held equal to phase 13's in-process one and a sampled
+    traceparent echoed; then the tokenizer sidecar
+    (``services.uds_tokenizer``) with the card's word tokenizer
+    registered, and an Indexer configured with ``uds_tokenizer_path``
+    scoring a sample of phase 13's requests as the word-tokenizer
+    Indexer does.  When ``grpc`` or ``google.protobuf`` cannot be
+    imported on this host, it says which and runs nothing."""
+    libraries = library_versions()
+    missing = [name for name, version in libraries.items() if version is None]
+    print(f"  on {smi}: " + ", ".join(
+        f"{name} {version or 'cannot be imported'}" for name, version in libraries.items()),
+        flush=True)
+    if missing:
+        print(f"  14e: {' and '.join(missing)} cannot be imported on this host; the gRPC service "
+              f"and the tokenizer sidecar are checked on the CPU only (tests/"
+              f"test_torch_grpc_api.py), and nothing of 14e runs here", flush=True)
+        return {"libraries": libraries, "ran": False}
+    service, pb2 = port("api.indexer_service"), port("api.indexer_pb2")
+    sidecar, im, kv = port("services.uds_tokenizer"), port("kvcache.indexer"), port(
+        "kvevents.pool")
+    tracer = port("obs.trace").TRACER
+    block, pods = traffic["block"], traffic["pods"]
+    frames = phase13_frames(fleet, traffic)
+    root = tempfile.mkdtemp(prefix="kv-grpc-")
+    out = {"libraries": libraries, "ran": True, "card": smi}
+    indexer = read_path_indexer(True, True, block)
+    pool = kv.Pool(indexer.kv_block_index, indexer.token_processor, kv.PoolConfig())
+    server = client = tok_server = None
+    lanes = []
+    try:
+        pool.start()
+        feed([EventSink(pool)], frames)
+        pool.drain()
+        if index_entries(indexer.kv_block_index) != traffic["entries"]:
+            raise AssertionError("14e: the index's entries differ from phase 13's")
+        address = "unix://" + os.path.join(root, "indexer.sock")
+        server = service.serve(indexer, address)
+        client = service.new_client(address)
+        got, latencies = {}, {}
+        for workload, _, prompt, timed in phase13_requests(traffic):
+            t0 = time.perf_counter()
+            response = client.GetPodScores(pb2.GetPodScoresRequest(
+                prompt=prompt, model_name=MODEL_NAME, pod_identifiers=pods), timeout=120)
+            if timed:
+                latencies.setdefault(workload, []).append(time.perf_counter() - t0)
+            got.setdefault(workload, []).append({s.pod: s.score for s in response.scores})
+        bad = score_mismatches(got, traffic)
+        n = sum(map(len, got.values()))
+        if bad:
+            raise AssertionError(f"14e: {len(bad)} of {n} answers over gRPC differ from phase "
+                                 f"13's, e.g. {bad[:2]}")
+        cells = {w: {"requests": len(lat), "p50_ms": percentile_ms(lat, 50),
+                     "p99_ms": percentile_ms(lat, 99),
+                     "in_process_p50_ms": traffic["cells"][w]["p50_ms"],
+                     "in_process_p99_ms": traffic["cells"][w]["p99_ms"],
+                     "http_p50_ms": (http_cells or {}).get(w, {}).get("p50_ms"),
+                     "http_p99_ms": (http_cells or {}).get(w, {}).get("p99_ms")}
+                 for w, lat in latencies.items()}
+        out.update(requests=n, sequential=cells)
+        http_text = lambda c: ("" if c["http_p50_ms"] is None else  # noqa: E731
+                               f", 14d's HTTP {c['http_p50_ms']:.3f} / {c['http_p99_ms']:.3f}")
+        print(f"  phase 13's {n} requests in its order by GetPodScores over one channel on a Unix "
+              f"socket, every answer equal to phase 13's fast lane's: " + "; ".join(
+                  f"{w} p50 {c['p50_ms']:.3f} ms p99 {c['p99_ms']:.3f} ms (in-process "
+                  f"{c['in_process_p50_ms']:.3f} / {c['in_process_p99_ms']:.3f}{http_text(c)})"
+                  for w, c in cells.items()), flush=True)
+
+        # A sampled traceparent rides the metadata and comes back.
+        trace_id = f"{SEED + 14:032x}"
+        workload, _, prompt, _ = next(iter(phase13_requests(traffic)))
+        response, call = client.GetPodScores.with_call(
+            pb2.GetPodScoresRequest(prompt=prompt, model_name=MODEL_NAME, pod_identifiers=pods),
+            metadata=(("traceparent", f"00-{trace_id}-{'ab' * 8}-01"),), timeout=120)
+        echoed = dict(call.initial_metadata()).get("traceparent")
+        trace = tracer.recorder.get(trace_id)
+        trace = trace.to_dict() if trace is not None else {}
+        spans = sorted({sp["name"] for sp in trace.get("spans", ())})
+        out["traceparent"] = {"echoed": echoed, "trace": trace.get("name"), "spans": spans}
+        print(f"  a sampled traceparent in the metadata: echoed {echoed}; trace "
+              f"{trace.get('name')} under parent {trace.get('parent_span_id')}, spans {spans}",
+              flush=True)
+        if (echoed is None or echoed.split("-")[1] != trace_id
+                or trace.get("name") != "grpc.get_pod_scores"
+                or trace.get("parent_span_id") != "ab" * 8
+                or not {"index_lookup", "score"} <= set(spans)):
+            raise AssertionError(f"14e: traceparent echoed {echoed}, trace {out['traceparent']}")
+
+        # The tokenizer sidecar, with the card's word tokenizer registered.
+        registry = sidecar.TokenizerRegistry()
+        registry.register(MODEL_NAME, HfWordTokenizer())
+        tok_path = os.path.join(root, "tokenizer.sock")
+        tok_server = sidecar.serve(tok_path, max_workers=4, registry=registry)
+        uds = im.Indexer(dataclasses.replace(indexer.config, uds_tokenizer_path=tok_path),
+                         kv_block_index=indexer.kv_block_index)
+        lanes.append(uds)
+        uds.run()
+        words_lane = read_path_indexer(True, True, block, index=indexer.kv_block_index)
+        lanes.append(words_lane)
+        backends = [b.type() for b in uds.tokenization_pool._tokenizer.backends]
+        requests = list(phase13_requests(traffic))
+        picked = requests[::max(1, len(requests) // sample)][:sample]
+        via_uds, via_words, uds_s = [], [], []
+        for _, _, prompt, _ in picked:
+            t0 = time.perf_counter()
+            via_uds.append(uds.get_pod_scores(prompt, MODEL_NAME, pods))
+            uds_s.append(time.perf_counter() - t0)
+            via_words.append(words_lane.get_pod_scores(prompt, MODEL_NAME, pods))
+        differing = [i for i, (a, b) in enumerate(zip(via_uds, via_words)) if a != b]
+        out["sidecar"] = {"backends": backends, "requests": len(picked),
+                          "differing": len(differing), "p50_ms": percentile_ms(uds_s, 50),
+                          "p99_ms": percentile_ms(uds_s, 99),
+                          "hits": sum(1 for s in via_uds if max(s.values(), default=0) > 0)}
+        row = out["sidecar"]
+        print(f"  the tokenizer sidecar on a Unix socket with the word tokenizer registered; an "
+              f"Indexer with uds_tokenizer_path and no tokenizer of its own (backends "
+              f"{backends}) scored {len(picked)} of phase 13's requests (every "
+              f"{max(1, len(requests) // sample)}th, {row['hits']} hits) as the word-tokenizer "
+              f"Indexer over the same index did: {len(picked) - len(differing)} equal; p50 "
+              f"{row['p50_ms']:.3f} ms p99 {row['p99_ms']:.3f} ms a request", flush=True)
+        if differing or backends[0] != "uds" or not row["hits"]:
+            raise AssertionError(f"14e: through the sidecar {len(differing)} of {len(picked)} "
+                                 f"requests score otherwise, e.g. {differing[:3]}; backends "
+                                 f"{backends}")
+    finally:
+        if client is not None:
+            client.channel.close()
+        if server is not None:
+            server.stop(grace=None)
+        for lane in lanes:
+            for backend in getattr(lane.tokenization_pool._tokenizer, "backends", ()):
+                if backend.type() == "uds":
+                    backend.close()
+            lane.shutdown()
+        if tok_server is not None:
+            tok_server.stop(grace=None)
+        pool.shutdown()
+        indexer.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -5272,6 +5817,9 @@ def main() -> int:
                                  [serving_ctx, serving_ctx], bf16, True)
     decode_b4 = decode_case(torch, peaks, 4, 32, 8, 128, 528, [8448, 1, 5000, 8447],
                             bf16, True)
+    # Phase 5c's and 7c's batch of one at the end of their decode steps.
+    b1_ctx = PREFIX_TOKENS + SUFFIX_TOKENS + HTTP_DECODE_STEPS
+    decode_b1 = decode_case(torch, peaks, 1, 32, 8, 128, b1_ctx // 16 + 1, [b1_ctx], bf16, True)
     decode_tp = decode_case(torch, peaks, 2, 32 // SHARD_TP, 8 // SHARD_TP, 128,
                             serving_ctx // 16 + 1, [serving_ctx, serving_ctx], bf16, True)
     ragged16 = [8448 - 523 * i for i in range(15)] + [1]
@@ -5367,8 +5915,15 @@ def main() -> int:
     offload_inputs.update(ttft_miss_ms=serve["ttft_miss_ms"], ttft_hit_ms=serve["ttft_hit_ms"])
     try:
         offloaded = offload(torch, params, cfg, peaks, offload_inputs)
-        del offload_inputs
         tiering_inputs.update(offloaded.pop("tiering_inputs"))
+
+        phase("7c. the vLLM connector: pod-a's prefix through offload.vllm_spec over the pool's "
+              "own tensors and FlashAttention's split-KV layout, B continued on pod-c")
+        vllm = vllm_offload(torch, params, cfg, dict(
+            offload_inputs, **{k: tiering_inputs[k] for k in ("pod_c", "ids_c", "table_c")}),
+            phase7=offloaded)
+        del offload_inputs
+        torch.cuda.empty_cache()
 
         phase("7b. tiering and transfer: demote pod-a's prefix, plan and serve B on pod-c")
         tiered = tiering_transfer(torch, params, cfg, tiering_inputs)
@@ -5439,6 +5994,11 @@ def main() -> int:
           f"observability plane, {SERVICE_CLIENTS} clients, an incident replayed, what-if")
     print(f"  host before phase 14d: {host_state()}", flush=True)
     serviced = service_phase(smi, fleet, traffic)
+
+    phase("14e. gRPC: phase 13's fleet and traffic through the gRPC scoring service, the "
+          "tokenizer sidecar behind an Indexer")
+    print(f"  host before phase 14e: {host_state()}", flush=True)
+    grpc_served = grpc_phase(smi, fleet, traffic, http_cells=serviced.get("sequential"))
     del fleet, traffic
 
     phase("15. kernels")
@@ -5452,9 +6012,11 @@ def main() -> int:
                       + tp_serving["launches"]["flash_prefill"]
                       + tp_moe["launches"]["flash_prefill"]
                       + tiered["launches"]["flash_prefill"]
-                      + served_http["launches"]["flash_prefill"]),
+                      + served_http["launches"]["flash_prefill"]
+                      + vllm["launches"]["flash_prefill"]),
             launches_by_path={"llama_serving": serve["launches"]["flash_prefill"],
                               "llama_serving_http": served_http["launches"]["flash_prefill"],
+                              "llama_vllm_offload": vllm["launches"]["flash_prefill"],
                               "llama_tiering_transfer": tiered["launches"]["flash_prefill"],
                               "moe_forward": moe_run["launches"]["flash_prefill"],
                               "llama_serving_tp": tp_serving["launches"]["flash_prefill"],
@@ -5471,15 +6033,17 @@ def main() -> int:
             source="llm_d_kv_cache_manager_tpu_torch/csrc/paged_decode.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/paged_decode_pallas.py:40",
             launches=(serve["launches"]["paged_decode"] + tp_serving["launches"]["paged_decode"]
-                      + served_http["launches"]["paged_decode"]),
+                      + served_http["launches"]["paged_decode"]
+                      + vllm["launches"]["paged_decode"]),
             launches_by_path={"llama_serving": serve["launches"]["paged_decode"],
                               "llama_serving_http": served_http["launches"]["paged_decode"],
+                              "llama_vllm_offload": vllm["launches"]["paged_decode"],
                               "llama_serving_tp": tp_serving["launches"]["paged_decode"]},
             **{k: decode_serving[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms", "eager_ms", "tflops",
                                               "library_ratio", "bound_share", "shape", "limit",
                                               "worst_err_over_limit", "planted")},
-            cases=[decode_b4, decode_b16, decode_tp] + decode_edge,
+            cases=[decode_b1, decode_b4, decode_b16, decode_tp] + decode_edge,
         ),
         dict(
             name="ring_partial",
@@ -5514,10 +6078,12 @@ def main() -> int:
     http_summary = {k: v for k, v in served_http.items() if k != "launches"}
     print(json.dumps({"serving": summary, "serving_http": http_summary,
                       "ring_prefill": ring_summary, "offload": offloaded,
+                      "vllm_offload": {k: v for k, v in vllm.items() if k != "launches"},
                       "tiering": tiering_summary,
                       "autograd_guard": guard, "training": trained, "moe": moe_summary,
                       "sharded": sharded, "read_path": read, "write_path": write,
                       "persistence": persisted, "cluster": clustered, "service": serviced,
+                      "grpc": grpc_served,
                       "layers": LAYERS, "phase_seconds": PHASE_SECONDS,
                       "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)

@@ -21,3 +21,14 @@ raise when no GPU is present, unless the caller asks for ``"cpu"``.
 """
 
 __version__ = "0.1.0"
+
+# Guarded-by runtime enforcement (KVTPU_RACEGUARD=1), as in the JAX
+# package: instrument every class of the port's manifest
+# (utils/raceguard_manifest.json) at import time, so all later
+# constructions are covered.  Unarmed this is a single env check.
+import os as _os  # noqa: E402
+
+if _os.environ.get("KVTPU_RACEGUARD", "") in ("1", "true", "yes"):
+    from llm_d_kv_cache_manager_tpu_torch.utils import raceguard as _raceguard
+
+    _raceguard.install_from_env()

@@ -32,8 +32,10 @@ bit-identical — docs/replication.md).
 
 Copied from the JAX reference's ``kvcache/indexer.py``; its scores are
 bit-identical to the reference's for the same index contents and
-tokenizer (tests/test_torch_indexer.py).  The UDS tokenizer backend is not
-ported yet: ``IndexerConfig.uds_tokenizer_path`` raises.  The port's
+tokenizer (tests/test_torch_indexer.py).  ``IndexerConfig.uds_tokenizer_path``
+puts the port's sidecar client (``tokenization.uds_tokenizer``) in the
+tokenizer chain, imported only then, so ``grpc`` is needed only when a
+UDS path is configured.  The port's
 ``tiering.PolicyEngine`` and ``transfer.TransferEngine`` attach through
 ``set_policy_engine`` and ``set_transfer_engine``; a capture engine
 attaches through ``set_capture`` as any object with the reference's
@@ -510,10 +512,11 @@ class Indexer:
                     LocalFastTokenizer(self.config.local_tokenizers_dir)
                 )
             if self.config.uds_tokenizer_path:
-                raise NotImplementedError(
-                    "the UDS tokenizer backend is not ported yet "
-                    "(ROADMAP.md, Queue A: tokenization/uds_tokenizer.py)"
+                from llm_d_kv_cache_manager_tpu_torch.tokenization.uds_tokenizer import (  # noqa: E501 - lazy: grpc only when configured
+                    UdsTokenizer,
                 )
+
+                backends.append(UdsTokenizer(self.config.uds_tokenizer_path))
             backends.append(TransformersTokenizer())
             tokenizer = CompositeTokenizer(backends)
         self.tokenization_pool = TokenizationPool(

@@ -989,3 +989,167 @@ def test_service_phase_rejects_an_answer_unlike_phase_13s(monkeypatch):
     time.sleep(0.5)
     left = {t.name for t in threading.enumerate() if t.is_alive()} - before
     assert not [name for name in left if name.startswith("kvtpu-")], left
+
+
+# ------------------------------------------------------------- phase 7c
+
+
+def test_vllm_backends_give_the_pool_and_flash_layouts():
+    """The stand-in backends: the pool's per-layer tensor is the standard
+    layout, FlashAttention's the split-KV one, and the port's layout
+    probe reads them so (one view a layer, two a layer)."""
+    spec_mod = port("offload.vllm_spec")
+    pool_layer = torch.zeros(6, 2, 16, 2, 8)
+    views, kernel_bs = spec_mod.infer_kv_tensor_views(
+        {"l0": pool_layer, "l1": pool_layer.clone()}, {"l0": smoke["PoolLayerBackend"],
+                                                       "l1": smoke["PoolLayerBackend"]})
+    assert (len(views), kernel_bs) == (2, 16)
+    views, kernel_bs = spec_mod.infer_kv_tensor_views(
+        {"l0": torch.zeros(2, 6, 16, 2, 8)}, {"l0": smoke["FlashAttentionBackend"]})
+    assert [v.name for v in views] == ["l0.k", "l0.v"] and kernel_bs == 16
+
+
+def test_vllm_config_reads_as_the_references_documented_settings(tmp_path):
+    llama = port("models.llama")
+    cfg = llama.LlamaConfig.llama3_8b()
+    spec = port("offload.vllm_spec").TPUSharedStorageOffloadingSpec(
+        smoke["vllm_config"](str(tmp_path), cfg), None)
+    assert (spec.device_block_size, spec.offloaded_block_size, spec.blocks_per_file) == (16, 256,
+                                                                                         16)
+    assert (spec.threads_per_chip, spec.max_staging_memory_gb) == (8, 16.0)
+    assert spec.shared_storage_path == str(tmp_path)
+
+
+def test_view_copies_count_only_device_tensors():
+    class Tensor:
+        def __init__(self, is_cuda):
+            self.is_cuda = is_cuda
+
+    class View:
+        def __init__(self, is_cuda):
+            self.tensor = Tensor(is_cuda)
+
+        def read(self, ids):
+            return list(ids)
+
+        def write(self, ids, data):
+            return None
+
+    with smoke["ViewCopies"](View) as copies:
+        assert View(True).read([1, 2]) == [1, 2]
+        View(False).read([3])
+        View(True).write([1], None)
+        View(True).write([2], None)
+    assert copies.counts == {"d2h": 1, "h2d": 2}
+    assert View.read.__name__ == "read"  # restored
+
+
+def test_vllm_offload_at_a_small_size(tmp_path):
+    """Phase 7c end to end on CPU pools: pod-a's 16 prefix blocks through
+    the port's vLLM spec over the pools' own tensors (4 files), loaded
+    into pod-c's zeroed blocks (equal to pod-a's), B continued there
+    bit-equal to its hit and decoded with every decode call held; the
+    split-KV layout's files and a host copy's equal the pool layout's."""
+    params, cfg, t = _tiny_tiering_inputs(tmp_path, 1.5)
+    try:
+        out = smoke["vllm_offload"](torch, params, cfg, dict(t, pod_a=t["pods"][0]),
+                                    file_tokens=4 * cfg.block_size)
+    finally:
+        t["scorer"].shutdown()
+    assert (out["files"], out["blocks_per_file"]) == (4, 4)
+    assert out["pool"]["lookup"] == out["split"]["lookup"] == 4
+    assert out["pool"]["blocks_equal"] and out["split"]["blocks_equal"]
+    assert out["files_equal"] == {"split": True, "host": True}
+    assert out["pool"]["views"] == cfg.n_layers and out["split"]["views"] == 2 * cfg.n_layers
+    assert out["continuation_bit_equal"] and len(out["decoded"]) == 1 + smoke["VLLM_DECODE_STEPS"]
+    # CPU tensors: the wrappers run their plain versions and count nothing.
+    assert out["launches"] == {"flash_prefill": 0, "paged_decode": 0}
+    assert out["held"]["paged_decode"]["calls"] == smoke["VLLM_DECODE_STEPS"] * cfg.n_layers
+    assert out["pool"]["copies"] == {"d2h": 0, "h2d": 0}
+
+
+def test_vllm_offload_rejects_a_decode_call_unlike_the_plain_version(tmp_path, monkeypatch):
+    llama = port("models.llama")
+    wrapper = llama.paged_decode_attention_cuda
+    monkeypatch.setattr(llama, "paged_decode_attention_cuda",
+                        lambda *args: wrapper(*args) * 1.05)
+    params, cfg, t = _tiny_tiering_inputs(tmp_path, 1.5)
+    try:
+        with pytest.raises(AssertionError, match="7c: .*decode kernel: an output is past"):
+            smoke["vllm_offload"](torch, params, cfg, dict(t, pod_a=t["pods"][0]),
+                                  file_tokens=4 * cfg.block_size)
+    finally:
+        t["scorer"].shutdown()
+
+
+def test_vllm_offload_rejects_a_load_that_drops_a_view(tmp_path, monkeypatch):
+    """A planted fault: the spec's scatter skips the last layer's view;
+    the blocks of pod-c then differ from pod-a's and 7c must say so."""
+    view_cls = port("offload.vllm_spec").KVTensorView
+    write = view_cls.write
+
+    def lossy(view, block_ids, data):
+        if not view.name.endswith(".1.self_attn.attn"):
+            write(view, block_ids, data)
+
+    monkeypatch.setattr(view_cls, "write", lossy)
+    params, cfg, t = _tiny_tiering_inputs(tmp_path, 1.5)
+    try:
+        with pytest.raises(AssertionError, match="7c: lookup 4 of 4, blocks equal False"):
+            smoke["vllm_offload"](torch, params, cfg, dict(t, pod_a=t["pods"][0]),
+                                  file_tokens=4 * cfg.block_size)
+    finally:
+        t["scorer"].shutdown()
+
+
+# ------------------------------------------------------------- phase 14e
+
+
+def test_hf_word_tokenizer_gives_the_sidecar_ids_and_char_offsets():
+    text = "t5 t17 t0 t123"
+    out = smoke["HfWordTokenizer"]()(text, add_special_tokens=False, return_offsets_mapping=True)
+    assert out["input_ids"] == [5, 17, 0, 123]
+    assert [text[a:b] for a, b in out["offset_mapping"]] == text.split(" ")
+
+
+def test_library_versions_name_what_cannot_be_imported(monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "no_such_library_here", None)
+    versions = smoke["library_versions"](("json", "no_such_library_here"))
+    assert versions["no_such_library_here"] is None and versions["json"] is not None
+
+
+def test_grpc_phase_at_a_small_size(monkeypatch):
+    """Phase 14e end to end at a small size: every answer over gRPC equals
+    phase 13's, the traceparent comes back with its trace, and an
+    Indexer on the tokenizer sidecar scores the sample as the word
+    tokenizer's does; its servers and threads stop on the way out."""
+    fleet, traffic = small_fleet(monkeypatch)
+    before = {t.name for t in threading.enumerate()}
+    out = smoke["grpc_phase"]("cpu", fleet, traffic, sample=4)
+    assert out["ran"] and out["requests"] == sum(len(s) for s in traffic["scores"].values())
+    assert set(out["sequential"]) == set(traffic["scores"])
+    assert out["traceparent"]["trace"] == "grpc.get_pod_scores"
+    assert out["sidecar"]["backends"] == ["uds", "transformers"]
+    assert out["sidecar"]["requests"] == 4 and out["sidecar"]["differing"] == 0
+    time.sleep(0.5)
+    left = {t.name for t in threading.enumerate() if t.is_alive()} - before
+    assert not [name for name in left if name.startswith("kvtpu-")], left
+
+
+def test_grpc_phase_rejects_an_answer_unlike_phase_13s(monkeypatch):
+    fleet, traffic = small_fleet(monkeypatch)
+    workload = next(iter(traffic["scores"]))
+    traffic["scores"][workload][0] = dict.fromkeys(traffic["pods"], 9.0)
+    with pytest.raises(AssertionError, match="answers over gRPC differ from phase 13's"):
+        smoke["grpc_phase"]("cpu", fleet, traffic, sample=4)
+
+
+def test_grpc_phase_runs_nothing_without_its_libraries(monkeypatch):
+    """Where ``grpc`` or ``google.protobuf`` cannot be imported (the
+    phase's own check, patched), 14e says which and runs nothing."""
+    monkeypatch.setitem(smoke["grpc_phase"].__globals__, "library_versions",
+                        lambda: {"grpc": None, "google.protobuf": "6"})
+    out = smoke["grpc_phase"]("cpu", {"frames": {}}, {"pods": [], "block": 16}, sample=4)
+    assert out == {"libraries": {"grpc": None, "google.protobuf": "6"}, "ran": False}

@@ -1,20 +1,23 @@
 """The port's tracing debug surface (``api/http_service.py``,
 ``obs/trace.py``) against the JAX package's, on the CPU.
 
-Every case of the reference's ``tests/test_debug_surface.py`` but its
-gRPC one runs on both packages (``m`` is either one's names) through
-that package's own ``serve()``: a scored request with a sampled
+Every case of the reference's ``tests/test_debug_surface.py`` runs on
+both packages (``m`` is either one's names) through that package's own
+``serve()`` (and, for ``TestGrpcTraceparent``, its gRPC ``serve``): a scored request with a sampled
 traceparent yields a retrievable trace whose spans cover templating,
 tokenization, hashing, index lookup and scoring, with stage durations
 summing to about the end-to-end latency; ``explain=1`` names the block
 index where each pod's prefix chain broke; parallel traced requests lose
-and duplicate nothing; ``/healthz`` carries the observability block.
-The gRPC case waits for the port's gRPC service.
+and duplicate nothing; ``/healthz`` carries the observability block;
+a sampled traceparent in gRPC metadata is echoed in the initial metadata
+and its trace is retrievable over HTTP.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import tempfile
 import threading
 import urllib.error
 import urllib.request
@@ -27,6 +30,8 @@ from tests.helpers.tiny_tokenizer import (
 )
 
 from llm_d_kv_cache_manager_tpu.api import http_service as ref_http_service
+from llm_d_kv_cache_manager_tpu.api import indexer_pb2 as ref_indexer_pb2
+from llm_d_kv_cache_manager_tpu.api import indexer_service as ref_indexer_service
 from llm_d_kv_cache_manager_tpu.kvcache import indexer as ref_indexer
 from llm_d_kv_cache_manager_tpu.kvcache.kvblock import token_processor as ref_token_processor
 from llm_d_kv_cache_manager_tpu.kvevents import events as ref_events
@@ -34,7 +39,7 @@ from llm_d_kv_cache_manager_tpu.kvevents import pool as ref_kvevents_pool
 from llm_d_kv_cache_manager_tpu.obs import trace as ref_trace
 from llm_d_kv_cache_manager_tpu.tokenization import pool as ref_tokenization_pool
 from llm_d_kv_cache_manager_tpu.tokenization import tokenizers as ref_tokenizers
-from tests.helpers.torch_port import namespace
+from tests.helpers.torch_port import namespace, port
 
 SIDES = ("ref", "port")
 _REF = {
@@ -361,3 +366,30 @@ class TestDebugEndpoints:
         with pytest.raises(urllib.error.HTTPError) as excinfo:
             fleet.get(f"/debug/traces/{'9' * 32}")
         assert excinfo.value.code == 404
+
+
+class TestGrpcTraceparent:
+    def test_grpc_metadata_ingest_and_echo(self, m, fleet, tmp_path):
+        if m.side == "ref":
+            indexer_pb2, grpc_service = ref_indexer_pb2, ref_indexer_service
+        else:
+            indexer_pb2, grpc_service = port("api.indexer_pb2"), port("api.indexer_service")
+        uds = os.path.join(tempfile.mkdtemp(dir=str(tmp_path)), "indexer.sock")
+        server = grpc_service.serve(fleet.indexer, f"unix://{uds}")
+        try:
+            client = grpc_service.new_client(f"unix://{uds}")
+            trace_id = f"{0x6677:032x}"
+            response, call = client.GetPodScores.with_call(
+                indexer_pb2.GetPodScoresRequest(prompt=SENTENCE * 4, model_name=MODEL),
+                metadata=(("traceparent", f"00-{trace_id}-{'ef' * 8}-01"),),
+                timeout=30,
+            )
+            echoed = {key: value for key, value in call.initial_metadata()}.get("traceparent")
+            assert echoed is not None
+            assert echoed.split("-")[1] == trace_id
+            full = fleet.get(f"/debug/traces/{trace_id}")
+            assert full["name"] == "grpc.get_pod_scores"
+            assert full["parent_span_id"] == "ef" * 8
+            client.channel.close()
+        finally:
+            server.stop(grace=None)

@@ -230,8 +230,18 @@ def test_port_indexer_runs_with_the_score_memo():
 
 
 def test_uds_tokenizer_is_not_ported():
-    with pytest.raises(NotImplementedError, match="uds_tokenizer"):
-        PORT.indexer.Indexer(PORT.indexer.IndexerConfig(uds_tokenizer_path="/nonexistent"))
+    """The name dates from before the port had the UDS backend; it now
+    checks the opposite: ``uds_tokenizer_path`` puts the port's sidecar
+    client ahead of the hub fallback, as in the reference (the channel
+    connects lazily, so a missing socket does not fail construction)."""
+    indexer = PORT.indexer.Indexer(PORT.indexer.IndexerConfig(uds_tokenizer_path="/nonexistent"))
+    try:
+        backends = indexer.tokenization_pool._tokenizer.backends
+        assert [b.type() for b in backends] == ["uds", "transformers"]
+        assert type(backends[0]).__module__ == "llm_d_kv_cache_manager_tpu_torch.tokenization.uds_tokenizer"
+    finally:
+        backends[0].close()
+        indexer.shutdown()
 
 
 # ------------------------------------------- end-to-end, tiny tokenizer

@@ -50,7 +50,8 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
                  "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
     for name in (OFFLOAD_MODULES + READ_PATH_MODULES + WRITE_PATH_MODULES + TIERING_MODULES
-                 + PERSISTENCE_MODULES + CLUSTER_MODULES + SERVICE_MODULES):
+                 + PERSISTENCE_MODULES + CLUSTER_MODULES + SERVICE_MODULES + GRPC_MODULES
+                 + CONNECTOR_MODULES):
         assert f"{PACKAGE}.{name}" in result["modules"]
     assert result["loaded"] == []
 
@@ -93,6 +94,14 @@ SERVICE_MODULES = (
     "obs.profiler", "obs.timeline", "obs.slo", "obs.capture", "obs.replay", "obs.whatif", "api",
     "api.http_service",
 )
+# The gRPC half of the service and the tokenizer sidecar: they need
+# ``grpc`` and ``google.protobuf``.
+GRPC_MODULES = (
+    "api.indexer_pb2", "api.tokenizer_pb2", "api.grpc_services", "api.indexer_service",
+    "tokenization.uds_tokenizer", "services", "services.uds_tokenizer",
+)
+# The vLLM connector, raceguard and the native builds: none needs gRPC.
+CONNECTOR_MODULES = ("offload.vllm_spec", "utils.raceguard", "native.build")
 # What the H100's machine lacks (ROADMAP.md, rules of Queue A).
 ABSENT_ON_THE_CARD = ("prometheus_client", "xxhash", "tokenizers", "transformers", "msgpack",
                       "zmq")
@@ -501,6 +510,196 @@ print(json.dumps({{"scores": scores, "blocks": sorted(k for k in ("slo", "captur
                       "blocked_loaded": []}
 
 
+def test_grpc_modules_import_and_serve_without_jax():
+    """With ``jax`` and the JAX package blocked, every module of the gRPC
+    half imports; ``api`` itself loads no message module until one is
+    asked for; ``from ...api import indexer_pb2`` works; an Indexer with
+    ``uds_tokenizer_path`` scores through the port's sidecar what one with
+    the word tokenizer scores, and the gRPC service answers the same."""
+    script = f"""
+import importlib, json, os, sys, tempfile
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+mod = lambda name: importlib.import_module({PACKAGE!r} + "." + name)
+api = mod("api")
+lazy = sorted(n for n in ("indexer_pb2", "tokenizer_pb2") if {PACKAGE!r} + ".api." + n in sys.modules)
+for name in {GRPC_MODULES + CONNECTOR_MODULES!r}:
+    mod(name)
+from {PACKAGE}.api import indexer_pb2
+im, tp, tokenizers = mod("kvcache.indexer"), mod("kvcache.kvblock.token_processor"), mod(
+    "tokenization.tokenizers")
+index_mod, sidecar, service = mod("kvcache.kvblock.index"), mod("services.uds_tokenizer"), mod(
+    "api.indexer_service")
+
+class HfWords:
+    def __call__(self, text, add_special_tokens=False, return_offsets_mapping=True):
+        ids, offsets, pos = [], [], 0
+        for word in text.split(" "):
+            ids.append(int(word[1:]))
+            offsets.append((pos, pos + len(word)))
+            pos += len(word) + 1
+        return {{"input_ids": ids, "offset_mapping": offsets}}
+
+class Words:
+    def type(self):
+        return "word"
+    def encode(self, prompt, model_name, add_special_tokens):
+        out = HfWords()(prompt)
+        return tokenizers.Encoding(out["input_ids"], out["offset_mapping"])
+
+root = tempfile.mkdtemp()
+registry = sidecar.TokenizerRegistry()
+registry.register("m", HfWords())
+tok_server = sidecar.serve(os.path.join(root, "tok.sock"), max_workers=2, registry=registry)
+config = lambda **kw: im.IndexerConfig(
+    token_processor_config=tp.TokenProcessorConfig(block_size=4), **kw)
+words = im.Indexer(config(), tokenizer=Words())
+uds = im.Indexer(config(uds_tokenizer_path=os.path.join(root, "tok.sock")),
+                 kv_block_index=words.kv_block_index)
+for ix in (words, uds):
+    ix.run()
+tokens = list(range(1, 41))
+keys = words.token_processor.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH, tokens, "m")
+words.kv_block_index.add(keys, keys, [index_mod.PodEntry("pod-a", "hbm")])
+prompts = [" ".join(f"t{{t}}" for t in tokens[:n]) for n in (40, 17, 8)]
+server = service.serve(words, "unix://" + os.path.join(root, "ix.sock"))
+client = service.new_client("unix://" + os.path.join(root, "ix.sock"))
+try:
+    got = {{"words": [words.get_pod_scores(p, "m") for p in prompts],
+           "uds": [uds.get_pod_scores(p, "m") for p in prompts],
+           "grpc": [{{s.pod: s.score for s in client.GetPodScores(indexer_pb2.GetPodScoresRequest(
+               prompt=p, model_name="m")).scores}} for p in prompts]}}
+finally:
+    client.channel.close()
+    server.stop(grace=None)
+    tok_server.stop(grace=None)
+    uds.tokenization_pool._tokenizer.backends[0].close()
+    for ix in (words, uds):
+        ix.shutdown()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
+                and sys.modules[m] is not None)
+print(json.dumps({{"lazy": lazy, "got": got, "loaded": loaded}}))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["lazy"] == [] and result["loaded"] == []
+    want = [{"pod-a": 10.0}, {"pod-a": 4.0}, {"pod-a": 2.0}]
+    assert result["got"] == {"words": want, "uds": want, "grpc": want}
+
+
+def test_http_service_and_connector_run_without_grpc_or_protobuf():
+    """On a machine without ``grpc`` and ``google.protobuf`` (blocked here
+    with JAX, the JAX package and what the card's machine lacks):
+    ``api.http_service`` imports and serves a score, ``offload.vllm_spec``
+    round-trips bf16 blocks of torch tensors through its spec,
+    ``utils.raceguard`` loads the port's manifest, ``native.build``
+    imports, and ``api.indexer_pb2`` alone fails to import."""
+    blocked = FORBIDDEN + ABSENT_ON_THE_CARD + ("grpc", "google.protobuf")
+    script = f"""
+import importlib, json, os, sys, tempfile, urllib.request
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+import torch
+mod = lambda name: importlib.import_module({PACKAGE!r} + "." + name)
+service, vllm_spec, raceguard = mod("api.http_service"), mod("offload.vllm_spec"), mod(
+    "utils.raceguard")
+mod("native.build")
+try:
+    mod("api.indexer_pb2")
+    pb2_error = None
+except ImportError as exc:
+    pb2_error = isinstance(exc, ImportError)
+im, tp, tokenizers, index_mod = mod("kvcache.indexer"), mod(
+    "kvcache.kvblock.token_processor"), mod("tokenization.tokenizers"), mod("kvcache.kvblock.index")
+
+class Words:
+    def type(self):
+        return "word"
+    def encode(self, prompt, model_name, add_special_tokens):
+        words = prompt.split(" ")
+        ends = [sum(len(w) + 1 for w in words[:i + 1]) - 1 for i in range(len(words))]
+        return tokenizers.Encoding([int(w[1:]) for w in words],
+                                   [(e - len(w), e) for w, e in zip(words, ends)])
+
+indexer = im.Indexer(im.IndexerConfig(token_processor_config=tp.TokenProcessorConfig(block_size=4)),
+                     tokenizer=Words())
+indexer.run()
+tokens = list(range(1, 41))
+keys = indexer.token_processor.tokens_to_kv_block_keys(index_mod.EMPTY_BLOCK_HASH, tokens, "m")
+indexer.kv_block_index.add(keys, keys, [index_mod.PodEntry("pod-a", "hbm")])
+server = service.serve(indexer, host="127.0.0.1", port=0)
+try:
+    request = urllib.request.Request(
+        "http://127.0.0.1:%d/score_completions" % server.server_address[1],
+        data=json.dumps({{"prompt": " ".join(f"t{{t}}" for t in tokens), "model": "m"}}).encode(),
+        headers={{"Content-Type": "application/json"}})
+    with urllib.request.urlopen(request, timeout=30) as response:
+        scores = json.loads(response.read())
+finally:
+    server.shutdown()
+    server.server_close()
+    indexer.shutdown()
+
+class Cfg:
+    pass
+config = Cfg()
+config.cache_config, config.model_config, config.parallel_config, config.kv_transfer_config = (
+    Cfg(), Cfg(), Cfg(), Cfg())
+config.cache_config.block_size, config.cache_config.cache_dtype = 16, "auto"
+config.model_config.model, config.model_config.dtype = "m", "bfloat16"
+config.parallel_config.rank = 0
+config.kv_transfer_config.kv_connector_extra_config = {{
+    "shared_storage_path": tempfile.mkdtemp(), "block_size": 32}}
+
+class Backend:
+    @staticmethod
+    def get_kv_cache_shape(num_blocks, block_size, num_kv_heads, head_size):
+        return (num_blocks, 2, block_size, num_kv_heads, head_size)
+
+layers = {{f"l{{i}}": torch.randn(8, 2, 16, 2, 4).to(torch.bfloat16) for i in range(2)}}
+original = {{k: v.clone() for k, v in layers.items()}}
+spec = vllm_spec.TPUSharedStorageOffloadingSpec(config, None)
+(_, _, store), (_, _, load) = spec.get_handlers(layers, {{k: Backend for k in layers}})
+ids, hashes = list(range(8)), [1, 2, 3, 4]
+store.transfer_async(1, (vllm_spec.GPULoadStoreSpec(ids),
+                         vllm_spec.TPUSharedStorageLoadStoreSpec(hashes)))
+store.wait({{1}})
+for v in layers.values():
+    v.zero_()
+load.transfer_async(2, (vllm_spec.TPUSharedStorageLoadStoreSpec(hashes),
+                        vllm_spec.GPULoadStoreSpec(ids)))
+load.wait({{2}})
+same = all(torch.equal(layers[k], original[k]) for k in layers)
+manifest = len(raceguard.load_manifest()["classes"])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "grpc",
+    "llm_d_kv_cache_manager_tpu") and sys.modules[m] is not None)
+loaded += sorted(m for m in sys.modules if m.startswith("google.protobuf")
+                 and sys.modules[m] is not None)
+print(json.dumps({{"scores": scores, "same": same, "manifest": manifest, "pb2_error": pb2_error,
+                  "lookup": spec.get_manager().lookup(hashes), "loaded": loaded}}))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, timeout=120, env=env, cwd=str(REPO),
+    )
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["scores"] == {"pod-a": 10.0}
+    assert result["same"] is True and result["lookup"] == 4
+    assert result["manifest"] >= 30 and result["pb2_error"] is True
+    assert result["loaded"] == []
+
+
 def test_obs_exports_the_references_names():
     """The port's ``obs`` exports exactly the reference's ``__all__``, each
     name the port's own object."""
@@ -547,7 +746,7 @@ def test_native_engine_builds_from_the_ports_own_sources():
     build = port("native.build")
     src = REPO / PACKAGE / "native" / "src"
     assert build.SRC_DIR == src and build.BUILD_DIR == REPO / PACKAGE / "build"
-    names = set(build.SOURCES + build.HEADERS)
+    names = set(build.SOURCES + build.HEADERS + (build.STRESS_MAIN,))
     assert names == {p.name for p in src.iterdir()}
     for name in names:
         for line in (src / name).read_text().splitlines():
