@@ -89,6 +89,19 @@ Phases (any failure exits non-zero):
      launch the partial kernel exactly 16 (striped) or 10 (contiguous)
      times a layer and agree with the dense logits; walls and device
      breakdowns as in phase 5;
+ 6b. the ring across processes: the same prompt through
+     ``forward(sp_mesh=make_hybrid_mesh(...))`` over 4 spawned processes
+     of one ring rank each, all on the one card, in a gloo group over
+     loopback (the parent's params and phase 6's logits reach them as
+     CUDA IPC handles; K/V staged through pinned host buffers): each
+     process's partial launches its share of phase 6's, its logits equal
+     to its rows of phase 6's ring logits (bit for bit, else within phase
+     6's tolerance), the dense forward's last-position token, its walls,
+     staging copies and gloo waits per ring step and device idle share
+     beside phase 6's; process 0 holds each of its partial launches
+     against the plain version and times the kernel at a rank's shape;
+     last, an NCCL group of 2 ranks on the one card is tried and its
+     answer printed (NCCL refuses two ranks on one device);
   2-4 also hold the prefill and ring partial kernels at the MoE
      forward's shapes (8 heads, 4 KV heads, 8192 tokens, a 2048-token
      ring chunk), planted faults included;
@@ -270,6 +283,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import datetime
 import gc
 import hashlib
 import http.client
@@ -277,6 +291,7 @@ import importlib
 import json
 import math
 import os
+import queue
 import re
 import shutil
 import statistics
@@ -286,6 +301,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -300,6 +316,11 @@ POOL_BLOCKS = 640  # per pod: A's 528 blocks + B's 16 suffix blocks + 2 decode
 # 8192-token prompt over sp=4), its 4 ranks sharing the one card.
 RING_SP = 4
 RING_TOKENS = 8192
+# Phase 6b: the same ring over RING_SP processes of one rank each, all on
+# the one card, in a gloo group (its timeout, and the workers' limit
+# beside spawn and imports); then NCCL tried with 2 ranks on the card.
+RING_GROUP_TIMEOUT_S = 300
+NCCL_PROBE_S = 90
 # Offload: files of 64 tokens (4 blocks) on 4 I/O threads; pod-c loads
 # the prefix from its block 100 on; a warm round, then 3 timed ones.
 OFFLOAD_BLOCK = 64
@@ -1988,7 +2009,7 @@ def ring_prefill(torch, params, cfg):
         return logits, wall, launches
 
     dense, dense_wall, _ = run("dense")
-    walls, launches, errs = {"dense": dense_wall}, {}, {}
+    walls, launches, errs, kept = {"dense": dense_wall}, {}, {}, {}
     first = int(dense[0, -1].argmax())
     for name in ("striped", "contiguous"):
         logits, walls[name], launches[name] = run(name)
@@ -1997,8 +2018,7 @@ def ring_prefill(torch, params, cfg):
         if token != first:
             raise AssertionError(f"{name} ring picks token {token} at the last position, "
                                  f"the dense forward {first}")
-        del logits  # 4.2 GB of float32 logits
-        torch.cuda.empty_cache()
+        kept[name] = logits  # 4.2 GB of float32 logits, phase 6b's reference
     print(f"  last-position token {first} in all three", flush=True)
     del dense
     torch.cuda.empty_cache()
@@ -2013,7 +2033,330 @@ def ring_prefill(torch, params, cfg):
         "wall_ms": walls,
         "max_abs_err_vs_dense": errs,
         "breakdown_ms": breakdown,
+        "logits": kept,
+        "dense_token": first,
     }
+
+
+# -------------------------------------------------------------- phase 6b
+
+
+def spawn_group(torch, target, world: int, args: tuple, timeout: float, wait_all=True):
+    """``target(rank, world, store, results, inbox)`` in ``world``
+    processes started with the ``spawn`` method, their group's
+    ``FileStore`` in a fresh temporary directory; each takes ``args``
+    from ``inbox`` (CUDA tensors as IPC handles, which the worker drops
+    when its target returns, while its CUDA context still lives) and
+    puts its answer on ``results``.  Returns the answers.  A rank that
+    reports an error, exits without an answer or (with ``wait_all``)
+    gives none in ``timeout`` seconds fails the phase; without
+    ``wait_all`` a silent rank's answer is None.  Every process is
+    joined, and killed if it is still alive."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    store_dir = tempfile.mkdtemp(prefix="kv-group-")
+    results, inbox = ctx.Queue(), ctx.Queue()
+    procs = [ctx.Process(target=target, daemon=True,
+                         args=(rank, world, os.path.join(store_dir, "store"), results, inbox))
+             for rank in range(world)]
+    got = {}
+    try:
+        for proc in procs:
+            inbox.put(args)
+            proc.start()
+        deadline = time.monotonic() + timeout
+        while len(got) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                if wait_all:
+                    raise AssertionError(f"{target.__name__}: no answer from ranks "
+                                         f"{sorted(set(range(world)) - set(got))} in {timeout} s")
+                break
+            try:
+                rank, ok, value = results.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                dead = {r: p.exitcode for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)}
+                if dead:
+                    raise AssertionError(f"{target.__name__}: exit codes {dead}, no answer")
+                continue
+            if not ok:
+                raise AssertionError(f"{target.__name__}, rank {rank} of {world}:\n{value}")
+            got[rank] = value
+    finally:
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return [got.get(rank) for rank in range(world)]
+
+
+def hold_partials(torch, run) -> dict:
+    """``run()`` with every partial launch of this process's ring held,
+    as it is made, against the plain version on the same inputs: the
+    normalized output within ``LIMITS``, m and l within ``RING_M_ABS``
+    and ``RING_L_REL``, empty rows exact (phase 4's checks).  The plain
+    version launches no kernel and counts nothing."""
+    ra, rf = port("ops.ring_attention"), port("ops.ring_flash")
+    wrapper = ra.flash_partial_cuda
+    limits = LIMITS["ring", "bfloat16"]
+    seen = {"calls": 0, "max_abs_err": 0.0, "worst_err_over_limit": 0.0, "m_max_abs_err": 0.0,
+            "l_worst_err_over_limit": 0.0, "exact_empty_rows": True, "finite": True,
+            "offsets": {}}
+
+    def held(q, k, v, *, causal_offset=0):
+        out = wrapper(q, k, v, causal_offset=causal_offset)
+        ref = rf.flash_partial_plain(q, k, v, causal_offset=causal_offset)
+        got_n = rf.normalize_partial(out[0], out[2], torch.float32)
+        err, worst = err_over_limit(got_n, rf.normalize_partial(ref[0], ref[2], torch.float32),
+                                    *limits)
+        empty = ref[1] == rf.NEG_INF
+        seen["calls"] += 1
+        key = str(causal_offset)
+        seen["offsets"][key] = seen["offsets"].get(key, 0) + 1
+        seen["max_abs_err"] = max(seen["max_abs_err"], err)
+        seen["worst_err_over_limit"] = max(seen["worst_err_over_limit"], worst)
+        seen["m_max_abs_err"] = max(seen["m_max_abs_err"], float((out[1] - ref[1]).abs().max()))
+        seen["l_worst_err_over_limit"] = max(seen["l_worst_err_over_limit"], float(
+            ((out[2] - ref[2]).abs() / (RING_L_REL * ref[2].abs())).nan_to_num(0.0).max()))
+        seen["exact_empty_rows"] &= bool((out[1][empty] == rf.NEG_INF).all()
+                                         and (out[2][empty] == 0).all()
+                                         and (out[0][empty] == 0).all())
+        seen["finite"] &= bool(got_n.isfinite().all())
+        return out
+
+    ra.flash_partial_cuda = held
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        ra.flash_partial_cuda = wrapper
+    seen["limit"] = limit_text(*limits)
+    if not (seen["calls"] and seen["finite"] and seen["worst_err_over_limit"] <= 1.0
+            and seen["m_max_abs_err"] <= RING_M_ABS and seen["l_worst_err_over_limit"] <= 1.0
+            and seen["exact_empty_rows"]):
+        raise AssertionError(f"6b: a partial launch disagrees with the plain version: {seen}")
+    return seen
+
+
+def transfer_summary(records) -> dict:
+    """Per ring step of one process: the bytes it sent and received,
+    the staging copies' device ms (device to pinned host, host to
+    device), the host ms from posting the transfer to the end of its
+    wait and of the wait alone (the part the step's partials did not
+    hide)."""
+    steps = len(records)
+    total = {k: sum(r[k] for r in records) for k in ("d2h_ms", "h2d_ms", "wait_ms", "span_ms",
+                                                    "bytes_out", "bytes_in")}
+    return {"steps": steps, **{f"{k}_per_step": v / max(1, steps) for k, v in total.items()},
+            "staging_ms": total["d2h_ms"] + total["h2d_ms"], "wait_ms": total["wait_ms"]}
+
+
+def ring_process(rank, world, store, results, inbox):
+    """A worker of phase 6b: one ring rank, in a gloo group of
+    ``world`` processes on the loopback interface, on ``cuda:0``; the
+    parent's params and phase 6's logits arrive as CUDA IPC handles."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+        torch.cuda.set_device(0)
+        params, cfg, tokens, refs, dense_token = inbox.get()
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=RING_GROUP_TIMEOUT_S))
+        try:
+            out = ring_process_run(torch, dist, rank, params, cfg, tokens, refs, dense_token)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # the parent fails the phase with this traceback
+        results.put((rank, False, traceback.format_exc()))
+
+
+def ring_process_run(torch, dist, rank, params, cfg, tokens, refs, dense_token) -> dict:
+    llama, mesh_mod = port("models.llama"), port("parallel.mesh")
+    rc, pg = port("ops.ring_flash_cuda"), port("parallel.process_group")
+    hybrid = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(dp=1, sp=1),
+                                       mesh_mod.MeshPlan(dp=1, sp=RING_SP), devices=["cuda:0"])
+    if not hybrid.is_local(hybrid.coord(sp=rank)) or hybrid.size("sp") != RING_SP:
+        raise AssertionError(f"rank {rank} does not own sp rank {rank} of {hybrid}")
+    transport = pg.transport(hybrid)
+    chunk = RING_TOKENS // RING_SP
+    out = {"mesh": repr(hybrid), "backend": transport.backend, "layouts": {}}
+    for name, striped in (("striped", True), ("contiguous", False)):
+        def forward(striped=striped):
+            return llama.forward(params, tokens, cfg, sp_mesh=hybrid, ring_striped=striped)
+
+        forward()  # warm-up: cuBLAS picks its algorithms, pinned buffers are made
+        torch.cuda.synchronize()
+        dist.barrier()
+        rc.flash_partial_cuda.launches = 0
+        transport.log.clear()
+        t0 = time.perf_counter()
+        logits = forward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = rc.flash_partial_cuda.launches
+        transfers = transfer_summary(transport.log.records())
+        local = logits.local(sp=rank)
+        ref = refs[name][:, rank::RING_SP] if striped else refs[name][:, rank * chunk:
+                                                                      (rank + 1) * chunk]
+        row = {"wall_ms": wall, "launches": launches, "transfers": transfers,
+               "shape": list(local.shape), "bit_equal": bool(torch.equal(local, ref)),
+               "max_abs_err": float((local - ref).abs().max()),
+               "finite": bool(local.isfinite().all()),
+               "last_token": int(local[0, -1].argmax()) if rank == RING_SP - 1 else None}
+        del logits, local, ref
+        dist.barrier()
+        busy = device_breakdown(torch, forward, steps=1)
+        # Device time and wall from the same profiled forward; no clamp:
+        # a share below 0 means this process's kernel spans include time
+        # the other processes held the time-sliced card.
+        row["device_ms"] = busy["device_ms"]
+        row["kernels_ms"] = busy["kernels_ms"]
+        row["profiled_wall_ms"] = busy["profiled_wall_ms"]
+        row["idle_share"] = 1 - busy["device_ms"] / busy["profiled_wall_ms"]
+        dist.barrier()
+        # One worker holds each of its partial launches against the plain
+        # version; the others run the same ring beside it.
+        if rank == 0:
+            row["held"] = hold_partials(torch, forward)
+        else:
+            forward()
+            torch.cuda.synchronize()
+        out["layouts"][name] = row
+        dist.barrier()
+    if rank == 0:
+        # The kernel alone at a rank's shape, in each layout's offsets,
+        # timed here while the other workers wait.
+        peaks = card_peaks(torch.cuda.get_device_name(0))
+        out["kernel_cases"] = [ring_partial_case(torch, peaks, 1, chunk, chunk, cfg.n_heads,
+                                                 cfg.n_kv_heads, cfg.head_dim, off,
+                                                 torch.bfloat16, True)
+                               for off in (0, -1, None)]
+    dist.barrier()
+    return out
+
+
+def nccl_probe(rank, world, store, results, inbox):
+    """Try an NCCL group of ``world`` ranks on one GPU and report what it
+    says (NCCL refuses two ranks on one device)."""
+    import torch
+    import torch.distributed as dist
+
+    inbox.get()
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(1, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        answer = f"all_reduce returned {float(x)}"
+        dist.destroy_process_group()
+    except Exception as exc:  # the answer this probe exists to report
+        answer = f"{type(exc).__name__}: {' '.join(str(exc).split())[:400]}"
+    results.put((rank, True, answer))
+    results.close()
+    results.join_thread()
+    os._exit(0)  # no NCCL teardown after a refused communicator
+
+
+def ring_across_processes(torch, params, cfg, phase6) -> dict:
+    """Phase 6b: phase 6's prompt through ``forward(sp_mesh=hybrid)`` over
+    ``RING_SP`` processes, one ring rank each (``make_hybrid_mesh``, dcn
+    sp 4), K/V moved through a gloo group: launch counts, logits against
+    phase 6's single-controller ring, walls and transfers, each
+    worker's device idle share, one worker's partials held; then a try
+    at an NCCL group on the one card."""
+    refs, dense_token = phase6.pop("logits"), phase6.pop("dense_token")
+    rng = torch.Generator().manual_seed(SEED + 1)  # phase 6's prompt
+    tokens = torch.randint(1, cfg.vocab_size, (1, RING_TOKENS), generator=rng)
+    layers = cfg.n_layers
+    t0 = time.perf_counter()
+    workers = spawn_group(torch, ring_process, RING_SP,
+                          (params, cfg, tokens, refs, dense_token),
+                          timeout=RING_GROUP_TIMEOUT_S + 120)
+    torch.cuda.ipc_collect()  # the workers have exited: release what they shared
+    print(f"  {RING_SP} processes, one ring rank each on cuda:0 (gloo over loopback, CUDA "
+          f"tensors staged through pinned host buffers): {time.perf_counter() - t0:.1f} s with "
+          f"spawn, imports and the kernel checks; mesh {workers[0]['mesh']}", flush=True)
+    del refs
+    out = {"launches": {}, "launches_per_process": {}, "wall_ms": {}, "phase6_wall_ms": {},
+           "per_process": {}}
+    for name in ("striped", "contiguous"):
+        rows = [w["layouts"][name] for w in workers]
+        want = [layers * (RING_SP if name == "striped" else rank + 1) for rank in range(RING_SP)]
+        got = [row["launches"] for row in rows]
+        print(f"  {name}: partial launches a process {got} (expected {want}; phase 6: "
+              f"{phase6['launches'][name]['ring_partial']})", flush=True)
+        if got != want or sum(got) != phase6["launches"][name]["ring_partial"]:
+            raise AssertionError(f"6b {name}: launches {got}, expected {want}")
+        if not all(row["finite"] and row["shape"] == [1, RING_TOKENS // RING_SP,
+                                                      cfg.vocab_size] for row in rows):
+            raise AssertionError(f"6b {name}: a chunk of logits has another shape or is "
+                                 "not finite")
+        # Each rank runs phase 6's ops in phase 6's merge order, so its
+        # logits are the same bits: anything else is a misrouted or stale
+        # chunk, not rounding.
+        equal = [row["bit_equal"] for row in rows]
+        err = max(row["max_abs_err"] for row in rows)
+        print(f"  {name}: each process's logits against its rows of phase 6's single-"
+              f"controller ring logits: bit-equal per process {equal}, max_abs_err "
+              f"{err:.6g}", flush=True)
+        if not all(equal):
+            raise AssertionError(f"6b {name}: logits not bit-equal to phase 6's in processes "
+                                 f"{[r for r, e in enumerate(equal) if not e]}, max_abs_err "
+                                 f"{err}")
+        token = rows[-1]["last_token"]
+        if token != dense_token:
+            raise AssertionError(f"6b {name}: last-position token {token}, the dense "
+                                 f"forward's {dense_token}")
+        walls = [row["wall_ms"] for row in rows]
+        t = [row["transfers"] for row in rows]
+        print(f"  {name}: wall {max(walls):.1f} ms (slowest process; each {walls}; phase 6 "
+              f"single controller {phase6['wall_ms'][name]:.1f} ms); last-position token "
+              f"{token} = the dense forward's", flush=True)
+        print(f"  {name}, staging copies per ring step (device ms, device->pinned host + "
+              f"host->device): " + "; ".join(
+                  f"p{r} {x['d2h_ms_per_step']:.3f} + {x['h2d_ms_per_step']:.3f}"
+                  for r, x in enumerate(t)), flush=True)
+        print(f"  {name}, gloo send/recv per ring step ({t[0]['steps']} steps, "
+              f"{t[0]['bytes_out_per_step'] / 2**20:.1f} MiB out and in; host ms, post to end "
+              "of wait / wait alone): " + "; ".join(
+                  f"p{r} {x['span_ms_per_step']:.2f} / {x['wait_ms_per_step']:.2f}"
+                  for r, x in enumerate(t)), flush=True)
+        print(f"  {name}, device idle share per process (1 - kernels ms / wall of the same "
+              "profiled forward; below 0 where a process's kernel spans include time the "
+              "others held the card): " + "; ".join(
+                  f"p{r} {row['idle_share']:.3f} ({row['device_ms']:.1f} / "
+                  f"{row['profiled_wall_ms']:.1f})" for r, row in enumerate(rows)), flush=True)
+        held = rows[0]["held"]
+        print(f"  {name}, process 0: {held['calls']} partial launches held against the plain "
+              f"version on the same inputs (offsets {held['offsets']}): max_abs_err "
+              f"{held['max_abs_err']:.6g}, worst err/limit {held['worst_err_over_limit']:.4g} "
+              f"(limit {held['limit']}); m {held['m_max_abs_err']:.3g}, l worst "
+              f"{held['l_worst_err_over_limit']:.4g}", flush=True)
+        out["launches"][name] = sum(got)
+        out["launches_per_process"][name] = got
+        out["wall_ms"][name] = max(walls)
+        out["phase6_wall_ms"][name] = phase6["wall_ms"][name]
+        out["per_process"][name] = [{k: v for k, v in row.items() if k != "held"}
+                                    for row in rows]
+        out.setdefault("held", {})[name] = held
+        out.setdefault("bit_equal", {})[name] = all(equal)
+        out.setdefault("max_abs_err_vs_phase6", {})[name] = err
+    out["kernel_cases"] = workers[0]["kernel_cases"]
+    t0 = time.perf_counter()
+    answers = spawn_group(torch, nccl_probe, 2, (), timeout=NCCL_PROBE_S, wait_all=False)
+    answers = [a if a is not None else f"no answer in {NCCL_PROBE_S} s" for a in answers]
+    print(f"  NCCL, 2 ranks on cuda:0 ({time.perf_counter() - t0:.1f} s): {answers}; the NCCL "
+          "path is unchecked on one card", flush=True)
+    out["nccl_two_ranks_one_card"] = answers
+    return out
 
 
 # --------------------------------------------------------------- phase 7
@@ -5911,6 +6254,11 @@ def main() -> int:
           f"{RING_TOKENS} tokens")
     ring = ring_prefill(torch, params, cfg)
 
+    phase(f"6b. the ring across processes: forward(sp_mesh=make_hybrid_mesh(dcn sp "
+          f"{RING_SP})) over {RING_SP} processes on one card, gloo")
+    ring_processes = ring_across_processes(torch, params, cfg, ring)
+    gc_cuda(torch)
+
     phase("7. offload: store pod-a's prefix, serve it on pod-c")
     offload_inputs.update(ttft_miss_ms=serve["ttft_miss_ms"], ttft_hit_ms=serve["ttft_hit_ms"])
     try:
@@ -6051,21 +6399,27 @@ def main() -> int:
             source="llm_d_kv_cache_manager_tpu_torch/csrc/ring_partial.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/ring_flash_pallas.py:48",
             launches=(sum(n["ring_partial"] for n in ring["launches"].values())
+                      + sum(ring_processes["launches"].values())
                       + moe_run["launches"]["ring_partial"]
                       + sum(n["ring_partial"] for n in tp_ring["launches"].values())),
             launches_by_layout={k: n["ring_partial"] for k, n in ring["launches"].items()},
             launches_by_path={**{f"llama_ring_{k}": n["ring_partial"]
                                  for k, n in ring["launches"].items()},
+                              **{f"llama_ring_processes_{k}": n
+                                 for k, n in ring_processes["launches"].items()},
                               "moe_ring_contiguous": moe_run["launches"]["ring_partial"],
                               **{f"llama_ring_tp_sp_{k}": n["ring_partial"]
                                  for k, n in tp_ring["launches"].items()}},
+            launches_per_process=ring_processes["launches_per_process"],
             **{k: ring_serving[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms", "eager_ms", "tflops",
                                                "library_ratio", "bound_share", "shape", "limit",
                                                "worst_err_over_limit", "planted",
                                                "m_max_abs_err", "l_worst_err_over_limit")},
             cases=([ring_serving[None], ring_serving[-1], ring_moe[0], ring_moe[None]]
-                   + list(ring_tp.values()) + ring_edge),
+                   + list(ring_tp.values()) + ring_edge
+                   + [dict(row, where="phase 6b worker process")
+                      for row in ring_processes["kernel_cases"]]),
         ),
     ]
     phase()
@@ -6077,7 +6431,10 @@ def main() -> int:
     tiering_summary = {k: v for k, v in tiered.items() if k != "launches"}
     http_summary = {k: v for k, v in served_http.items() if k != "launches"}
     print(json.dumps({"serving": summary, "serving_http": http_summary,
-                      "ring_prefill": ring_summary, "offload": offloaded,
+                      "ring_prefill": ring_summary,
+                      "ring_processes": {k: v for k, v in ring_processes.items()
+                                         if k != "kernel_cases"},
+                      "offload": offloaded,
                       "vllm_offload": {k: v for k, v in vllm.items() if k != "launches"},
                       "tiering": tiering_summary,
                       "autograd_guard": guard, "training": trained, "moe": moe_summary,

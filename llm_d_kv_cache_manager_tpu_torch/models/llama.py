@@ -69,18 +69,21 @@ from llm_d_kv_cache_manager_tpu_torch.ops.paged_decode_cuda import (
     paged_decode_attention_cuda,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import (
+    Ring,
     ring_body,
     ring_for_mesh,
+    ring_of,
     stripe,
     unstripe,
 )
-from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import AXIS_ORDER, AXIS_SP, Mesh
 from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import (
     P,
     Sharded,
     all_gather,
     all_reduce,
     distinct_locals,
+    sum_over_processes,
     sync_replica_grads,
     tree_leaves,
     tree_mesh,
@@ -347,6 +350,17 @@ def forward(
     the logits, so the returned contract is unchanged.  ``ring_impl``:
     ``"auto"`` (the partial kernel on CUDA, the einsum body on the
     CPU), ``"flash"`` or ``"einsum"``.
+
+    An ``sp_mesh`` over several processes (``make_hybrid_mesh``; every
+    other axis of degree 1) takes plain params, the same in every
+    process, and the same tokens in every process: each process embeds,
+    projects and runs the MLP only for its own ranks' positions, only
+    attention communicates (:func:`_ring_forward_local`), and the result
+    is this process's logits as a
+    :class:`~llm_d_kv_cache_manager_tpu_torch.parallel.sharding.Sharded`
+    of the [B, T, V] logits over ``sp`` (``P(None, "sp")``) in the layout
+    the ring ran: with ``ring_striped``, the stripe order, which
+    :func:`unstripe` of the joined chunks puts back.
     """
     B, T = tokens.shape
     if sp_mesh is not None and positions is not None:
@@ -357,11 +371,14 @@ def forward(
         )
     if is_sharded(params):
         grid = _grid(params, cfg)
+        grid.whole("forward")
         xs, striped = _sharded_run(params, tokens, cfg, grid, positions=positions,
                                    use_flash=use_flash, sp_mesh=sp_mesh,
                                    striped=ring_striped, impl=ring_impl)
         logits = _join_logits(params, grid, xs)
         return unstripe(logits, grid.sp) if striped else logits
+    if sp_mesh is not None and sp_mesh.multi_process:
+        return _ring_forward_local(params, tokens, cfg, sp_mesh, ring_striped, ring_impl)
     dev = params["embed"].device
     tokens = tokens.to(dev)
     if positions is None:
@@ -391,6 +408,51 @@ def forward(
     if striped:
         x = unstripe(x, sp_mesh.shape["sp"])
     return _logits(x, params)
+
+
+def _ring_forward_local(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, sp_mesh: Mesh,
+                        striped: bool, impl: str) -> Sharded:
+    """:func:`forward` over an ``sp_mesh`` of several processes: this
+    process's ring ranks' chunks of the sequence (striped or contiguous,
+    positions cut with them) through every layer, the ring's K/V moves
+    between processes through their group; returns their logits."""
+    for axis in sp_mesh.axis_names:
+        if axis != AXIS_SP and sp_mesh.size(axis) > 1:
+            raise NotImplementedError(
+                f"forward over a mesh of several processes runs the ring over sp alone; "
+                f"{axis}={sp_mesh.size(axis)}")
+    B, T = tokens.shape
+    R = sp_mesh.size(AXIS_SP)
+    if T % R:
+        raise ValueError(f"sequence {T} not divisible by ring {R}")
+    coords = [sp_mesh.coord(sp=r) for r in range(R)]
+    ring = ring_of(sp_mesh, coords)
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    positions = torch.arange(T, device=dev).expand(B, T)
+    striped = striped and R > 1
+    if striped:
+        # Positions stay PHYSICAL; their order is striped with the tokens.
+        tokens, positions = stripe(tokens, R), stripe(positions, R)
+    t_loc = T // R
+    xs = {r: _embed(params, tokens[:, r * t_loc : (r + 1) * t_loc]) for r in ring.local}
+    pos = {r: positions[:, r * t_loc : (r + 1) * t_loc] for r in ring.local}
+    body = ring_body(impl, dev.type)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        qkv = {r: _qkv(_rms_norm(xs[r], lp["ln1"]), lp, pos[r], cfg.rope_theta)
+               for r in ring.local}
+        q, k, v = ({r: t[j].contiguous().to(ring.devices[r]) for r, t in qkv.items()}
+                   for j in range(3))
+        attn = body(q, k, v, ring, striped=striped)
+        for r in ring.local:
+            x = xs[r] + _attn_out(attn[r].to(dev), lp)
+            xs[r] = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
+    locals_ = np.empty(sp_mesh.devices.shape, dtype=object)
+    for r in ring.local:
+        locals_[coords[r]] = _logits(xs[r], params)
+    return Sharded(sp_mesh, P(None, AXIS_SP, None), (B, T, cfg.vocab_size), torch.float32,
+                   locals_)
 
 
 def _scatter_kv_blocks(kv_layer, k, v, block_ids, block_size) -> None:
@@ -731,6 +793,30 @@ class _Grid:
         if n_layers % self.pp:
             raise ValueError(f"{n_layers} layers do not divide over pp={self.pp}")
         self.per_stage = n_layers // self.pp
+        # The batch shards this process computes (every one on a mesh of
+        # one process), and the device of its first rank, where its
+        # shards meet.
+        self.dps = [d for d in range(self.dp) if mesh.is_local(self.coord(d))]
+        self.home = mesh.devices[next(c for c in np.ndindex(mesh.devices.shape)
+                                      if mesh.is_local(c))]
+
+    def inside_process(self, where: str, crossing=("dp",)) -> None:
+        """Raise unless the only axes of the mesh that cross processes
+        are in ``crossing``: each other axis's collectives run inside
+        one process here."""
+        for axis in self.mesh.crossing_axes():
+            if axis not in crossing:
+                raise NotImplementedError(
+                    f"{where}: the {axis} axis crosses processes, which is not ported "
+                    f"(across processes: {', '.join(crossing) or 'no axis'})")
+
+    def whole(self, where: str) -> None:
+        """Raise on params sharded over several processes: ``where``
+        returns a whole tensor, which no process holds."""
+        if self.mesh.multi_process:
+            raise NotImplementedError(
+                f"{where} over params sharded across processes is not ported: loss_fn and "
+                "train_step take dp across processes")
 
     def coord(self, d=0, p=0, e=0, s=0, t=0) -> Tuple[int, ...]:
         return self.mesh.coord(dp=d, pp=p, ep=e, sp=s, tp=t)
@@ -819,14 +905,17 @@ def _sharded_stack(params: Params, tokens: torch.Tensor, positions: torch.Tensor
     devices)`` gives layer i's attention of batch shard d and head shard
     t, one output per sequence chunk; ``mlp_block(i, p, xs)`` adds the
     MLP's output to every shard of ``xs``.  Returns ``xs``, {(d, s):
-    hidden [B/dp, T/sp, D]} on the last stage's tp-0 devices."""
+    hidden [B/dp, T/sp, D]} on the last stage's tp-0 devices, for this
+    process's batch shards (dp may cross processes; an axis of the
+    attention or the MLP may not)."""
     B, T = tokens.shape
+    grid.inside_process("_sharded_stack")
     if B % grid.dp or T % grid.sp:
         raise ValueError(f"[B={B}, T={T}] does not divide over dp={grid.dp} x sp={grid.sp}")
     xs = {}
     # The embedding's width is cut over tp: each rank looks up its
     # columns, and an all-gather joins them.
-    for d in range(grid.dp):
+    for d in grid.dps:
         for s in range(grid.sp):
             parts = [grid.take(params["embed"], None, d, 0, 0, s, t)[
                 grid.cut(tokens, d, s).to(grid.dev(d, 0, 0, s, t)).long()]
@@ -835,7 +924,7 @@ def _sharded_stack(params: Params, tokens: torch.Tensor, positions: torch.Tensor
     keys = ("ln1", "wq", "wk", "wv", "wo")
     for i in range(cfg.n_layers):
         p = grid.stage(i)
-        for d in range(grid.dp):
+        for d in grid.dps:
             lps, qkv = {}, {}
             for s in range(grid.sp):
                 # A stage's first layer: the activations hop stages.
@@ -919,7 +1008,7 @@ def _sharded_run(params: Params, tokens: torch.Tensor, cfg, grid: _Grid, *,
     striped): the hidden shards of :func:`_sharded_stack` and whether
     they are in the stripe layout."""
     B, T = tokens.shape
-    out = grid.dev()
+    out = grid.home
     tokens = tokens.to(out)
     positions = (torch.arange(T, device=out).expand(B, T) if positions is None
                  else positions.to(out))
@@ -932,7 +1021,9 @@ def _sharded_run(params: Params, tokens: torch.Tensor, cfg, grid: _Grid, *,
         body = ring_body(impl, out.type)
 
         def attend(i, d, p, t, qs, ks, vs, devices):
-            return body(qs, ks, vs, devices, striped=striped)
+            outs = body(dict(enumerate(qs)), dict(enumerate(ks)), dict(enumerate(vs)),
+                        Ring(devices), striped=striped)
+            return [outs[s] for s in range(len(qs))]
     else:
         striped = False
         attend = _gather_attend(cfg, use_flash)
@@ -945,9 +1036,10 @@ def _sharded_nll(params: Params, tokens: torch.Tensor, grid: _Grid, xs) -> torch
     """:func:`next_token_nll` over the shards, in its shift-and-mask
     form: a chunk's last target is the next chunk's first token, taken
     from the global roll; each shard's logits are made and dropped in
-    turn, and the shards' sums add in rank order."""
+    turn, and the shards' sums add in rank order.  Over dp across
+    processes, the sum of this process's shards: its share of the mean."""
     B, T = tokens.shape
-    out = grid.dev()
+    out = grid.home
     tokens = tokens.to(out).long()
     targets = torch.roll(tokens, -1, dims=1)
     mask = (torch.arange(T, device=out) < T - 1).expand(B, T)
@@ -965,6 +1057,7 @@ def _prefill_sharded(params, tokens, kv_pool, block_table, cfg, prefix_len: int)
     read from its rank's pool slice, and the chunks up to its own; then
     every chunk's K/V goes into every copy of its head slice."""
     grid = _grid(params, cfg, kv_pool)
+    grid.whole("prefill")
     out = grid.dev()
     tokens, table = tokens.to(out), block_table.to(out).long()
     B, Ts = tokens.shape
@@ -1006,6 +1099,7 @@ def _decode_sharded(params, tokens, kv_pool, block_table, context_len, cfg):
     head shard writes its K/V into every copy of its pool slice and runs
     the decode kernel on its own."""
     grid = _grid(params, cfg, kv_pool)
+    grid.whole("decode_step")
     if grid.sp > 1:
         raise ValueError(f"a decode step has one token a sequence; sp={grid.sp} cuts nothing")
     out = grid.dev()
@@ -1098,13 +1192,16 @@ def optimizer_step(
     """One step: zero the grads, differentiate ``loss()``, give every
     copy of a sharded slice the slice's whole gradient
     (``sync_replica_grads`` of ``params``), update the params in place.
-    Returns the loss, detached."""
+    Returns the loss, detached; over params sharded across processes
+    ``loss()`` is this process's share, and the shares are summed."""
     optimizer.zero_grad(set_to_none=True)
     value = loss()
     value.backward()
     sync_replica_grads(params)
     optimizer.step()
-    return value.detach()
+    mesh = tree_mesh(params)
+    value = value.detach()
+    return value if mesh is None else sum_over_processes(value, mesh)
 
 
 def train_step(

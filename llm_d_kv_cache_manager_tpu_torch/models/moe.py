@@ -291,7 +291,10 @@ def _sharded_moe_block(params: Params, cfg: MoEConfig, grid: _Grid, B: int, T: i
     stage's first rank, routed there as one [B*T] batch, the experts'
     batches placed on the ep ranks (:func:`_constrain`), each (ep, tp)
     rank's partial product summed over tp, and the combine summed over
-    ep, in rank order.  Appends each layer's aux loss to ``auxes``."""
+    ep, in rank order.  Appends each layer's aux loss to ``auxes``.
+    Every axis stays inside one process: the routing joins every batch
+    shard's tokens."""
+    grid.inside_process("_sharded_moe_block", crossing=())
     E = cfg.n_experts // grid.ep
 
     def block(i: int, p: int, xs) -> None:
@@ -356,6 +359,9 @@ def forward(
     if is_sharded(params):
         grid, xs, aux = _sharded_forward(params, tokens, cfg, use_flash, sp_mesh, ring_impl)
         return _join_logits(params, grid, xs), aux
+    if sp_mesh is not None and sp_mesh.multi_process:
+        raise NotImplementedError("the MoE forward over a mesh of several processes is not "
+                                  "ported: its routing joins every token of the batch")
     B, T = tokens.shape
     dev = params["embed"].device
     tokens = tokens.to(dev)

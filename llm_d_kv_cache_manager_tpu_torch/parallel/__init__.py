@@ -1,7 +1,10 @@
-"""Mesh axes and the single-controller device mesh (``parallel.mesh``).
+"""Mesh axes, the device mesh (``parallel.mesh``) and its transport
+across processes (``parallel.process_group``).
 
-The package exports the reference's names (its ``parallel/__init__.py``):
-the axis names, ``MeshPlan`` and ``make_mesh``.
+``__all__`` is the reference's (its ``parallel/__init__.py``): the axis
+names, ``MeshPlan`` and ``make_mesh``.  ``make_hybrid_mesh``, which the
+reference defines in ``parallel/mesh.py``, is importable from the
+package too.
 """
 
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import (
@@ -11,6 +14,7 @@ from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import (
     AXIS_SP,
     AXIS_TP,
     MeshPlan,
+    make_hybrid_mesh,
     make_mesh,
 )
 

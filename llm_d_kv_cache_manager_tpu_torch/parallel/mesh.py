@@ -12,23 +12,32 @@ same outermost-to-innermost order and the same ``MeshPlan.resolve``.
 - ``ep``: expert parallel — reserved for MoE model families; meshes are
   always built with the axis present (size 1 unless requested).
 
-The reference is single-controller: one process drives every device of
-a JAX ``Mesh``.  So is the port.  A :class:`Mesh` is an array of
-``torch.device`` entries shaped by ``AXIS_ORDER``; an entry is a rank,
-and several entries may name the same device.  On one GPU,
-``make_mesh(MeshPlan(dp=1, sp=4), ["cuda:0"] * 4)`` is a 4-rank ring
-whose ranks take turns on the card; on the CPU, ``["cpu"] * 8`` plays
-the part of the reference tests' eight virtual host devices.
+Inside one process the reference is single-controller: one process
+drives every device of a JAX ``Mesh``.  So is the port.  A :class:`Mesh`
+is an array of ``torch.device`` entries shaped by ``AXIS_ORDER``; an
+entry is a rank, and several entries may name the same device.  On one
+GPU, ``make_mesh(MeshPlan(dp=1, sp=4), ["cuda:0"] * 4)`` is a 4-rank
+ring whose ranks take turns on the card; on the CPU, ``["cpu"] * 8``
+plays the part of the reference tests' eight virtual host devices.
+
+Across hosts the reference runs one process a host
+(``jax.distributed.initialize()``), and :func:`make_hybrid_mesh` lays
+the devices of every process out in one mesh.  So does the port, over
+``torch.distributed``: each entry also names its process (its rank in
+the default group, ``Mesh.processes``), and a process computes only for
+its own entries (:meth:`Mesh.is_local`).  A move between two entries of
+one process is a ``.to(device)``; a move between entries of two
+processes goes through the process group (``parallel/process_group.py``).
 
 :func:`activate` (or ``with mesh:``) makes a mesh the active one, as the
 reference's ``jax.set_mesh`` does, so that ``moe._constrain`` can place
-a tensor on its ranks; :func:`mesh_is_active` says whether one is.  A
-transport over ``torch.distributed`` process groups, and the
-reference's ``make_hybrid_mesh``, are not ported yet.
+a tensor on its ranks; :func:`mesh_is_active` says whether one is.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import threading
 from collections import OrderedDict
 from contextlib import contextmanager
@@ -37,6 +46,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from llm_d_kv_cache_manager_tpu_torch.utils.device import resolve_device
 
@@ -92,19 +102,59 @@ class MeshPlan:
         return sizes
 
 
+def world() -> Tuple[int, int]:
+    """(this process's rank, the number of processes) of the default
+    ``torch.distributed`` group; (0, 1) where none is initialized."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 class Mesh:
     """A device array with named axes: ``devices`` is an ndarray of
     ``torch.device`` (object dtype), one axis per name of
     ``axis_names``; ``shape`` maps each name to its size, as JAX's
-    ``mesh.shape["sp"]`` does."""
+    ``mesh.shape["sp"]`` does.  ``processes`` (int, the same shape) is
+    the rank of the process that owns each entry, by default this
+    process's for every entry; ``process`` is this process's rank."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]) -> None:
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 processes: Optional[np.ndarray] = None,
+                 process: Optional[int] = None) -> None:
         if devices.ndim != len(axis_names):
             raise ValueError(
                 f"{devices.ndim}-d device array for axes {tuple(axis_names)}"
             )
         self.devices = devices
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.process = world()[0] if process is None else process
+        if processes is None:
+            processes = np.full(devices.shape, self.process, dtype=np.int64)
+        if processes.shape != devices.shape:
+            raise ValueError(f"processes {processes.shape} for devices {devices.shape}")
+        self.processes = processes
+        # parallel.process_group.transport(mesh) keeps the mesh's transport
+        # (its sub-groups) here, made on first use.
+        self._transport = None
+
+    @property
+    def multi_process(self) -> bool:
+        """Whether the mesh's entries belong to more than one process."""
+        return bool((self.processes != self.processes.flat[0]).any())
+
+    def process_of(self, coord: Tuple[int, ...]) -> int:
+        """The rank of the process that owns the entry at ``coord``."""
+        return int(self.processes[coord])
+
+    def is_local(self, coord: Tuple[int, ...]) -> bool:
+        """Whether this process owns the entry at ``coord``."""
+        return self.process_of(coord) == self.process
+
+    def crossing_axes(self) -> Tuple[str, ...]:
+        """The axes along which the owning process changes: the axes
+        whose collectives cross processes."""
+        return tuple(a for i, a in enumerate(self.axis_names)
+                     if (np.diff(self.processes, axis=i) != 0).any())
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
@@ -131,7 +181,10 @@ class Mesh:
 
     def __repr__(self) -> str:
         sizes = ", ".join(f"{a}={s}" for a, s in self.shape.items())
-        return f"Mesh({sizes}; {sorted({str(d) for d in self.devices.flat})})"
+        where = f"{sorted({str(d) for d in self.devices.flat})}"
+        if self.multi_process:
+            where += f" over processes {sorted(set(self.processes.ravel().tolist()))}"
+        return f"Mesh({sizes}; {where})"
 
 
 class _Active(threading.local):
@@ -184,3 +237,89 @@ def make_mesh(
     dev_array = np.empty(len(devices), dtype=object)
     dev_array[:] = devices
     return Mesh(dev_array.reshape(shape), AXIS_ORDER)
+
+
+def _local_devices(devices: Optional[Sequence[Union[str, torch.device]]]) -> list:
+    if devices is None:
+        resolve_device("cuda")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [resolve_device(d) for d in devices]
+
+
+def hybrid_layout(ici_sizes: Dict[str, int], dcn_sizes: Dict[str, int],
+                  process_devices: Sequence[Sequence[Union[str, torch.device]]]):
+    """(devices, processes) of the hybrid mesh over ``process_devices``
+    (each process's own devices, in rank order): the order of the
+    reference's ``mesh_utils.create_hybrid_device_mesh(...,
+    process_is_granule=True)``.  Along each axis, index ``c`` is the
+    ICI index ``c % ici`` inside the process at DCN index ``c // ici``;
+    processes fill the DCN grid and each process's devices its ICI grid,
+    both in row-major order."""
+    ici = tuple(ici_sizes[a] for a in AXIS_ORDER)
+    dcn = tuple(dcn_sizes[a] for a in AXIS_ORDER)
+    if math.prod(dcn) != len(process_devices):
+        raise ValueError(f"DCN degrees {dcn} want {math.prod(dcn)} processes, "
+                         f"have {len(process_devices)}")
+    for p, local in enumerate(process_devices):
+        if len(local) != math.prod(ici):
+            raise ValueError(f"ICI degrees {ici} want {math.prod(ici)} devices a process, "
+                             f"process {p} has {len(local)}")
+    shape = tuple(i * d for i, d in zip(ici, dcn))
+    devices = np.empty(shape, dtype=object)
+    processes = np.empty(shape, dtype=np.int64)
+    for coord in np.ndindex(shape):
+        p = int(np.ravel_multi_index(tuple(c // i for c, i in zip(coord, ici)), dcn))
+        j = int(np.ravel_multi_index(tuple(c % i for c, i in zip(coord, ici)), ici))
+        devices[coord] = torch.device(process_devices[p][j])
+        processes[coord] = p
+    return devices, processes
+
+
+def make_hybrid_mesh(
+    ici_plan: Optional[MeshPlan] = None,
+    dcn_plan: Optional[MeshPlan] = None,
+    devices: Optional[Sequence[Union[str, torch.device]]] = None,
+) -> Mesh:
+    """Multi-process mesh: per-axis ICI (inside a process) x DCN
+    (across processes) degrees, the same canonical axis names.
+
+    The scaling recipe of the reference, whose counterpart of
+    ``jax.distributed.initialize()`` is
+    ``torch.distributed.init_process_group``: call it in every process
+    (one a host, or one a GPU), then build the mesh here in every
+    process.  The world size comes from the default group, and each
+    process's devices from an all-gather of their names.  Each axis's
+    DCN factor crosses processes while its ICI factor stays inside one,
+    in the order of ``create_hybrid_device_mesh(...,
+    process_is_granule=True)`` (:func:`hybrid_layout`).
+
+    ``ici_plan`` defaults to tensor parallel over a process's devices
+    (``dp=1, tp=per_process``) and ``dcn_plan`` to data parallel over
+    the processes (``dp=n_processes``), as in the reference.  With one
+    process (no group, or a world of 1) the degrees merge per axis into
+    ``make_mesh``'s flat mesh.  ``devices``: this process's devices
+    (default every CUDA device; the CPU only when the caller names it).
+    Raises where ``WORLD_SIZE`` says several processes run and no group
+    is initialized."""
+    rank, n_processes = world()
+    if n_processes == 1 and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError(
+            f"WORLD_SIZE={os.environ['WORLD_SIZE']} but no torch.distributed group is "
+            "initialized: call torch.distributed.init_process_group in every process first")
+    local = _local_devices(devices)
+    per_process = len(local)
+    ici_plan = ici_plan or MeshPlan(dp=1, tp=per_process)
+    dcn_plan = dcn_plan or MeshPlan(dp=n_processes)
+    ici_sizes = ici_plan.resolve(per_process)
+    dcn_sizes = dcn_plan.resolve(n_processes)
+    if n_processes == 1:
+        # One process: hybrid degenerates to the flat ICI mesh.
+        merged = MeshPlan(**{a: ici_sizes[a] * dcn_sizes[a] for a in AXIS_ORDER})
+        return make_mesh(merged, local)
+    gathered = [None] * n_processes
+    dist.all_gather_object(gathered, [str(d) for d in local])
+    dev_array, processes = hybrid_layout(ici_sizes, dcn_sizes, gathered)
+    for coord in np.ndindex(dev_array.shape):
+        if processes[coord] == rank:
+            dev_array[coord] = resolve_device(dev_array[coord])
+    return Mesh(dev_array, AXIS_ORDER, processes=processes, process=rank)

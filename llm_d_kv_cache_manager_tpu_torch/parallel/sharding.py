@@ -19,6 +19,12 @@ them in rank order, so every result is deterministic.  All of them keep
 autograd's graph.  A tensor replicated over ranks on different devices
 is one tensor per device; :func:`sync_replica_grads` sums the gradients
 of those copies, each of which holds only its own ranks' share.
+
+On a mesh of several processes (``mesh.make_hybrid_mesh``) a process
+makes and holds only its own entries' slices: ``locals`` is None at
+another process's entries.  :func:`sync_replica_grads` then sums each
+slice's gradient inside the process, as above, and across the processes
+that hold copies of it through ``parallel/process_group.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.process_group import transport
 
 
 class P(tuple):
@@ -71,7 +78,8 @@ def _full_spec(spec: Sequence[Optional[str]], ndim: int, mesh: Mesh) -> P:
 class Sharded:
     """A tensor of global ``shape`` cut over ``mesh`` by ``spec``:
     ``locals[coord]`` is the slice the rank at ``coord`` holds, on its
-    device.  Made by :func:`shard` or :func:`zeros`."""
+    device (None where another process owns the rank).  Made by
+    :func:`shard` or :func:`zeros`."""
 
     def __init__(self, mesh: Mesh, spec: P, shape: Tuple[int, ...], dtype: torch.dtype,
                  locals_: np.ndarray) -> None:
@@ -106,7 +114,7 @@ class Sharded:
         seen, out = set(), []
         for coord in np.ndindex(self.locals.shape):
             tensor = self.locals[coord]
-            if id(tensor) not in seen:
+            if tensor is not None and id(tensor) not in seen:
                 seen.add(id(tensor))
                 out.append((coord, tensor))
         return out
@@ -132,6 +140,8 @@ def _place(shape, dtype, mesh: Mesh, spec, make: Callable[[Tuple[int, ...],
     out = Sharded(mesh, spec, tuple(shape), dtype, np.empty(mesh.devices.shape, dtype=object))
     made: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor] = {}
     for coord in np.ndindex(mesh.devices.shape):
+        if not mesh.is_local(coord):
+            continue
         device, index = mesh.devices[coord], out.shard_index(coord)
         if (device, index) not in made:
             made[device, index] = make(out.local_shape, out.slices(index), device)
@@ -166,7 +176,11 @@ def empty(shape: Sequence[int], dtype: torch.dtype, mesh: Mesh,
 
 def unshard(x: Sharded, device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
     """The global tensor, assembled from one copy of each slice on
-    ``device`` (default: the first rank's)."""
+    ``device`` (default: the first rank's).  A process of a mesh over
+    several processes holds only its own slices and raises."""
+    if x.mesh.multi_process:
+        raise ValueError("this process holds only its own slices of a tensor sharded over "
+                         f"{x.mesh}: gather them through parallel.process_group")
     device = torch.device(device) if device is not None else x.mesh.devices.flat[0]
     out = torch.empty(x.shape, dtype=x.dtype, device=device)
     done = set()
@@ -257,6 +271,18 @@ def all_gather(parts: Sequence[torch.Tensor], device: torch.device, dim: int) ->
     return torch.cat([part.to(device) for part in parts], dim=dim)
 
 
+def sum_over_processes(value: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``value`` summed over the processes along each axis of ``mesh``
+    that crosses processes, in the axes' order (itself on a mesh of one
+    process).  Every process of the mesh calls it."""
+    if not mesh.multi_process:
+        return value
+    coord = next(c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c))
+    for axis in mesh.crossing_axes():
+        value = transport(mesh).all_reduce(value, axis, coord)
+    return value
+
+
 def sync_replica_grads(tree: Any) -> None:
     """Make every copy of a slice hold the slice's whole gradient.
 
@@ -266,17 +292,33 @@ def sync_replica_grads(tree: Any) -> None:
     share of the loss (a dp replica's: its batch's share of the global
     mean), so the copies' gradients are summed in coordinate order and
     the sum is given to each copy: the mean over dp of every rank's own
-    mean-loss gradient.  A copy no rank used counts as zero."""
+    mean-loss gradient.  A copy no rank used counts as zero.
+
+    On a mesh of several processes, the sum inside the process is then
+    summed over the processes along each crossing axis that the leaf is
+    not cut over (``all_reduce`` of ``parallel/process_group.py``, in
+    the axis's order), and every copy gets it; a process whose copies
+    have no gradient adds zeros.  Every process walks its slices in
+    shard order and calls the collective for each."""
     for leaf in tree_leaves(tree):
         if not isinstance(leaf, Sharded):
             continue
-        groups: "OrderedDict[Tuple[int, ...], List[torch.Tensor]]" = OrderedDict()
+        groups: "OrderedDict[Tuple[int, ...], List[Tuple[Tuple[int, ...], torch.Tensor]]]" = (
+            OrderedDict())
         for coord, tensor in leaf.distinct():
-            groups.setdefault(leaf.shard_index(coord), []).append(tensor)
-        for copies in groups.values():
+            groups.setdefault(leaf.shard_index(coord), []).append((coord, tensor))
+        across = [a for a in leaf.mesh.crossing_axes() if a not in leaf.spec]
+        for index in sorted(groups) if across else groups:
+            copies = [t for _, t in groups[index]]
             grads = [t.grad for t in copies if t.grad is not None]
-            if len(copies) < 2 or not grads:
+            if across:
+                total = (all_reduce(grads, copies[0].device) if grads
+                         else torch.zeros_like(copies[0]))
+                for axis in across:
+                    total = transport(leaf.mesh).all_reduce(total, axis, groups[index][0][0])
+            elif len(copies) < 2 or not grads:
                 continue
-            total = all_reduce(grads, copies[0].device)
+            else:
+                total = all_reduce(grads, copies[0].device)
             for tensor in copies:
                 tensor.grad = total if tensor.device == total.device else total.to(tensor.device)

@@ -9,7 +9,9 @@ comparison, nested-state walks, byte totals and comparisons, and phase
 12's launch counts per shard, shard-slice comparison and the planted
 faults of the sharded training check; phase 7b's helpers and the whole
 phase on CPU pools at a small configuration; phases 5c and 14d (the HTTP
-service) whole at a small size, with a planted fault for 14d."""
+service) whole at a small size, with a planted fault for 14d; phase 6b's
+per-step transfer summary and its hold of a process's partial launches,
+which a planted fault must fail."""
 
 import inspect
 import json
@@ -1153,3 +1155,54 @@ def test_grpc_phase_runs_nothing_without_its_libraries(monkeypatch):
                         lambda: {"grpc": None, "google.protobuf": "6"})
     out = smoke["grpc_phase"]("cpu", {"frames": {}}, {"pods": [], "block": 16}, sample=4)
     assert out == {"libraries": {"grpc": None, "google.protobuf": "6"}, "ran": False}
+
+
+# ------------------------------------------------------------- phase 6b
+
+
+def test_transfer_summary_is_per_ring_step():
+    records = [dict(d2h_ms=0.2, h2d_ms=0.3, wait_ms=5.0, span_ms=9.0, bytes_out=8, bytes_in=8),
+               dict(d2h_ms=0.4, h2d_ms=0.1, wait_ms=3.0, span_ms=7.0, bytes_out=8, bytes_in=8)]
+    got = smoke["transfer_summary"](records)
+    assert got["steps"] == 2
+    assert got["d2h_ms_per_step"] == pytest.approx(0.3)
+    assert got["h2d_ms_per_step"] == pytest.approx(0.2)
+    assert got["wait_ms_per_step"] == pytest.approx(4.0)
+    assert got["span_ms_per_step"] == pytest.approx(8.0)
+    assert got["bytes_out_per_step"] == got["bytes_in_per_step"] == 8
+    assert got["staging_ms"] == pytest.approx(1.0) and got["wait_ms"] == pytest.approx(8.0)
+
+
+def _held_ring(monkeypatch, fault: bool):
+    """Phase 6b's hold of every partial launch, around a 4-rank flash ring
+    on CPU ranks (the wrapper takes its plain version there)."""
+    from types import SimpleNamespace
+
+    ring, mesh = port("ops.ring_attention"), port("parallel.mesh")
+    if fault:
+        real = ring.flash_partial_cuda
+
+        def skewed(q, k, v, *, causal_offset=0):
+            acc, m, l = real(q, k, v, causal_offset=causal_offset)
+            return acc * 1.1, m, l
+
+        monkeypatch.setattr(ring, "flash_partial_cuda", skewed)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+               for s in ((1, 32, 4, 64), (1, 32, 2, 64), (1, 32, 2, 64)))
+    tmesh = mesh.make_mesh(mesh.MeshPlan(dp=1, sp=4), ["cpu"] * 4)
+    fake_torch = SimpleNamespace(float32=torch.float32,
+                                 cuda=SimpleNamespace(synchronize=lambda: None))
+    return smoke["hold_partials"](fake_torch, lambda: ring.ring_attention(
+        q, k, v, tmesh, striped=True, impl="flash"))
+
+
+def test_hold_partials_holds_every_launch(monkeypatch):
+    held = _held_ring(monkeypatch, fault=False)
+    assert held["calls"] == 16 and held["offsets"] == {"0": 10, "-1": 6}
+    assert held["worst_err_over_limit"] == 0.0 and held["exact_empty_rows"]
+
+
+def test_hold_partials_rejects_a_planted_fault(monkeypatch):
+    with pytest.raises(AssertionError, match="disagrees with the plain version"):
+        _held_ring(monkeypatch, fault=True)

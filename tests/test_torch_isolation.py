@@ -46,8 +46,8 @@ print(json.dumps({{"modules": names, "loaded": loaded}}))
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert f"{PACKAGE}.models.llama" in result["modules"]
     assert f"{PACKAGE}.ops.paged_decode_cuda" in result["modules"]
-    for name in ("parallel.mesh", "parallel.sharding", "ops.ring_attention", "ops.ring_flash",
-                 "ops.ring_flash_cuda"):
+    for name in ("parallel.mesh", "parallel.sharding", "parallel.process_group",
+                 "ops.ring_attention", "ops.ring_flash", "ops.ring_flash_cuda"):
         assert f"{PACKAGE}.{name}" in result["modules"]
     for name in (OFFLOAD_MODULES + READ_PATH_MODULES + WRITE_PATH_MODULES + TIERING_MODULES
                  + PERSISTENCE_MODULES + CLUSTER_MODULES + SERVICE_MODULES + GRPC_MODULES
@@ -719,7 +719,9 @@ def test_obs_exports_the_references_names():
 def test_package_exports_the_references_names(package):
     """The port's ``ops`` and ``parallel`` export exactly the reference's
     ``__all__``, and each name is the port's function or class, not a
-    submodule; importing them builds no kernel."""
+    submodule; importing them builds no kernel.  ``parallel`` also
+    re-exports ``make_hybrid_mesh``, the port's counterpart of the
+    reference's ``parallel/mesh.py`` function."""
     import importlib
     import types
 
@@ -735,6 +737,11 @@ def test_package_exports_the_references_names(package):
             assert value == getattr(reference, name)
         else:
             assert value.__module__.startswith(PACKAGE + "."), name
+    if package == "parallel":
+        ref_mesh = importlib.import_module("llm_d_kv_cache_manager_tpu.parallel.mesh")
+        assert callable(ref_mesh.make_hybrid_mesh)
+        assert ours.make_hybrid_mesh is port("parallel.mesh").make_hybrid_mesh
+        assert ours.make_hybrid_mesh.__module__ == PACKAGE + ".parallel.mesh"
     build = port("ops._build")
     assert not getattr(build, "_LIBS", {}), "importing the ops package built a kernel"
 
@@ -800,10 +807,14 @@ def _shard():
     return sharding.shard(torch.zeros(2), _mesh(), sharding.P(None))
 
 
+def _hybrid_mesh():
+    return port("parallel.mesh").make_hybrid_mesh()
+
+
 @pytest.mark.parametrize(
-    "entry", [_pool, _params, _resolve, _mesh, _moe_params, _shard],
+    "entry", [_pool, _params, _resolve, _mesh, _moe_params, _shard, _hybrid_mesh],
     ids=["KVCachePool", "init_params", "resolve_device", "make_mesh", "moe.init_params",
-         "shard"],
+         "shard", "make_hybrid_mesh"],
 )
 def test_entry_point_without_device_raises_without_gpu(entry):
     """Entry points default to CUDA; with no GPU they raise instead of

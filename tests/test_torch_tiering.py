@@ -8,8 +8,10 @@ load advice (exact: both compute in float64 on the host), demotion
 records and published events, the index after both event pools applied
 them, and the bytes a ``StagedDemotionTarget`` moves into the host tier
 and into files.  The cases are those of the JAX package's
-``tests/test_tiering.py`` that need no HTTP service; each runs on both
-packages and holds each to that test's expectations.  Last, the wiring:
+``tests/test_tiering.py``, its ``TestPolicyEngineSurface`` HTTP cases
+(``/debug/tiering`` and ``/healthz`` through each package's ``serve()``)
+included; each runs on both packages and holds each to that test's
+expectations.  Last, the wiring:
 ``TPUOffloadConnector(policy_engine=...)`` and the explain surface's
 advice.
 """
@@ -26,6 +28,7 @@ import pytest
 
 from llm_d_kv_cache_manager_tpu import tiering as ref_tiering
 from llm_d_kv_cache_manager_tpu.analytics import ledger as ref_ledger
+from llm_d_kv_cache_manager_tpu.api import http_service as ref_http
 from llm_d_kv_cache_manager_tpu.kvcache import indexer as ref_indexer
 from llm_d_kv_cache_manager_tpu.kvcache.kvblock import cost_aware as ref_cost_aware
 from llm_d_kv_cache_manager_tpu.kvcache.kvblock import index as ref_index
@@ -50,7 +53,7 @@ _REF = dict(
     tiering=ref_tiering, ledger=ref_ledger, indexer=ref_indexer, cost_aware=ref_cost_aware,
     index=ref_index, tp=ref_tp, events=ref_events, pool=ref_pool, kv_pool=ref_kv_pool,
     host_tier=ref_host_tier, spec=ref_spec, worker=ref_worker, demotion=ref_demotion,
-    staged=ref_staged, tok_pool=ref_tok_pool, tokenizers=ref_tokenizers,
+    staged=ref_staged, tok_pool=ref_tok_pool, tokenizers=ref_tokenizers, http=ref_http,
 )
 _PORT = dict(
     tiering="tiering", ledger="analytics.ledger", indexer="kvcache.indexer",
@@ -59,6 +62,7 @@ _PORT = dict(
     kv_pool="models.kv_cache_pool", host_tier="offload.host_tier", spec="offload.spec",
     worker="offload.worker", demotion="tiering.demotion", staged="tiering.staged_target",
     tok_pool="tokenization.pool", tokenizers="tokenization.tokenizers",
+    http="api.http_service",
 )
 
 
@@ -1078,3 +1082,83 @@ def test_connector_refuses_a_plain_feed_beside_the_engine(tmp_path, feed):
     with pytest.raises(ValueError, match="not both"):
         m.spec.TPUOffloadConnector(spec, pool, policy_engine=m.tiering.PolicyEngine(
             config=m.tiering.TieringConfig()), **{feed: m.tiering.LRU_POLICY})
+
+
+# ------------------------------------------------ HTTP debug surface
+
+
+def _http_indexer(m):
+    indexer = m.indexer.Indexer(
+        m.indexer.IndexerConfig(
+            token_processor_config=m.tp.TokenProcessorConfig(block_size=BLOCK_SIZE),
+            tokenizers_pool_config=m.tok_pool.TokenizationPoolConfig(workers=1,
+                                                                     model_name=MODEL)),
+        tokenizer=WordTokenizer(m))
+    indexer.run()
+    return indexer
+
+
+def _get_json(base, path):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=10) as response:
+        return json.load(response)
+
+
+def _tiering_surface(m):
+    """``/debug/tiering`` and ``/healthz`` of a service whose Indexer
+    has a policy engine."""
+    indexer = _http_indexer(m)
+    engine = m.tiering.PolicyEngine(ledger=indexer.cache_stats)
+    indexer.set_policy_engine(engine)
+    server = m.http.serve(indexer, host="127.0.0.1", port=0, tiering=engine)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        return _get_json(base, "/debug/tiering"), _get_json(base, "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+        indexer.shutdown()
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_debug_tiering_endpoint_and_healthz(side):
+    """``TestPolicyEngineSurface.test_debug_endpoint_and_healthz``: the
+    engine's status at ``/debug/tiering`` and its block in ``/healthz``."""
+    payload, health = _tiering_surface(mods(side))
+    assert "feed" in payload and "advisor" in payload
+    assert payload["config"]["eviction_sample"] >= 1
+    assert "tiering" in health
+    assert "advice_counts" in health["tiering"]
+
+
+def test_debug_tiering_answers_the_same_on_both_packages():
+    """The two packages' ``/debug/tiering`` and ``/healthz`` tiering
+    blocks carry the same keys and the same configuration."""
+
+    def view(m):
+        payload, health = _tiering_surface(m)
+        return sorted(payload), payload["config"], sorted(health["tiering"])
+
+    same(view)
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_debug_tiering_404_when_disabled(side):
+    """``TestPolicyEngineSurface.test_debug_endpoint_404_when_disabled``."""
+    import urllib.error
+
+    m = mods(side)
+    indexer = _http_indexer(m)
+    server = m.http.serve(indexer, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _get_json(base, "/debug/tiering")
+        assert err.value.code == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+        indexer.shutdown()

@@ -7,8 +7,10 @@ events and the index after each package's event pool applied them
 (dead source, partly evicted chain, a source demoted between plan and
 execute), warm-up drains, load blending and the planned scoring variant
 must be equal.  The cases are those of the JAX package's
-``tests/test_transfer.py`` that need no HTTP service, each held to that
-test's expectations in both packages.
+``tests/test_transfer.py``, its ``TestTransferHttpSurface`` included
+(``/debug/transfer``, ``/healthz``, ``/debug`` and planned scoring
+through each package's ``serve()``), each held to that test's
+expectations in both packages.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ import pytest
 from llm_d_kv_cache_manager_tpu import tiering as ref_tiering
 from llm_d_kv_cache_manager_tpu import transfer as ref_transfer
 from llm_d_kv_cache_manager_tpu.analytics import ledger as ref_ledger
+from llm_d_kv_cache_manager_tpu.api import http_service as ref_http
 from llm_d_kv_cache_manager_tpu.kvcache import indexer as ref_indexer
 from llm_d_kv_cache_manager_tpu.kvcache.kvblock import token_processor as ref_tp
 from llm_d_kv_cache_manager_tpu.kvevents import events as ref_events
@@ -36,11 +39,12 @@ KEYS = [11, 22, 33, 44]
 
 _REF = dict(tiering=ref_tiering, transfer=ref_transfer, ledger=ref_ledger, indexer=ref_indexer,
             tp=ref_tp, events=ref_events, pool=ref_pool, tok_pool=ref_tok_pool,
-            tokenizers=ref_tokenizers, planner=ref_planner)
+            tokenizers=ref_tokenizers, planner=ref_planner, http=ref_http)
 _PORT = dict(tiering="tiering", transfer="transfer", ledger="analytics.ledger",
              indexer="kvcache.indexer", tp="kvcache.kvblock.token_processor",
              events="kvevents.events", pool="kvevents.pool", tok_pool="tokenization.pool",
-             tokenizers="tokenization.tokenizers", planner="transfer.planner")
+             tokenizers="tokenization.tokenizers", planner="transfer.planner",
+             http="api.http_service")
 
 
 def mods(side: str) -> SimpleNamespace:
@@ -748,3 +752,119 @@ def test_planned_scoring_variant():
             indexer.shutdown()
 
     same(story)
+
+
+# ------------------------------------------------ HTTP debug surface
+
+
+def _post(base, path, payload):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=10) as response:
+        return json.load(response)
+
+
+def _get(base, path):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=10) as response:
+        return json.load(response)
+
+
+def _planned_scoring_over_http(m):
+    indexer, pool = make_stack(m)
+    engine = m.transfer.TransferEngine(advisor=fed_advisor(m),
+                                       config=m.transfer.TransferConfig(load_threshold=2.0))
+    indexer.set_transfer_engine(engine)
+    server = m.http.serve(indexer, host="127.0.0.1", port=0, transfer=engine)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        tokens = list(range(1, 17))
+        seed_chain(m, pool, "pod-1", [0xCC00 + i for i in range(4)], tokens)
+        reply = _post(base, "/score_completions", {
+            "prompt": prompt_of(tokens), "model": MODEL, "pods": ["pod-1", "pod-2"],
+            "pod_loads": {"pod-1": 9.0, "pod-2": 0.0}, "plan": True})
+        payload = _get(base, "/debug/transfer")
+        health = _get(base, "/healthz")
+        debug_index = _get(base, "/debug")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+        pool.shutdown()
+        indexer.shutdown()
+    return reply, payload, health, debug_index
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_debug_transfer_healthz_and_planned_scoring(side):
+    """``TestTransferHttpSurface.test_debug_endpoint_healthz_and_planned_scoring``."""
+    reply, payload, health, debug_index = _planned_scoring_over_http(mods(side))
+    assert reply["scores"]["pod-1"] == 4.0
+    assert reply["transfer"]["planned"] is True
+    assert reply["transfer"]["target_pod"] == "pod-2"
+    assert payload["planner"]["outcomes"]["planned"] == 1
+    assert payload["catalog"]["families"] == 1
+    assert payload["config"]["load_threshold"] == 2.0
+    assert health["transfer"]["plans"] == 1
+    surfaces = {row["path"]: row["enabled"] for row in debug_index["surfaces"]}
+    assert surfaces["/debug/transfer"] is True
+
+
+def test_planned_scoring_over_http_is_the_same_on_both_packages():
+    """The scores, the directive (its timing-free fields), the planner's
+    outcomes and config, and the ``/debug`` surface list are equal."""
+
+    def view(m):
+        reply, payload, health, debug_index = _planned_scoring_over_http(m)
+        directive = {k: v for k, v in reply["transfer"].items() if not k.endswith("_s")}
+        return (reply["scores"], directive, payload["planner"]["outcomes"], payload["config"],
+                health["transfer"]["plans"],
+                sorted((row["path"], row["enabled"]) for row in debug_index["surfaces"]))
+
+    same(view)
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_debug_transfer_404_when_disabled(side):
+    """``TestTransferHttpSurface.test_debug_endpoint_404_when_disabled``."""
+    import urllib.error
+
+    m = mods(side)
+    indexer, pool = make_stack(m)
+    server = m.http.serve(indexer, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _get(base, "/debug/transfer")
+        assert err.value.code == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+        pool.shutdown()
+        indexer.shutdown()
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_malformed_pod_loads_rejected(side):
+    """``TestTransferHttpSurface.test_malformed_pod_loads_rejected``."""
+    import urllib.error
+
+    m = mods(side)
+    indexer, pool = make_stack(m)
+    server = m.http.serve(indexer, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(base, "/score_completions",
+                  {"prompt": "t1 t2", "model": MODEL, "pod_loads": {"pod-1": "busy"}})
+        assert err.value.code == 400
+    finally:
+        server.shutdown()
+        server.server_close()
+        pool.shutdown()
+        indexer.shutdown()
