@@ -191,6 +191,26 @@ Phases (any failure exits non-zero):
      forward (2 x 8 prefill launches), three train steps; phases 2-4 also hold each
      kernel at the tp shapes (16 heads and 4 KV heads; the MoE's 4 and
      2);
+ 12f. serving across processes, after 12b: 2 spawned processes on
+     ``cuda:0`` in a gloo group over loopback, the parent's 32-layer
+     weights and the references as CUDA IPC handles, each process
+     holding one copy of what it cannot view (``share_tree``); phase
+     5's miss, hit and 8 eager decode steps over three meshes that
+     ``make_hybrid_mesh`` builds in both: tp across the processes
+     (logits, tokens and each process's pool slice bit for bit 12a's),
+     pp across them (16 layers a process, held to phase 5's, bit for
+     bit or within the model-level limit) and the reference's default
+     fleet, ``make_hybrid_mesh()`` with dcn dp 2 (A's and a second
+     8448-token prompt, one a process, then 8 decode steps, held to the
+     parent's unsharded batch-2 run: bit for bit or within the
+     model-level limit with the same tokens; the pools byte-equal to
+     each other, and to the parent's after the prefill); then
+     ``MoEConfig()`` over ici tp 2 x dcn ep 2 against 12e's single
+     controller (bit for bit, else 12e's limits); process 0 holds every
+     prefill and decode kernel call against the plain version; walls
+     beside 12a's and phase 5's, transfers by kind (gloo ms a call,
+     staging ms each way, bytes), each process's device idle share of
+     one profiled miss, launches a process;
  13. read path, on the host: three Indexers (fast lane, fast lane without
      the score memo, straight path) over metrics-wrapped in-memory
      indexes seeded with 4 pods x 64 random 8192-token conversations
@@ -365,6 +385,19 @@ SHARD_RESTORE_PLAN = dict(dp=1, pp=2, tp=2)
 SHARD_MOE_PLAN = dict(dp=1, ep=2, tp=2)
 SHARD_FIRST_LOSS_REL = 2e-5
 SHARD_LATER_LOSS_REL = 2e-4
+# Phase 12f: phase 5's requests served by ACROSS_WORLD spawned processes on
+# the one card in a gloo group, over three meshes that make_hybrid_mesh
+# builds in every process ({name: (ici plan, dcn plan)}; None: its
+# defaults, the reference's fleet of ici tp 1 and dcn dp = the processes),
+# then MoEConfig() over ici tp 2 x dcn ep 2.  The default fleet's second
+# prompt is drawn from ACROSS_SEED.  The group's timeout, and the
+# workers' limit beside spawn and imports.
+ACROSS_WORLD = 2
+ACROSS_MESHES = {"tp": (dict(dp=1), dict(dp=1, tp=2)), "pp": (dict(dp=1), dict(dp=1, pp=2)),
+                 "dp": None}
+ACROSS_MOE = (dict(dp=1, tp=2), dict(dp=1, ep=2))
+ACROSS_SEED = SEED + 40
+ACROSS_GROUP_TIMEOUT_S = 600
 # Read path (phase 13): bench.py:bench_read_path's shapes at fleet scale.
 # 4 pods (bench.py's NUM_PODS), each holding 64 random 8192-token
 # conversations as 32,768 blocks of 16 tokens: one Llama-3-8B block in
@@ -1686,7 +1719,7 @@ def serving(torch, params, cfg):
                                miss_tail=miss_tail, logits_b=logits_b, table=table,
                                decode_inputs=inputs, step_logits=step_logits,
                                miss_ms=a["ttft_ms"], hit_ms=b["ttft_ms"],
-                               decode_ms=ms_per_step),
+                               decode_ms=ms_per_step, decode_eager_ms=eager_ms_per_step),
     }
 
 
@@ -2153,22 +2186,25 @@ def transfer_summary(records) -> dict:
             "staging_ms": total["d2h_ms"] + total["h2d_ms"], "wait_ms": total["wait_ms"]}
 
 
-def ring_process(rank, world, store, results, inbox):
-    """A worker of phase 6b: one ring rank, in a gloo group of
-    ``world`` processes on the loopback interface, on ``cuda:0``; the
-    parent's params and phase 6's logits arrive as CUDA IPC handles."""
+def group_worker(rank, world, store, results, inbox):
+    """A worker of a spawned gloo group (phases 6b and 12f), on
+    ``cuda:0``, its group on the loopback interface: ``inbox`` gives the
+    name of this module's function to run, the group's timeout and the
+    function's arguments (the parent's CUDA tensors as IPC handles); it
+    runs ``fn(torch, dist, rank, *args)`` and puts the answer on
+    ``results``."""
     import torch
     import torch.distributed as dist
 
     try:
         os.environ["GLOO_SOCKET_IFNAME"] = "lo"
         torch.cuda.set_device(0)
-        params, cfg, tokens, refs, dense_token = inbox.get()
+        name, group_timeout, args = inbox.get()
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                 world_size=world,
-                                timeout=datetime.timedelta(seconds=RING_GROUP_TIMEOUT_S))
+                                timeout=datetime.timedelta(seconds=group_timeout))
         try:
-            out = ring_process_run(torch, dist, rank, params, cfg, tokens, refs, dense_token)
+            out = globals()[name](torch, dist, rank, *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
@@ -2277,8 +2313,9 @@ def ring_across_processes(torch, params, cfg, phase6) -> dict:
     tokens = torch.randint(1, cfg.vocab_size, (1, RING_TOKENS), generator=rng)
     layers = cfg.n_layers
     t0 = time.perf_counter()
-    workers = spawn_group(torch, ring_process, RING_SP,
-                          (params, cfg, tokens, refs, dense_token),
+    workers = spawn_group(torch, group_worker, RING_SP,
+                          ("ring_process_run", RING_GROUP_TIMEOUT_S,
+                           (params, cfg, tokens, refs, dense_token)),
                           timeout=RING_GROUP_TIMEOUT_S + 120)
     torch.cuda.ipc_collect()  # the workers have exited: release what they shared
     print(f"  {RING_SP} processes, one ring rank each on cuda:0 (gloo over loopback, CUDA "
@@ -4183,6 +4220,8 @@ def sharded_serving(torch, params, cfg, ref):
             "hit": check_logits("hit vs phase 5's", logits_b, ref["logits_b"])}
     check_next_token("miss next token", first_a, ref["miss_tail"][0, -1], errs["miss_tail"])
     check_next_token("hit next token", first_b, ref["logits_b"][0, -1], errs["hit"])
+    # Phase 12f holds tp across processes to these logits and this pool.
+    across = {"miss_tail": miss_tail, "logits_b": logits_b}
     del miss_tail, logits_b
 
     # Decode: phase 5's eight inputs through the captured tp step, then
@@ -4245,9 +4284,12 @@ def sharded_serving(torch, params, cfg, ref):
                              steps=2)),
     }
     peak = torch.cuda.max_memory_allocated() / 1e9
-    del step, pools, sharded, got, eager
+    across.update(step_logits=got, pool=[x for _, x in pools[0].kv.distinct()],
+                  errs=dict(errs, decode=max(decode_errs)), miss_ms=walls["miss"],
+                  hit_ms=walls["hit"], decode_eager_ms=eager_ms)
+    del step, pools, sharded, eager
     gc_cuda(torch)
-    return {"launches": launches, "mesh": str(mesh), "shard_s": shard_s,
+    return {"launches": launches, "mesh": str(mesh), "shard_s": shard_s, "across_inputs": across,
             "miss_ms": walls["miss"], "hit_ms": walls["hit"], "decode_ms_per_step": decode_ms,
             "decode_eager_ms_per_step": eager_ms, "max_abs_err": errs,
             "decode_max_abs_err": max(decode_errs), "next_token_gaps": max(gaps),
@@ -4587,6 +4629,557 @@ def sharded_moe(torch):
     return {"launches": {"flash_prefill": launches}, "mesh": str(mesh),
             "tokens_routed_otherwise": n_differ, "float32_max_abs_err": err,
             "bf16_forward_ms": wall, "train_losses": losses, "train_step_ms": step_ms}
+
+
+# -------------------------------------------------------------- phase 12f
+
+
+def share_tree(torch, sharding, tree, mesh, specs):
+    """``shard_tree``'s Sharded leaves over ``mesh``, each local a view of
+    ``tree``'s tensor where its slice is contiguous (a stage's layers, a
+    leaf that is not cut) and a contiguous copy where it is not (a tp
+    slice): processes that share one card then hold one copy of the
+    weights between them, not one each.  The model paths read the
+    locals the same either way."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: share_tree(torch, sharding, v, mesh, specs[k]) for k, v in tree.items()}
+    out = sharding.Sharded(mesh, sharding.P(*specs), tuple(tree.shape), tree.dtype,
+                           np.empty(mesh.devices.shape, dtype=object))
+    made = {}
+    for coord in np.ndindex(mesh.devices.shape):
+        if mesh.is_local(coord):
+            index = out.shard_index(coord)
+            if index not in made:
+                piece = tree[out.slices(index)]
+                made[index] = piece if piece.is_contiguous() else piece.contiguous()
+            out.locals[coord] = made[index]
+    return out
+
+
+def across_launches(name: str, layers: int, decode_steps: int = DECODE_STEPS,
+                    world: int = ACROSS_WORLD) -> dict:
+    """{kernel: launches} of one process in phase 12f's timed run on mesh
+    ``name``: tp across processes, one head shard a process, runs every
+    layer of the miss, the hit and each decode step; pp, its stage's
+    layers; the default fleet (dp), every layer of its one row's prefill
+    and decode steps; the MoE (ici tp 2 x dcn ep 2), each of its two tp
+    ranks' attention in every layer of one forward."""
+    if name == "tp":
+        return {"flash_prefill": 2 * layers, "paged_decode": decode_steps * layers}
+    if name == "pp":
+        per = layers // world
+        return {"flash_prefill": 2 * per, "paged_decode": decode_steps * per}
+    if name == "dp":
+        return {"flash_prefill": layers, "paged_decode": decode_steps * layers}
+    if name == "moe":
+        return {"flash_prefill": ACROSS_MOE[0]["tp"] * layers}
+    raise ValueError(f"no phase 12f mesh {name!r}")
+
+
+def across_launches_by_path(meshes: dict) -> dict:
+    """{kernel: {launches_by_path key: launches over the processes}} of
+    phase 12f's meshes ({name: [each process's {kernel: launches}]})."""
+    out = {}
+    for name, per_process in meshes.items():
+        key = "moe_forward_processes_ep_tp" if name == "moe" else f"llama_serving_processes_{name}"
+        for kernel in per_process[0]:
+            out.setdefault(kernel, {})[key] = sum(p[kernel] for p in per_process)
+    return out
+
+
+def logits_gap(torch, got, ref) -> dict:
+    """``got`` against ``ref``: bit-equal, the largest |difference|, the
+    model-level tolerance (2^-4 of the largest reference logit, as
+    ``check_logits``) and whether ``got`` is finite."""
+    return {"bit_equal": got.shape == ref.shape and bool(torch.equal(got, ref)),
+            "max_abs_err": float((got.float() - ref.float()).abs().max()),
+            "tol": 2.0**-4 * max(1.0, float(ref.float().abs().max())),
+            "finite": bool(got.float().isfinite().all())}
+
+
+def pool_gap(torch, got, ref) -> dict:
+    """``logits_gap`` of two pools, a layer at a time (no float32 copy of
+    a whole pool)."""
+    gaps = [logits_gap(torch, a, b) for a, b in zip(got, ref)]
+    return {"bit_equal": all(g["bit_equal"] for g in gaps),
+            "max_abs_err": max(g["max_abs_err"] for g in gaps),
+            "tol": max(g["tol"] for g in gaps), "finite": all(g["finite"] for g in gaps)}
+
+
+def gap_held(gap: dict, exact: bool) -> bool:
+    """Whether a ``logits_gap`` passes: bit for bit, or (unless
+    ``exact``) finite and within the model-level tolerance."""
+    return gap["bit_equal"] or (not exact and gap["finite"] and gap["max_abs_err"] <= gap["tol"])
+
+
+def transfers_by_kind(records) -> dict:
+    """{kind: calls, bytes out and in, host ms a call (from its start to
+    the end of its wait), the staging copies' device ms each way} of a
+    ``TransferLog``'s records."""
+    out = {}
+    for rec in records:
+        row = out.setdefault(rec["kind"], {"calls": 0, "bytes_out": 0, "bytes_in": 0,
+                                           "span_ms": 0.0, "d2h_ms": 0.0, "h2d_ms": 0.0})
+        row["calls"] += 1
+        for key in ("bytes_out", "bytes_in", "span_ms", "d2h_ms", "h2d_ms"):
+            row[key] += rec[key]
+    for row in out.values():
+        row["ms_per_call"] = row["span_ms"] / row["calls"]
+    return out
+
+
+def transfers_text(by_kind: dict) -> str:
+    return "; ".join(
+        f"{kind} {row['calls']} calls, {row['bytes_out'] / 2**20:.1f} MiB out / "
+        f"{row['bytes_in'] / 2**20:.1f} in, {row['ms_per_call']:.2f} ms a call, staging "
+        f"{row['d2h_ms']:.1f} + {row['h2d_ms']:.1f} ms" for kind, row in sorted(by_kind.items()))
+
+
+def across_mesh(torch, dist, rank: int, name: str, params, cfg, t) -> dict:
+    """Phase 12f in one worker, one Llama mesh: the requests once with
+    process 0's kernel calls held against the plain version, then timed
+    (walls, launches, transfers by kind), their logits and this
+    process's pool against the references, and one profiled miss."""
+    import numpy as np
+
+    llama, mesh_mod = port("models.llama"), port("parallel.mesh")
+    sharding, pool_mod = port("parallel.sharding"), port("models.kv_cache_pool")
+    fc, pc, pg = port("ops.flash_cuda"), port("ops.paged_decode_cuda"), port(
+        "parallel.process_group")
+    plans, card = ACROSS_MESHES[name], str(params["embed"].device)
+    if plans is None:  # the reference's default fleet
+        mesh = mesh_mod.make_hybrid_mesh(devices=[card])
+    else:
+        mesh = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(**plans[0]),
+                                         mesh_mod.MeshPlan(**plans[1]), devices=[card])
+    sharded = share_tree(torch, sharding, params, mesh, llama.param_pspecs(cfg))
+    req = t["fleet"] if name == "dp" else t["phase5"]
+    spec = sharding.P(None, None, None, None, "tp", None)
+    pool = pool_mod.KVCachePool(
+        pool_mod.KVCachePoolConfig(cfg.n_layers, req["blocks"], cfg.block_size, cfg.n_kv_heads,
+                                   cfg.head_dim, cfg.dtype),
+        sharding=sharding.NamedSharding(mesh, spec))
+    transport = pg.transport(mesh)
+    coord = next(c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c))
+    d = coord[mesh.axis_names.index("dp")]
+    if name == "dp":
+        calls = [("miss", lambda: llama.prefill_paged(sharded, req["tokens"], pool.kv,
+                                                      req["prefill_table"], cfg)[0])]
+    else:
+        calls = [("miss", lambda: llama.prefill_paged(
+                     sharded, torch.tensor([req["prompt_a"]]), pool.kv,
+                     torch.tensor([req["ids_a"]], dtype=torch.int32), cfg)[0]),
+                 ("hit", lambda: llama.prefill_continue(
+                     sharded, torch.tensor([req["prompt_b"][PREFIX_TOKENS:]]), pool.kv,
+                     torch.tensor([req["ids_b"]], dtype=torch.int32), PREFIX_TOKENS, cfg)[0])]
+
+    (_, kv), = pool.kv.distinct()
+
+    def serve(timed: bool) -> dict:
+        walls, logits = {}, {}
+        for kind, call in calls:
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local = call().locals[coord]
+            torch.cuda.synchronize()
+            walls[kind] = (time.perf_counter() - t0) * 1e3
+            logits[kind] = local[:, -REF_TAIL:].clone() if kind == "miss" else local
+            del local
+        if name == "dp":  # the prefill's blocks against the parent's right after its prefill
+            ids = req["prefill_table"].reshape(-1).long()
+            logits["prefill_pool_equal"] = bool(torch.equal(kv[:, ids],
+                                                            req["prefill_pool"][:, ids]))
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits["decode"] = [llama.decode_step(sharded, tokens, pool.kv, req["table"], ctx,
+                                              cfg)[0].locals[coord]
+                            for tokens, ctx in req["decode_inputs"]]
+        torch.cuda.synchronize()
+        walls["decode"] = (time.perf_counter() - t0) * 1e3 / len(req["decode_inputs"])
+        return {"walls": walls, "logits": logits}
+
+    out = {"mesh": repr(mesh), "crossing": list(mesh.crossing_axes()), "backend": transport.backend}
+    # The requests once, process 0's kernel calls held (and every process
+    # warmed up): the others run beside it.
+    if rank == 0:
+        with HeldCalls(llama, "flash_gqa_attention_cuda", fc.flash_gqa_attention_plain,
+                       "prefill", tag="12f") as prefill, HeldCalls(
+                llama, "paged_decode_attention_cuda", pc.paged_decode_attention_plain,
+                "decode", tag="12f") as decode:
+            serve(False)
+        out["held"] = {"prefill": prefill.hold(f"12f {name}, process 0: prefill kernel calls"),
+                       "decode": decode.hold(f"12f {name}, process 0: decode kernel calls")}
+        del prefill, decode
+    else:
+        serve(False)
+    dist.barrier()
+    fc.flash_gqa_attention_cuda.launches = 0
+    pc.paged_decode_attention_cuda.launches = 0
+    transport.log.clear()
+    run = serve(True)
+    out["launches"] = {"flash_prefill": fc.flash_gqa_attention_cuda.launches,
+                       "paged_decode": pc.paged_decode_attention_cuda.launches}
+    out["transfers"] = transfers_by_kind(transport.log.records())
+    out["walls"] = run["walls"]
+    refs = t["refs"][name]
+    rows = slice(d, d + 1) if name == "dp" else slice(None)
+    out["logits"] = {kind: logits_gap(torch, run["logits"][kind], refs[kind][rows])
+                     for kind, _ in calls}
+    out["logits"]["decode"] = [logits_gap(torch, got, want[rows]) for got, want in
+                               zip(run["logits"]["decode"], refs["decode"])]
+    out["tokens"] = {kind: int(run["logits"][kind][0, -1].argmax()) for kind, _ in calls}
+    out["tokens"]["decode"] = [x.argmax(-1).tolist() for x in run["logits"]["decode"]]
+    out["prefill_pool_equal"] = run["logits"].get("prefill_pool_equal")
+    del run
+    # This process's pool against the reference's (tp: 12a's rank slice;
+    # dp: the parent's whole pool), and, where every process holds a whole
+    # copy (pp, dp), against the other process's copy, a layer at a time.
+    if name in ("pp", "dp"):
+        axis = "pp" if name == "pp" else "dp"
+        out["pool_copies_equal"] = all(
+            all(torch.equal(parts[0], part) for part in parts[1:])
+            for parts in (transport.all_gather(kv[i], axis, coord) for i in range(cfg.n_layers)))
+    if name != "pp":
+        want = t["pool12a"][coord[mesh.axis_names.index("tp")]] if name == "tp" else req["pool"]
+        out["pool_gap"] = pool_gap(torch, kv, want)
+    out["pool_checksum"] = int(kv.view(torch.int16).sum(dtype=torch.int64))
+    gc_cuda(torch)
+    dist.barrier()
+    busy = device_breakdown(torch, lambda: calls[0][1]().locals[coord], steps=1)
+    out["device_ms"], out["kernels_ms"] = busy["device_ms"], busy["kernels_ms"]
+    out["profiled_wall_ms"] = busy["profiled_wall_ms"]
+    out["idle_share"] = 1 - busy["device_ms"] / busy["profiled_wall_ms"]
+    dist.barrier()
+    del sharded, pool, kv
+    gc_cuda(torch)
+    return out
+
+
+def across_moe(torch, dist, rank: int, params, tokens, routes, ref_logits, ref_aux) -> dict:
+    """Phase 12f's MoE in one worker: ``MoEConfig()`` over ici tp 2 x dcn
+    ep 2, its expert picks recorded, once with process 0's prefill calls
+    held, then timed and profiled."""
+    import numpy as np
+
+    moe, llama, mesh_mod = port("models.moe"), port("models.llama"), port("parallel.mesh")
+    sharding, fc = port("parallel.sharding"), port("ops.flash_cuda")
+    pg = port("parallel.process_group")
+    cfg = moe.MoEConfig()
+    ici, dcn = ACROSS_MOE
+    mesh = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(**ici), mesh_mod.MeshPlan(**dcn),
+                                     devices=[str(params["embed"].device)] * ici["tp"])
+    sharded = share_tree(torch, sharding, params, mesh, moe.param_pspecs(cfg))
+    coord = next(c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c))
+    transport = pg.transport(mesh)
+
+    def forward():
+        with torch.no_grad():
+            logits, aux = moe.forward(sharded, tokens, cfg)
+        return logits.locals[coord], aux
+
+    out = {"mesh": repr(mesh), "crossing": list(mesh.crossing_axes())}
+    route, records = moe._route, []
+
+    def recording_route(x, router, c):
+        dispatch, combine, aux = route(x, router, c)
+        records.append(routed_experts(dispatch))
+        return dispatch, combine, aux
+
+    moe._route = recording_route
+    try:
+        if rank == 0:
+            with HeldCalls(llama, "flash_gqa_attention_cuda", fc.flash_gqa_attention_plain,
+                           "prefill", tag="12f") as held:
+                forward()
+            out["held"] = {"prefill": held.hold("12f MoE, process 0: prefill kernel calls")}
+            del held
+        else:
+            forward()
+    finally:
+        moe._route = route
+    dist.barrier()
+    fc.flash_gqa_attention_cuda.launches = 0
+    transport.log.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, aux = forward()
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = {"flash_prefill": fc.flash_gqa_attention_cuda.launches}
+    out["transfers"] = transfers_by_kind(transport.log.records())
+    differ = differing_tokens(records, routes)
+    out["routed_otherwise"] = int(differ.sum())
+    agree = ~differ
+    out["logits"] = logits_gap(torch, logits, ref_logits)
+    out["logits_routed_alike"] = logits_gap(torch, logits[0, agree], ref_logits[0, agree])
+    out["aux"], out["aux_equal"] = float(aux), bool(torch.equal(aux, ref_aux))
+    out["token"] = int(logits[0, -1].argmax())
+    del logits
+    dist.barrier()
+    busy = device_breakdown(torch, forward, steps=1)
+    out["device_ms"], out["profiled_wall_ms"] = busy["device_ms"], busy["profiled_wall_ms"]
+    out["idle_share"] = 1 - busy["device_ms"] / busy["profiled_wall_ms"]
+    dist.barrier()
+    return out
+
+
+def across_process_run(torch, dist, rank, params, cfg, t, moe_args) -> dict:
+    """A worker of phase 12f: the three Llama meshes, then the MoE."""
+    out = {"meshes": {}}
+    for name in ACROSS_MESHES:
+        out["meshes"][name] = across_mesh(torch, dist, rank, name, params, cfg, t)
+    out["moe"] = across_moe(torch, dist, rank, **moe_args)
+    return out
+
+
+def across_references(torch, params, cfg, p5, a12) -> tuple:
+    """What phase 12f's workers are held to, made in the parent before
+    they start: for tp across processes, 12a's tp 2 logits and pool; for
+    pp, phase 5's logits; for the default fleet, the parent's unsharded
+    batch-2 prefill of A's prompt and a second one from ``ACROSS_SEED``
+    and its eager decode steps, and that pool; for the MoE, 12e's single
+    controller (``MoEConfig()`` on ``SHARD_MOE_PLAN``, every rank on the
+    card) rerun, with its expert picks.  Returns (the workers' inputs,
+    the MoE's, the parent's walls)."""
+    llama, moe, pool_mod = port("models.llama"), port("models.moe"), port("models.kv_cache_pool")
+    sharding, mesh_mod = port("parallel.sharding"), port("parallel.mesh")
+    bs, dev = cfg.block_size, params["embed"].device
+    rng = torch.Generator().manual_seed(ACROSS_SEED)
+    second = torch.randint(1, cfg.vocab_size, (len(p5["prompt_a"]),), generator=rng).tolist()
+    prompts = torch.tensor([p5["prompt_a"], second], device=dev)
+    per_row = len(p5["prompt_a"]) // bs + 1  # the prefill's blocks and one for the decode steps
+    table = (torch.arange(per_row)[None] + per_row * torch.arange(2)[:, None]).to(
+        dev, torch.int32)
+    pool = pool_mod.KVCachePool(pool_mod.KVCachePoolConfig(
+        cfg.n_layers, 2 * per_row, bs, cfg.n_kv_heads, cfg.head_dim, cfg.dtype), device=dev)
+    walls = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = llama.prefill_paged(params, prompts, pool.kv, table[:, :per_row - 1], cfg)[0]
+    torch.cuda.synchronize()
+    walls["fleet_miss_ms"] = (time.perf_counter() - t0) * 1e3
+    prefill_pool = pool.kv.clone()
+    tails = logits[:, -REF_TAIL:].clone()
+    tokens = logits[:, -1].argmax(-1)
+    del logits
+    inputs, steps = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        ctx = torch.full((2,), len(p5["prompt_a"]) + 1 + i, dtype=torch.int32, device=dev)
+        inputs.append((tokens, ctx))
+        steps.append(llama.decode_step(params, tokens, pool.kv, table, ctx, cfg)[0].clone())
+        tokens = steps[-1].argmax(-1)
+    torch.cuda.synchronize()
+    walls["fleet_decode_ms"] = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    gc_cuda(torch)
+    mcfg = moe.MoEConfig()
+    mparams = moe.init_params(mcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    (mtokens,) = train_batches(torch, mcfg.vocab_size, MOE_TOKENS, 1, SEED + 30)
+    mtokens = mtokens.to(dev)
+    mmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_MOE_PLAN), [str(dev)] * 4)
+    msharded = sharding.shard_tree(mparams, mmesh, moe.param_pspecs(mcfg))
+    route, routes = moe._route, []
+
+    def recording_route(x, router, c):
+        dispatch, combine, aux = route(x, router, c)
+        routes.append(routed_experts(dispatch))
+        return dispatch, combine, aux
+
+    moe._route = recording_route
+    try:
+        with torch.no_grad():
+            moe.forward(msharded, mtokens, mcfg)  # warm-up
+            routes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mlogits, maux = moe.forward(msharded, mtokens, mcfg)
+            torch.cuda.synchronize()
+    finally:
+        moe._route = route
+    walls["moe_ms"] = (time.perf_counter() - t0) * 1e3
+    del msharded
+    gc_cuda(torch)
+    phase5 = {k: p5[k] for k in ("prompt_a", "prompt_b", "ids_a", "ids_b", "decode_inputs")}
+    phase5.update(table=p5["table"].to(dev), blocks=POOL_BLOCKS)
+    t = {"phase5": phase5, "pool12a": a12["pool"],
+         "fleet": {"tokens": prompts, "prefill_table": table[:, :per_row - 1], "table": table,
+                   "blocks": 2 * per_row, "decode_inputs": inputs, "pool": pool.kv,
+                   "prefill_pool": prefill_pool},
+         "refs": {"tp": {"miss": a12["miss_tail"], "hit": a12["logits_b"],
+                         "decode": a12["step_logits"]},
+                  "pp": {"miss": p5["miss_tail"], "hit": p5["logits_b"],
+                         "decode": p5["step_logits"]},
+                  "dp": {"miss": tails, "decode": steps}}}
+    moe_args = {"params": mparams, "tokens": mtokens, "routes": routes, "ref_logits": mlogits,
+                "ref_aux": maux}
+    return t, moe_args, walls
+
+
+def serving_across_processes(torch, params, cfg, p5, a12) -> dict:
+    """Phase 12f: phase 5's requests over ``ACROSS_WORLD`` spawned
+    processes on the one card in a gloo group, on three meshes that
+    ``make_hybrid_mesh`` builds in both (tp across the processes, pp
+    across them, the reference's default fleet), then the MoE over ici
+    tp 2 x dcn ep 2, each against its reference (``across_references``);
+    walls, transfers by kind, idle shares and launches a process."""
+    layers = cfg.n_layers
+    t0 = time.perf_counter()
+    t, moe_args, walls = across_references(torch, params, cfg, p5, a12)
+    print(f"  references in the parent ({time.perf_counter() - t0:.1f} s): the default fleet's "
+          f"unsharded batch-2 prefill {walls['fleet_miss_ms']:.1f} ms and eager decode "
+          f"{walls['fleet_decode_ms']:.2f} ms a step; 12e's single-controller MoE forward "
+          f"{walls['moe_ms']:.1f} ms", flush=True)
+    t0 = time.perf_counter()
+    workers = spawn_group(torch, group_worker, ACROSS_WORLD,
+                          ("across_process_run", ACROSS_GROUP_TIMEOUT_S,
+                           (params, cfg, t, moe_args)),
+                          timeout=ACROSS_GROUP_TIMEOUT_S + 120)
+    torch.cuda.ipc_collect()  # the workers have exited: release what they shared
+    print(f"  {ACROSS_WORLD} processes on cuda:0 (gloo over loopback, CUDA tensors staged through "
+          f"pinned host buffers): {time.perf_counter() - t0:.1f} s with spawn, imports and the "
+          "kernel checks", flush=True)
+    beside = {"tp": ("12a's tp 2 on one process", {"miss": a12["miss_ms"], "hit": a12["hit_ms"],
+                                                    "decode": a12["decode_eager_ms"]}),
+              "pp": ("phase 5's, unsharded", {"miss": p5["miss_ms"], "hit": p5["hit_ms"],
+                                              "decode": p5["decode_eager_ms"]}),
+              "dp": ("the parent's unsharded batch 2", {"miss": walls["fleet_miss_ms"],
+                                                        "decode": walls["fleet_decode_ms"]})}
+    out = {"meshes": {}, "references_ms": walls}
+    for name in ACROSS_MESHES:
+        rows = [w["meshes"][name] for w in workers]
+        label, ref_ms = beside[name]
+        print(f"  {name} across processes: mesh {rows[0]['mesh']}, crossing {rows[0]['crossing']}",
+              flush=True)
+        wall = {k: max(r["walls"][k] for r in rows) for k in rows[0]["walls"]}
+        print("    walls (slowest process): " + ", ".join(
+            f"{k} {v:.1f} ms (beside {label}: {ref_ms[k]:.1f})" for k, v in wall.items())
+            + " (decode: ms a step, eager)", flush=True)
+        exact = name == "tp"
+        held, worst = True, {}
+        for kind in rows[0]["logits"]:
+            gaps = [r["logits"][kind] for r in rows]
+            flat = [g for gap in gaps for g in (gap if isinstance(gap, list) else [gap])]
+            equal = all(g["bit_equal"] for g in flat)
+            worst[kind] = max(g["max_abs_err"] for g in flat)
+            held = held and all(gap_held(g, exact) for g in flat)
+            how = "bit for bit" if equal else "within the model-level limit" if held else "NOT"
+            print(f"    {kind} logits vs the reference: bit-equal in every process "
+                  f"{equal}, max_abs_err {worst[kind]:.6g} (tolerance "
+                  f"{min(g['tol'] for g in flat):.4g}; held {how})", flush=True)
+        if not held:
+            raise AssertionError(f"12f {name}: logits off the reference: {worst}")
+        if name == "tp":  # bit-equal to 12a's, which 12a held to phase 5's tokens
+            worst = {"miss": a12["errs"]["miss_tail"], "hit": a12["errs"]["hit"],
+                     "decode": a12["errs"]["decode"]}
+        check_tokens(name, rows, t, worst)
+        pools = check_pools(name, rows)
+        for r, row in enumerate(rows):
+            print(f"    process {r} transfers: {transfers_text(row['transfers'])}", flush=True)
+        print("    device idle share a process (1 - kernels ms / wall of one profiled miss): "
+              + "; ".join(f"p{r} {row['idle_share']:.3f} ({row['device_ms']:.1f} / "
+                          f"{row['profiled_wall_ms']:.1f}: " + ", ".join(
+                              f"{k} {v:.1f}" for k, v in row["kernels_ms"].items()) + ")"
+                          for r, row in enumerate(rows)), flush=True)
+        want = across_launches(name, layers)
+        got = [row["launches"] for row in rows]
+        print(f"    launches a process {got} (expected {want} each)", flush=True)
+        if any(g != want for g in got):
+            raise AssertionError(f"12f {name}: launches {got}, expected {want}")
+        out["meshes"][name] = {
+            "mesh": rows[0]["mesh"], "walls_ms": wall, "reference_ms": ref_ms,
+            "launches_per_process": got, "bit_equal": {k: all(
+                g["bit_equal"] for r in rows for g in (r["logits"][k] if isinstance(
+                    r["logits"][k], list) else [r["logits"][k]])) for k in rows[0]["logits"]},
+            "max_abs_err": worst, "pools": pools,
+            "idle_share": [r["idle_share"] for r in rows],
+            "device_ms": [r["device_ms"] for r in rows],
+            "kernels_ms": [r["kernels_ms"] for r in rows],
+            "profiled_wall_ms": [r["profiled_wall_ms"] for r in rows],
+            "transfers": [r["transfers"] for r in rows],
+            "held": rows[0]["held"]}
+    rows = [w["moe"] for w in workers]
+    print(f"  MoE across processes: mesh {rows[0]['mesh']}, crossing {rows[0]['crossing']}",
+          flush=True)
+    for r, row in enumerate(rows):
+        alike = row["logits_routed_alike"]
+        print(f"    process {r}: forward {row['wall_ms']:.1f} ms (12e's single controller "
+              f"{walls['moe_ms']:.1f}); logits bit-equal {row['logits']['bit_equal']} (max_abs_err "
+              f"{row['logits']['max_abs_err']:.6g}; on the tokens routed alike "
+              f"{alike['max_abs_err']:.6g}, tolerance {alike['tol']:.4g}); tokens routed "
+              f"otherwise {row['routed_otherwise']} (limit {MOE_PICK_LIMIT:.0%}); aux "
+              f"{row['aux']!r}, equal {row['aux_equal']}; transfers "
+              f"{transfers_text(row['transfers'])}; idle share {row['idle_share']:.3f}", flush=True)
+        if not (row["logits"]["bit_equal"] or (
+                gap_held(alike, False) and row["routed_otherwise"] <= MOE_PICK_LIMIT * MOE_TOKENS)):
+            raise AssertionError(f"12f MoE, process {r}: off 12e's single controller")
+    want = across_launches("moe", port("models.moe").MoEConfig().n_layers)
+    got = [row["launches"] for row in rows]
+    print(f"    launches a process {got} (expected {want} each)", flush=True)
+    if any(g != want for g in got):
+        raise AssertionError(f"12f MoE: launches {got}, expected {want}")
+    out["moe"] = {"mesh": rows[0]["mesh"], "wall_ms": max(r["wall_ms"] for r in rows),
+                  "reference_ms": walls["moe_ms"], "launches_per_process": got,
+                  "bit_equal": all(r["logits"]["bit_equal"] for r in rows),
+                  "routed_otherwise": [r["routed_otherwise"] for r in rows],
+                  "idle_share": [r["idle_share"] for r in rows],
+                  "transfers": [r["transfers"] for r in rows], "held": rows[0]["held"]}
+    out["launches_by_path"] = across_launches_by_path(
+        {**{name: m["launches_per_process"] for name, m in out["meshes"].items()},
+         "moe": out["moe"]["launches_per_process"]})
+    del t, moe_args
+    gc_cuda(torch)
+    return out
+
+
+def check_pools(name: str, rows) -> dict:
+    """Phase 12f's pools: tp across processes, each process's slice
+    byte-equal to 12a's rank slice; pp and the default fleet, the two
+    processes' whole copies byte-equal; the fleet's also byte-equal to
+    the parent's in the prefill's blocks right after the prefill, and,
+    after the decode steps, to the parent's pool bit for bit or within
+    the model-level limit (a batch of 1 a process decodes against the
+    parent's batch of 2, which the decode kernel splits otherwise, as it
+    does the logits).  Returns what held."""
+    out = {"checksums": [r["pool_checksum"] for r in rows]}
+    if name in ("pp", "dp"):
+        out["copies_equal"] = [r["pool_copies_equal"] for r in rows]
+    if name == "dp":
+        out["prefill_equal"] = [r["prefill_pool_equal"] for r in rows]
+    if name != "pp":
+        gaps = [r["pool_gap"] for r in rows]
+        out["bit_equal"] = [g["bit_equal"] for g in gaps]
+        out["max_abs_err"] = max(g["max_abs_err"] for g in gaps)
+        out["held"] = all(gap_held(g, exact=name == "tp") for g in gaps)
+    print(f"    pools: {out}", flush=True)
+    if not (all(out.get("copies_equal", [True])) and all(out.get("prefill_equal", [True]))
+            and out.get("held", True)):
+        raise AssertionError(f"12f {name}: a process's pool is off: {out}")
+    return out
+
+
+def check_tokens(name: str, rows, t, worst) -> None:
+    """Phase 12f's next tokens: each process's against phase 5's (tp,
+    pp) or the parent's batch-2 run (dp), a tie within the logits'
+    measured error allowed (``check_next_token``)."""
+    refs = t["refs"][name] if name == "dp" else t["refs"]["pp"]
+    for r, row in enumerate(rows):
+        d = r if name == "dp" else slice(None)
+        for kind in ("miss", "hit"):
+            if kind in row["tokens"]:
+                last = refs[kind][d][-1] if name == "dp" else refs[kind][0, -1]
+                check_next_token(f"12f {name}, process {r}, {kind} next token",
+                                 row["tokens"][kind], last, worst[kind])
+        for i, tokens in enumerate(row["tokens"]["decode"]):
+            want = refs["decode"][i][d] if name == "dp" else refs["decode"][i]
+            want = want.reshape(-1, want.shape[-1])
+            for j, token in enumerate(tokens):
+                check_next_token(f"12f {name}, process {r}, decode step {i + 1}, row {j}", token,
+                                 want[j], worst["decode"])
 
 
 # --------------------------------------------------------------- phase 13
@@ -6283,14 +6876,18 @@ def main() -> int:
     phase(f"12a. sharded: tp {SHARD_TP} serving on one card (phase 5's requests), "
           f"{LAYERS} layers")
     tp_serving = sharded_serving(torch, params, cfg, sharded_inputs)
-    del sharded_inputs
+    across_inputs = tp_serving.pop("across_inputs")
     gc_cuda(torch)
     phase(f"12b. sharded: the tp {SHARD_TP} x sp {RING_SP} ring on one card over "
           f"{RING_TOKENS} tokens")
     tp_ring = sharded_ring(torch, params, cfg, ring)
-    del params
     gc_cuda(torch)
-    print(f"\n  phases 5-7's and 12a-b's params and pools freed: "
+    phase(f"12f. serving across processes: phase 5's requests over {ACROSS_WORLD} processes on "
+          f"one card (tp, pp and dp across them), the MoE over ep across them, gloo")
+    across = serving_across_processes(torch, params, cfg, sharded_inputs, across_inputs)
+    del params, sharded_inputs, across_inputs
+    gc_cuda(torch)
+    print(f"\n  phases 5-7's and 12a-b's and 12f's params and pools freed: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated", flush=True)
 
     train_cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
@@ -6361,14 +6958,16 @@ def main() -> int:
                       + tp_moe["launches"]["flash_prefill"]
                       + tiered["launches"]["flash_prefill"]
                       + served_http["launches"]["flash_prefill"]
-                      + vllm["launches"]["flash_prefill"]),
+                      + vllm["launches"]["flash_prefill"]
+                      + sum(across["launches_by_path"]["flash_prefill"].values())),
             launches_by_path={"llama_serving": serve["launches"]["flash_prefill"],
                               "llama_serving_http": served_http["launches"]["flash_prefill"],
                               "llama_vllm_offload": vllm["launches"]["flash_prefill"],
                               "llama_tiering_transfer": tiered["launches"]["flash_prefill"],
                               "moe_forward": moe_run["launches"]["flash_prefill"],
                               "llama_serving_tp": tp_serving["launches"]["flash_prefill"],
-                              "moe_forward_ep_tp": tp_moe["launches"]["flash_prefill"]},
+                              "moe_forward_ep_tp": tp_moe["launches"]["flash_prefill"],
+                              **across["launches_by_path"]["flash_prefill"]},
             **{k: prefill_full[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "eager_ms", "tflops",
                                             "library_ratio", "bound_share", "shape", "limit",
@@ -6382,11 +6981,13 @@ def main() -> int:
             replaces="llm_d_kv_cache_manager_tpu/ops/paged_decode_pallas.py:40",
             launches=(serve["launches"]["paged_decode"] + tp_serving["launches"]["paged_decode"]
                       + served_http["launches"]["paged_decode"]
-                      + vllm["launches"]["paged_decode"]),
+                      + vllm["launches"]["paged_decode"]
+                      + sum(across["launches_by_path"]["paged_decode"].values())),
             launches_by_path={"llama_serving": serve["launches"]["paged_decode"],
                               "llama_serving_http": served_http["launches"]["paged_decode"],
                               "llama_vllm_offload": vllm["launches"]["paged_decode"],
-                              "llama_serving_tp": tp_serving["launches"]["paged_decode"]},
+                              "llama_serving_tp": tp_serving["launches"]["paged_decode"],
+                              **across["launches_by_path"]["paged_decode"]},
             **{k: decode_serving[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms", "eager_ms", "tflops",
                                               "library_ratio", "bound_share", "shape", "limit",
@@ -6427,7 +7028,8 @@ def main() -> int:
     summary = {k: v for k, v in serve.items() if k != "launches"}
     ring_summary = {k: v for k, v in ring.items() if k != "launches"}
     moe_summary = {k: v for k, v in moe_run.items() if k != "launches"}
-    sharded = {"tp_serving": tp_serving, "tp_sp_ring": tp_ring, "moe": tp_moe, **sharded_train}
+    sharded = {"tp_serving": tp_serving, "tp_sp_ring": tp_ring, "moe": tp_moe,
+               "across_processes": across, **sharded_train}
     tiering_summary = {k: v for k, v in tiered.items() if k != "launches"}
     http_summary = {k: v for k, v in served_http.items() if k != "launches"}
     print(json.dumps({"serving": summary, "serving_http": http_summary,

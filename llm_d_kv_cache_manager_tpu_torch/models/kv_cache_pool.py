@@ -19,8 +19,13 @@ Sharded pools, as the reference's ``sharding=``: with a
 ``parallel.sharding.Sharded`` whose every tp rank holds
 ``[num_layers, num_blocks, 2, block_size, num_kv_heads / tp,
 head_dim]``; the sharded serving paths of ``models/llama.py`` write and
-read it.  The block gathers, scatters and host copies below move whole
-blocks of an unsharded pool and refuse a sharded one.
+read it.  Over a mesh of several processes (``make_hybrid_mesh``) each
+process allocates only its own entries' slices, and the serving paths
+keep every copy of a slice the same bits in every process, as XLA keeps
+a replicated pool: what a rank writes also reaches the copies that other
+processes hold along dp, sp and (for a pool not cut over pp) pp.  The
+block gathers, scatters and host copies below move whole blocks of an
+unsharded pool and refuse a sharded one.
 """
 
 from __future__ import annotations

@@ -36,9 +36,13 @@ mesh, and ``forward`` (also with ``sp_mesh``, the tp x sp ring),
 ``make_decode_step`` (over a pool cut on its kv heads), ``loss_fn`` and
 ``train_step`` compute the function the unsharded params give, over dp
 x pp x tp x sp: batch shards, layer stages, head and hidden-width
-shards, sequence chunks.  The collectives are explicit and
-single-controller (see the "sharded" section below).  Logits come back
-whole, on the first rank's device.
+shards, sequence chunks.  The collectives are explicit (see the
+"sharded" section below).  On a mesh of one process the logits come
+back whole, on the first rank's device.  On a mesh whose axes cross
+processes (``make_hybrid_mesh``) the serving entry points run in every
+process, each computing its own ranks, and return this process's
+logits as a ``Sharded``; training there takes dp across processes only
+(:func:`refuse_training`).
 
 The reference's arrays are immutable; here ``prefill_*`` and
 ``decode_step`` write the new K/V into ``kv_pool`` IN PLACE and return
@@ -69,7 +73,6 @@ from llm_d_kv_cache_manager_tpu_torch.ops.paged_decode_cuda import (
     paged_decode_attention_cuda,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import (
-    Ring,
     ring_body,
     ring_for_mesh,
     ring_of,
@@ -77,12 +80,16 @@ from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import (
     unstripe,
 )
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import AXIS_ORDER, AXIS_SP, Mesh
+from llm_d_kv_cache_manager_tpu_torch.parallel.process_group import transport
 from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import (
     P,
     Sharded,
     all_gather,
+    all_gather_over,
     all_reduce,
+    all_reduce_over,
     distinct_locals,
+    ranks_over,
     sum_over_processes,
     sync_replica_grads,
     tree_leaves,
@@ -360,7 +367,10 @@ def forward(
     :class:`~llm_d_kv_cache_manager_tpu_torch.parallel.sharding.Sharded`
     of the [B, T, V] logits over ``sp`` (``P(None, "sp")``) in the layout
     the ring ran: with ``ring_striped``, the stripe order, which
-    :func:`unstripe` of the joined chunks puts back.
+    :func:`unstripe` of the joined chunks puts back.  Params sharded over
+    a mesh of several processes (with or without ``sp_mesh``, which is
+    then their mesh) give this process's logits likewise, over ``P("dp",
+    "sp", None)``, the ring's stripe order kept.
     """
     B, T = tokens.shape
     if sp_mesh is not None and positions is not None:
@@ -371,12 +381,11 @@ def forward(
         )
     if is_sharded(params):
         grid = _grid(params, cfg)
-        grid.whole("forward")
         xs, striped = _sharded_run(params, tokens, cfg, grid, positions=positions,
                                    use_flash=use_flash, sp_mesh=sp_mesh,
                                    striped=ring_striped, impl=ring_impl)
-        logits = _join_logits(params, grid, xs)
-        return unstripe(logits, grid.sp) if striped else logits
+        logits = _logits_out(params, grid, xs, (B, T, cfg.vocab_size))
+        return unstripe(logits, grid.sp) if striped and not grid.mesh.multi_process else logits
     if sp_mesh is not None and sp_mesh.multi_process:
         return _ring_forward_local(params, tokens, cfg, sp_mesh, ring_striped, ring_impl)
     dev = params["embed"].device
@@ -686,7 +695,11 @@ class CapturedDecodeStep:
     sharded params) whose ranks all share one CUDA device is captured
     whole, every shard's kernels in one graph.  On a CPU pool, or one
     whose ranks span several devices, there is nothing to capture and
-    every call is :func:`decode_step`.  ``replays`` counts graph
+    every call is :func:`decode_step`; so it is over a pool whose mesh
+    spans processes: a gloo transfer waits on the host (the staging
+    copies synchronize), which no CUDA graph can hold, and the step
+    returns this process's logits (a ``Sharded``, as ``decode_step``
+    does).  ``replays`` counts graph
     replays; ``graph`` is the ``torch.cuda.CUDAGraph`` (None when
     nothing is captured), made empty here
     and captured by the first call, so that a caller who wants to
@@ -703,10 +716,12 @@ class CapturedDecodeStep:
         self.replays = 0
         if isinstance(kv_pool, Sharded):
             # One graph holds the step of every shard when all ranks
-            # share one device; across devices every call runs eagerly.
+            # share one device; across devices or processes every call
+            # runs eagerly.
             devices = set(kv_pool.mesh.devices.flat)
-            dev = kv_pool.mesh.devices.flat[0]
-            self.device = dev if len(devices) == 1 and dev.type == "cuda" else None
+            dev = kv_pool.distinct()[0][1].device
+            self.device = (dev if len(devices) == 1 and dev.type == "cuda"
+                           and not kv_pool.mesh.multi_process else None)
         else:
             dev = kv_pool.device
             self.device = dev if dev.type == "cuda" else None
@@ -770,18 +785,30 @@ def make_decode_step(
 #
 # Params cut by param_pspecs over a Mesh (parallel/sharding.py) carry the
 # mesh, as a JAX array carries its sharding, and every entry point above
-# takes them.  The single controller walks the ranks: rank (d, p, e, s, t)
-# holds batch shard d, layer stage p, expert shard e, sequence chunk s and
-# head shard t.  An activation shard [B/dp, T/sp, D] lives on the device
-# of its tp-0 rank of the current stage; a collective moves each rank's
-# part there with .to(device) and sums or joins in rank order.  Ranks
-# along ep (and, for the expert weights, along dp and sp) hold replicas:
-# the controller computes once, on index 0.
+# takes them.  Rank (d, p, e, s, t) holds batch shard d, layer stage p,
+# expert shard e, sequence chunk s and head shard t.  A process computes
+# the ranks it owns (every rank, on a mesh of one process), walking them
+# in one fixed order: layer, then d, s and t ascending, so that every
+# process calls the collectives of each sub-group in one order.  An
+# activation shard [B/dp, T/sp, D] lives on the device of its first tp
+# rank of the current stage; a collective over an axis joins or sums
+# every rank's part in rank order, moved with .to(device) inside a
+# process and through the process group across processes
+# (sharding.all_gather_over / all_reduce_over), so that every process
+# gets the single controller's bits.  Ranks along ep (and, for the
+# expert weights, along dp and sp) hold replicas: a process computes
+# them once, on its first ep index; processes along ep compute the same.
+# Across pp, a stage's activations hop to the next stage's process, and
+# the last stage's hidden states go to every process along pp, which
+# makes the logits itself (ln_f and the embedding are not cut over pp).
 
 
 class _Grid:
     """A sharded path's view of its params' mesh: each axis's degree,
-    each rank's device, each layer's stage."""
+    each rank's device, each layer's stage, and the indices along each
+    axis that this process computes (``dps``, ``pps``, ``eps``, ``sps``,
+    ``tps``: one run of each axis, every index on a mesh of one
+    process)."""
 
     def __init__(self, mesh: Mesh, n_layers: int) -> None:
         if set(mesh.axis_names) != set(AXIS_ORDER):
@@ -793,36 +820,31 @@ class _Grid:
         if n_layers % self.pp:
             raise ValueError(f"{n_layers} layers do not divide over pp={self.pp}")
         self.per_stage = n_layers // self.pp
-        # The batch shards this process computes (every one on a mesh of
-        # one process), and the device of its first rank, where its
-        # shards meet.
-        self.dps = [d for d in range(self.dp) if mesh.is_local(self.coord(d))]
-        self.home = mesh.devices[next(c for c in np.ndindex(mesh.devices.shape)
-                                      if mesh.is_local(c))]
-
-    def inside_process(self, where: str, crossing=("dp",)) -> None:
-        """Raise unless the only axes of the mesh that cross processes
-        are in ``crossing``: each other axis's collectives run inside
-        one process here."""
-        for axis in self.mesh.crossing_axes():
-            if axis not in crossing:
-                raise NotImplementedError(
-                    f"{where}: the {axis} axis crosses processes, which is not ported "
-                    f"(across processes: {', '.join(crossing) or 'no axis'})")
-
-    def whole(self, where: str) -> None:
-        """Raise on params sharded over several processes: ``where``
-        returns a whole tensor, which no process holds."""
-        if self.mesh.multi_process:
-            raise NotImplementedError(
-                f"{where} over params sharded across processes is not ported: loss_fn and "
-                "train_step take dp across processes")
+        local = [c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c)]
+        owned = {a: sorted({c[k] for c in local}) for k, a in enumerate(mesh.axis_names)}
+        for a, run in owned.items():
+            if (run != list(range(run[0], run[-1] + 1)) or mesh.size(a) % len(run)
+                    or run[0] % len(run)):
+                raise ValueError(f"this process's {a} indices {run} are not one of "
+                                 f"{mesh.size(a)} // {len(run)} equal runs")
+        if len(local) != math.prod(len(run) for run in owned.values()):
+            raise ValueError(f"this process's entries of {mesh} are not a box of it")
+        self.dps, self.pps, self.eps, self.sps, self.tps = (
+            owned[a] for a in ("dp", "pp", "ep", "sp", "tp"))
+        self.e = self.eps[0]
+        self.home = self.dev(self.dps[0], self.pps[0], self.e, self.sps[0], self.tps[0])
 
     def coord(self, d=0, p=0, e=0, s=0, t=0) -> Tuple[int, ...]:
         return self.mesh.coord(dp=d, pp=p, ep=e, sp=s, tp=t)
 
     def dev(self, d=0, p=0, e=0, s=0, t=0) -> torch.device:
         return self.mesh.devices[self.coord(d, p, e, s, t)]
+
+    def lead(self, p: Optional[int] = None) -> Tuple[int, ...]:
+        """This process's first coordinate (at stage ``p``): the lines
+        along any axis through it are this process's."""
+        return self.coord(self.dps[0], self.pps[0] if p is None else p, self.e, self.sps[0],
+                          self.tps[0])
 
     def stage(self, layer: int) -> int:
         return layer // self.per_stage
@@ -848,18 +870,81 @@ class _Grid:
         tl = x.shape[1] // self.sp
         return x[:, s * tl : (s + 1) * tl]
 
-    def join(self, shards: Dict[Tuple[int, int], torch.Tensor]) -> torch.Tensor:
-        """The global tensor of {(d, s): shard}, on the first rank's device."""
-        out = self.dev()
-        return torch.cat([torch.cat([shards[d, s].to(out) for s in range(self.sp)], dim=1)
-                          for d in range(self.dp)], dim=0)
+    def shards(self):
+        """This process's (d, s) shards, in the order it walks them."""
+        return [(d, s) for d in self.dps for s in self.sps]
+
+    def ranks(self, axis: str, parts, coord) -> list:
+        return ranks_over(parts, self.mesh, axis, coord)
+
+    def gather(self, axis: str, parts, coord, device, dim: int) -> torch.Tensor:
+        return all_gather_over(parts, self.mesh, axis, coord, device, dim)
+
+    def reduce(self, axis: str, parts, coord, device) -> torch.Tensor:
+        return all_reduce_over(parts, self.mesh, axis, coord, device)
+
+    def assemble(self, shards: Dict[Tuple[int, int], torch.Tensor], p: int,
+                 device: torch.device) -> torch.Tensor:
+        """The global tensor of {(d, s): shard} (of stage ``p``) on
+        ``device``: each process's shards joined over sp and dp with
+        every other process's."""
+        rows = [self.gather("sp", [shards[d, s] for s in self.sps],
+                            self.coord(d, p, self.e, self.sps[0], self.tps[0]), device, 1)
+                for d in self.dps]
+        return self.gather("dp", rows, self.lead(p), device, 0)
+
+    def hop(self, xs, p_from: int, p_to: int, like) -> None:
+        """The stage hop between processes: the shards of ``xs`` go from
+        the process of stage ``p_from`` to the one of ``p_to`` along pp
+        (in one tensor); inside a process the layer loop moves them."""
+        if "pp" not in self.mesh.crossing_axes():
+            return
+        coord = self.lead()
+        k = self.mesh.axis_names.index("pp")
+        ends = [self.mesh.process_of(coord[:k] + (p,) + coord[k + 1:]) for p in (p_from, p_to)]
+        if ends[0] == ends[1] or self.mesh.process not in ends:
+            return
+        keys = self.shards()
+        sent = torch.stack([xs.pop(k) for k in keys]) if p_from in self.pps else None
+        shape, dtype = like
+        got = transport(self.mesh).hop(sent, "pp", coord, p_from, p_to,
+                                       ((len(keys),) + shape, dtype, self.home))
+        if got is not None:
+            xs.update(zip(keys, got.unbind(0)))
+
+    def from_last_stage(self, xs, like):
+        """The last stage's hidden shards in every process along pp (a
+        broadcast where pp crosses processes)."""
+        if "pp" not in self.mesh.crossing_axes():
+            return xs
+        keys = self.shards()
+        last = self.pp - 1
+        sent = torch.stack([xs[k] for k in keys]) if last in self.pps else None
+        shape, dtype = like
+        got = transport(self.mesh).broadcast(sent, "pp", self.lead(), last,
+                                             ((len(keys),) + shape, dtype, self.home))
+        return dict(zip(keys, got.unbind(0)))
 
     def write_kv(self, kv_pool: Sharded, i: int, d: int, p: int, s: int, t: int,
                  write: Callable) -> None:
         """``write(layer i)`` into every copy of rank (d, p, s, t)'s pool
-        slice: copies on other devices hold the same heads."""
-        for copy in kv_pool.replicas(dp=d, pp=p, sp=s, tp=t):
+        slice that this process holds: copies on other devices hold the
+        same heads (copies in other processes: :func:`_share_written`)."""
+        for copy in kv_pool.replicas(dp=d, pp=p, ep=self.e, sp=s, tp=t):
             write(copy[i - p * self.per_stage if kv_pool.spec[0] == "pp" else i])
+
+
+def refuse_training(mesh: Optional[Mesh], where: str, allowed=("dp",)) -> None:
+    """Raise where an axis of ``mesh`` other than ``allowed`` crosses
+    processes: the forward's collectives across processes carry no
+    gradient, so autograd would drop the other processes' share of it."""
+    for axis in mesh.crossing_axes() if mesh is not None else ():
+        if axis not in allowed:
+            raise NotImplementedError(
+                f"{where}: the {axis} axis crosses processes; training along an axis that "
+                f"crosses processes is not ported yet: it needs the gradients of the "
+                f"cross-process collectives (training takes "
+                f"{', '.join(allowed) or 'no axis'} across processes)")
 
 
 def is_sharded(params: Params) -> bool:
@@ -869,7 +954,8 @@ def is_sharded(params: Params) -> bool:
 
 def _same_mesh(a: Mesh, b: Mesh) -> bool:
     return a is b or (a.axis_names == b.axis_names and a.devices.shape == b.devices.shape
-                      and all(x == y for x, y in zip(a.devices.flat, b.devices.flat)))
+                      and all(x == y for x, y in zip(a.devices.flat, b.devices.flat))
+                      and np.array_equal(a.processes, b.processes))
 
 
 def _grid(params: Params, cfg, kv_pool=None) -> _Grid:
@@ -900,52 +986,56 @@ def _plain_pool(kv_pool) -> torch.Tensor:
 
 def _sharded_stack(params: Params, tokens: torch.Tensor, positions: torch.Tensor, cfg,
                    grid: _Grid, attend: Callable, mlp_block: Callable):
-    """Embed, then run every layer over the grid.  ``tokens`` and
-    ``positions``: global [B, T].  ``attend(i, d, p, t, qs, ks, vs,
-    devices)`` gives layer i's attention of batch shard d and head shard
-    t, one output per sequence chunk; ``mlp_block(i, p, xs)`` adds the
-    MLP's output to every shard of ``xs``.  Returns ``xs``, {(d, s):
-    hidden [B/dp, T/sp, D]} on the last stage's tp-0 devices, for this
-    process's batch shards (dp may cross processes; an axis of the
-    attention or the MLP may not)."""
+    """Embed, then run every layer over this process's ranks.  ``tokens``
+    and ``positions``: global [B, T].  ``attend(i, d, p, t, qs, ks, vs)``
+    gives layer i's attention of batch shard d and head shard t, {s: out}
+    for this process's sequence chunks s ({s: q} and so on);
+    ``mlp_block(i, p, xs)`` adds the MLP's output to every shard of
+    ``xs``.  Returns ``xs``, {(d, s): hidden [B/dp, T/sp, D]} of the last
+    stage for this process's batch shards and chunks, in every process."""
     B, T = tokens.shape
-    grid.inside_process("_sharded_stack")
     if B % grid.dp or T % grid.sp:
         raise ValueError(f"[B={B}, T={T}] does not divide over dp={grid.dp} x sp={grid.sp}")
+    like = ((B // grid.dp, T // grid.sp, cfg.d_model), params["embed"].dtype)
+    e, t0 = grid.e, grid.tps[0]
     xs = {}
-    # The embedding's width is cut over tp: each rank looks up its
-    # columns, and an all-gather joins them.
-    for d in grid.dps:
-        for s in range(grid.sp):
-            parts = [grid.take(params["embed"], None, d, 0, 0, s, t)[
-                grid.cut(tokens, d, s).to(grid.dev(d, 0, 0, s, t)).long()]
-                for t in range(grid.tp)]
-            xs[d, s] = all_gather(parts, grid.dev(d, 0, 0, s, 0), dim=-1)
+    if 0 in grid.pps:
+        # The embedding's width is cut over tp: each rank looks up its
+        # columns, and an all-gather joins them.
+        for d, s in grid.shards():
+            parts = [grid.take(params["embed"], None, d, 0, e, s, t)[
+                grid.cut(tokens, d, s).to(grid.dev(d, 0, e, s, t)).long()] for t in grid.tps]
+            xs[d, s] = grid.gather("tp", parts, grid.coord(d, 0, e, s, t0),
+                                   grid.dev(d, 0, e, s, t0), -1)
     keys = ("ln1", "wq", "wk", "wv", "wo")
     for i in range(cfg.n_layers):
         p = grid.stage(i)
+        if p and i == p * grid.per_stage:
+            grid.hop(xs, p - 1, p, like)
+        if p not in grid.pps:
+            continue
         for d in grid.dps:
             lps, qkv = {}, {}
-            for s in range(grid.sp):
+            for s in grid.sps:
                 # A stage's first layer: the activations hop stages.
-                xs[d, s] = xs[d, s].to(grid.dev(d, p, 0, s, 0))
-                for t in range(grid.tp):
-                    dev = grid.dev(d, p, 0, s, t)
-                    lps[s, t] = lp = grid.layer(params, keys, i, d, p, 0, s, t)
+                xs[d, s] = xs[d, s].to(grid.dev(d, p, e, s, t0))
+                for t in grid.tps:
+                    dev = grid.dev(d, p, e, s, t)
+                    lps[s, t] = lp = grid.layer(params, keys, i, d, p, e, s, t)
                     h = _rms_norm(xs[d, s].to(dev), lp["ln1"])
                     qkv[s, t] = _qkv(h, lp, grid.cut(positions, d, s).to(dev), cfg.rope_theta)
             attn = {}
-            for t in range(grid.tp):
-                chunks = [[qkv[s, t][j] for s in range(grid.sp)] for j in range(3)]
-                devices = [grid.dev(d, p, 0, s, t) for s in range(grid.sp)]
-                for s, out in enumerate(attend(i, d, p, t, *chunks, devices)):
+            for t in grid.tps:
+                chunks = ({s: qkv[s, t][j] for s in grid.sps} for j in range(3))
+                for s, out in attend(i, d, p, t, *chunks).items():
                     attn[s, t] = out
             # wo's rows are cut over tp: an all-reduce sums the partials.
-            for s in range(grid.sp):
-                xs[d, s] = xs[d, s] + all_reduce(
-                    [_attn_out(attn[s, t], lps[s, t]) for t in range(grid.tp)], xs[d, s].device)
+            for s in grid.sps:
+                xs[d, s] = xs[d, s] + grid.reduce(
+                    "tp", [_attn_out(attn[s, t], lps[s, t]) for t in grid.tps],
+                    grid.coord(d, p, e, s, t0), xs[d, s].device)
         mlp_block(i, p, xs)
-    return xs
+    return grid.from_last_stage(xs, like)
 
 
 def _tp_mlp_block(params: Params, grid: _Grid) -> Callable:
@@ -956,10 +1046,11 @@ def _tp_mlp_block(params: Params, grid: _Grid) -> Callable:
     def block(i: int, p: int, xs) -> None:
         for (d, s), x in list(xs.items()):
             parts = []
-            for t in range(grid.tp):
-                lp = grid.layer(params, keys, i, d, p, 0, s, t)
-                parts.append(_mlp(_rms_norm(x.to(grid.dev(d, p, 0, s, t)), lp["ln2"]), lp))
-            xs[d, s] = x + all_reduce(parts, x.device)
+            for t in grid.tps:
+                lp = grid.layer(params, keys, i, d, p, grid.e, s, t)
+                parts.append(_mlp(_rms_norm(x.to(grid.dev(d, p, grid.e, s, t)), lp["ln2"]), lp))
+            xs[d, s] = x + grid.reduce("tp", parts, grid.coord(d, p, grid.e, s, grid.tps[0]),
+                                       x.device)
 
     return block
 
@@ -967,34 +1058,61 @@ def _tp_mlp_block(params: Params, grid: _Grid) -> Callable:
 def _sharded_logits(params: Params, x: torch.Tensor, grid: _Grid, d: int, s: int):
     """:func:`_logits` of shard (d, s): the embedding's width is cut over
     tp, so each rank's float32 product is partial and an all-reduce sums
-    them in float32."""
-    p, w = grid.pp - 1, x.shape[-1] // grid.tp
+    them in float32 (in rank order, across processes too)."""
+    p, e, w = grid.pps[-1], grid.e, x.shape[-1] // grid.tp
     parts = []
-    for t in range(grid.tp):
-        dev = grid.dev(d, p, 0, s, t)
-        h = _rms_norm(x.to(dev), grid.take(params["ln_f"], None, d, p, 0, s, t))
-        embed = grid.take(params["embed"], None, d, p, 0, s, t)
+    for t in grid.tps:
+        dev = grid.dev(d, p, e, s, t)
+        h = _rms_norm(x.to(dev), grid.take(params["ln_f"], None, d, p, e, s, t))
+        embed = grid.take(params["embed"], None, d, p, e, s, t)
         parts.append(torch.einsum("...d,vd->...v", h[..., t * w : (t + 1) * w].float(),
                                   embed.float()))
-    return all_reduce(parts, x.device)
+    return grid.reduce("tp", parts, grid.coord(d, p, e, s, grid.tps[0]), x.device)
 
 
-def _join_logits(params: Params, grid: _Grid, xs) -> torch.Tensor:
-    return grid.join({k: _sharded_logits(params, x, grid, *k) for k, x in xs.items()})
+def _logits_out(params: Params, grid: _Grid, xs, shape: Tuple[int, ...]):
+    """The logits of the hidden shards ``xs``, of global ``shape`` ([B, T,
+    V], or [B, V] for shards of one position each).  On a mesh of one
+    process, the whole tensor on the first rank's device.  Over several
+    processes, this process's: a :class:`Sharded` over ``P("dp", "sp",
+    None)`` (``P("dp", None)`` for [B, V]) whose every local entry holds
+    its (d, s) shard, the same bits in every process that holds it."""
+    logits = {}
+    for (d, s), x in xs.items():
+        logits[d, s] = _sharded_logits(params, x, grid, d, s)
+        if len(shape) == 2:
+            logits[d, s] = logits[d, s][:, 0]
+    if not grid.mesh.multi_process:
+        return grid.assemble(logits, grid.pps[-1], grid.home)
+    mesh = grid.mesh
+    spec = P("dp", "sp", None) if len(shape) == 3 else P("dp", None)
+    locals_ = np.empty(mesh.devices.shape, dtype=object)
+    for coord in np.ndindex(mesh.devices.shape):
+        if mesh.is_local(coord):
+            x = logits[coord[mesh.axis_names.index("dp")], coord[mesh.axis_names.index("sp")]]
+            locals_[coord] = x.to(mesh.devices[coord])
+    return Sharded(mesh, spec, shape, torch.float32, locals_)
 
 
-def _gather_attend(cfg, use_flash: bool) -> Callable:
+def _gather_attend(cfg, use_flash: bool, grid: _Grid) -> Callable:
     """Attention over an sp-cut sequence without a ring: each chunk's
     queries attend over the K/V chunks up to its own, gathered onto its
-    device (later chunks lie wholly in its future), at the ``q_offset``
-    of its first position, on the op :func:`_prefill_attention` routes
-    to.  With sp = 1, each head shard's attention on its own."""
+    device (later chunks lie wholly in its future; across processes the
+    chunks of every process along sp), at the ``q_offset`` of its first
+    position, on the op :func:`_prefill_attention` routes to.  With sp =
+    1, each head shard's attention on its own."""
 
-    def attend(i, d, p, t, qs, ks, vs, devices):
-        return [_prefill_attention(qs[s], all_gather(ks[: s + 1], dev, 1),
-                                   all_gather(vs[: s + 1], dev, 1), cfg,
-                                   q_offset=s * qs[0].shape[1], use_flash=use_flash)
-                for s, dev in enumerate(devices)]
+    def attend(i, d, p, t, qs, ks, vs):
+        coord = grid.coord(d, p, grid.e, grid.sps[0], t)
+        k_all = grid.ranks("sp", [ks[s] for s in grid.sps], coord)
+        v_all = grid.ranks("sp", [vs[s] for s in grid.sps], coord)
+        out = {}
+        for s, q in qs.items():
+            dev = grid.dev(d, p, grid.e, s, t)
+            out[s] = _prefill_attention(q, all_gather(k_all[: s + 1], dev, 1),
+                                        all_gather(v_all[: s + 1], dev, 1), cfg,
+                                        q_offset=s * q.shape[1], use_flash=use_flash)
+        return out
 
     return attend
 
@@ -1020,13 +1138,12 @@ def _sharded_run(params: Params, tokens: torch.Tensor, cfg, grid: _Grid, *,
             tokens, positions = stripe(tokens, grid.sp), stripe(positions, grid.sp)
         body = ring_body(impl, out.type)
 
-        def attend(i, d, p, t, qs, ks, vs, devices):
-            outs = body(dict(enumerate(qs)), dict(enumerate(ks)), dict(enumerate(vs)),
-                        Ring(devices), striped=striped)
-            return [outs[s] for s in range(len(qs))]
+        def attend(i, d, p, t, qs, ks, vs):
+            ring = ring_of(grid.mesh, [grid.coord(d, p, grid.e, s, t) for s in range(grid.sp)])
+            return body(qs, ks, vs, ring, striped=striped)
     else:
         striped = False
-        attend = _gather_attend(cfg, use_flash)
+        attend = _gather_attend(cfg, use_flash, grid)
     xs = _sharded_stack(params, tokens, positions, cfg, grid, attend,
                         mlp_block or _tp_mlp_block(params, grid))
     return xs, striped
@@ -1051,14 +1168,66 @@ def _sharded_nll(params: Params, tokens: torch.Tensor, grid: _Grid, xs) -> torch
     return all_reduce(sums, out) / (B * (T - 1))
 
 
+def _share_written(kv_pool: Sharded, grid: _Grid, written: Callable, n_layers: int) -> None:
+    """Make the pool's copies in every process hold what this call wrote,
+    as XLA keeps a replicated pool: ``written(d, s)`` are the block ids
+    rank (d, s) wrote in each layer (on the pool's device).  Layer by
+    layer, the processes of the layer's stage gather along sp and then dp
+    the blocks each holds, and, where the pool is not cut over pp, the
+    stage's process broadcasts them along pp to the other stages'.
+    Processes along ep wrote the same blocks alike.  A no-op unless one
+    of those axes crosses processes."""
+    crossing = grid.mesh.crossing_axes()
+    axes = [a for a in ("sp", "dp") if a in crossing]
+    along_pp = "pp" in crossing and kv_pool.spec[0] != "pp"
+    if not axes and not along_pp:
+        return
+    tr = transport(grid.mesh)
+    every = {"dp": list(range(grid.dp)), "sp": list(range(grid.sp))}
+    for i in range(n_layers):
+        p = grid.stage(i)
+        at = p if p in grid.pps else grid.pps[0]
+        layer = i - at * grid.per_stage if kv_pool.spec[0] == "pp" else i
+        copies = [kv_pool.replicas(dp=grid.dps[0], pp=at, ep=grid.e, sp=grid.sps[0], tp=t)
+                  for t in grid.tps]
+
+        def ids(held):
+            return torch.cat([written(d, s) for d in held["dp"] for s in held["sp"]])
+
+        def read(held):
+            return torch.stack([c[0][layer][ids(held).to(c[0].device)] for c in copies])
+
+        def write(held, data):
+            for c, part in zip(copies, data):
+                for copy in c:
+                    copy[layer][ids(held).to(copy.device)] = part.to(copy.device)
+
+        if p in grid.pps:
+            held = {"dp": list(grid.dps), "sp": list(grid.sps)}
+            for axis in axes:
+                run = len(held[axis])
+                for j, part in enumerate(tr.all_gather(read(held), axis, grid.lead(p))):
+                    theirs = dict(held, **{axis: list(range(j * run, (j + 1) * run))})
+                    if theirs[axis] != held[axis]:
+                        write(theirs, part)
+                held[axis] = every[axis]
+        if along_pp:
+            sent = read(every) if p in grid.pps else None
+            like = copies[0][0][layer]
+            got = tr.broadcast(sent, "pp", grid.lead(), p,
+                               ((len(copies), len(ids(every))) + tuple(like.shape[1:]),
+                                like.dtype, like.device))
+            if p not in grid.pps:
+                write(every, got)
+
+
 def _prefill_sharded(params, tokens, kv_pool, block_table, cfg, prefix_len: int):
     """``prefill_paged`` (``prefix_len`` 0) and ``prefill_continue`` over
     sharded params and pool: each chunk attends over the cached prefix,
     read from its rank's pool slice, and the chunks up to its own; then
     every chunk's K/V goes into every copy of its head slice."""
     grid = _grid(params, cfg, kv_pool)
-    grid.whole("prefill")
-    out = grid.dev()
+    out = grid.home
     tokens, table = tokens.to(out), block_table.to(out).long()
     B, Ts = tokens.shape
     bs = cfg.block_size
@@ -1069,29 +1238,38 @@ def _prefill_sharded(params, tokens, kv_pool, block_table, cfg, prefix_len: int)
     npre, chunk_blocks = prefix_len // bs, Ts // bs // grid.sp
     positions = (prefix_len + torch.arange(Ts, device=out)).expand(B, Ts)
 
-    def attend(i, d, p, t, qs, ks, vs, devices):
+    def written(d, s):
+        return grid.cut(table, d)[:, npre + s * chunk_blocks : npre + (s + 1) * chunk_blocks]
+
+    def attend(i, d, p, t, qs, ks, vs):
         rows = grid.cut(table, d)
-        outs = []
-        for s, dev in enumerate(devices):
-            k_parts, v_parts = list(ks[: s + 1]), list(vs[: s + 1])
+        coord = grid.coord(d, p, grid.e, grid.sps[0], t)
+        k_all = grid.ranks("sp", [ks[s] for s in grid.sps], coord)
+        v_all = grid.ranks("sp", [vs[s] for s in grid.sps], coord)
+        outs = {}
+        for s, q in qs.items():
+            dev = grid.dev(d, p, grid.e, s, t)
+            k_parts, v_parts = list(k_all[: s + 1]), list(v_all[: s + 1])
             if npre:
-                kv_layer = grid.take(kv_pool, i, d, p, 0, s, t)
+                kv_layer = grid.take(kv_pool, i, d, p, grid.e, s, t)
                 pre = kv_layer[rows[:, :npre].to(dev)].permute(0, 2, 1, 3, 4, 5)
-                pre = pre.reshape(rows.shape[0], 2, prefix_len, *ks[0].shape[2:])
-                k_parts.insert(0, pre[:, 0].to(ks[0].dtype))
-                v_parts.insert(0, pre[:, 1].to(vs[0].dtype))
-            outs.append(_prefill_attention(
-                qs[s], all_gather(k_parts, dev, 1), all_gather(v_parts, dev, 1), cfg,
-                q_offset=prefix_len + s * qs[0].shape[1]))
-        for s in range(grid.sp):
-            ids = rows[:, npre + s * chunk_blocks : npre + (s + 1) * chunk_blocks]
-            grid.write_kv(kv_pool, i, d, p, s, t, lambda layer, s=s, ids=ids: _scatter_kv_blocks(
-                layer, ks[s].to(layer.device), vs[s].to(layer.device), ids.to(layer.device), bs))
+                pre = pre.reshape(rows.shape[0], 2, prefix_len, *k_parts[0].shape[2:])
+                k_parts.insert(0, pre[:, 0].to(k_parts[0].dtype))
+                v_parts.insert(0, pre[:, 1].to(v_parts[0].dtype))
+            outs[s] = _prefill_attention(
+                q, all_gather(k_parts, dev, 1), all_gather(v_parts, dev, 1), cfg,
+                q_offset=prefix_len + s * q.shape[1])
+        for s in grid.sps:
+            grid.write_kv(kv_pool, i, d, p, s, t, lambda layer, s=s: _scatter_kv_blocks(
+                layer, ks[s].to(layer.device), vs[s].to(layer.device),
+                written(d, s).to(layer.device), bs))
         return outs
 
     xs = _sharded_stack(params, tokens, positions, cfg, grid, attend,
                         _tp_mlp_block(params, grid))
-    return _join_logits(params, grid, xs), kv_pool
+    logits = _logits_out(params, grid, xs, (B, Ts, cfg.vocab_size))
+    _share_written(kv_pool, grid, lambda d, s: written(d, s).reshape(-1), cfg.n_layers)
+    return logits, kv_pool
 
 
 def _decode_sharded(params, tokens, kv_pool, block_table, context_len, cfg):
@@ -1099,25 +1277,25 @@ def _decode_sharded(params, tokens, kv_pool, block_table, context_len, cfg):
     head shard writes its K/V into every copy of its pool slice and runs
     the decode kernel on its own."""
     grid = _grid(params, cfg, kv_pool)
-    grid.whole("decode_step")
     if grid.sp > 1:
         raise ValueError(f"a decode step has one token a sequence; sp={grid.sp} cuts nothing")
-    out = grid.dev()
+    out = grid.home
     tokens = tokens.to(out)
     block_table = block_table.to(out, torch.int32)
     context_len = context_len.to(out, torch.int32)
-    if tokens.shape[0] % grid.dp:
-        raise ValueError(f"batch {tokens.shape[0]} does not divide over dp={grid.dp}")
+    B = tokens.shape[0]
+    if B % grid.dp:
+        raise ValueError(f"batch {B} does not divide over dp={grid.dp}")
     pos = context_len.long() - 1
     block_ids = torch.gather(block_table.long(), 1, (pos // cfg.block_size)[:, None])[:, 0]
     slot = pos % cfg.block_size
     # The kernel reads contiguous, 16-byte-aligned tables and lengths: a
     # batch shard's rows are copied.
-    tables = [grid.cut(block_table, d).clone() for d in range(grid.dp)]
-    lens = [grid.cut(context_len, d).clone() for d in range(grid.dp)]
+    tables = {d: grid.cut(block_table, d).clone() for d in grid.dps}
+    lens = {d: grid.cut(context_len, d).clone() for d in grid.dps}
 
-    def attend(i, d, p, t, qs, ks, vs, devices):
-        dev = devices[0]
+    def attend(i, d, p, t, qs, ks, vs):
+        dev = grid.dev(d, p, grid.e, 0, t)
         kv_new = torch.stack((ks[0][:, 0], vs[0][:, 0]), dim=1)  # [b, 2, Hkv/tp, Dh]
         ids, slots = grid.cut(block_ids, d), grid.cut(slot, d)
 
@@ -1127,13 +1305,15 @@ def _decode_sharded(params, tokens, kv_pool, block_table, context_len, cfg):
 
         grid.write_kv(kv_pool, i, d, p, 0, t, write)
         attn = paged_decode_attention_cuda(
-            qs[0][:, 0].contiguous(), grid.take(kv_pool, i, d, p, 0, 0, t),
+            qs[0][:, 0].contiguous(), grid.take(kv_pool, i, d, p, grid.e, 0, t),
             tables[d].to(dev), lens[d].to(dev))
-        return [attn[:, None]]
+        return {0: attn[:, None]}
 
     xs = _sharded_stack(params, tokens[:, None], pos[:, None], cfg, grid, attend,
                         _tp_mlp_block(params, grid))
-    return _join_logits(params, grid, xs)[:, 0], kv_pool
+    logits = _logits_out(params, grid, xs, (B, cfg.vocab_size))
+    _share_written(kv_pool, grid, lambda d, s: grid.cut(block_ids, d), cfg.n_layers)
+    return logits, kv_pool
 
 
 # ---------------------------------------------------------------- training
@@ -1161,6 +1341,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Ten
     sp chunks' dense attention gathers K/V; see :func:`_sharded_nll`)."""
     if is_sharded(params):
         grid = _grid(params, cfg)
+        refuse_training(grid.mesh, "loss_fn")
         xs, _ = _sharded_run(params, tokens, cfg, grid, use_flash=False)
         return _sharded_nll(params, tokens, grid, xs)
     logits = forward(params, tokens, cfg, use_flash=False)
@@ -1193,7 +1374,10 @@ def optimizer_step(
     copy of a sharded slice the slice's whole gradient
     (``sync_replica_grads`` of ``params``), update the params in place.
     Returns the loss, detached; over params sharded across processes
-    ``loss()`` is this process's share, and the shares are summed."""
+    ``loss()`` is this process's share, and the shares are summed.  Over
+    a mesh whose tp, pp, sp or ep axis crosses processes it raises
+    ``NotImplementedError`` (:func:`refuse_training`)."""
+    refuse_training(tree_mesh(params), "optimizer_step")
     optimizer.zero_grad(set_to_none=True)
     value = loss()
     value.backward()

@@ -24,7 +24,14 @@ every batch shard's and sequence chunk's normed tokens are gathered in
 global token order, so capacity and queue positions are those of all
 B x T tokens; :func:`_constrain` places the experts' batches on the ep
 ranks (the dispatch), each (ep, tp) rank runs its experts' slice, and
-the combine sums the ep ranks' outputs.
+the combine sums the ep ranks' outputs.  On a mesh whose axes cross
+processes the forward runs in every process: the normed tokens come
+from every process along dp and sp, each process routes them alike and
+runs its own (ep, tp) ranks' experts, and the products are summed over
+tp and ep across processes in rank order; it returns this process's
+logits (a ``Sharded``, as ``llama.forward`` does) and the same aux loss
+in every process.  Training there is refused: the routing joins every
+batch shard's tokens, so not even dp may cross processes.
 """
 
 from __future__ import annotations
@@ -40,8 +47,8 @@ import torch.nn.functional as F
 from llm_d_kv_cache_manager_tpu_torch.models.llama import (
     _grid,
     _Grid,
-    _join_logits,
     _logits,
+    _logits_out,
     _normal,
     _prefill_attention,
     _qkv,
@@ -52,10 +59,17 @@ from llm_d_kv_cache_manager_tpu_torch.models.llama import (
     make_optimizer,  # noqa: F401  (the reference's moe.make_optimizer)
     next_token_nll,
     optimizer_step,
+    refuse_training,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import ring_for_mesh
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh, active_mesh
-from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import P, all_reduce, shard
+from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import (
+    P,
+    all_reduce,
+    ranks_over,
+    shard,
+    tree_mesh,
+)
 from llm_d_kv_cache_manager_tpu_torch.utils.device import (
     from_numpy,
     resolve_device,
@@ -287,40 +301,44 @@ def _moe_mlp(
 def _sharded_moe_block(params: Params, cfg: MoEConfig, grid: _Grid, B: int, T: int,
                        auxes: list):
     """The routed MLP over sharded params: the normed tokens of every
-    (batch shard, sequence chunk) gathered in global token order onto the
-    stage's first rank, routed there as one [B*T] batch, the experts'
-    batches placed on the ep ranks (:func:`_constrain`), each (ep, tp)
-    rank's partial product summed over tp, and the combine summed over
-    ep, in rank order.  Appends each layer's aux loss to ``auxes``.
-    Every axis stays inside one process: the routing joins every batch
-    shard's tokens."""
-    grid.inside_process("_sharded_moe_block", crossing=())
+    (batch shard, sequence chunk) gathered in global token order onto
+    this process's first rank of the stage (from every process along dp
+    and sp), routed there as one [B*T] batch, the experts' batches
+    placed on the ep ranks (:func:`_constrain`), each (ep, tp) rank's
+    partial product summed over tp, and the combine summed over ep, in
+    rank order (across processes too).  Appends each layer's aux loss
+    to ``auxes``.  Ranks along dp and sp hold replicas of the experts:
+    a process computes its (ep, tp) ranks' products at its first dp and
+    sp index."""
     E = cfg.n_experts // grid.ep
+    d0, s0, t0 = grid.dps[0], grid.sps[0], grid.tps[0]
 
     def block(i: int, p: int, xs) -> None:
-        home = grid.dev(0, p)
-        normed = {(d, s): _rms_norm(x, grid.take(params["layers"]["ln2"], i, d, p, 0, s, 0))
+        home = grid.dev(d0, p, grid.e, s0, t0)
+        normed = {(d, s): _rms_norm(x, grid.take(params["layers"]["ln2"], i, d, p, grid.e, s,
+                                                 t0))
                   for (d, s), x in xs.items()}
-        flat = grid.join(normed).to(home).reshape(B * T, -1)
-        dispatch, combine, aux = _route(flat, grid.take(params["layers"]["router"], i, 0, p),
-                                        cfg)
+        flat = grid.assemble(normed, p, home).reshape(B * T, -1)
+        dispatch, combine, aux = _route(flat, grid.take(params["layers"]["router"], i, d0, p,
+                                                        grid.e, s0, t0), cfg)
         auxes.append(aux)
         expert_in = _constrain(torch.einsum("sec,sd->ecd", dispatch.to(flat.dtype), flat),
                                P("ep", None, None), grid.mesh)
         outs = []
-        for e in range(grid.ep):
+        for e in grid.eps:
             parts = []
-            for t in range(grid.tp):
-                lp = grid.layer(params, ("w_gate", "w_up", "w_down"), i, 0, p, e, 0, t)
-                x_in = expert_in.locals[grid.coord(0, p, e, 0, t)]
+            for t in grid.tps:
+                lp = grid.layer(params, ("w_gate", "w_up", "w_down"), i, d0, p, e, s0, t)
+                x_in = expert_in.locals[grid.coord(d0, p, e, s0, t)]
                 gate = torch.einsum("ecd,edf->ecf", x_in, lp["w_gate"])
                 up = torch.einsum("ecd,edf->ecf", x_in, lp["w_up"])
                 hidden = F.silu(gate.float()).to(x_in.dtype) * up
                 parts.append(torch.einsum("ecf,efd->ecd", hidden, lp["w_down"]))
-            expert_out = all_reduce(parts, grid.dev(0, p, e))
+            expert_out = grid.reduce("tp", parts, grid.coord(d0, p, e, s0, t0),
+                                     grid.dev(d0, p, e, s0, t0))
             weights = combine[:, e * E : (e + 1) * E].to(expert_out.device, expert_out.dtype)
             outs.append(torch.einsum("sec,ecd->sd", weights, expert_out))
-        out = all_reduce(outs, home).reshape(B, T, -1)
+        out = grid.reduce("ep", outs, grid.lead(p), home).reshape(B, T, -1)
         for (d, s), x in list(xs.items()):
             xs[d, s] = x + grid.cut(out, d, s).to(x.device)
 
@@ -329,13 +347,18 @@ def _sharded_moe_block(params: Params, cfg: MoEConfig, grid: _Grid, B: int, T: i
 
 def _sharded_forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig, use_flash: bool,
                      sp_mesh: Optional[Mesh], ring_impl: str):
-    """(grid, hidden shards, aux) of the sharded forward."""
+    """(grid, hidden shards, aux) of the sharded forward: the aux of
+    every layer, gathered along pp where the stages lie in several
+    processes, summed in layer order."""
     grid = _grid(params, cfg)
     auxes = []
     xs, _ = _sharded_run(params, tokens, cfg, grid, use_flash=use_flash, sp_mesh=sp_mesh,
                          impl=ring_impl,
                          mlp_block=_sharded_moe_block(params, cfg, grid, *tokens.shape, auxes))
-    return grid, xs, all_reduce(auxes, grid.dev()) / cfg.n_layers
+    per = grid.per_stage
+    stages = [torch.stack(auxes[k * per : (k + 1) * per]) for k in range(len(grid.pps))]
+    auxes = [a for stage in ranks_over(stages, grid.mesh, "pp", grid.lead()) for a in stage]
+    return grid, xs, all_reduce(auxes, grid.home) / cfg.n_layers
 
 
 def forward(
@@ -355,13 +378,16 @@ def forward(
     token order, so the striped layout would change which tokens
     overflow.  ``ring_impl`` as in ``llama.forward``.  Over sharded
     params (see the module's note) the logits come back whole on the
-    first rank's device."""
+    first rank's device, or, over a mesh of several processes, as this
+    process's ``Sharded`` logits.  Plain params over an ``sp_mesh`` of
+    several processes raise."""
     if is_sharded(params):
         grid, xs, aux = _sharded_forward(params, tokens, cfg, use_flash, sp_mesh, ring_impl)
-        return _join_logits(params, grid, xs), aux
+        return _logits_out(params, grid, xs, tokens.shape + (cfg.vocab_size,)), aux
     if sp_mesh is not None and sp_mesh.multi_process:
-        raise NotImplementedError("the MoE forward over a mesh of several processes is not "
-                                  "ported: its routing joins every token of the batch")
+        raise NotImplementedError("the MoE forward with plain params over an sp_mesh of "
+                                  "several processes is not ported (its routing joins every "
+                                  "token of the batch): shard the params over the mesh")
     B, T = tokens.shape
     dev = params["embed"].device
     tokens = tokens.to(dev)
@@ -390,6 +416,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tenso
     """Next-token cross entropy plus the router's load-balancing loss,
     through the dense attention op (``use_flash=False``)."""
     if is_sharded(params):
+        refuse_training(tree_mesh(params), "moe.loss_fn", allowed=())
         grid, xs, aux = _sharded_forward(params, tokens, cfg, False, None, "auto")
         return _sharded_nll(params, tokens, grid, xs) + cfg.router_aux_weight * aux
     logits, aux = forward(params, tokens, cfg, use_flash=False)

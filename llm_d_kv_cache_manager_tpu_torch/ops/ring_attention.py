@@ -40,8 +40,9 @@ group, and each head shard runs its own ring over the ranks of its tp
 index.  Ranks along an axis the ring does not use (``pp``, ``ep``, and
 ``tp`` without ``head_axis``) hold replicas and would compute the same
 thing; the controller runs the ring once, on their index 0.  On a mesh
-of several processes (``parallel.mesh.make_hybrid_mesh``) the ring,
-batch and head axes may cross processes and those replica axes may not.
+of several processes (``parallel.mesh.make_hybrid_mesh``) any axis may
+cross processes: the ring, batch and head axes cut the work, and each
+process along a replica axis runs the rings of its own replica.
 """
 
 from __future__ import annotations
@@ -260,7 +261,9 @@ def unstripe(x: torch.Tensor, ring_size: int, axis: int = 1) -> torch.Tensor:
 def _rings(mesh: Mesh, axis_name: str, batch_axis: Optional[str],
            head_axis: Optional[str]) -> np.ndarray:
     """The mesh's coordinates as [batch shards, head shards, ring ranks],
-    index 0 on every other axis (replicas of the same computation)."""
+    at this process's first index on every other axis (replicas of the
+    same computation: index 0 on a mesh of one process; across processes
+    each process along a replica axis runs its own replica's rings)."""
     names = mesh.axis_names
     used = [axis_name, batch_axis, head_axis]
     for a in used:
@@ -268,15 +271,11 @@ def _rings(mesh: Mesh, axis_name: str, batch_axis: Optional[str],
             raise ValueError(f"mesh has no axis {a!r} (axes {names})")
     if len({a for a in used if a is not None}) != sum(a is not None for a in used):
         raise ValueError(f"ring, batch and head axes must differ, got {used}")
-    for a in mesh.crossing_axes():
-        if a not in used:
-            raise NotImplementedError(
-                f"the ring's replica axis {a!r} crosses processes: only the ring, batch and "
-                "head axes may")
+    first = next(c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c))
     coords = np.empty(mesh.devices.shape, dtype=object)
     for coord in np.ndindex(coords.shape):
         coords[coord] = coord
-    index = tuple(slice(None) if a in used else 0 for a in names)
+    index = tuple(slice(None) if a in used else first[k] for k, a in enumerate(names))
     kept = [a for a in names if a in used]
     order = [kept.index(a) for a in (batch_axis, head_axis, axis_name) if a is not None]
     return np.transpose(coords[index], order).reshape(

@@ -133,6 +133,8 @@ class Mesh:
         if processes.shape != devices.shape:
             raise ValueError(f"processes {processes.shape} for devices {devices.shape}")
         self.processes = processes
+        self._crossing = tuple(a for i, a in enumerate(self.axis_names)
+                               if (np.diff(processes, axis=i) != 0).any())
         # parallel.process_group.transport(mesh) keeps the mesh's transport
         # (its sub-groups) here, made on first use.
         self._transport = None
@@ -153,8 +155,7 @@ class Mesh:
     def crossing_axes(self) -> Tuple[str, ...]:
         """The axes along which the owning process changes: the axes
         whose collectives cross processes."""
-        return tuple(a for i, a in enumerate(self.axis_names)
-                     if (np.diff(self.processes, axis=i) != 0).any())
+        return self._crossing
 
     @property
     def shape(self) -> "OrderedDict[str, int]":

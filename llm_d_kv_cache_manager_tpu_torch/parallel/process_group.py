@@ -12,18 +12,34 @@ before it built the mesh (``parallel.mesh.make_hybrid_mesh``):
   (``batch_isend_irecv``) and returns a :class:`Pending` whose
   ``wait()`` gives the received tensors: the ring rotation, posted
   before a step's compute and waited on after it;
+- :meth:`MeshTransport.hop` moves one tensor from the process at one
+  index of an axis to the process at another (the stage hop along
+  ``pp``), over :meth:`post`;
 - :meth:`MeshTransport.all_gather` and :meth:`MeshTransport.all_reduce`
-  run over the processes of one mesh axis, in sub-groups made once per
-  mesh and axis.  The reduce gathers and sums in the axis's order, so
-  every process gets the same bits and a result does not depend on the
-  backend's reduction order.
+  run over the processes of one mesh axis, one tensor a process, in
+  sub-groups made once per mesh and axis; :meth:`all_gather_ranks` and
+  :meth:`all_reduce_ranks` take this process's part of every rank it
+  holds along the axis and give every rank's part, or their sum, in
+  the axis's rank order; :meth:`broadcast` sends one process's tensor
+  to every process along an axis.  The reduces gather and sum in rank
+  order, so every process gets the same bits, which are the single
+  controller's (``parallel.sharding.all_reduce`` sums in rank order
+  too), and a result does not depend on the backend's reduction order.
 
 The backend decides how a tensor travels.  NCCL sends CUDA tensors as
 they are.  gloo sends CPU tensors; a CUDA tensor is staged through a
 pinned host buffer: a device-to-host copy, the transfer, a host-to-device
-copy, each copy timed by CUDA events into :class:`TransferLog`.  Any
-other pairing (a CPU tensor under NCCL, another backend) raises: nothing
-moves over a path the caller did not choose.
+copy, each copy timed by CUDA events into :class:`TransferLog`.  The
+collectives move their tensors as bytes, in chunks of at most
+``CHUNK_BYTES`` through pinned buffers that the transport keeps and
+reuses (a tensor of gigabytes, such as a logits partial, needs no
+pinned copy of its size).  Any other pairing (a CPU tensor under NCCL,
+another backend) raises: nothing moves over a path the caller did not
+choose.
+
+Every process along an axis calls its collectives in one order: with
+gloo, a process that calls them in another order than its peers waits
+for ever rather than failing.
 """
 
 from __future__ import annotations
@@ -37,6 +53,10 @@ import torch
 import torch.distributed as dist
 
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh
+
+# The largest piece a collective moves at once, and the size of each of
+# the transport's reused pinned buffers.
+CHUNK_BYTES = 64 << 20
 
 
 @dataclass
@@ -105,6 +125,10 @@ class MeshTransport:
         self.backend = _backend()
         self.log = TransferLog()
         self._groups: Dict[str, Dict[Tuple[int, ...], Optional[object]]] = {}
+        # Pinned byte buffers the collectives stage through, by role, and
+        # the event after the last host-to-device copy out of them.
+        self._pinned: Dict[object, torch.Tensor] = {}
+        self._unstaged: Optional[torch.cuda.Event] = None
 
     # -- how a tensor travels --
 
@@ -149,14 +173,15 @@ class MeshTransport:
     # -- point to point --
 
     def post(self, sends: Sequence[Tuple[int, torch.Tensor, int]],
-             recvs: Sequence[Tuple[int, Tuple[int, ...], torch.dtype, torch.device, int]]
-             ) -> Pending:
+             recvs: Sequence[Tuple[int, Tuple[int, ...], torch.dtype, torch.device, int]],
+             kind: str = "p2p") -> Pending:
         """Start ``sends`` (``(process, tensor, tag)``) and ``recvs``
-        (``(process, shape, dtype, device, tag)``) at once.  Between one
-        pair of processes the sends and the receives match in the order
-        given (NCCL ignores tags), so both sides list them in one order."""
+        (``(process, shape, dtype, device, tag)``) at once, logged under
+        ``kind``.  Between one pair of processes the sends and the
+        receives match in the order given (NCCL ignores tags), so both
+        sides list them in one order."""
         started = time.perf_counter()
-        entry = self._entry("p2p")
+        entry = self._entry(kind)
         ops, keep, landing = [], [], []
         for process, tensor, tag in sends:
             buf = self._stage(tensor, entry) if self._staged(tensor.device) else tensor.contiguous()
@@ -173,6 +198,28 @@ class MeshTransport:
             ops.append(dist.P2POp(dist.irecv, buf, process, tag=tag))
         works = dist.batch_isend_irecv(ops) if ops else []
         return Pending(self, works, landing, entry, started, keep)
+
+    def hop(self, tensor: Optional[torch.Tensor], axis: str, coord: Tuple[int, ...], src: int,
+            dst: int, like: Tuple[Tuple[int, ...], torch.dtype, torch.device]
+            ) -> Optional[torch.Tensor]:
+        """Move a tensor along ``axis`` (through the local ``coord``) from
+        the process at index ``src`` to the process at index ``dst``:
+        the sender passes it and gets None; the receiver passes None and
+        gets it on ``like``'s device (``like``: its shape, dtype and
+        device).  Both call; a process that is both gets ``tensor`` moved
+        to that device."""
+        line = self._line(axis, coord)
+        sender, receiver = line[src], line[dst]
+        me = self.mesh.process
+        if sender == receiver:
+            return tensor.to(like[2])
+        if me == sender:
+            self.post([(receiver, tensor, 0)], [], kind=f"hop:{axis}").wait()
+            return None
+        if me == receiver:
+            return self.post([], [(sender, like[0], like[1], like[2], 0)],
+                             kind=f"hop:{axis}").wait()[0]
+        raise ValueError(f"process {me} is neither end of the {axis} hop {src} -> {dst}")
 
     # -- collectives over one axis --
 
@@ -192,13 +239,93 @@ class MeshTransport:
                 for ranks in members}
         return self._groups[axis]
 
+    def _line(self, axis: str, coord: Tuple[int, ...]) -> List[int]:
+        """The process of each rank along ``axis`` through ``coord``."""
+        i = self.mesh.axis_names.index(axis)
+        return [self.mesh.process_of(coord[:i] + (j,) + coord[i + 1:])
+                for j in range(self.mesh.devices.shape[i])]
+
     def _along(self, axis: str, coord: Tuple[int, ...]) -> Tuple[int, ...]:
         """The processes along ``axis`` through ``coord``, in the axis's
         order, each once."""
-        i = self.mesh.axis_names.index(axis)
-        line = [self.mesh.process_of(coord[:i] + (j,) + coord[i + 1:])
-                for j in range(self.mesh.devices.shape[i])]
-        return tuple(dict.fromkeys(line))
+        return tuple(dict.fromkeys(self._line(axis, coord)))
+
+    def _blocks(self, axis: str, coord: Tuple[int, ...]) -> Tuple[int, ...]:
+        """:meth:`_along`, checking that each process holds one run of
+        the axis's ranks, all runs of one length (a hybrid mesh's
+        layout): then rank order is process order, then local order."""
+        line = self._line(axis, coord)
+        processes = tuple(dict.fromkeys(line))
+        run = len(line) // len(processes)
+        if line != [p for p in processes for _ in range(run)]:
+            raise ValueError(f"the processes along {axis} ({line}) do not each hold one run "
+                             "of its ranks")
+        return processes
+
+    def _buffer(self, role, nbytes: int) -> torch.Tensor:
+        """A pinned byte buffer of ``nbytes`` for ``role``, kept and
+        reused; a copy out of it may still run, so wait for that first."""
+        if self._unstaged is not None:
+            self._unstaged.synchronize()
+            self._unstaged = None
+        buf = self._pinned.get(role)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
+            self._pinned[role] = buf
+        return buf[:nbytes]
+
+    def _to_host(self, piece: torch.Tensor, role, entry: dict) -> torch.Tensor:
+        host = self._buffer(role, piece.numel())
+        stream = torch.cuda.current_stream(piece.device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+        host.copy_(piece, non_blocking=True)
+        end.record(stream)
+        end.synchronize()
+        entry["d2h"].append((start, end))
+        return host
+
+    def _to_device(self, host: torch.Tensor, out: torch.Tensor, entry: dict) -> None:
+        stream = torch.cuda.current_stream(out.device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+        out.copy_(host, non_blocking=True)
+        end.record(stream)
+        entry["h2d"].append((start, end))
+        self._unstaged = end
+
+    def _gather_bytes(self, piece: torch.Tensor, group, processes, entry: dict
+                      ) -> List[torch.Tensor]:
+        """One ``all_gather`` of a 1-D byte tensor of at most
+        ``CHUNK_BYTES``: every process's, in ``processes`` order, on
+        ``piece``'s device (staged through the reused buffers)."""
+        n = piece.numel()
+        entry["bytes_out"] += n
+        entry["bytes_in"] += n * (len(processes) - 1)
+        if not self._staged(piece.device):
+            parts = [torch.empty_like(piece) for _ in processes]
+            dist.all_gather(parts, piece, group=group)
+        else:
+            send = self._to_host(piece, "send", entry)
+            landing = [self._buffer(("recv", j), n) for j in range(len(processes))]
+            dist.all_gather(landing, send, group=group)
+            parts = [torch.empty(n, dtype=torch.uint8, device=piece.device) for _ in processes]
+            for host, out in zip(landing, parts):
+                self._to_device(host, out, entry)
+        by_rank = dict(zip(sorted(processes), parts))
+        return [by_rank[p] for p in processes]
+
+    def _gathered(self, tensor: torch.Tensor, group, processes, entry: dict
+                  ) -> List[torch.Tensor]:
+        """Each process's ``tensor`` (one shape and dtype on every
+        process), in ``processes`` order, chunk by chunk."""
+        flat = tensor.contiguous().view(-1).view(torch.uint8)
+        outs = [torch.empty_like(flat) for _ in processes]
+        for a in range(0, flat.numel(), CHUNK_BYTES):
+            b = min(flat.numel(), a + CHUNK_BYTES)
+            for out, part in zip(outs, self._gather_bytes(flat[a:b], group, processes, entry)):
+                out[a:b] = part
+        return [out.view(tensor.dtype).view(tensor.shape) for out in outs]
 
     def all_gather(self, tensor: torch.Tensor, axis: str,
                    coord: Tuple[int, ...]) -> List[torch.Tensor]:
@@ -212,16 +339,7 @@ class MeshTransport:
             return [tensor]
         entry = self._entry(f"all_gather:{axis}")
         t0 = time.perf_counter()
-        staged = self._staged(tensor.device)
-        send = self._stage(tensor, entry) if staged else tensor.contiguous()
-        parts = [torch.empty_like(send) for _ in processes]
-        dist.all_gather(parts, send, group=group)
-        entry["bytes_out"] = send.numel() * send.element_size()
-        entry["bytes_in"] = entry["bytes_out"] * len(processes)
-        by_rank = dict(zip(sorted(processes), parts))
-        out = [by_rank[p] for p in processes]
-        if staged:
-            out = [self._unstage(part, tensor.device, entry) for part in out]
+        out = self._gathered(tensor, group, processes, entry)
         entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
         return out
 
@@ -233,6 +351,96 @@ class MeshTransport:
         for part in parts[1:]:
             total = total + part
         return total
+
+    def all_gather_ranks(self, parts: Sequence[torch.Tensor], axis: str,
+                         coord: Tuple[int, ...]) -> List[torch.Tensor]:
+        """Every rank's part along ``axis`` through the local ``coord``,
+        in rank order, on ``parts[0]``'s device: ``parts`` are this
+        process's ranks' along the axis, in order, all of one shape and
+        dtype (every process passes as many)."""
+        processes = self._blocks(axis, coord)
+        group = self._axis_groups(axis)[processes]
+        if group is None:
+            return list(parts)
+        entry = self._entry(f"all_gather:{axis}")
+        t0 = time.perf_counter()
+        got = self._gathered(torch.stack(list(parts)), group, processes, entry)
+        entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
+        return [rank for block in got for rank in block.unbind(0)]
+
+    def all_reduce_ranks(self, parts: Sequence[torch.Tensor], axis: str,
+                         coord: Tuple[int, ...]) -> torch.Tensor:
+        """The sum of every rank's part along ``axis`` through the local
+        ``coord``, taken in rank order (``((r0 + r1) + r2) + ...``, the
+        single controller's order), on ``parts[0]``'s device: the same
+        bits on every process.  ``parts`` as for
+        :meth:`all_gather_ranks`; the parts travel and are summed a
+        chunk of elements at a time, so no process holds every rank's
+        whole part."""
+        processes = self._blocks(axis, coord)
+        group = self._axis_groups(axis)[processes]
+        first = parts[0]
+        if group is None:
+            total = first
+            for part in parts[1:]:
+                total = total + part
+            return total
+        entry = self._entry(f"all_reduce:{axis}")
+        t0 = time.perf_counter()
+        flats = [p.contiguous().view(-1) for p in parts]
+        n = flats[0].numel()
+        total = torch.empty(n, dtype=first.dtype, device=first.device)
+        step = max(1, CHUNK_BYTES // (first.element_size() * len(parts)))
+        for a in range(0, n, step):
+            b = min(n, a + step)
+            piece = torch.stack([f[a:b] for f in flats])
+            ranks = [r for block in self._gathered(piece, group, processes, entry)
+                     for r in block.unbind(0)]
+            acc = ranks[0]
+            for r in ranks[1:]:
+                acc = acc + r
+            total[a:b] = acc
+        entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
+        return total.view(first.shape)
+
+    def broadcast(self, tensor: Optional[torch.Tensor], axis: str, coord: Tuple[int, ...],
+                  src: int, like: Tuple[Tuple[int, ...], torch.dtype, torch.device]
+                  ) -> torch.Tensor:
+        """The tensor of the process at index ``src`` along ``axis``
+        (through the local ``coord``), in every process along the axis,
+        on ``like``'s device (its shape, dtype, device).  The sender
+        passes it, the others None."""
+        line = self._line(axis, coord)
+        root = line[src]
+        processes = tuple(dict.fromkeys(line))
+        group = self._axis_groups(axis)[processes]
+        if group is None:
+            return tensor.to(like[2])
+        shape, dtype, device = like
+        entry = self._entry(f"broadcast:{axis}")
+        t0 = time.perf_counter()
+        mine = self.mesh.process == root
+        if mine:
+            flat = tensor.contiguous().view(-1).view(torch.uint8)
+        else:
+            out = torch.empty(shape, dtype=dtype, device=device)
+            flat = out.view(-1).view(torch.uint8)
+        staged = self._staged(flat.device)
+        for a in range(0, flat.numel(), CHUNK_BYTES):
+            b = min(flat.numel(), a + CHUNK_BYTES)
+            n = b - a
+            if mine:
+                entry["bytes_out"] += n * (len(processes) - 1)
+                buf = self._to_host(flat[a:b], "send", entry) if staged else flat[a:b]
+                dist.broadcast(buf, src=root, group=group)
+            else:
+                entry["bytes_in"] += n
+                buf = self._buffer("recv", n) if staged else flat[a:b]
+                dist.broadcast(buf, src=root, group=group)
+                if staged:
+                    self._to_device(buf, flat[a:b], entry)
+        entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
+        return tensor.to(device) if mine else out
 
 
 def transport(mesh: Mesh) -> MeshTransport:

@@ -25,6 +25,14 @@ makes and holds only its own entries' slices: ``locals`` is None at
 another process's entries.  :func:`sync_replica_grads` then sums each
 slice's gradient inside the process, as above, and across the processes
 that hold copies of it through ``parallel/process_group.py``.
+:func:`ranks_over`, :func:`all_gather_over` and :func:`all_reduce_over`
+are the collectives of one mesh axis that take this process's ranks'
+parts: inside a process they are :func:`all_gather` and
+:func:`all_reduce`; along an axis that crosses processes every process
+gets every rank's part through the process group, joined or summed in
+rank order, the same bits as the single controller's.  These move no
+gradient: the training paths refuse meshes whose model axes cross
+processes.
 """
 
 from __future__ import annotations
@@ -269,6 +277,34 @@ def all_gather(parts: Sequence[torch.Tensor], device: torch.device, dim: int) ->
     if len(parts) == 1:
         return parts[0].to(device)
     return torch.cat([part.to(device) for part in parts], dim=dim)
+
+
+def ranks_over(parts: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+               coord: Tuple[int, ...]) -> List[torch.Tensor]:
+    """Every rank's part along ``axis``, in rank order: ``parts`` are
+    those of this process's ranks along the axis through the local
+    ``coord``, in order (every rank's, where the axis stays inside the
+    process).  Every process along the axis calls it alike."""
+    if axis not in mesh.crossing_axes():
+        return list(parts)
+    return transport(mesh).all_gather_ranks(parts, axis, coord)
+
+
+def all_gather_over(parts: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+                    coord: Tuple[int, ...], device: torch.device, dim: int) -> torch.Tensor:
+    """:func:`all_gather` of every rank's part along ``axis`` (see
+    :func:`ranks_over`)."""
+    return all_gather(ranks_over(parts, mesh, axis, coord), device, dim)
+
+
+def all_reduce_over(parts: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+                    coord: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """:func:`all_reduce` of every rank's part along ``axis`` (see
+    :func:`ranks_over`), summed in rank order; across processes a chunk
+    at a time (``MeshTransport.all_reduce_ranks``)."""
+    if axis not in mesh.crossing_axes():
+        return all_reduce(parts, device)
+    return transport(mesh).all_reduce_ranks(parts, axis, coord).to(device)
 
 
 def sum_over_processes(value: torch.Tensor, mesh: Mesh) -> torch.Tensor:

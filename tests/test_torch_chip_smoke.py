@@ -1206,3 +1206,157 @@ def test_hold_partials_holds_every_launch(monkeypatch):
 def test_hold_partials_rejects_a_planted_fault(monkeypatch):
     with pytest.raises(AssertionError, match="disagrees with the plain version"):
         _held_ring(monkeypatch, fault=True)
+
+
+# ------------------------------------------------------------- phase 12f
+
+
+def test_across_meshes_and_their_plans():
+    """Phase 12f's meshes: tp across the processes, pp across them and
+    the reference's default fleet (make_hybrid_mesh()'s defaults), the
+    MoE over ici tp 2 x dcn ep 2, each over ACROSS_WORLD processes."""
+    assert smoke["ACROSS_MESHES"] == {"tp": (dict(dp=1), dict(dp=1, tp=2)),
+                                      "pp": (dict(dp=1), dict(dp=1, pp=2)), "dp": None}
+    assert smoke["ACROSS_MOE"] == (dict(dp=1, tp=2), dict(dp=1, ep=2))
+    mesh = port("parallel.mesh")
+    world = smoke["ACROSS_WORLD"]
+    for name, plans in smoke["ACROSS_MESHES"].items():
+        ici, dcn = ((mesh.MeshPlan(dp=1, tp=1), mesh.MeshPlan(dp=world)) if plans is None
+                    else (mesh.MeshPlan(**plans[0]), mesh.MeshPlan(**plans[1])))
+        # One rank a process, the DCN degrees over the processes.
+        assert ici.resolve(1) and dcn.resolve(world)[name] == world, name
+
+
+@pytest.mark.parametrize("name,want", [
+    ("tp", {"flash_prefill": 64, "paged_decode": 256}),
+    ("pp", {"flash_prefill": 32, "paged_decode": 128}),
+    ("dp", {"flash_prefill": 32, "paged_decode": 256}),
+    ("moe", {"flash_prefill": 16}),
+])
+def test_across_launches_a_process(name, want):
+    layers = 8 if name == "moe" else 32
+    assert smoke["across_launches"](name, layers) == want
+    with pytest.raises(ValueError):
+        smoke["across_launches"]("sp", 32)
+
+
+def test_across_launches_by_path_sums_the_processes():
+    per = {"tp": [{"flash_prefill": 64, "paged_decode": 256}] * 2,
+           "pp": [{"flash_prefill": 32, "paged_decode": 128}] * 2,
+           "dp": [{"flash_prefill": 32, "paged_decode": 256}] * 2,
+           "moe": [{"flash_prefill": 16}] * 2}
+    got = smoke["across_launches_by_path"](per)
+    assert got == {
+        "flash_prefill": {"llama_serving_processes_tp": 128, "llama_serving_processes_pp": 64,
+                          "llama_serving_processes_dp": 64, "moe_forward_processes_ep_tp": 32},
+        "paged_decode": {"llama_serving_processes_tp": 512, "llama_serving_processes_pp": 256,
+                         "llama_serving_processes_dp": 512}}
+
+
+def test_logits_gap_and_its_gate():
+    ref = torch.tensor([[1.0, -16.0, 3.0]])
+    same = smoke["logits_gap"](torch, ref.clone(), ref)
+    assert same == {"bit_equal": True, "max_abs_err": 0.0, "tol": 1.0, "finite": True}
+    assert smoke["gap_held"](same, exact=True)
+    near = smoke["logits_gap"](torch, ref + 0.5, ref)
+    assert not near["bit_equal"] and near["max_abs_err"] == 0.5
+    assert smoke["gap_held"](near, exact=False) and not smoke["gap_held"](near, exact=True)
+    far = smoke["logits_gap"](torch, ref + 2.0, ref)
+    assert not smoke["gap_held"](far, exact=False)
+    bad = smoke["logits_gap"](torch, ref * float("nan"), ref)
+    assert not smoke["gap_held"](bad, exact=False)
+    pool = torch.zeros(3, 4, 2)
+    other = pool.clone()
+    other[2, 1, 0] = 0.25
+    assert smoke["pool_gap"](torch, pool, pool.clone())["bit_equal"]
+    gap = smoke["pool_gap"](torch, other, pool)
+    assert not gap["bit_equal"] and gap["max_abs_err"] == 0.25 and gap["tol"] == 2.0**-4
+
+
+def test_transfers_by_kind():
+    records = [dict(kind="all_reduce:tp", bytes_out=8, bytes_in=8, span_ms=4.0, d2h_ms=1.0,
+                    h2d_ms=0.5, wait_ms=4.0),
+               dict(kind="all_reduce:tp", bytes_out=8, bytes_in=8, span_ms=2.0, d2h_ms=1.0,
+                    h2d_ms=0.5, wait_ms=2.0),
+               dict(kind="hop:pp", bytes_out=4, bytes_in=0, span_ms=1.0, d2h_ms=0.2, h2d_ms=0.0,
+                    wait_ms=1.0)]
+    got = smoke["transfers_by_kind"](records)
+    assert got["all_reduce:tp"] == {"calls": 2, "bytes_out": 16, "bytes_in": 16, "span_ms": 6.0,
+                                    "d2h_ms": 2.0, "h2d_ms": 1.0, "ms_per_call": 3.0}
+    assert got["hop:pp"]["calls"] == 1 and got["hop:pp"]["ms_per_call"] == 1.0
+    text = smoke["transfers_text"](got)
+    assert text.startswith("all_reduce:tp 2 calls") and "hop:pp 1 calls" in text
+
+
+def test_share_tree_views_contiguous_slices_and_copies_the_rest():
+    """A stage's layers and a leaf that is not cut are views of the
+    parent's tensor (no second copy on the card); a tp slice is a copy;
+    every local bit-equal to its slice, as shard_tree's."""
+    llama, mesh, sharding = port("models.llama"), port("parallel.mesh"), port("parallel.sharding")
+    cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=64, dtype="float32")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tmesh = mesh.make_mesh(mesh.MeshPlan(dp=1, pp=2, tp=2), ["cpu"] * 4)
+    shared = smoke["share_tree"](torch, sharding, params, tmesh, llama.param_pspecs(cfg))
+    copied = sharding.shard_tree(params, tmesh, llama.param_pspecs(cfg))
+    assert smoke["tree_shard_mismatches"](torch, shared, params) == {}
+    for path, leaf in smoke["leaf_paths"](shared):
+        want = dict(smoke["leaf_paths"](copied))[path]
+        for (coord, a), (_, b) in zip(leaf.distinct(), want.distinct()):
+            assert torch.equal(a, b), (path, coord)
+    full = params["layers"]["ln1"]
+    ln1 = shared["layers"]["ln1"]
+    assert ln1.local(pp=1).data_ptr() == full[1:].data_ptr()  # a view of stage 1's layer
+    assert shared["ln_f"].local().data_ptr() == params["ln_f"].data_ptr()
+    wq = shared["layers"]["wq"].local(pp=0, tp=1)
+    assert wq.is_contiguous() and wq.data_ptr() != params["layers"]["wq"].data_ptr()
+
+
+def _pool_rows(name, **over):
+    row = {"pool_checksum": 7, "pool_copies_equal": True, "prefill_pool_equal": True,
+           "pool_gap": {"bit_equal": True, "max_abs_err": 0.0, "tol": 1.0, "finite": True}}
+    row.update(over)
+    return [row, dict(row)]
+
+
+@pytest.mark.parametrize("name,fault", [
+    ("tp", None), ("pp", None), ("dp", None),
+    ("tp", dict(pool_gap={"bit_equal": False, "max_abs_err": 1e-3, "tol": 1.0, "finite": True})),
+    ("pp", dict(pool_copies_equal=False)), ("dp", dict(prefill_pool_equal=False)),
+    ("dp", dict(pool_copies_equal=False)),
+    ("dp", dict(pool_gap={"bit_equal": False, "max_abs_err": 2.0, "tol": 1.0, "finite": True})),
+])
+def test_check_pools_holds_each_mesh_to_its_gate(name, fault):
+    """tp: each slice byte-equal to 12a's; pp: the copies alike; the
+    fleet: copies alike, the prefill's blocks byte-equal to the parent's,
+    after the decode steps within the model-level limit.  A planted
+    difference fails the phase."""
+    rows = _pool_rows(name, **(fault or {}))
+    if fault is None:
+        out = smoke["check_pools"](name, rows)
+        assert out["checksums"] == [7, 7]
+        return
+    with pytest.raises(AssertionError, match=f"12f {name}: a process's pool is off"):
+        smoke["check_pools"](name, rows)
+    if name == "dp" and "pool_gap" in fault:
+        near = _pool_rows(name, pool_gap={"bit_equal": False, "max_abs_err": 0.5, "tol": 1.0,
+                                          "finite": True})
+        assert smoke["check_pools"](name, near)["held"]
+
+
+def test_new_paths_import_without_a_gpu_and_build_nothing():
+    """The modules phase 12f drives import in a fresh interpreter with no
+    CUDA device and load no kernel library."""
+    import subprocess
+    import sys
+
+    code = ("import importlib, json\n"
+            "for name in ('parallel.process_group', 'parallel.sharding', 'models.llama',\n"
+            "             'models.moe', 'models.kv_cache_pool', 'ops.ring_attention'):\n"
+            "    importlib.import_module('llm_d_kv_cache_manager_tpu_torch.' + name)\n"
+            "b = importlib.import_module('llm_d_kv_cache_manager_tpu_torch.ops._build')\n"
+            "import torch\n"
+            "print(json.dumps([len(b._LIBS), torch.cuda.is_available()]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [0, False]

@@ -16,8 +16,10 @@ gathers what the processes return here, in the test:
   ``train_step`` on a dp 2 mesh of 2 devices in loss, every gradient and
   every updated parameter, within ``test_torch_training.py``'s
   tolerances;
-- (d) tp, pp and sp across processes (Llama) and ep and dp across them
-  (MoE) raise ``NotImplementedError`` naming the axis.
+- (d) training (``loss_fn``, ``train_step``) with tp, pp or sp (Llama) or
+  ep or dp (MoE) across processes raises ``NotImplementedError`` naming the
+  axis, while ``forward`` on the same mesh serves; the MoE forward with
+  plain params over an ``sp_mesh`` of several processes raises.
 
 Tolerances are those of ``test_torch_ring_attention.py`` (``TOL`` 1e-5
 for float32 attention, ``LOGITS`` 5e-4 for logits after two layers) and
@@ -111,6 +113,33 @@ def test_ring_across_processes_equals_single_controller(ring_runs, case):
                               striped=striped, impl=impl, interpret=impl == "flash")
     physical = ring.unstripe(got, R) if striped else got
     np.testing.assert_allclose(physical.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("ici,dcn,n", [
+    (dict(dp=1), dict(dp=1, pp=2, sp=2), 4),
+    (dict(dp=1, sp=2), dict(dp=1, ep=2), 2),
+], ids=["dcn-pp2-sp2", "ici-sp2-dcn-ep2"])
+def test_ring_over_replicas_across_processes(ici, dcn, n):
+    """A replica axis (pp, ep: the ring does not cut it) across processes:
+    each process runs the rings of its own replica, every local chunk
+    equal, bit for bit, to its rows of the single-controller ring."""
+    q, k, v = _qkv(55, *RING_SHAPE)
+    results = torch_dist.run_group(torch_dist.ring_replicas, n, ici, dcn, q, k, v,
+                                   timeout=GROUP_S)
+    merged = {a: ici.get(a, 1) * dcn.get(a, 1) for a in set(ici) | set(dcn)}
+    R = merged["sp"]
+    single = ring.ring_attention_sharded(
+        mesh.make_mesh(mesh.MeshPlan(dp=1, sp=R), ["cpu"] * R), batch_axis=None)(
+        *(torch.from_numpy(x) for x in (q, k, v)))
+    t = q.shape[1] // R
+    seen = 0
+    for chunks, p2p in results:
+        assert p2p == (R - 1 if dcn.get("sp", 1) > 1 else 0)
+        for coord, chunk in chunks.items():
+            s = coord[SP]
+            assert torch.equal(torch.from_numpy(chunk), single[:, s * t:(s + 1) * t]), coord
+            seen += 1
+    assert seen == int(np.prod(list(merged.values())))
 
 
 def test_ring_moves_chunks_through_the_group(ring_runs):
@@ -237,23 +266,38 @@ def test_train_step_dp_across_processes_matches_single_controller_and_reference(
 # ------------------------------------------------------------------ (d)
 
 
-def test_axes_other_than_dp_across_processes_raise(models):
+@pytest.fixture(scope="module")
+def guards(models):
     _, tree, tcfg = models
     tokens = np.random.default_rng(80).integers(0, JAX_CFG.vocab_size, (2, 16)).astype(np.int32)
     moe_fields = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64,
                       n_experts=4, top_k=2, dtype="float32")
-    results = torch_dist.run_group(torch_dist.crossing_errors, 2, tree,
-                                   torch_dist.cfg_fields(tcfg), tokens, moe_fields,
-                                   timeout=GROUP_S)
-    for errors in results:
-        for axis in ("tp", "pp", "sp"):
-            assert errors[axis] is not None, axis
-            assert f"the {axis} axis crosses processes" in errors[axis]
-            assert errors[axis].startswith("_sharded_stack")
-        for axis in ("ep", "dp"):
-            assert errors[axis] is not None, axis
-            assert f"the {axis} axis crosses processes" in errors[axis]
-            assert errors[axis].startswith("_sharded_moe_block")
+    return torch_dist.run_group(torch_dist.training_guards, 2, tree,
+                                torch_dist.cfg_fields(tcfg), tokens, moe_fields,
+                                timeout=GROUP_S)
+
+
+@pytest.mark.parametrize("case", ["tp", "pp", "sp", "ep", "dp-moe"])
+def test_training_across_model_axes_raises_and_forward_serves(guards, case):
+    """Over a mesh whose tp, pp or sp (Llama) or ep (MoE) crosses the
+    processes, ``loss_fn`` and ``train_step`` raise ``NotImplementedError``
+    naming the axis (their collectives carry no gradient), and
+    ``forward`` on the same mesh gives this process's finite logits; so
+    does the MoE over dp, whose routing joins the batch shards (the
+    Llama's dp step across processes is case (c))."""
+    axis = case.split("-")[0]
+    for errors in guards:
+        row = errors[case]
+        for call in ("loss_fn", "train_step"):
+            assert row[call] is not None, (axis, call)
+            assert f"the {axis} axis crosses processes" in row[call], row[call]
+        assert row["forward"] and row["finite"], row
+
+
+def test_moe_plain_params_over_processes_raise(guards):
+    for errors in guards:
+        assert errors["moe-plain-sp"] is not None
+        assert "sp_mesh of several processes is not ported" in errors["moe-plain-sp"]
 
 
 # ------------------------------------------------------------ transport
