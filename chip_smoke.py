@@ -162,6 +162,25 @@ Phases (any failure exits non-zero):
      ``abstract_like`` targets, bit-equal, and step 2 resumed from it
      gives the uninterrupted step 2's loss (within the spread of two
      identical steps, which it measures); save and restore timed;
+ 9b. training across processes, after phase 10: 2 spawned processes on
+     ``cuda:0`` in a gloo group, phase 9's cut model (8 layers, bf16,
+     T=2048) two AdamW steps over ``make_hybrid_mesh`` with dcn dp 2 (a
+     batch of two of phase 9's sequences, one a process) and with dcn tp
+     2 (phase 9's own); each process's losses held to the single process
+     on the same tokens (the parent's batch-2 steps, phase 9's) at 12c's
+     limits, the dp replicas' updated params byte-equal (64-bit
+     fingerprints); a process's step walls beside the single process's,
+     gloo calls, bytes and ms by kind and direction (forward, backward,
+     the gradients' sync), staging ms each way, peak memory and the
+     device's idle share of the second step;
+ 12d-across. the tp state after 9b's steps (params and AdamW's state,
+     laid out as the params) saved by both processes, each writing only
+     its own slices, and restored across them onto dcn pp 2; here, the
+     checkpoint read by one process, every slice each process saved and
+     restored equal to it (fingerprints), each slice written once, each
+     process's read plan its own slices' bytes, then restored onto pp 2
+     x tp 2 of one process, every local bit-equal to its slice; save and
+     restore seconds, GB/s and each process's peak host RSS;
  11. MoE: ``MoEConfig()``'s bf16 forward over 8192 tokens on the prefill
      kernel (one launch a layer) and on the contiguous ring over sp=4
      (ten a layer), timed beside the dense forward; the float32 kernel and
@@ -398,6 +417,22 @@ ACROSS_MESHES = {"tp": (dict(dp=1), dict(dp=1, tp=2)), "pp": (dict(dp=1), dict(d
 ACROSS_MOE = (dict(dp=1, tp=2), dict(dp=1, ep=2))
 ACROSS_SEED = SEED + 40
 ACROSS_GROUP_TIMEOUT_S = 600
+# Phase 9b: phases 8-9's cut model trained over ACROSS_WORLD spawned
+# processes on the card, TRAIN_ACROSS_STEPS steps on each mesh
+# ({name: dcn plan}, one rank a process): dp across them on batches of
+# two of phase 9's sequences, tp across them on phase 9's own.  Each is
+# held to the single process on the same tokens at SHARD_FIRST_LOSS_REL
+# and SHARD_LATER_LOSS_REL.  Phase 12d-across: the tp state (params and
+# AdamW's state, laid out as the params) saved by both processes, each
+# writing its own slices, restored onto RESTORE_ACROSS across them and,
+# in the parent, onto SHARD_RESTORE_PLAN.
+TRAIN_ACROSS = {"dp": dict(dp=2), "tp": dict(dp=1, tp=2)}
+TRAIN_ACROSS_STEPS = 2
+RESTORE_ACROSS = dict(dp=1, pp=2)
+# Elements a fingerprint weighs at once (``fingerprint``), and how often
+# 12d-across samples a process's resident set.
+FINGERPRINT_CHUNK = 1 << 26
+RSS_SAMPLE_S = 0.005
 # Read path (phase 13): bench.py:bench_read_path's shapes at fleet scale.
 # 4 pods (bench.py's NUM_PODS), each holding 64 random 8192-token
 # conversations as 32,768 blocks of 16 tokens: one Llama-3-8B block in
@@ -4069,6 +4104,416 @@ def moe_phase(torch, peaks):
             "train_losses": losses, "train_step_ms": step_ms}
 
 
+# ----------------------------------------------------- phases 9b, 12d-across
+
+
+def fingerprint(torch, tensor) -> int:
+    """A 64-bit fingerprint of ``tensor``'s bits, cheap on the card: the
+    sum, mod 2^64, of each element's bits as an integer times an odd
+    weight of its row-major index.  Two tensors that differ in one
+    element always differ here (an odd weight is a unit mod 2^64); ones
+    that differ in more collide by chance only (2^-64)."""
+    flat = tensor.detach().contiguous().view(-1)
+    bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for a in range(0, bits.numel(), FINGERPRINT_CHUNK):
+        v = bits[a:a + FINGERPRINT_CHUNK].to(torch.int64)
+        w = torch.arange(a, a + v.numel(), dtype=torch.int64, device=flat.device)
+        total += (v * (w * -7046029254386353131 | 1)).sum()
+    return int(total)
+
+
+def tree_fingerprints(torch, tree) -> dict:
+    """{leaf path: {coord: fingerprint}} of a state's sharded leaves'
+    distinct locals, {leaf path: fingerprint} of its plain tensors."""
+    out = {}
+    for path, leaf in leaf_paths(tree):
+        if hasattr(leaf, "distinct"):
+            out[path] = {coord: fingerprint(torch, t) for coord, t in leaf.distinct()}
+        elif isinstance(leaf, torch.Tensor):
+            out[path] = fingerprint(torch, leaf)
+    return out
+
+
+def fingerprint_mismatches(torch, sharding, mesh, specs: dict, got: dict, full: dict,
+                           device: str) -> list:
+    """The (path, coord) of ``got`` (``tree_fingerprints`` of a state on
+    ``mesh``, whose leaves ``specs`` cut: {path: spec}) whose fingerprint
+    is not that of its slice of ``full`` ({path: global tensor}), taken
+    on ``device``."""
+    import numpy as np
+
+    bad = []
+    for path, prints in got.items():
+        want = full[path]
+        if not isinstance(prints, dict):
+            if fingerprint(torch, want.to(device)) != prints:
+                bad.append((path, None))
+            continue
+        like = sharding.Sharded(mesh, sharding.P(*specs[path]), tuple(want.shape), want.dtype,
+                                np.empty(mesh.devices.shape, dtype=object))
+        for coord, value in prints.items():
+            piece = want[like.slices(like.shard_index(coord))].to(device)
+            if fingerprint(torch, piece) != value:
+                bad.append((path, coord))
+    return bad
+
+
+def transfers_by_direction(by_kind: dict) -> dict:
+    """``transfers_by_kind`` summed by direction: the forward's
+    collectives, the backward's (``:bwd`` kinds and their ``order:``
+    checks) and the gradients' sync after the backward (``sum:``)."""
+    out = {}
+    for kind, row in by_kind.items():
+        direction = ("sync" if kind.startswith("sum:") else "backward"
+                     if kind.endswith(":bwd") or kind.startswith("order:") else "forward")
+        total = out.setdefault(direction, {"calls": 0, "bytes_out": 0, "bytes_in": 0,
+                                           "span_ms": 0.0, "d2h_ms": 0.0, "h2d_ms": 0.0})
+        for key in total:
+            total[key] += row[key]
+    return out
+
+
+def own_bytes(torch, tree) -> int:
+    """Bytes of one local copy of each slice of a state's sharded leaves
+    in this process, and of its plain tensors: what a restore of it must
+    read."""
+    total = 0
+    for _, leaf in leaf_paths(tree):
+        if hasattr(leaf, "distinct"):
+            total += sum({leaf.shard_index(c): t.numel() * t.element_size()
+                          for c, t in leaf.distinct()}.values())
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def host_rss_bytes() -> int:
+    """This process's resident set (``VmRSS`` of /proc/self/status)."""
+    with open("/proc/self/status") as status:
+        for line in status:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+class RssPeak:
+    """The largest resident set sampled every ``RSS_SAMPLE_S`` while the
+    block runs (``peak``).  The card's machine keeps no ``VmHWM``, and
+    ``ru_maxrss`` carries a spawned worker's parent's peak."""
+
+    def __enter__(self) -> "RssPeak":
+        self.peak, self._done = host_rss_bytes(), threading.Event()
+        self._thread = threading.Thread(target=self._sample, name="rss-peak", daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._done.wait(RSS_SAMPLE_S):
+            self.peak = max(self.peak, host_rss_bytes())
+
+    def __exit__(self, *exc) -> None:
+        self._done.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss_bytes())
+
+
+def param_specs(llama, cfg) -> dict:
+    """{leaf path: spec} of a state's params and its AdamW moments."""
+    specs = dict(leaf_paths(llama.param_pspecs(cfg)))
+    out = {f"params.{k}": v for k, v in specs.items()}
+    for moment in ("exp_avg", "exp_avg_sq"):
+        out.update({f"opt.{moment}.{k}": v for k, v in specs.items()})
+    return out
+
+
+def named_shardings(sharding, mesh, specs):
+    if isinstance(specs, dict):
+        return {k: named_shardings(sharding, mesh, v) for k, v in specs.items()}
+    return sharding.NamedSharding(mesh, specs)
+
+
+def train_across_mesh(torch, dist, rank: int, name: str, cfg, batches, device: str) -> dict:
+    """Phase 9b in one worker, one mesh: ``TRAIN_ACROSS_STEPS`` train
+    steps of the cut model over dcn ``TRAIN_ACROSS[name]``, the first
+    timed, the second under torch.profiler (the device's idle share),
+    its transfers by kind; the peak memory; the updated params'
+    fingerprints.  Returns the live state too (tp: 12d-across saves it)."""
+    llama, mesh_mod = port("models.llama"), port("parallel.mesh")
+    sharding, pg = port("parallel.sharding"), port("parallel.process_group")
+    kernels = (port("ops.flash_cuda").flash_gqa_attention_cuda,
+               port("ops.paged_decode_cuda").paged_decode_attention_cuda,
+               port("ops.ring_flash_cuda").flash_partial_cuda)
+    mesh = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(dp=1),
+                                     mesh_mod.MeshPlan(**TRAIN_ACROSS[name]), devices=[device])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    sharded = sharding.shard_tree(llama.init_params(cfg, gen, device), mesh,
+                                  llama.param_pspecs(cfg))
+    gc_cuda(torch)
+    opt = llama.make_optimizer(sharded)
+    transport = pg.transport(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in kernels:
+        kernel.launches = 0
+    losses = []
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(float(llama.train_step(sharded, opt, batches[0], cfg)))
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first = transfers_by_kind(transport.log.records())
+    transport.log.clear()
+    dist.barrier()
+    busy = device_breakdown(torch, lambda: losses.append(float(
+        llama.train_step(sharded, opt, batches[1], cfg))), steps=1)
+    second = transfers_by_kind(transport.log.records())
+    finite = all(math.isfinite(x) for x in losses) and all(
+        bool(t.isfinite().all()) for t in sharding.distinct_locals(sharded))
+    return {"mesh": repr(mesh), "crossing": list(mesh.crossing_axes()), "losses": losses,
+            "step_ms": [first_ms, busy["profiled_wall_ms"]], "finite": finite,
+            "kernel_launches": sum(kernel.launches for kernel in kernels),
+            "transfers": [first, second],
+            "directions": [transfers_by_direction(first), transfers_by_direction(second)],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "device_ms": busy["device_ms"], "kernels_ms": busy["kernels_ms"],
+            "idle_share": max(0.0, 1 - busy["device_ms"] / busy["profiled_wall_ms"]),
+            "fingerprints": tree_fingerprints(torch, {"params": sharded}),
+            "state": (sharded, opt)}
+
+
+def checkpoint_across(torch, dist, rank: int, cfg, sharded, opt, folder: str,
+                      device: str) -> dict:
+    """Phase 12d-across in one worker: the tp state (params and
+    ``optimizer_state_tree``) saved with each process writing its own
+    slices, then restored onto ``RESTORE_ACROSS`` across the processes;
+    walls, bytes, this process's peak host RSS, and the fingerprints of
+    the state saved and of the state restored."""
+    llama, mesh_mod = port("models.llama"), port("parallel.mesh")
+    sharding, ckpt = port("parallel.sharding"), port("models.checkpoint")
+    opt.zero_grad(set_to_none=True)
+    gc_cuda(torch)
+    state = {"params": sharded, "opt": ckpt.optimizer_state_tree(opt, sharded)}
+    out = {"saved": tree_fingerprints(torch, state), "rss_gb": host_rss_bytes() / 1e9}
+    wrote = {}
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        ckpt.save_checkpoint(folder, state, report=wrote)
+    out["save_s"] = time.perf_counter() - t0
+    out["wrote_bytes"], out["save_peak_rss_gb"] = wrote["bytes"], rss.peak / 1e9
+    del state
+    mesh = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(dp=1), mesh_mod.MeshPlan(**RESTORE_ACROSS),
+                                     devices=[device])
+    shardings = named_shardings(sharding, mesh, llama.param_pspecs(cfg))
+    target_params = ckpt.abstract_like(sharded, shardings)
+    target = {"params": target_params,
+              "opt": ckpt.optimizer_state_like(llama.make_optimizer(target_params),
+                                               target_params)}
+    read = {}
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        restored = ckpt.restore_checkpoint(folder, target, report=read)
+        torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["read_bytes"], out["restore_peak_rss_gb"] = read["bytes"], rss.peak / 1e9
+    out["own_bytes"] = own_bytes(torch, restored)
+    out["restored"] = tree_fingerprints(torch, restored)
+    out["restore_mesh"] = repr(mesh)
+    del restored, target, target_params
+    gc_cuda(torch)
+    return out
+
+
+def train_across_run(torch, dist, rank, cfg, batches, dp_batches, folder, device) -> dict:
+    """A worker of phases 9b and 12d-across: dp across the processes,
+    then tp, whose state it saves and restores."""
+    out = {}
+    for name in TRAIN_ACROSS:
+        row = train_across_mesh(torch, dist, rank, name, cfg,
+                                dp_batches if name == "dp" else batches, device)
+        sharded, opt = row.pop("state")
+        if name == "tp":
+            out["checkpoint"] = checkpoint_across(torch, dist, rank, cfg, sharded, opt, folder,
+                                                  device)
+        del sharded, opt
+        gc_cuda(torch)
+        out[name] = row
+    return out
+
+
+def train_reference(torch, cfg, batches, device: str) -> dict:
+    """The single process's steps on ``batches`` (phase 9b's dp
+    reference): losses and walls."""
+    llama = port("models.llama")
+    params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    opt = llama.make_optimizer(params)
+    losses, walls = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(llama.train_step(params, opt, batch, cfg)))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del params, opt
+    gc_cuda(torch)
+    return {"losses": losses, "step_ms": walls}
+
+
+def training_across_processes(torch, cfg, phase9, device: str = "cuda:0") -> dict:
+    """Phases 9b and 12d-across: the cut model's train steps over
+    ``ACROSS_WORLD`` spawned processes on the card (dp, then tp across
+    them), each held to the single process on the same tokens; the tp
+    state saved by both processes and restored across them onto
+    ``RESTORE_ACROSS`` and here onto ``SHARD_RESTORE_PLAN``, every leaf
+    bit-equal to the checkpoint as one process reads it, which holds
+    the state the processes trained bit for bit."""
+    llama, ckpt = port("models.llama"), port("models.checkpoint")
+    sharding, mesh_mod = port("parallel.sharding"), port("parallel.mesh")
+    batches = train_batches(torch, cfg.vocab_size, TRAIN_TOKENS, TRAIN_STEPS, SEED + 20)
+    batches = batches[:TRAIN_ACROSS_STEPS]
+    dp_batches = [torch.cat((b, b.flip(1))) for b in batches]
+    dp_ref = train_reference(torch, cfg, dp_batches, device)
+    refs = {"dp": dp_ref["losses"], "tp": phase9["losses"][:TRAIN_ACROSS_STEPS]}
+    beside = {"dp": ("the single process at B=2", dp_ref["step_ms"]),
+              "tp": ("phase 9's, B=1", phase9["step_ms"][:TRAIN_ACROSS_STEPS])}
+    folder = tempfile.mkdtemp(prefix="chip_smoke_ckpt_across_")
+    try:
+        t0 = time.perf_counter()
+        workers = spawn_group(torch, group_worker, ACROSS_WORLD,
+                              ("train_across_run", ACROSS_GROUP_TIMEOUT_S,
+                               (cfg, batches, dp_batches, folder, device)),
+                              timeout=ACROSS_GROUP_TIMEOUT_S + 120)
+        print(f"  {ACROSS_WORLD} processes on {device} (gloo over loopback): "
+              f"{time.perf_counter() - t0:.1f} s with spawn, imports, both meshes and the "
+              f"checkpoint", flush=True)
+        out = {"meshes": {}}
+        limits = [SHARD_FIRST_LOSS_REL] + [SHARD_LATER_LOSS_REL] * (TRAIN_ACROSS_STEPS - 1)
+        for name in TRAIN_ACROSS:
+            rows = [w[name] for w in workers]
+            label, ref_ms = beside[name]
+            gaps = [[rel_gap(a, b) for a, b in zip(r["losses"], refs[name])] for r in rows]
+            print(f"  {name} across processes: mesh {rows[0]['mesh']}, crossing "
+                  f"{rows[0]['crossing']}; losses {[r['losses'] for r in rows]} against the "
+                  f"single process's {refs[name]} (relative gaps "
+                  f"{[[f'{g:.3g}' for g in gap] for gap in gaps]}, limits {limits})", flush=True)
+            for r, row in enumerate(rows):
+                print(f"    process {r}: ms a step {[round(w, 1) for w in row['step_ms']]} "
+                      f"(step 2 under torch.profiler; beside {label}: "
+                      f"{[round(w, 1) for w in ref_ms]}); peak "
+                      f"{row['max_memory_allocated_gb']:.2f} GB; device idle share of step 2 "
+                      f"{row['idle_share']:.3f} ({row['device_ms']:.1f} ms of kernels: "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in row["kernels_ms"].items()) + ")",
+                      flush=True)
+                for step, (kinds, dirs) in enumerate(zip(row["transfers"], row["directions"])):
+                    print(f"      step {step + 1} transfers by direction: " + "; ".join(
+                        f"{d} {v['calls']} calls, {v['bytes_out'] / 2**20:.1f} MiB out / "
+                        f"{v['bytes_in'] / 2**20:.1f} in, gloo {v['span_ms']:.1f} ms, staging "
+                        f"{v['d2h_ms']:.1f} to the host + {v['h2d_ms']:.1f} back"
+                        for d, v in sorted(dirs.items())), flush=True)
+                    print(f"      step {step + 1} by kind: {transfers_text(kinds)}", flush=True)
+            launched = [r["kernel_launches"] for r in rows]
+            print(f"    kernel launches during the steps, a process: {launched} (the dense op "
+                  f"trains)", flush=True)
+            if not all(r["finite"] for r in rows) or any(launched):
+                raise AssertionError(f"9b {name}: a loss or an updated leaf is not finite, or a "
+                                     f"kernel launched ({launched})")
+            if not all(g <= x for gap in gaps for g, x in zip(gap, limits)):
+                raise AssertionError(f"9b {name}: a loss is off the single process's: {gaps}")
+            equal = all(r["losses"] == rows[0]["losses"] for r in rows)
+            copies = None
+            if name == "dp":
+                # Every leaf is whole in each process (its coordinate
+                # differs in dp only): the replicas' bits.
+                prints = [{path: list(v.values()) for path, v in r["fingerprints"].items()}
+                          for r in rows]
+                copies = all(p == prints[0] for p in prints)
+                print(f"    updated params of the {len(rows)} processes byte-equal (64-bit "
+                      f"fingerprints of every leaf): {copies}; losses equal: {equal}", flush=True)
+                if not (copies and equal):
+                    raise AssertionError("9b dp: the replicas' updated params or losses differ")
+            out["meshes"][name] = {
+                "mesh": rows[0]["mesh"], "losses": [r["losses"] for r in rows],
+                "reference_losses": refs[name], "loss_rel_gaps": gaps, "limits": limits,
+                "step_ms": [r["step_ms"] for r in rows], "reference_step_ms": ref_ms,
+                "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in rows],
+                "idle_share": [r["idle_share"] for r in rows],
+                "device_ms": [r["device_ms"] for r in rows],
+                "transfers": [r["transfers"] for r in rows],
+                "directions": [r["directions"] for r in rows], "replicas_equal": copies}
+
+        phase(f"12d-across. checkpoint across processes: 9b's tp state saved by both, each its "
+              f"own slices; restored onto {RESTORE_ACROSS} across them and onto "
+              f"{SHARD_RESTORE_PLAN} in one process")
+        rows = [w["checkpoint"] for w in workers]
+        t0 = time.perf_counter()
+        plain = ckpt.restore_checkpoint(folder)  # the checkpoint as one process reads it
+        plain_s = time.perf_counter() - t0
+        full = {path: leaf for path, leaf in leaf_paths(plain) if isinstance(leaf, torch.Tensor)}
+        total = sum(t.numel() * t.element_size() for t in full.values())
+        on_disk = sum(os.path.getsize(os.path.join(folder, f)) for f in os.listdir(folder))
+        specs = param_specs(llama, cfg)
+        tp_mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**TRAIN_ACROSS["tp"]), [device] * 2)
+        pp_mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**RESTORE_ACROSS), [device] * 2)
+        saved_bad = [fingerprint_mismatches(torch, sharding, tp_mesh, specs, r["saved"], full,
+                                            device) for r in rows]
+        restored_bad = [fingerprint_mismatches(torch, sharding, pp_mesh, specs, r["restored"],
+                                               full, device) for r in rows]
+        for r, row in enumerate(rows):
+            print(f"    process {r}: save {row['save_s']:.2f} s ({row['wrote_bytes'] / 1e9:.2f} GB "
+                  f"written, {row['wrote_bytes'] / row['save_s'] / 1e9:.2f} GB/s); restore onto "
+                  f"{row['restore_mesh']} {row['restore_s']:.2f} s ({row['read_bytes'] / 1e9:.2f} "
+                  f"GB read, {row['read_bytes'] / row['restore_s'] / 1e9:.2f} GB/s; its own "
+                  f"slices {row['own_bytes'] / 1e9:.2f} GB); host RSS {row['rss_gb']:.2f} GB "
+                  f"before the save, its peak (sampled every {RSS_SAMPLE_S * 1e3:.0f} ms) during "
+                  f"the save {row['save_peak_rss_gb']:.2f} GB and during the restore "
+                  f"{row['restore_peak_rss_gb']:.2f} GB; the state it "
+                  f"saved equal to the checkpoint's slices: {not saved_bad[r]}; its restored "
+                  f"slices equal to them: {not restored_bad[r]}", flush=True)
+        print(f"    the checkpoint: {total / 1e9:.2f} GB of tensors ({on_disk / 1e9:.2f} GB on "
+              f"disk), written once (the processes wrote {sum(r['wrote_bytes'] for r in rows) / 1e9:.2f}"
+              f" GB); read whole by one process in {plain_s:.2f} s", flush=True)
+        if any(saved_bad) or any(restored_bad):
+            raise AssertionError(f"12d-across: slices differ: saved {saved_bad}, restored "
+                                 f"{restored_bad}")
+        if sum(r["wrote_bytes"] for r in rows) != total or any(
+                r["read_bytes"] != r["own_bytes"] for r in rows):
+            raise AssertionError("12d-across: a slice written twice, or a process read more "
+                                 "than its own slices")
+        rmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_RESTORE_PLAN), [device] * 4)
+        shardings = named_shardings(sharding, rmesh, llama.param_pspecs(cfg))
+        target_params = ckpt.abstract_like(plain["params"], shardings)
+        target = {"params": target_params,
+                  "opt": ckpt.optimizer_state_like(llama.make_optimizer(target_params),
+                                                   target_params)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ckpt.restore_checkpoint(folder, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    bad = tree_shard_mismatches(torch, {k: v for k, v in leaf_paths(restored)
+                                        if hasattr(v, "distinct")}, full)
+    step_equal = bool(torch.equal(restored["opt"]["step"], full["opt.step"]))
+    print(f"    onto {rmesh} in this process: {restore_s:.2f} s ({total / restore_s / 1e9:.2f} "
+          f"GB/s), every local bit-equal to its slice of the checkpoint: {not bad}, the step "
+          f"equal: {step_equal}", flush=True)
+    if bad or not step_equal:
+        raise AssertionError(f"12d-across: the restore onto {rmesh} differs: {bad}")
+    del restored, target, target_params, plain, full
+    gc_cuda(torch)
+    out["checkpoint"] = {"bytes": total, "on_disk_bytes": on_disk, "plain_read_s": plain_s,
+                         "one_process_restore_s": restore_s,
+                         "processes": [{k: v for k, v in r.items()
+                                        if k not in ("saved", "restored")} for r in rows]}
+    return out
+
+
 # --------------------------------------------------------------- phase 12
 
 
@@ -4481,13 +4926,8 @@ def sharded_training_and_restore(torch, cfg, phase9):
 
         phase(f"12d. sharded: restore the saved params onto {SHARD_RESTORE_PLAN} targets")
         rmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_RESTORE_PLAN), ["cuda:0"] * 4)
-
-        def named(spec):
-            if isinstance(spec, dict):
-                return {k: named(v) for k, v in spec.items()}
-            return sharding.NamedSharding(rmesh, spec)
-
-        target = ckpt.abstract_like(sharded, named(llama.param_pspecs(cfg)))
+        target = ckpt.abstract_like(sharded, named_shardings(sharding, rmesh,
+                                                             llama.param_pspecs(cfg)))
         del sharded
         gc_cuda(torch)
         torch.cuda.synchronize()
@@ -6901,6 +7341,11 @@ def main() -> int:
           f"AdamW steps")
     trained = training_and_checkpoint(torch, peaks, train_cfg)
 
+    phase(f"9b. training across processes: phases 8-9's cut model over {ACROSS_WORLD} "
+          f"processes on one card, dcn dp 2 and dcn tp 2, gloo")
+    across_training = training_across_processes(torch, train_cfg, trained)
+    gc_cuda(torch)
+
     phase(f"11. MoE: MoEConfig(), forward over {MOE_TOKENS} tokens (prefill kernel, ring "
           f"sp {RING_SP}), float32 against dense, train steps")
     moe_run = moe_phase(torch, peaks)
@@ -7039,7 +7484,8 @@ def main() -> int:
                       "offload": offloaded,
                       "vllm_offload": {k: v for k, v in vllm.items() if k != "launches"},
                       "tiering": tiering_summary,
-                      "autograd_guard": guard, "training": trained, "moe": moe_summary,
+                      "autograd_guard": guard, "training": trained,
+                      "training_across_processes": across_training, "moe": moe_summary,
                       "sharded": sharded, "read_path": read, "write_path": write,
                       "persistence": persisted, "cluster": clustered, "service": serviced,
                       "grpc": grpc_served,

@@ -476,7 +476,7 @@ class PollerPool:
         self._started = False  # guarded-by: _lock
         self._shutdown = False  # guarded-by: _lock
 
-    def _new_poller(self, index: int) -> _Poller:
+    def _new_poller(self, index: int) -> _Poller:  # kvlint: caller-locked
         poller = _Poller(
             index,
             self._context,

@@ -301,8 +301,9 @@ class Histogram(_Metric):
 
     def _init_series(self) -> None:
         self._lock = threading.Lock()
-        self._counts = [0.0] * len(self._bounds)
-        self._sum = 0.0
+        with self._lock:
+            self._counts = [0.0] * len(self._bounds)
+            self._sum = 0.0
 
     def observe(self, amount: float) -> None:
         bounds = self._bounds

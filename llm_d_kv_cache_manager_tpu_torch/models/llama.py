@@ -41,8 +41,9 @@ shards, sequence chunks.  The collectives are explicit (see the
 back whole, on the first rank's device.  On a mesh whose axes cross
 processes (``make_hybrid_mesh``) the serving entry points run in every
 process, each computing its own ranks, and return this process's
-logits as a ``Sharded``; training there takes dp across processes only
-(:func:`refuse_training`).
+logits as a ``Sharded``; ``loss_fn`` and ``train_step`` train there on
+any layout, their gradients carried back through the cross-process
+transfers (see the "training" section below).
 
 The reference's arrays are immutable; here ``prefill_*`` and
 ``decode_step`` write the new K/V into ``kv_pool`` IN PLACE and return
@@ -55,8 +56,9 @@ reference returns new params and optimizer state.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -880,8 +882,8 @@ class _Grid:
     def gather(self, axis: str, parts, coord, device, dim: int) -> torch.Tensor:
         return all_gather_over(parts, self.mesh, axis, coord, device, dim)
 
-    def reduce(self, axis: str, parts, coord, device) -> torch.Tensor:
-        return all_reduce_over(parts, self.mesh, axis, coord, device)
+    def reduce(self, axis: str, parts, coord, device, grad: str = "sum") -> torch.Tensor:
+        return all_reduce_over(parts, self.mesh, axis, coord, device, grad=grad)
 
     def assemble(self, shards: Dict[Tuple[int, int], torch.Tensor], p: int,
                  device: torch.device) -> torch.Tensor:
@@ -934,19 +936,6 @@ class _Grid:
             write(copy[i - p * self.per_stage if kv_pool.spec[0] == "pp" else i])
 
 
-def refuse_training(mesh: Optional[Mesh], where: str, allowed=("dp",)) -> None:
-    """Raise where an axis of ``mesh`` other than ``allowed`` crosses
-    processes: the forward's collectives across processes carry no
-    gradient, so autograd would drop the other processes' share of it."""
-    for axis in mesh.crossing_axes() if mesh is not None else ():
-        if axis not in allowed:
-            raise NotImplementedError(
-                f"{where}: the {axis} axis crosses processes; training along an axis that "
-                f"crosses processes is not ported yet: it needs the gradients of the "
-                f"cross-process collectives (training takes "
-                f"{', '.join(allowed) or 'no axis'} across processes)")
-
-
 def is_sharded(params: Params) -> bool:
     """Whether ``params`` were cut over a mesh (``shard_tree``)."""
     return isinstance(params["embed"], Sharded)
@@ -985,14 +974,16 @@ def _plain_pool(kv_pool) -> torch.Tensor:
 
 
 def _sharded_stack(params: Params, tokens: torch.Tensor, positions: torch.Tensor, cfg,
-                   grid: _Grid, attend: Callable, mlp_block: Callable):
+                   grid: _Grid, attend: Callable, mlp_block: Callable, every_stage: bool = True):
     """Embed, then run every layer over this process's ranks.  ``tokens``
     and ``positions``: global [B, T].  ``attend(i, d, p, t, qs, ks, vs)``
     gives layer i's attention of batch shard d and head shard t, {s: out}
     for this process's sequence chunks s ({s: q} and so on);
     ``mlp_block(i, p, xs)`` adds the MLP's output to every shard of
     ``xs``.  Returns ``xs``, {(d, s): hidden [B/dp, T/sp, D]} of the last
-    stage for this process's batch shards and chunks, in every process."""
+    stage for this process's batch shards and chunks, in every process;
+    with ``every_stage`` False only in the processes of the last stage
+    (empty in the others: the loss is made once, where the stage is)."""
     B, T = tokens.shape
     if B % grid.dp or T % grid.sp:
         raise ValueError(f"[B={B}, T={T}] does not divide over dp={grid.dp} x sp={grid.sp}")
@@ -1035,7 +1026,7 @@ def _sharded_stack(params: Params, tokens: torch.Tensor, positions: torch.Tensor
                     "tp", [_attn_out(attn[s, t], lps[s, t]) for t in grid.tps],
                     grid.coord(d, p, e, s, t0), xs[d, s].device)
         mlp_block(i, p, xs)
-    return grid.from_last_stage(xs, like)
+    return grid.from_last_stage(xs, like) if every_stage else xs
 
 
 def _tp_mlp_block(params: Params, grid: _Grid) -> Callable:
@@ -1058,7 +1049,10 @@ def _tp_mlp_block(params: Params, grid: _Grid) -> Callable:
 def _sharded_logits(params: Params, x: torch.Tensor, grid: _Grid, d: int, s: int):
     """:func:`_logits` of shard (d, s): the embedding's width is cut over
     tp, so each rank's float32 product is partial and an all-reduce sums
-    them in float32 (in rank order, across processes too)."""
+    them in float32 (in rank order, across processes too).  Every process
+    along tp holds the same logits and seeds the same loss on them, so
+    across processes each partial's gradient is its own process's
+    (``grad="same"``): no transfer in the backward."""
     p, e, w = grid.pps[-1], grid.e, x.shape[-1] // grid.tp
     parts = []
     for t in grid.tps:
@@ -1067,7 +1061,7 @@ def _sharded_logits(params: Params, x: torch.Tensor, grid: _Grid, d: int, s: int
         embed = grid.take(params["embed"], None, d, p, e, s, t)
         parts.append(torch.einsum("...d,vd->...v", h[..., t * w : (t + 1) * w].float(),
                                   embed.float()))
-    return grid.reduce("tp", parts, grid.coord(d, p, e, s, grid.tps[0]), x.device)
+    return grid.reduce("tp", parts, grid.coord(d, p, e, s, grid.tps[0]), x.device, grad="same")
 
 
 def _logits_out(params: Params, grid: _Grid, xs, shape: Tuple[int, ...]):
@@ -1120,11 +1114,12 @@ def _gather_attend(cfg, use_flash: bool, grid: _Grid) -> Callable:
 def _sharded_run(params: Params, tokens: torch.Tensor, cfg, grid: _Grid, *,
                  positions: Optional[torch.Tensor] = None, use_flash: bool = True,
                  sp_mesh: Optional[Mesh] = None, striped: bool = False, impl: str = "auto",
-                 mlp_block: Optional[Callable] = None):
+                 mlp_block: Optional[Callable] = None, every_stage: bool = True):
     """The dense forward's layers over sharded params (``forward``'s
-    arguments; ``mlp_block`` replaces the gated MLP).  Returns (xs,
-    striped): the hidden shards of :func:`_sharded_stack` and whether
-    they are in the stripe layout."""
+    arguments; ``mlp_block`` replaces the gated MLP; ``every_stage`` as
+    for :func:`_sharded_stack`).  Returns (xs, striped): the hidden
+    shards of :func:`_sharded_stack` and whether they are in the stripe
+    layout."""
     B, T = tokens.shape
     out = grid.home
     tokens = tokens.to(out)
@@ -1145,16 +1140,19 @@ def _sharded_run(params: Params, tokens: torch.Tensor, cfg, grid: _Grid, *,
         striped = False
         attend = _gather_attend(cfg, use_flash, grid)
     xs = _sharded_stack(params, tokens, positions, cfg, grid, attend,
-                        mlp_block or _tp_mlp_block(params, grid))
+                        mlp_block or _tp_mlp_block(params, grid), every_stage)
     return xs, striped
 
 
-def _sharded_nll(params: Params, tokens: torch.Tensor, grid: _Grid, xs) -> torch.Tensor:
+def _sharded_nll(params: Params, tokens: torch.Tensor, grid: _Grid, xs,
+                 extra: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`next_token_nll` over the shards, in its shift-and-mask
-    form: a chunk's last target is the next chunk's first token, taken
-    from the global roll; each shard's logits are made and dropped in
-    turn, and the shards' sums add in rank order.  Over dp across
-    processes, the sum of this process's shards: its share of the mean."""
+    form, plus ``extra`` (the MoE's weighted aux loss, the same in every
+    process): a chunk's last target is the next chunk's first token,
+    taken from the global roll; each shard's logits are made and dropped
+    in turn, and the shards' sums add in rank order.  On a mesh of
+    several processes the loss of the whole batch, the same in every
+    process (:func:`_global_loss`)."""
     B, T = tokens.shape
     out = grid.home
     tokens = tokens.to(out).long()
@@ -1165,7 +1163,66 @@ def _sharded_nll(params: Params, tokens: torch.Tensor, grid: _Grid, xs) -> torch
         logp = torch.log_softmax(_sharded_logits(params, x, grid, d, s), dim=-1)
         nll = -torch.gather(logp, -1, grid.cut(targets, d, s).to(logp.device)[..., None])[..., 0]
         sums.append((nll * grid.cut(mask, d, s).to(nll.device, nll.dtype)).sum())
-    return all_reduce(sums, out) / (B * (T - 1))
+    if grid.mesh.multi_process:
+        return _global_loss(grid, sums, B * (T - 1), extra)
+    loss = all_reduce(sums, out) / (B * (T - 1))
+    return loss if extra is None else loss + extra
+
+
+class _Valued(torch.autograd.Function):
+    """``value`` as the loss, the gradient going to ``seeded``."""
+
+    @staticmethod
+    def forward(ctx, seeded, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _global_loss(grid: _Grid, sums: List[torch.Tensor], n: int,
+                 extra: Optional[torch.Tensor]) -> torch.Tensor:
+    """The loss over processes: its value is the whole batch's (this
+    process's shard sums added to every other process's, in the crossing
+    axes' order, then ``/ n``, plus ``extra``), and its backward seeds
+    each term once over the mesh.  A (d, s) shard's nll is made in every
+    process along tp, ep and (with ``every_stage``) pp that holds it: it
+    is seeded in the processes of the last stage at their first ep
+    index, every one along tp alike (the logits' all-reduce passes each
+    its own gradient); ``extra``, the same in every process, is seeded in
+    the process of the mesh's first rank.  The value counts each shard in
+    the process that also leads tp.  Then every process's gradient of a
+    replicated leaf is its share (``sync_replica_grads`` sums them), and
+    the chained transfers' token joins the graph."""
+    mesh, home = grid.mesh, grid.home
+    zero = torch.zeros((), device=home)
+    mine = all_reduce(sums, home) if sums else zero
+    seeds = grid.pps[-1] == grid.pp - 1 and grid.eps[0] == 0
+    counted = mine.detach() if seeds and grid.tps[0] == 0 else zero
+    value = sum_over_processes(counted, mesh) / n
+    seeded = mine / n if seeds else zero
+    if extra is not None:
+        value = value + extra.detach()
+        if mesh.process == int(mesh.processes.flat[0]):
+            seeded = seeded + extra
+    tail = transport(mesh).tail()
+    if tail is not None:
+        seeded = seeded + tail
+    return _Valued.apply(seeded, value)
+
+
+@contextmanager
+def chained(mesh: Optional[Mesh], device: torch.device):
+    """Around a training forward on a mesh of several processes: the
+    cross-process transfers it makes in one chain, so that every process
+    runs their backwards in one order (``MeshTransport.chained``).  A
+    no-op on a mesh of one process or without autograd."""
+    if mesh is None or not mesh.multi_process or not torch.is_grad_enabled():
+        yield
+        return
+    with transport(mesh).chained(device):
+        yield
 
 
 def _share_written(kv_pool: Sharded, grid: _Grid, written: Callable, n_layers: int) -> None:
@@ -1317,6 +1374,18 @@ def _decode_sharded(params, tokens, kv_pool, block_table, context_len, cfg):
 
 
 # ---------------------------------------------------------------- training
+#
+# Across processes, the forward's transfers carry their gradients back
+# (parallel/process_group.py), and the loss decides what each process's
+# gradient means: every term of it is seeded once over the mesh, so a
+# process's gradient of a replicated leaf is its own ranks' share, which
+# sync_replica_grads sums over the processes that hold copies.  A (d, s)
+# shard's loss is made on the last pp stage only (no broadcast of the
+# hidden states), in every process along tp alike (the logits'
+# all-reduce passes each partial its own process's gradient), and at the
+# first ep index (the processes along ep compute it alike).  The
+# transfers a training forward makes are chained (``chained``), so every
+# process runs their backwards in one order.
 
 
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -1338,12 +1407,16 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Ten
     """Next-token cross entropy over tokens [B, T], through the dense
     attention op (``use_flash=False``): the kernels have no backward.
     Over sharded params each shard's logits feed the loss in turn (the
-    sp chunks' dense attention gathers K/V; see :func:`_sharded_nll`)."""
+    sp chunks' dense attention gathers K/V; see :func:`_sharded_nll`);
+    over a mesh of several processes every process returns the whole
+    batch's loss, and its backward gives each process its share of each
+    replicated leaf's gradient (:func:`_global_loss`), the cross-process
+    transfers chained (:func:`chained`)."""
     if is_sharded(params):
         grid = _grid(params, cfg)
-        refuse_training(grid.mesh, "loss_fn")
-        xs, _ = _sharded_run(params, tokens, cfg, grid, use_flash=False)
-        return _sharded_nll(params, tokens, grid, xs)
+        with chained(grid.mesh, grid.home):
+            xs, _ = _sharded_run(params, tokens, cfg, grid, use_flash=False, every_stage=False)
+            return _sharded_nll(params, tokens, grid, xs)
     logits = forward(params, tokens, cfg, use_flash=False)
     return next_token_nll(logits, tokens.to(logits.device))
 
@@ -1373,19 +1446,14 @@ def optimizer_step(
     """One step: zero the grads, differentiate ``loss()``, give every
     copy of a sharded slice the slice's whole gradient
     (``sync_replica_grads`` of ``params``), update the params in place.
-    Returns the loss, detached; over params sharded across processes
-    ``loss()`` is this process's share, and the shares are summed.  Over
-    a mesh whose tp, pp, sp or ep axis crosses processes it raises
-    ``NotImplementedError`` (:func:`refuse_training`)."""
-    refuse_training(tree_mesh(params), "optimizer_step")
+    Returns the loss, detached (over params sharded across processes,
+    the whole batch's, the same in every process)."""
     optimizer.zero_grad(set_to_none=True)
     value = loss()
     value.backward()
     sync_replica_grads(params)
     optimizer.step()
-    mesh = tree_mesh(params)
-    value = value.detach()
-    return value if mesh is None else sum_over_processes(value, mesh)
+    return value.detach()
 
 
 def train_step(

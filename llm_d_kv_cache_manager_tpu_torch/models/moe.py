@@ -30,8 +30,11 @@ from every process along dp and sp, each process routes them alike and
 runs its own (ep, tp) ranks' experts, and the products are summed over
 tp and ep across processes in rank order; it returns this process's
 logits (a ``Sharded``, as ``llama.forward`` does) and the same aux loss
-in every process.  Training there is refused: the routing joins every
-batch shard's tokens, so not even dp may cross processes.
+in every process.  ``loss_fn`` and ``train_step`` train there on any
+layout: the gathers of the routing's tokens, the sums over tp and ep
+and the aux loss's gather along pp carry their gradients back across
+processes, and the loss counts the aux term once over the processes
+(``llama._global_loss``).
 """
 
 from __future__ import annotations
@@ -55,11 +58,11 @@ from llm_d_kv_cache_manager_tpu_torch.models.llama import (
     _rms_norm,
     _sharded_nll,
     _sharded_run,
+    chained,
     is_sharded,
     make_optimizer,  # noqa: F401  (the reference's moe.make_optimizer)
     next_token_nll,
     optimizer_step,
-    refuse_training,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_attention import ring_for_mesh
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import Mesh, active_mesh
@@ -68,7 +71,6 @@ from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import (
     all_reduce,
     ranks_over,
     shard,
-    tree_mesh,
 )
 from llm_d_kv_cache_manager_tpu_torch.utils.device import (
     from_numpy,
@@ -345,20 +347,22 @@ def _sharded_moe_block(params: Params, cfg: MoEConfig, grid: _Grid, B: int, T: i
     return block
 
 
-def _sharded_forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig, use_flash: bool,
-                     sp_mesh: Optional[Mesh], ring_impl: str):
-    """(grid, hidden shards, aux) of the sharded forward: the aux of
-    every layer, gathered along pp where the stages lie in several
-    processes, summed in layer order."""
-    grid = _grid(params, cfg)
+def _sharded_forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig, grid: _Grid,
+                     use_flash: bool, sp_mesh: Optional[Mesh], ring_impl: str,
+                     every_stage: bool = True):
+    """(hidden shards, aux) of the sharded forward: the aux of every
+    layer, gathered along pp where the stages lie in several processes,
+    summed in layer order (``every_stage`` as for
+    ``llama._sharded_stack``)."""
     auxes = []
     xs, _ = _sharded_run(params, tokens, cfg, grid, use_flash=use_flash, sp_mesh=sp_mesh,
                          impl=ring_impl,
-                         mlp_block=_sharded_moe_block(params, cfg, grid, *tokens.shape, auxes))
+                         mlp_block=_sharded_moe_block(params, cfg, grid, *tokens.shape, auxes),
+                         every_stage=every_stage)
     per = grid.per_stage
     stages = [torch.stack(auxes[k * per : (k + 1) * per]) for k in range(len(grid.pps))]
     auxes = [a for stage in ranks_over(stages, grid.mesh, "pp", grid.lead()) for a in stage]
-    return grid, xs, all_reduce(auxes, grid.home) / cfg.n_layers
+    return xs, all_reduce(auxes, grid.home) / cfg.n_layers
 
 
 def forward(
@@ -382,7 +386,8 @@ def forward(
     process's ``Sharded`` logits.  Plain params over an ``sp_mesh`` of
     several processes raise."""
     if is_sharded(params):
-        grid, xs, aux = _sharded_forward(params, tokens, cfg, use_flash, sp_mesh, ring_impl)
+        grid = _grid(params, cfg)
+        xs, aux = _sharded_forward(params, tokens, cfg, grid, use_flash, sp_mesh, ring_impl)
         return _logits_out(params, grid, xs, tokens.shape + (cfg.vocab_size,)), aux
     if sp_mesh is not None and sp_mesh.multi_process:
         raise NotImplementedError("the MoE forward with plain params over an sp_mesh of "
@@ -414,11 +419,14 @@ def forward(
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """Next-token cross entropy plus the router's load-balancing loss,
-    through the dense attention op (``use_flash=False``)."""
+    through the dense attention op (``use_flash=False``); over a mesh of
+    several processes as ``llama.loss_fn``."""
     if is_sharded(params):
-        refuse_training(tree_mesh(params), "moe.loss_fn", allowed=())
-        grid, xs, aux = _sharded_forward(params, tokens, cfg, False, None, "auto")
-        return _sharded_nll(params, tokens, grid, xs) + cfg.router_aux_weight * aux
+        grid = _grid(params, cfg)
+        with chained(grid.mesh, grid.home):
+            xs, aux = _sharded_forward(params, tokens, cfg, grid, False, None, "auto",
+                                       every_stage=False)
+            return _sharded_nll(params, tokens, grid, xs, extra=cfg.router_aux_weight * aux)
     logits, aux = forward(params, tokens, cfg, use_flash=False)
     return next_token_nll(logits, tokens.to(logits.device)) + cfg.router_aux_weight * aux
 

@@ -318,11 +318,13 @@ class OffloadEngine:
     def close(self) -> None:
         if self._closed:
             return
+        # gil-atomic: monotonic close flag; double close is idempotent
         self._closed = True
         if self._fallback is not None:
             self._fallback.close()
         elif self._handle is not None:
             self._lib.kvtpu_engine_destroy(self._handle)
+            # gil-atomic: close is single-owner; __del__ runs at last ref only
             self._handle = None
 
     def __del__(self) -> None:

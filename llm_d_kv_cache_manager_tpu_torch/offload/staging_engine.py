@@ -377,7 +377,7 @@ class StagingEngine:
             # Double-check shape: the scatter must run OUTSIDE _cond,
             # and this second acquisition re-validates via pop() — a
             # racing finisher gets None and bails.
-            sub = self._subs.pop(sub_id, None)
+            sub = self._subs.pop(sub_id, None)  # kvlint: atomic-ok
             if sub is None:
                 return
             sub.status = status

@@ -303,7 +303,9 @@ def make_hybrid_mesh(
     Raises where ``WORLD_SIZE`` says several processes run and no group
     is initialized."""
     rank, n_processes = world()
-    if n_processes == 1 and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    # WORLD_SIZE is the launcher's (torchrun's), read only to refuse a
+    # missing group: not a knob of this package.
+    if n_processes == 1 and int(os.environ.get("WORLD_SIZE", "1")) > 1:  # kvlint: disable=KV007
         raise RuntimeError(
             f"WORLD_SIZE={os.environ['WORLD_SIZE']} but no torch.distributed group is "
             "initialized: call torch.distributed.init_process_group in every process first")

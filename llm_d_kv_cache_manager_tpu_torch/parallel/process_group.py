@@ -40,13 +40,39 @@ choose.
 Every process along an axis calls its collectives in one order: with
 gloo, a process that calls them in another order than its peers waits
 for ever rather than failing.
+
+Gradients.  Under autograd, :meth:`~MeshTransport.hop`,
+:meth:`~MeshTransport.all_gather_ranks`,
+:meth:`~MeshTransport.all_reduce_ranks` and
+:meth:`~MeshTransport.broadcast` are ``torch.autograd.Function`` classes whose
+backward is the adjoint transfer over the same processes: the reverse
+hop; each rank's part gets the sum, over the processes, of the gradients
+of its copies of the gathered whole; the sum's gradient summed over the
+processes (``grad="sum"``, where each process's share of the loss flows
+through its own copy) or passed to each part as it is (``grad="same"``,
+Megatron's identity, where every process seeds the same loss downstream
+of the copies it holds); the broadcast's gradients summed at the root.
+Sums run in process order, so every process gets the same bits.
+Backward transfers are logged under the forward's kind with ``:bwd``.
+
+Autograd runs a process's backward in an order of its own graph, which
+differs between the stages and shards that processes hold.  Inside
+:meth:`~MeshTransport.chained` every such call takes a token from the
+call before it and gives one to the call after it, so the backward runs
+them in exactly the reverse of the forward's order on every process
+(the caller adds the last token, a zero, to its loss); each carries a
+sequence number a sub-group, and its backward first checks, over the
+sub-group (``order:<axis>``), that every process is at the same call,
+raising :class:`CollectiveOrderError` where one is not.
 """
 
 from __future__ import annotations
 
 import time
+import zlib
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,6 +155,14 @@ class MeshTransport:
         # the event after the last host-to-device copy out of them.
         self._pinned: Dict[object, torch.Tensor] = {}
         self._unstaged: Optional[torch.cuda.Event] = None
+        # The calls that carry a gradient: the next sequence number of
+        # each sub-group (or pair of processes), the token the next call
+        # takes inside ``chained``, and the kinds by their header code.
+        self._seq: Dict[tuple, int] = {}
+        self._tail: Optional[torch.Tensor] = None
+        self._kinds = {zlib.crc32(kind.encode()): kind for kind in (
+            f"{op}:{axis}:bwd" for op in ("hop", "all_gather", "all_reduce", "broadcast")
+            for axis in mesh.axis_names)}
 
     # -- how a tensor travels --
 
@@ -207,18 +241,28 @@ class MeshTransport:
         the sender passes it and gets None; the receiver passes None and
         gets it on ``like``'s device (``like``: its shape, dtype and
         device).  Both call; a process that is both gets ``tensor`` moved
-        to that device."""
+        to that device.  Under autograd the gradient hops back."""
         line = self._line(axis, coord)
         sender, receiver = line[src], line[dst]
-        me = self.mesh.process
         if sender == receiver:
             return tensor.to(like[2])
+        if not self._carries_grad(tensor):
+            return self._hop(tensor, axis, sender, receiver, like)
+        out = _Hop.apply(self, axis, (sender, receiver), like, self._token(like[2]), tensor)
+        if self.mesh.process == sender:
+            self._advance(out)
+            return None
+        self._advance(out[0])
+        return out[1]
+
+    def _hop(self, tensor, axis: str, sender: int, receiver: int, like, kind: str = None):
+        me = self.mesh.process
+        kind = kind or f"hop:{axis}"
         if me == sender:
-            self.post([(receiver, tensor, 0)], [], kind=f"hop:{axis}").wait()
+            self.post([(receiver, tensor, 0)], [], kind=kind).wait()
             return None
         if me == receiver:
-            return self.post([], [(sender, like[0], like[1], like[2], 0)],
-                             kind=f"hop:{axis}").wait()[0]
+            return self.post([], [(sender, like[0], like[1], like[2], 0)], kind=kind).wait()[0]
         raise ValueError(f"process {me} is neither end of the {axis} hop {src} -> {dst}")
 
     # -- collectives over one axis --
@@ -345,23 +389,34 @@ class MeshTransport:
 
     def all_reduce(self, tensor: torch.Tensor, axis: str, coord: Tuple[int, ...]) -> torch.Tensor:
         """The sum over the processes along ``axis`` through ``coord``,
-        taken in the axis's order: the same bits on every process."""
-        parts = self.all_gather(tensor, axis, coord)
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
-        return total
+        taken in the axis's order, a chunk of elements at a time: the
+        same bits on every process (logged as ``sum:<axis>``).  It
+        carries no gradient: it sums gradients and loss values."""
+        processes = self._along(axis, coord)
+        group = self._axis_groups(axis)[processes]
+        if group is None:
+            return tensor
+        return self._summed(tensor, group, processes, f"sum:{axis}")
 
     def all_gather_ranks(self, parts: Sequence[torch.Tensor], axis: str,
                          coord: Tuple[int, ...]) -> List[torch.Tensor]:
         """Every rank's part along ``axis`` through the local ``coord``,
         in rank order, on ``parts[0]``'s device: ``parts`` are this
         process's ranks' along the axis, in order, all of one shape and
-        dtype (every process passes as many)."""
+        dtype (every process passes as many).  Under autograd each part's
+        gradient is the sum, over the processes in order, of the
+        gradients of its copies."""
         processes = self._blocks(axis, coord)
-        group = self._axis_groups(axis)[processes]
-        if group is None:
+        if self._axis_groups(axis)[processes] is None:
             return list(parts)
+        if not self._carries_grad(*parts):
+            return self._all_gather_ranks(parts, axis, processes)
+        out = _GatherRanks.apply(self, axis, processes, self._token(parts[0].device), *parts)
+        self._advance(out[0])
+        return list(out[1:])
+
+    def _all_gather_ranks(self, parts, axis: str, processes) -> List[torch.Tensor]:
+        group = self._axis_groups(axis)[processes]
         entry = self._entry(f"all_gather:{axis}")
         t0 = time.perf_counter()
         got = self._gathered(torch.stack(list(parts)), group, processes, entry)
@@ -369,22 +424,35 @@ class MeshTransport:
         return [rank for block in got for rank in block.unbind(0)]
 
     def all_reduce_ranks(self, parts: Sequence[torch.Tensor], axis: str,
-                         coord: Tuple[int, ...]) -> torch.Tensor:
+                         coord: Tuple[int, ...], grad: str = "sum") -> torch.Tensor:
         """The sum of every rank's part along ``axis`` through the local
         ``coord``, taken in rank order (``((r0 + r1) + r2) + ...``, the
         single controller's order), on ``parts[0]``'s device: the same
         bits on every process.  ``parts`` as for
         :meth:`all_gather_ranks`; the parts travel and are summed a
         chunk of elements at a time, so no process holds every rank's
-        whole part."""
+        whole part.  Under autograd each part's gradient is the sum's
+        gradient summed over the processes (``grad="sum"``) or this
+        process's own (``grad="same"``: every process along the axis
+        seeds the same loss downstream, Megatron's identity)."""
+        if grad not in ("sum", "same"):
+            raise ValueError(f"grad is 'sum' or 'same', not {grad!r}")
         processes = self._blocks(axis, coord)
-        group = self._axis_groups(axis)[processes]
-        first = parts[0]
-        if group is None:
-            total = first
+        if self._axis_groups(axis)[processes] is None:
+            total = parts[0]
             for part in parts[1:]:
                 total = total + part
             return total
+        if not self._carries_grad(*parts):
+            return self._all_reduce_ranks(parts, axis, processes)
+        token, total = _ReduceRanks.apply(self, axis, processes, grad,
+                                          self._token(parts[0].device), *parts)
+        self._advance(token)
+        return total
+
+    def _all_reduce_ranks(self, parts, axis: str, processes) -> torch.Tensor:
+        group = self._axis_groups(axis)[processes]
+        first = parts[0]
         entry = self._entry(f"all_reduce:{axis}")
         t0 = time.perf_counter()
         flats = [p.contiguous().view(-1) for p in parts]
@@ -403,19 +471,46 @@ class MeshTransport:
         entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
         return total.view(first.shape)
 
+    def _summed(self, tensor: torch.Tensor, group, processes, kind: str) -> torch.Tensor:
+        """``tensor`` summed over ``processes`` in their order, a chunk
+        of elements at a time, logged under ``kind``."""
+        entry = self._entry(kind)
+        t0 = time.perf_counter()
+        flat = tensor.contiguous().view(-1)
+        total = torch.empty_like(flat)
+        step = max(1, CHUNK_BYTES // flat.element_size())
+        for a in range(0, flat.numel(), step):
+            b = min(flat.numel(), a + step)
+            parts = self._gathered(flat[a:b], group, processes, entry)
+            acc = parts[0]
+            for part in parts[1:]:
+                acc = acc + part
+            total[a:b] = acc
+        entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
+        return total.view(tensor.shape)
+
     def broadcast(self, tensor: Optional[torch.Tensor], axis: str, coord: Tuple[int, ...],
                   src: int, like: Tuple[Tuple[int, ...], torch.dtype, torch.device]
                   ) -> torch.Tensor:
         """The tensor of the process at index ``src`` along ``axis``
         (through the local ``coord``), in every process along the axis,
         on ``like``'s device (its shape, dtype, device).  The sender
-        passes it, the others None."""
+        passes it, the others None.  Under autograd the gradients of the
+        copies are summed, in process order, at the sender."""
         line = self._line(axis, coord)
         root = line[src]
         processes = tuple(dict.fromkeys(line))
-        group = self._axis_groups(axis)[processes]
-        if group is None:
+        if self._axis_groups(axis)[processes] is None:
             return tensor.to(like[2])
+        if not self._carries_grad(tensor):
+            return self._broadcast(tensor, axis, processes, root, like)
+        token, out = _Broadcast.apply(self, axis, processes, root, like,
+                                      self._token(like[2]), tensor)
+        self._advance(token)
+        return out
+
+    def _broadcast(self, tensor, axis: str, processes, root: int, like) -> torch.Tensor:
+        group = self._axis_groups(axis)[processes]
         shape, dtype, device = like
         entry = self._entry(f"broadcast:{axis}")
         t0 = time.perf_counter()
@@ -441,6 +536,191 @@ class MeshTransport:
                     self._to_device(buf, flat[a:b], entry)
         entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
         return tensor.to(device) if mine else out
+
+    # -- gradients --
+
+    @contextmanager
+    def chained(self, device: torch.device) -> Iterator["MeshTransport"]:
+        """Chain the calls that carry a gradient inside the block (see
+        the module's note); :meth:`tail` is the last call's token, which
+        the caller adds to its loss.  Every process of the mesh enters
+        it around the same calls."""
+        if self._tail is not None:
+            raise RuntimeError("the transport's calls are already chained")
+        self._tail = torch.zeros((), device=device, requires_grad=True)
+        try:
+            yield self
+        finally:
+            self._tail = None
+
+    def tail(self) -> torch.Tensor:
+        """The token of the last chained call: a zero whose backward runs
+        every chained call's backward, last first."""
+        return self._tail
+
+    def _carries_grad(self, *tensors) -> bool:
+        return torch.is_grad_enabled() and (self._tail is not None or any(
+            t is not None and t.requires_grad for t in tensors))
+
+    def _token(self, device: torch.device) -> torch.Tensor:
+        return self._tail if self._tail is not None else torch.zeros((), device=device)
+
+    def _advance(self, token: torch.Tensor) -> None:
+        if self._tail is not None:
+            self._tail = token
+
+    def _number(self, key: tuple) -> int:
+        """The next sequence number of ``key``'s calls that carry a
+        gradient (a sub-group, or a pair of processes)."""
+        seq = self._seq.get(key, 0)
+        self._seq[key] = seq + 1
+        return seq
+
+    def _header(self, seq: int, kind: str, device: torch.device) -> torch.Tensor:
+        return torch.tensor([seq, zlib.crc32(kind.encode())], dtype=torch.int64, device=device)
+
+    def _order_error(self, where: str, mine, theirs) -> "CollectiveOrderError":
+        def name(header):
+            seq, code = (int(v) for v in header)
+            return f"{self._kinds.get(code, 'an unknown call')} #{seq}"
+        return CollectiveOrderError(
+            f"collective order mismatch {where}: this process (process {self.mesh.process}) is "
+            f"at the backward of {name(mine)}, "
+            + ", ".join(f"process {p} at {name(h)}" for p, h in theirs))
+
+    def _check_order(self, axis: str, processes, seq: int, kind: str,
+                     device: torch.device) -> None:
+        """Every process of the sub-group is at the backward of the same
+        call (its sequence number and kind), or raise."""
+        header = self._header(seq, kind, device)
+        group = self._axis_groups(axis)[processes]
+        entry = self._entry(f"order:{axis}")
+        t0 = time.perf_counter()
+        got = self._gathered(header, group, processes, entry)
+        entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
+        theirs = [(p, h.tolist()) for p, h in zip(processes, got)]
+        if any(h != header.tolist() for _, h in theirs):
+            raise self._order_error(f"along {axis} over processes {list(processes)}",
+                                    header.tolist(), theirs)
+
+
+class CollectiveOrderError(RuntimeError):
+    """The processes of a sub-group reached the backwards of different
+    collectives: with gloo they would wait on each other for ever."""
+
+
+def _new_token(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), device=like.device)
+
+
+class _GatherRanks(torch.autograd.Function):
+    """``all_gather_ranks``; backward: each local part's gradient summed
+    over the processes (every process sends its gradients of the whole,
+    each keeps its own parts' sums)."""
+
+    @staticmethod
+    def forward(ctx, tr, axis, processes, token, *parts):
+        ctx.tr, ctx.axis, ctx.processes, ctx.n = tr, axis, processes, len(parts)
+        ctx.devices = [p.device for p in parts]
+        ctx.seq = tr._number(("group", axis, processes))
+        return (_new_token(token), *tr._all_gather_ranks(parts, axis, processes))
+
+    @staticmethod
+    def backward(ctx, g_token, *grads):
+        tr, axis, processes = ctx.tr, ctx.axis, ctx.processes
+        kind = f"all_gather:{axis}:bwd"
+        tr._check_order(axis, processes, ctx.seq, kind, grads[0].device)
+        group = tr._axis_groups(axis)[processes]
+        entry = tr._entry(kind)
+        t0 = time.perf_counter()
+        got = tr._gathered(torch.stack(grads), group, processes, entry)
+        entry["wait_ms"] = entry["span_ms"] = (time.perf_counter() - t0) * 1e3
+        me = processes.index(tr.mesh.process)
+        mine = slice(me * ctx.n, (me + 1) * ctx.n)
+        total = got[0][mine]
+        for g in got[1:]:
+            total = total + g[mine]
+        return (None, None, None, torch.zeros_like(g_token),
+                *(g.to(d) for g, d in zip(total.unbind(0), ctx.devices)))
+
+
+class _ReduceRanks(torch.autograd.Function):
+    """``all_reduce_ranks``; backward: the sum's gradient summed over the
+    processes (``"sum"``) or as it is (``"same"``), to every part."""
+
+    @staticmethod
+    def forward(ctx, tr, axis, processes, grad, token, *parts):
+        ctx.tr, ctx.axis, ctx.processes, ctx.grad = tr, axis, processes, grad
+        ctx.devices = [p.device for p in parts]
+        ctx.seq = tr._number(("group", axis, processes))
+        return _new_token(token), tr._all_reduce_ranks(parts, axis, processes)
+
+    @staticmethod
+    def backward(ctx, g_token, grad):
+        tr, axis, processes = ctx.tr, ctx.axis, ctx.processes
+        if ctx.grad == "sum":
+            kind = f"all_reduce:{axis}:bwd"
+            tr._check_order(axis, processes, ctx.seq, kind, grad.device)
+            grad = tr._summed(grad, tr._axis_groups(axis)[processes], processes, kind)
+        return (None, None, None, None, torch.zeros_like(g_token),
+                *(grad.to(d) for d in ctx.devices))
+
+
+class _Hop(torch.autograd.Function):
+    """``hop``; backward: the receiver sends the gradient back, behind a
+    header with the call's sequence number and kind, which the sender
+    checks.  The sender's output is a token only."""
+
+    @staticmethod
+    def forward(ctx, tr, axis, ends, like, token, tensor):
+        sender, receiver = ends
+        ctx.tr, ctx.axis, ctx.ends = tr, axis, ends
+        ctx.seq = tr._number(("pair", min(ends), max(ends)))
+        if tr.mesh.process == sender:
+            ctx.like = (tuple(tensor.shape), tensor.dtype, tensor.device)
+            tr._hop(tensor, axis, sender, receiver, like)
+            return _new_token(token)
+        ctx.like = None
+        return _new_token(token), tr._hop(None, axis, sender, receiver, like)
+
+    @staticmethod
+    def backward(ctx, g_token, *grads):
+        tr, (sender, receiver) = ctx.tr, ctx.ends
+        kind = f"hop:{ctx.axis}:bwd"
+        if ctx.like is None:  # the receiver: its gradient goes back
+            (grad,) = grads
+            tr.post([(sender, tr._header(ctx.seq, kind, grad.device), 1), (sender, grad, 2)], [],
+                    kind=kind).wait()
+            return None, None, None, None, torch.zeros_like(g_token), None
+        shape, dtype, device = ctx.like
+        header, grad = tr.post([], [(receiver, (2,), torch.int64, device, 1),
+                                    (receiver, shape, dtype, device, 2)], kind=kind).wait()
+        mine = tr._header(ctx.seq, kind, device)
+        if not torch.equal(header, mine):
+            raise tr._order_error(f"on the {ctx.axis} hop from process {sender} to {receiver}",
+                                  mine.tolist(), [(receiver, header.tolist())])
+        return None, None, None, None, torch.zeros_like(g_token), grad
+
+
+class _Broadcast(torch.autograd.Function):
+    """``broadcast``; backward: every process's gradient of its copy
+    summed at the root, in process order."""
+
+    @staticmethod
+    def forward(ctx, tr, axis, processes, root, like, token, tensor):
+        ctx.tr, ctx.axis, ctx.processes, ctx.root = tr, axis, processes, root
+        ctx.device = tensor.device if tensor is not None else None
+        ctx.seq = tr._number(("group", axis, processes))
+        return _new_token(token), tr._broadcast(tensor, axis, processes, root, like)
+
+    @staticmethod
+    def backward(ctx, g_token, grad):
+        tr, axis, processes = ctx.tr, ctx.axis, ctx.processes
+        kind = f"broadcast:{axis}:bwd"
+        tr._check_order(axis, processes, ctx.seq, kind, grad.device)
+        total = tr._summed(grad, tr._axis_groups(axis)[processes], processes, kind)
+        mine = total.to(ctx.device) if tr.mesh.process == ctx.root else None
+        return None, None, None, None, None, torch.zeros_like(g_token), mine
 
 
 def transport(mesh: Mesh) -> MeshTransport:

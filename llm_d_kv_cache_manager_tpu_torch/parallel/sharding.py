@@ -30,9 +30,11 @@ are the collectives of one mesh axis that take this process's ranks'
 parts: inside a process they are :func:`all_gather` and
 :func:`all_reduce`; along an axis that crosses processes every process
 gets every rank's part through the process group, joined or summed in
-rank order, the same bits as the single controller's.  These move no
-gradient: the training paths refuse meshes whose model axes cross
-processes.
+rank order, the same bits as the single controller's.  Across processes
+they carry the gradient back through the adjoint transfers of
+``parallel/process_group.py``, so that each process's gradient of a
+replicated leaf is its own ranks' share, which
+:func:`sync_replica_grads` then sums.
 """
 
 from __future__ import annotations
@@ -298,13 +300,15 @@ def all_gather_over(parts: Sequence[torch.Tensor], mesh: Mesh, axis: str,
 
 
 def all_reduce_over(parts: Sequence[torch.Tensor], mesh: Mesh, axis: str,
-                    coord: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+                    coord: Tuple[int, ...], device: torch.device,
+                    grad: str = "sum") -> torch.Tensor:
     """:func:`all_reduce` of every rank's part along ``axis`` (see
     :func:`ranks_over`), summed in rank order; across processes a chunk
-    at a time (``MeshTransport.all_reduce_ranks``)."""
+    at a time (``MeshTransport.all_reduce_ranks``, whose ``grad`` says
+    how the gradient of the processes' copies of the sum comes back)."""
     if axis not in mesh.crossing_axes():
         return all_reduce(parts, device)
-    return transport(mesh).all_reduce_ranks(parts, axis, coord).to(device)
+    return transport(mesh).all_reduce_ranks(parts, axis, coord, grad=grad).to(device)
 
 
 def sum_over_processes(value: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -334,8 +338,11 @@ def sync_replica_grads(tree: Any) -> None:
     summed over the processes along each crossing axis that the leaf is
     not cut over (``all_reduce`` of ``parallel/process_group.py``, in
     the axis's order), and every copy gets it; a process whose copies
-    have no gradient adds zeros.  Every process walks its slices in
-    shard order and calls the collective for each."""
+    have no gradient adds zeros.  That sum is the slice's gradient
+    because the training losses (``llama.loss_fn``, ``moe.loss_fn``)
+    count each loss term once over the processes and the transfers carry
+    each process's share back to the ranks that made it.  Every process
+    walks its slices in shard order and calls the collective for each."""
     for leaf in tree_leaves(tree):
         if not isinstance(leaf, Sharded):
             continue

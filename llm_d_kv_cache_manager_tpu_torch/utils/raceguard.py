@@ -283,7 +283,7 @@ PACKAGE = __name__.split(".")[0]
 
 
 def _default_manifest_path() -> str:
-    override = os.environ.get(MANIFEST_ENV)
+    override = os.environ.get("KVTPU_RACEGUARD_MANIFEST")
     if override:
         return override
     return os.path.join(

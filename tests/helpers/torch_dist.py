@@ -188,50 +188,134 @@ def train_dp(rank, n, tree, fields: dict, tokens):
     return dict(loss=loss, params=out, grads=grads, held=held, shape=dict(mesh.shape))
 
 
-def training_guards(rank, n, tree, fields: dict, tokens, moe_fields: dict):
-    """Over meshes whose tp, pp or sp (Llama) or ep or dp (MoE, whose
-    routing joins the batch shards) crosses the processes: the error of
-    ``loss_fn`` and of ``train_step``, and
-    whether ``forward`` gave this process's logits; and the error of the
-    MoE forward with plain params over an sp_mesh of several processes.
-    {case: {"loss_fn": message, "train_step": message, "forward": shape}}."""
-    llama, moe = port("models.llama"), port("models.moe")
-    sharding = port("parallel.sharding")
-    cfg = _llama_cfg(fields)
-    params = llama.params_from_numpy(tree, cfg, device="cpu")
-    tokens = torch.from_numpy(tokens)
+def moe_plain_sp(rank, n, tokens, moe_fields: dict):
+    """The error of the MoE forward with plain params over an sp_mesh of
+    several processes (None if it ran)."""
+    moe = port("models.moe")
     mcfg = moe.MoEConfig(**moe_fields)
     mparams = moe.init_params(mcfg, torch.Generator().manual_seed(0), device="cpu")
-    out = {}
-    for case, family, dcn in (("tp", "llama", dict(dp=1, tp=2)), ("pp", "llama", dict(dp=1, pp=2)),
-                              ("sp", "llama", dict(dp=1, sp=2)), ("ep", "moe", dict(dp=1, ep=2)),
-                              ("dp-moe", "moe", dict(dp=2))):
-        mesh = _mesh(dict(dp=1), dcn, 1)
-        model, p, c = (llama, params, cfg) if family == "llama" else (moe, mparams, mcfg)
-        sharded = sharding.shard_tree(p, mesh, model.param_pspecs(c))
-        row = {}
-        for name, call in (("loss_fn", lambda: model.loss_fn(sharded, tokens, c)),
-                           ("train_step", lambda: model.train_step(
-                               sharded, model.make_optimizer(sharded), tokens, c))):
-            try:
-                call()
-            except NotImplementedError as exc:
-                row[name] = str(exc)
-            else:
-                row[name] = None
-        with torch.no_grad():
-            got = model.forward(sharded, tokens, c)
-        logits = got[0] if family == "moe" else got
-        row["forward"] = [list(t.shape) for _, t in logits.distinct()]
-        row["finite"] = all(bool(t.isfinite().all()) for _, t in logits.distinct())
-        out[case] = row
-    sp_mesh = _mesh(dict(dp=1), dict(dp=1, sp=2), 1)
     try:
-        moe.forward(mparams, tokens, mcfg, sp_mesh=sp_mesh)
+        moe.forward(mparams, torch.from_numpy(tokens), mcfg, sp_mesh=_mesh(dict(dp=1),
+                                                                          dict(dp=1, sp=2), 1))
     except NotImplementedError as exc:
-        out["moe-plain-sp"] = str(exc)
-    else:
-        out["moe-plain-sp"] = None
+        return str(exc)
+    return None
+
+
+def _named(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _named(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def _family(name: str):
+    return port("models.llama") if name == "llama" else port("models.moe")
+
+
+def _config(family: str, fields: dict):
+    model = _family(family)
+    return model.LlamaConfig(**fields) if family == "llama" else model.MoEConfig(**fields)
+
+
+def train_case(ici: dict, dcn: dict, family: str, tree, fields: dict, tokens) -> dict:
+    """One ``train_step`` over params sharded on the hybrid mesh ici x
+    dcn (``ici``'s ranks a process, all on "cpu"), then a forward under
+    ``no_grad``: the loss; each leaf's {coord: local} after the step and
+    of its gradient, for this process's distinct locals; whether the
+    forward gave finite logits for every local entry; the transfers by
+    kind ({kind: [calls, bytes out, bytes in]})."""
+    model, sharding = _family(family), port("parallel.sharding")
+    pg = port("parallel.process_group")
+    cfg = _config(family, fields)
+    mesh = _mesh(ici, dcn, int(np.prod(list(ici.values()))))
+    params = sharding.shard_tree(model.params_from_numpy(tree, cfg, device="cpu"), mesh,
+                                 model.param_pspecs(cfg))
+    tokens = torch.from_numpy(tokens)
+    loss = float(model.train_step(params, model.make_optimizer(params), tokens, cfg))
+    out = {"loss": loss, "params": {}, "grads": {}, "crossing": mesh.crossing_axes(),
+           "owned": [c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c)]}
+    for name, leaf in _named(params):
+        out["params"][name] = {c: t.detach().numpy().copy() for c, t in leaf.distinct()}
+        out["grads"][name] = {c: t.grad.numpy().copy() for c, t in leaf.distinct()}
+    transfers = {}
+    for rec in pg.transport(mesh).log.records():
+        row = transfers.setdefault(rec["kind"], [0, 0, 0])
+        row[0] += 1
+        row[1] += rec["bytes_out"]
+        row[2] += rec["bytes_in"]
+    out["transfers"] = transfers
+    with torch.no_grad():
+        got = model.forward(params, tokens, cfg)
+    logits = got[0] if family == "moe" else got
+    out["forward"] = sorted(c for c, t in np.ndenumerate(logits.locals) if t is not None
+                            and bool(t.isfinite().all()))
+    return out
+
+
+def adjoints(rank, n, seed: int) -> dict:
+    """Each differentiable transfer of the transport over dcn tp = n, one
+    rank a process, on small tensors: this process's input, its weights
+    (the loss is sum(weights * output)) and the input's gradient, for
+    the hop 0 -> n - 1, the broadcast from n - 1, ``all_gather_ranks``
+    and ``all_reduce_ranks`` with ``grad="sum"`` and ``"same"``."""
+    pg = port("parallel.process_group")
+    mesh = _mesh(dict(dp=1), dict(dp=1, tp=n), 1)
+    tr = pg.transport(mesh)
+    coord = next(c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c))
+    rng = np.random.default_rng(seed + rank)
+    out = {}
+    for name, call in (
+            ("hop", lambda x: tr.hop(x if rank == 0 else None, "tp", coord, 0, n - 1,
+                                     ((3, 4), torch.float32, torch.device("cpu")))),
+            ("broadcast", lambda x: tr.broadcast(x if rank == n - 1 else None, "tp", coord,
+                                                 n - 1, ((3, 4), torch.float32,
+                                                         torch.device("cpu")))),
+            ("gather", lambda x: torch.stack(tr.all_gather_ranks([x], "tp", coord))),
+            ("sum", lambda x: tr.all_reduce_ranks([x], "tp", coord, grad="sum")),
+            ("same", lambda x: tr.all_reduce_ranks([x], "tp", coord, grad="same"))):
+        with tr.chained(torch.device("cpu")):
+            x = torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+            x.requires_grad_()
+            y = call(x)
+            shape = (n, 3, 4) if name == "gather" else (3, 4)
+            w = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            loss = (y * w).sum() if y is not None else torch.zeros(())
+            (loss + tr.tail()).backward()
+        out[name] = {"x": x.detach().numpy(), "w": w.numpy(),
+                     "grad": None if x.grad is None else x.grad.numpy()}
+    return out
+
+
+def order_mismatch(rank, n) -> str:
+    """A planted fault: the processes call two chained collectives on one
+    sub-group in opposite orders (the forward exchanges bytes of one
+    size either way).  Returns the error the backward raises."""
+    pg = port("parallel.process_group")
+    mesh = _mesh(dict(dp=1), dict(dp=1, tp=n), 1)
+    tr = pg.transport(mesh)
+    coord = next(c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c))
+    x = torch.ones(2, 3, requires_grad=True)
+    with tr.chained(torch.device("cpu")):
+        calls = [lambda: torch.stack(tr.all_gather_ranks([x], "tp", coord)).sum(0),
+                 lambda: tr.all_reduce_ranks([x], "tp", coord)]
+        outs = [call() for call in (calls if rank == 0 else calls[::-1])]
+        loss = sum(o.sum() for o in outs) + tr.tail()
+        try:
+            loss.backward()
+        except pg.CollectiveOrderError as exc:
+            return str(exc)
+    return ""
+
+
+def training_group(rank, n, cases: dict, extras: tuple = ()) -> dict:
+    """``train_case`` of every case ({name: (ici, dcn, family, tree,
+    fields, tokens)}), in one group; then each of ``extras`` (names of
+    this module's workers taking (rank, n) and a seed or nothing)."""
+    out = {name: train_case(*args) for name, args in cases.items()}
+    for name, args in extras:
+        out[name] = globals()[name](rank, n, *args)
     return out
 
 
@@ -313,3 +397,93 @@ def moe_plan(rank, n, ici: dict, dcn: dict, tree, fields: dict, tokens):
 
 def cfg_fields(cfg) -> dict:
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _held(tree, mesh) -> dict:
+    """{leaf name: {coord: numpy}} of a state's sharded leaves' distinct
+    locals, and {leaf name: numpy} of its plain tensors."""
+    sharding = port("parallel.sharding")
+    out = {}
+    for name, leaf in _named(tree):
+        if isinstance(leaf, sharding.Sharded):
+            out[name] = {c: _numpy(t) for c, t in leaf.distinct()}
+        elif isinstance(leaf, torch.Tensor):
+            out[name] = _numpy(leaf)
+    return out
+
+
+def _numpy(tensor):
+    """A tensor's bytes as numpy (bf16 through its int16 view)."""
+    tensor = tensor.detach()
+    if tensor.dtype == torch.bfloat16:
+        return tensor.view(torch.int16).numpy().copy()
+    return tensor.numpy().copy()
+
+
+def _own_bytes(tree) -> int:
+    """Bytes of one local copy of each slice this process holds, and of
+    its plain tensors: what a restore must read, and no more."""
+    sharding = port("parallel.sharding")
+    total = 0
+    for _, leaf in _named(tree):
+        if isinstance(leaf, sharding.Sharded):
+            seen = {}
+            for coord, t in leaf.distinct():
+                seen[leaf.shard_index(coord)] = t.numel() * t.element_size()
+            total += sum(seen.values())
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def checkpoint_across(rank, n, tree, fields: dict, tokens, folder: str, layouts: dict) -> dict:
+    """Over dcn tp 2: one float32 ``train_step``, then the state (those
+    params, ``optimizer_state_tree`` of the optimizer, and bf16 params of
+    the same weights) saved to ``folder`` with each process writing its
+    own slices, then a second step (the uninterrupted run).  Then, for
+    each of ``layouts`` ({name: dcn plan}), the checkpoint restored onto
+    that layout (params, optimizer state, bf16 params) and one step
+    resumed from it.  Returns the state as saved (``_held``), the bytes
+    this process wrote, the losses, and per layout the restored state,
+    the bytes its read plan asked for beside its own slices' bytes, and
+    the resumed step's loss."""
+    llama, sharding, ckpt = port("models.llama"), port("parallel.sharding"), port(
+        "models.checkpoint")
+    cfg = llama.LlamaConfig(**fields)
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    batches = [torch.from_numpy(t) for t in tokens]
+
+    def named(mesh, specs):
+        if isinstance(specs, dict):
+            return {k: named(mesh, v) for k, v in specs.items()}
+        return sharding.NamedSharding(mesh, specs)
+
+    mesh = _mesh(dict(dp=1), dict(dp=1, tp=2), 1)
+    params = sharding.shard_tree(llama.params_from_numpy(tree, cfg, device="cpu"), mesh,
+                                 llama.param_pspecs(cfg))
+    opt = llama.make_optimizer(params)
+    losses = [float(llama.train_step(params, opt, batches[0], cfg))]
+    state = {"params": params, "opt": ckpt.optimizer_state_tree(opt, params),
+             "bf16": sharding.shard_tree(llama.params_from_numpy(tree, cfg16, device="cpu"),
+                                         mesh, llama.param_pspecs(cfg16))}
+    wrote = {}
+    ckpt.save_checkpoint(folder, state, report=wrote)
+    out = {"saved": _held(state, mesh), "wrote": wrote["bytes"]}
+    losses.append(float(llama.train_step(params, opt, batches[1], cfg)))
+    out["losses"] = losses
+    for name, dcn in layouts.items():
+        target_mesh = _mesh(dict(dp=1), dcn, 1)
+        shardings = named(target_mesh, llama.param_pspecs(cfg))
+        target_params = ckpt.abstract_like(state["params"], shardings)
+        fresh = llama.make_optimizer(target_params)
+        target = {"params": target_params,
+                  "opt": ckpt.optimizer_state_like(fresh, target_params),
+                  "bf16": ckpt.abstract_like(state["bf16"], shardings)}
+        read = {}
+        restored = ckpt.restore_checkpoint(folder, target, report=read)
+        ckpt.load_optimizer_state_tree(fresh, restored["params"], restored["opt"])
+        row = {"held": _held(restored, target_mesh), "read": read["bytes"],
+               "own": _own_bytes(restored), "crossing": target_mesh.crossing_axes()}
+        row["resumed"] = float(llama.train_step(restored["params"], fresh, batches[1], cfg))
+        out[name] = row
+    return out

@@ -1360,3 +1360,79 @@ def test_new_paths_import_without_a_gpu_and_build_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [0, False]
+
+
+def test_fingerprint_tells_one_changed_element_apart():
+    """Phase 9b's and 12d-across's fingerprint: the same bits give the
+    same value on any layout of the same elements; one changed element
+    (one bit, or a sign of zero) always changes it; the element order
+    counts."""
+    fp = smoke["fingerprint"]
+    x = torch.randn(3, 5, 7)
+    assert fp(torch, x) == fp(torch, x.clone()) == fp(torch, x.transpose(0, 1).contiguous()
+                                                      .transpose(0, 1))
+    for flip in ((0, 0, 0), (2, 4, 6), (1, 2, 3)):
+        y = x.clone()
+        y.view(torch.int32)[flip] ^= 1
+        assert fp(torch, y) != fp(torch, x), flip
+    z = torch.zeros(4)
+    negative = z.clone()
+    negative[2] = -0.0
+    assert fp(torch, negative) != fp(torch, z)
+    assert fp(torch, x.flip(0)) != fp(torch, x)
+    assert fp(torch, x.bfloat16()) != fp(torch, x.bfloat16().flip(1))
+
+
+def test_fingerprint_mismatches_find_the_bad_slice():
+    """Fingerprints of a state on a tp 2 mesh against the global tensors:
+    a slice changed in the global tensor is named by its path and
+    coordinate; a plain tensor by its path."""
+    mesh, sharding = port("parallel.mesh"), port("parallel.sharding")
+    tmesh = mesh.make_mesh(mesh.MeshPlan(dp=1, tp=2), ["cpu"] * 2)
+    full = {"w": torch.randn(4, 6), "step": torch.tensor(3.0)}
+    state = {"w": sharding.shard(full["w"], tmesh, sharding.P(None, "tp")), "step": full["step"]}
+    prints = smoke["tree_fingerprints"](torch, state)
+    specs = {"w": (None, "tp")}
+    assert smoke["fingerprint_mismatches"](torch, sharding, tmesh, specs, prints, full,
+                                           "cpu") == []
+    changed = dict(full, w=full["w"].clone(), step=torch.tensor(4.0))
+    changed["w"][1, 5] += 1
+    bad = smoke["fingerprint_mismatches"](torch, sharding, tmesh, specs, prints, changed, "cpu")
+    assert bad == [("w", tmesh.coord(tp=1)), ("step", None)]
+
+
+def test_transfers_by_direction_and_own_bytes():
+    """The forward's kinds, the backward's (``:bwd`` and their order
+    checks) and the gradients' sync (``sum:``) apart; a state's bytes a
+    restore must read: one copy of each slice, and its plain tensors."""
+    by_kind = {
+        "all_reduce:tp": {"calls": 2, "bytes_out": 16, "bytes_in": 16, "span_ms": 6.0,
+                          "d2h_ms": 2.0, "h2d_ms": 1.0, "ms_per_call": 3.0},
+        "all_reduce:tp:bwd": {"calls": 1, "bytes_out": 8, "bytes_in": 8, "span_ms": 1.0,
+                              "d2h_ms": 0.5, "h2d_ms": 0.5, "ms_per_call": 1.0},
+        "order:tp": {"calls": 1, "bytes_out": 16, "bytes_in": 16, "span_ms": 0.5,
+                     "d2h_ms": 0.0, "h2d_ms": 0.0, "ms_per_call": 0.5},
+        "sum:tp": {"calls": 3, "bytes_out": 12, "bytes_in": 12, "span_ms": 3.0,
+                   "d2h_ms": 0.0, "h2d_ms": 0.0, "ms_per_call": 1.0}}
+    got = smoke["transfers_by_direction"](by_kind)
+    assert got["forward"]["calls"] == 2 and got["forward"]["bytes_out"] == 16
+    assert got["backward"]["calls"] == 2 and got["backward"]["bytes_in"] == 24
+    assert got["backward"]["span_ms"] == 1.5 and got["sync"]["calls"] == 3
+    mesh, sharding = port("parallel.mesh"), port("parallel.sharding")
+    tmesh = mesh.make_mesh(mesh.MeshPlan(dp=2, tp=2), ["cpu:0", "cpu:1", "cpu:2", "cpu:3"])
+    state = {"w": sharding.shard(torch.zeros(4, 6), tmesh, sharding.P(None, "tp")),
+             "b": sharding.shard(torch.zeros(8), tmesh, sharding.P(None)),
+             "step": torch.zeros(())}
+    # w: two tp halves of 12 floats; b: one copy of 8 floats; the step.
+    assert smoke["own_bytes"](torch, state) == (2 * 12 + 8 + 1) * 4
+
+
+def test_rss_peak_sees_what_the_block_held():
+    """12d-across's sampled peak: 64 MiB touched and dropped inside the
+    block lift the peak above the resident set before it."""
+    before = smoke["host_rss_bytes"]()
+    with smoke["RssPeak"]() as rss:
+        held = np.ones(64 << 20, dtype=np.uint8)
+        time.sleep(0.05)
+        del held
+    assert rss.peak >= before + (32 << 20)

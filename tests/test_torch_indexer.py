@@ -219,12 +219,17 @@ def test_new_index_dispatch_matches_reference():
 
 
 def test_port_indexer_runs_with_the_score_memo():
-    """Over the port's own in-memory index the memo is on and
-    ``kvtpu_score_memo_disabled`` stays 0."""
+    """Over the port's own in-memory index the memo is on and building
+    the Indexer leaves ``kvtpu_score_memo_disabled`` where it was.  The
+    gauge is process-wide and latches to 1 once any Indexer meets a
+    backend without ``version_vector``, so it is read before and after,
+    as the reference's cluster test does."""
+    gauge = PORT.collector.METRICS.score_memo_disabled
+    before = PORT.collector.gauge_value(gauge)
     indexer = make_indexer(PORT)
     try:
         assert indexer._score_memo is not None
-        assert PORT.collector.gauge_value(PORT.collector.METRICS.score_memo_disabled) == 0.0
+        assert PORT.collector.gauge_value(gauge) == before
     finally:
         close([indexer])
 

@@ -16,10 +16,9 @@ gathers what the processes return here, in the test:
   ``train_step`` on a dp 2 mesh of 2 devices in loss, every gradient and
   every updated parameter, within ``test_torch_training.py``'s
   tolerances;
-- (d) training (``loss_fn``, ``train_step``) with tp, pp or sp (Llama) or
-  ep or dp (MoE) across processes raises ``NotImplementedError`` naming the
-  axis, while ``forward`` on the same mesh serves; the MoE forward with
-  plain params over an ``sp_mesh`` of several processes raises.
+- (d) the MoE forward with plain params over an ``sp_mesh`` of several
+  processes raises (training along every axis across processes:
+  ``tests/test_torch_training_processes.py``).
 
 Tolerances are those of ``test_torch_ring_attention.py`` (``TOL`` 1e-5
 for float32 attention, ``LOGITS`` 5e-4 for logits after two layers) and
@@ -45,7 +44,6 @@ from tests.helpers.torch_port import port
 ring = port("ops.ring_attention")
 mesh = port("parallel.mesh")
 llama = port("models.llama")
-moe = port("models.moe")
 sharding = port("parallel.sharding")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -266,38 +264,14 @@ def test_train_step_dp_across_processes_matches_single_controller_and_reference(
 # ------------------------------------------------------------------ (d)
 
 
-@pytest.fixture(scope="module")
-def guards(models):
-    _, tree, tcfg = models
+def test_moe_plain_params_over_processes_raise():
     tokens = np.random.default_rng(80).integers(0, JAX_CFG.vocab_size, (2, 16)).astype(np.int32)
     moe_fields = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64,
                       n_experts=4, top_k=2, dtype="float32")
-    return torch_dist.run_group(torch_dist.training_guards, 2, tree,
-                                torch_dist.cfg_fields(tcfg), tokens, moe_fields,
-                                timeout=GROUP_S)
-
-
-@pytest.mark.parametrize("case", ["tp", "pp", "sp", "ep", "dp-moe"])
-def test_training_across_model_axes_raises_and_forward_serves(guards, case):
-    """Over a mesh whose tp, pp or sp (Llama) or ep (MoE) crosses the
-    processes, ``loss_fn`` and ``train_step`` raise ``NotImplementedError``
-    naming the axis (their collectives carry no gradient), and
-    ``forward`` on the same mesh gives this process's finite logits; so
-    does the MoE over dp, whose routing joins the batch shards (the
-    Llama's dp step across processes is case (c))."""
-    axis = case.split("-")[0]
-    for errors in guards:
-        row = errors[case]
-        for call in ("loss_fn", "train_step"):
-            assert row[call] is not None, (axis, call)
-            assert f"the {axis} axis crosses processes" in row[call], row[call]
-        assert row["forward"] and row["finite"], row
-
-
-def test_moe_plain_params_over_processes_raise(guards):
-    for errors in guards:
-        assert errors["moe-plain-sp"] is not None
-        assert "sp_mesh of several processes is not ported" in errors["moe-plain-sp"]
+    for error in torch_dist.run_group(torch_dist.moe_plain_sp, 2, tokens, moe_fields,
+                                      timeout=GROUP_S):
+        assert error is not None
+        assert "sp_mesh of several processes is not ported" in error
 
 
 # ------------------------------------------------------------ transport
