@@ -213,7 +213,7 @@ Phases (any failure exits non-zero):
  12f. serving across processes, after 12b: 2 spawned processes on
      ``cuda:0`` in a gloo group over loopback, the parent's 32-layer
      weights and the references as CUDA IPC handles, each process
-     holding one copy of what it cannot view (``share_tree``); phase
+     holding one copy of what it cannot view (``sharding.share_tree``); phase
      5's miss, hit and 8 eager decode steps over three meshes that
      ``make_hybrid_mesh`` builds in both: tp across the processes
      (logits, tokens and each process's pool slice bit for bit 12a's),
@@ -229,7 +229,17 @@ Phases (any failure exits non-zero):
      prefill and decode kernel call against the plain version; walls
      beside 12a's and phase 5's, transfers by kind (gloo ms a call,
      staging ms each way, bytes), each process's device idle share of
-     one profiled miss, launches a process;
+     one profiled miss, launches a process; then plain params over an
+     ``sp_mesh`` of the two processes, which ``forward`` shares onto it
+     (``sharding.share_tree``): ``MoEConfig()`` over ici sp 2 x dcn sp
+     2 on phase 11's prompt, logits, aux and each layer's expert picks
+     bit for bit the parent's one-process plain ring, and the first 8
+     layers over ici tp 2 x dcn sp 2 on phase 6's prompt, both layouts,
+     each chunk bit for bit the single controller's on the same layout
+     (fingerprints) and within the model-level limit of the 8-layer
+     dense forward with its next token; process 0 holds its partial
+     launches; launches a process, walls, transfers, idle share, peak
+     memory and the bytes the share viewed and copied;
  13. read path, on the host: three Indexers (fast lane, fast lane without
      the score memo, straight path) over metrics-wrapped in-memory
      indexes seeded with 4 pods x 64 random 8192-token conversations
@@ -417,6 +427,17 @@ ACROSS_MESHES = {"tp": (dict(dp=1), dict(dp=1, tp=2)), "pp": (dict(dp=1), dict(d
 ACROSS_MOE = (dict(dp=1, tp=2), dict(dp=1, ep=2))
 ACROSS_SEED = SEED + 40
 ACROSS_GROUP_TIMEOUT_S = 600
+# Then, in the same group, plain params (one tensor a leaf, not sharded)
+# over an sp_mesh of the processes, which forward shares onto the mesh
+# (sharding.share_tree): MoEConfig() uncut over ici sp 2 x dcn sp 2 (a
+# ring of RING_SP, two ranks a process, contiguous) on phase 11's prompt,
+# and Llama-3-8B's widths cut to PLAIN_LLAMA_LAYERS layers over ici tp 2 x
+# dcn sp 2 on phase 6's prompt, both layouts: each process holding the
+# plain params and its tp slices' copies of all 32 layers would not fit
+# beside the parent's references.
+PLAIN_MOE_MESH = (dict(dp=1, sp=RING_SP // ACROSS_WORLD), dict(dp=1, sp=ACROSS_WORLD))
+PLAIN_LLAMA_MESH = (dict(dp=1, tp=SHARD_TP), dict(dp=1, sp=ACROSS_WORLD))
+PLAIN_LLAMA_LAYERS = 8
 # Phase 9b: phases 8-9's cut model trained over ACROSS_WORLD spawned
 # processes on the card, TRAIN_ACROSS_STEPS steps on each mesh
 # ({name: dcn plan}, one rank a process): dp across them on batches of
@@ -2160,7 +2181,7 @@ def spawn_group(torch, target, world: int, args: tuple, timeout: float, wait_all
     return [got.get(rank) for rank in range(world)]
 
 
-def hold_partials(torch, run) -> dict:
+def hold_partials(torch, run, tag: str = "6b") -> dict:
     """``run()`` with every partial launch of this process's ring held,
     as it is made, against the plain version on the same inputs: the
     normalized output within ``LIMITS``, m and l within ``RING_M_ABS``
@@ -2204,7 +2225,7 @@ def hold_partials(torch, run) -> dict:
     if not (seen["calls"] and seen["finite"] and seen["worst_err_over_limit"] <= 1.0
             and seen["m_max_abs_err"] <= RING_M_ABS and seen["l_worst_err_over_limit"] <= 1.0
             and seen["exact_empty_rows"]):
-        raise AssertionError(f"6b: a partial launch disagrees with the plain version: {seen}")
+        raise AssertionError(f"{tag}: a partial launch disagrees with the plain version: {seen}")
     return seen
 
 
@@ -3699,6 +3720,28 @@ def routed_experts(dispatch):
     return dispatch.sum(-1) > 0
 
 
+@contextlib.contextmanager
+def recorded_routes(torch, moe, fingerprints: bool = False):
+    """Inside the block every ``moe._route`` call appends its
+    ``routed_experts`` to the first list of the yielded pair, and (with
+    ``fingerprints``) the ``fingerprint`` of the tokens it routed, a
+    layer's input to the MoE, to the second."""
+    route, picks, inputs = moe._route, [], []
+
+    def recording_route(x, router, c):
+        dispatch, combine, aux = route(x, router, c)
+        picks.append(routed_experts(dispatch))
+        if fingerprints:
+            inputs.append(fingerprint(torch, x))
+        return dispatch, combine, aux
+
+    moe._route = recording_route
+    try:
+        yield picks, inputs
+    finally:
+        moe._route = route
+
+
 def differing_tokens(got, want):
     """[S] bool: tokens routed differently in any layer, from two lists
     (one entry a layer) of ``routed_experts``."""
@@ -4036,23 +4079,11 @@ def moe_phase(torch, peaks):
     # the experts each token went to recorded in every layer.
     params32 = map_state(torch, params, lambda leaf: leaf.float())
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    route, records = moe._route, []
-
-    def recording_route(x, router, c):
-        dispatch, combine, aux = route(x, router, c)
-        records.append(routed_experts(dispatch))
-        return dispatch, combine, aux
-
     outputs = {}
-    moe._route = recording_route
-    try:
-        for name in runs:
-            records = []
-            with torch.no_grad():
-                logits, aux = moe.forward(params32, tokens, cfg32, **runs[name])
-            outputs[name] = (logits, float(aux), records)
-    finally:
-        moe._route = route
+    for name in runs:
+        with recorded_routes(torch, moe) as (records, _), torch.no_grad():
+            logits, aux = moe.forward(params32, tokens, cfg32, **runs[name])
+        outputs[name] = (logits, float(aux), records)
     dense, dense_aux, dense_routes = outputs["dense"]
     checks = {}
     for name in ("flash", "ring"):
@@ -4988,26 +5019,15 @@ def sharded_moe(torch):
     mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_MOE_PLAN), ["cuda:0"] * 4)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = map_state(torch, params, lambda leaf: leaf.float())
-    route, outputs = moe._route, {}
+    outputs = {}
     probe = torch.arange(8.0, device="cuda").reshape(4, 2)
     with mesh_mod.activate(mesh):
         placed = constrain_probe(torch, moe, sharding, mesh_mod, probe, mesh)
         sharded32 = sharding.shard_tree(params32, mesh, moe.param_pspecs(cfg))
-        try:
-            for name, tree in (("unsharded", params32), ("sharded", sharded32)):
-                records = []
-
-                def recording_route(x, router, c, records=records):
-                    dispatch, combine, aux = route(x, router, c)
-                    records.append(routed_experts(dispatch))
-                    return dispatch, combine, aux
-
-                moe._route = recording_route
-                with torch.no_grad():
-                    logits, aux = moe.forward(tree, tokens, cfg32)
-                outputs[name] = (logits, float(aux), records)
-        finally:
-            moe._route = route
+        for name, tree in (("unsharded", params32), ("sharded", sharded32)):
+            with recorded_routes(torch, moe) as (records, _), torch.no_grad():
+                logits, aux = moe.forward(tree, tokens, cfg32)
+            outputs[name] = (logits, float(aux), records)
         del sharded32, params32
         (want, want_aux, want_routes), (got, got_aux, got_routes) = (
             outputs["unsharded"], outputs["sharded"])
@@ -5072,30 +5092,6 @@ def sharded_moe(torch):
 
 
 # -------------------------------------------------------------- phase 12f
-
-
-def share_tree(torch, sharding, tree, mesh, specs):
-    """``shard_tree``'s Sharded leaves over ``mesh``, each local a view of
-    ``tree``'s tensor where its slice is contiguous (a stage's layers, a
-    leaf that is not cut) and a contiguous copy where it is not (a tp
-    slice): processes that share one card then hold one copy of the
-    weights between them, not one each.  The model paths read the
-    locals the same either way."""
-    import numpy as np
-
-    if isinstance(tree, dict):
-        return {k: share_tree(torch, sharding, v, mesh, specs[k]) for k, v in tree.items()}
-    out = sharding.Sharded(mesh, sharding.P(*specs), tuple(tree.shape), tree.dtype,
-                           np.empty(mesh.devices.shape, dtype=object))
-    made = {}
-    for coord in np.ndindex(mesh.devices.shape):
-        if mesh.is_local(coord):
-            index = out.shard_index(coord)
-            if index not in made:
-                piece = tree[out.slices(index)]
-                made[index] = piece if piece.is_contiguous() else piece.contiguous()
-            out.locals[coord] = made[index]
-    return out
 
 
 def across_launches(name: str, layers: int, decode_steps: int = DECODE_STEPS,
@@ -5194,7 +5190,7 @@ def across_mesh(torch, dist, rank: int, name: str, params, cfg, t) -> dict:
     else:
         mesh = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(**plans[0]),
                                          mesh_mod.MeshPlan(**plans[1]), devices=[card])
-    sharded = share_tree(torch, sharding, params, mesh, llama.param_pspecs(cfg))
+    sharded = sharding.share_tree(params, mesh, llama.param_pspecs(cfg))
     req = t["fleet"] if name == "dp" else t["phase5"]
     spec = sharding.P(None, None, None, None, "tp", None)
     pool = pool_mod.KVCachePool(
@@ -5312,7 +5308,7 @@ def across_moe(torch, dist, rank: int, params, tokens, routes, ref_logits, ref_a
     ici, dcn = ACROSS_MOE
     mesh = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(**ici), mesh_mod.MeshPlan(**dcn),
                                      devices=[str(params["embed"].device)] * ici["tp"])
-    sharded = share_tree(torch, sharding, params, mesh, moe.param_pspecs(cfg))
+    sharded = sharding.share_tree(params, mesh, moe.param_pspecs(cfg))
     coord = next(c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c))
     transport = pg.transport(mesh)
 
@@ -5322,15 +5318,7 @@ def across_moe(torch, dist, rank: int, params, tokens, routes, ref_logits, ref_a
         return logits.locals[coord], aux
 
     out = {"mesh": repr(mesh), "crossing": list(mesh.crossing_axes())}
-    route, records = moe._route, []
-
-    def recording_route(x, router, c):
-        dispatch, combine, aux = route(x, router, c)
-        records.append(routed_experts(dispatch))
-        return dispatch, combine, aux
-
-    moe._route = recording_route
-    try:
+    with recorded_routes(torch, moe) as (records, _):
         if rank == 0:
             with HeldCalls(llama, "flash_gqa_attention_cuda", fc.flash_gqa_attention_plain,
                            "prefill", tag="12f") as held:
@@ -5339,8 +5327,6 @@ def across_moe(torch, dist, rank: int, params, tokens, routes, ref_logits, ref_a
             del held
         else:
             forward()
-    finally:
-        moe._route = route
     dist.barrier()
     fc.flash_gqa_attention_cuda.launches = 0
     transport.log.clear()
@@ -5367,12 +5353,248 @@ def across_moe(torch, dist, rank: int, params, tokens, routes, ref_logits, ref_a
     return out
 
 
-def across_process_run(torch, dist, rank, params, cfg, t, moe_args) -> dict:
-    """A worker of phase 12f: the three Llama meshes, then the MoE."""
+def first_layers(params, n: int):
+    """The params of the first ``n`` layers: each stacked leaf a view."""
+    return {"embed": params["embed"], "layers": {k: v[:n] for k, v in params["layers"].items()},
+            "ln_f": params["ln_f"]}
+
+
+def share_report(torch, sharding, params, mesh, specs) -> dict:
+    """What ``sharding.share_tree`` of the plain ``params`` over ``mesh``
+    holds in this process: the plain tree's bytes, the bytes of the
+    distinct locals that are views of the plain leaves and of those it
+    copied (tp slices), and the memory the share allocated."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    shared = sharding.share_tree(params, mesh, specs)
+    grew = torch.cuda.memory_allocated() - before
+    views = copies = 0
+    for leaf, cut in zip(sharding.tree_leaves(params), sharding.tree_leaves(shared)):
+        for _, t in cut.distinct():
+            n = t.numel() * t.element_size()
+            if t.untyped_storage().data_ptr() == leaf.untyped_storage().data_ptr():
+                views += n
+            else:
+                copies += n
+    del shared
+    plain = sum(leaf.numel() * leaf.element_size() for leaf in sharding.tree_leaves(params))
+    return {"plain_bytes": plain, "view_bytes": views, "copied_bytes": copies,
+            "allocated_bytes": grew}
+
+
+def plain_ring_launches(ranks, sp: int, striped: bool, heads: int, layers: int) -> int:
+    """Partial launches of one process's ring ranks ``ranks`` (sp
+    indices) over ``layers`` layers and ``heads`` head shards: rank s
+    launches s + 1 times a layer contiguous (the steps that see a key),
+    sp times striped; over every rank, ``ring_steps``."""
+    return sum(sp if striped else s + 1 for s in ranks) * heads * layers
+
+
+def plain_block_prelude(torch, sharding, params, mesh, specs) -> tuple:
+    """A plain block's start in a worker: this process's sp and tp
+    indices, the share's report, and the allocated bytes from which its
+    peak is read."""
+    import numpy as np
+
+    gc_cuda(torch)
+    owned = [c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c)]
+    ranks = {a: sorted({c[mesh.axis_names.index(a)] for c in owned}) for a in ("sp", "tp")}
+    share = share_report(torch, sharding, params, mesh, specs)
+    torch.cuda.reset_peak_memory_stats()
+    return ranks, share, torch.cuda.memory_allocated()
+
+
+def plain_moe_over_sp(torch, dist, rank: int, params, tokens, ref) -> dict:
+    """12f's MoE block in one worker: plain ``MoEConfig()`` params over ici
+    sp 2 x dcn sp 2, contiguous, once with each layer's expert picks and
+    routing input recorded (process 0's partials held), then timed
+    (wall, launches, transfers) and profiled; each local chunk of its
+    logits and its aux against the parent's one-process plain ring."""
+    moe, mesh_mod, sharding = port("models.moe"), port("parallel.mesh"), port("parallel.sharding")
+    rc, pg = port("ops.ring_flash_cuda"), port("parallel.process_group")
+    cfg = moe.MoEConfig()
+    ici, dcn = PLAIN_MOE_MESH
+    mesh = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(**ici), mesh_mod.MeshPlan(**dcn),
+                                     devices=[str(params["embed"].device)] * ici["sp"])
+    transport = pg.transport(mesh)
+    ranks, share, base = plain_block_prelude(torch, sharding, params, mesh,
+                                             moe.param_pspecs(cfg))
+    out = {"mesh": repr(mesh), "crossing": list(mesh.crossing_axes()), "ranks": ranks,
+           "share": share}
+
+    def forward():
+        with torch.no_grad():
+            return moe.forward(params, tokens, cfg, sp_mesh=mesh)
+
+    with recorded_routes(torch, moe, fingerprints=True) as (picks, inputs):
+        if rank == 0:
+            out["held"] = hold_partials(torch, forward, tag="12f plain MoE")
+        else:
+            forward()
+            torch.cuda.synchronize()
+    want_picks, want_inputs = ref["routes"]
+    out["routed_otherwise"] = int(differing_tokens(picks, want_picks).sum())
+    out["first_layer_input_differs"] = next(
+        (i for i, (a, b) in enumerate(zip(inputs, want_inputs)) if a != b), None)
+    dist.barrier()
+    rc.flash_partial_cuda.launches = 0
+    transport.log.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, aux = forward()
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = rc.flash_partial_cuda.launches
+    out["transfers"] = transfers_by_kind(transport.log.records())
+    tl = tokens.shape[1] // mesh.size("sp")
+    k = mesh.axis_names.index("sp")
+    out["logits"] = {c[k]: logits_gap(torch, local, ref["logits"][:, c[k] * tl:(c[k] + 1) * tl])
+                     for c, local in logits.distinct()}
+    out["aux"], out["aux_equal"] = float(aux), bool(torch.equal(aux, ref["aux"]))
+    del logits
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    dist.barrier()
+    busy = device_breakdown(torch, forward, steps=1)
+    out["device_ms"], out["profiled_wall_ms"] = busy["device_ms"], busy["profiled_wall_ms"]
+    out["idle_share"] = 1 - busy["device_ms"] / busy["profiled_wall_ms"]
+    dist.barrier()
+    return out
+
+
+def plain_llama_over_tp_sp(torch, dist, rank: int, params, cfg, tokens, ref) -> dict:
+    """12f's Llama block in one worker: the first ``PLAIN_LLAMA_LAYERS``
+    layers' plain params over ici tp 2 x dcn sp 2, both layouts, each
+    once with process 0's partials held, then timed and profiled; each
+    local chunk's fingerprint against the parent's single controller on
+    the same layout, and the chunk against the dense forward."""
+    llama, mesh_mod, sharding = port("models.llama"), port("parallel.mesh"), port(
+        "parallel.sharding")
+    rc, pg = port("ops.ring_flash_cuda"), port("parallel.process_group")
+    cut = dataclasses.replace(cfg, n_layers=PLAIN_LLAMA_LAYERS)
+    plain = first_layers(params, PLAIN_LLAMA_LAYERS)
+    ici, dcn = PLAIN_LLAMA_MESH
+    mesh = mesh_mod.make_hybrid_mesh(mesh_mod.MeshPlan(**ici), mesh_mod.MeshPlan(**dcn),
+                                     devices=[str(params["embed"].device)] * ici["tp"])
+    transport = pg.transport(mesh)
+    ranks, share, base = plain_block_prelude(torch, sharding, plain, mesh,
+                                             llama.param_pspecs(cut))
+    out = {"mesh": repr(mesh), "crossing": list(mesh.crossing_axes()), "ranks": ranks,
+           "share": share, "layouts": {}}
+    R, k = mesh.size("sp"), mesh.axis_names.index("sp")
+    tl = tokens.shape[1] // R
+    for name, striped in (("contiguous", False), ("striped", True)):
+        def forward(striped=striped):
+            with torch.no_grad():
+                return llama.forward(plain, tokens, cut, sp_mesh=mesh, ring_striped=striped)
+
+        row = {}
+        if rank == 0:
+            row["held"] = hold_partials(torch, forward, tag=f"12f plain Llama {name}")
+        else:
+            forward()
+            torch.cuda.synchronize()
+        dist.barrier()
+        rc.flash_partial_cuda.launches = 0
+        transport.log.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = forward()
+        torch.cuda.synchronize()
+        row["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        row["launches"] = rc.flash_partial_cuda.launches
+        row["transfers"] = transfers_by_kind(transport.log.records())
+        row["chunks"] = {}
+        for c, local in logits.distinct():
+            s = c[k]
+            dense = ref["dense"][:, s::R] if striped else ref["dense"][:, s * tl:(s + 1) * tl]
+            row["chunks"][s] = {"bit_equal": fingerprint(torch, local) == ref["prints"][name][s],
+                                "dense": logits_gap(torch, local, dense)}
+            if s == R - 1:  # the chunk of position T - 1, in either layout
+                row["token"] = int(local[0, -1].argmax())
+        del logits
+        dist.barrier()
+        busy = device_breakdown(torch, forward, steps=1)
+        row["device_ms"], row["profiled_wall_ms"] = busy["device_ms"], busy["profiled_wall_ms"]
+        row["idle_share"] = 1 - busy["device_ms"] / busy["profiled_wall_ms"]
+        out["layouts"][name] = row
+        dist.barrier()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
+def plain_references(torch, params, cfg, moe_args) -> tuple:
+    """What 12f's plain blocks are held to, made in the parent before the
+    workers start: the MoE's one-process plain ring forward (phase 11's
+    bf16 forward over ``MeshPlan(sp=RING_SP)``) with each layer's expert
+    picks and routing input's fingerprint; the cut Llama's single
+    controller on the merged tp x sp mesh with ``shard_tree`` params,
+    both layouts, as the fingerprint of each ring rank's chunk (in the
+    layout's order), and its dense forward.  Returns (the blocks'
+    inputs, the parent's walls)."""
+    llama, moe = port("models.llama"), port("models.moe")
+    sharding, mesh_mod = port("parallel.sharding"), port("parallel.mesh")
+    dev = params["embed"].device
+    walls = {}
+    mcfg = moe.MoEConfig()
+    ring_mesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, sp=RING_SP), [str(dev)] * RING_SP)
+    with torch.no_grad():
+        # The warm-up records the picks; the timed forward records nothing.
+        with recorded_routes(torch, moe, fingerprints=True) as routes:
+            moe.forward(moe_args["params"], moe_args["tokens"], mcfg, sp_mesh=ring_mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mlogits, maux = moe.forward(moe_args["params"], moe_args["tokens"], mcfg,
+                                    sp_mesh=ring_mesh)
+        torch.cuda.synchronize()
+        walls["moe_ring_ms"] = (time.perf_counter() - t0) * 1e3
+    cut = dataclasses.replace(cfg, n_layers=PLAIN_LLAMA_LAYERS)
+    plain = first_layers(params, PLAIN_LLAMA_LAYERS)
+    tokens = torch.randint(1, cfg.vocab_size, (1, RING_TOKENS),
+                           generator=torch.Generator().manual_seed(SEED + 1))  # phase 6's
+    R = PLAIN_LLAMA_MESH[1]["sp"]
+    merged = mesh_mod.make_mesh(mesh_mod.MeshPlan(dp=1, tp=SHARD_TP, sp=R),
+                                [str(dev)] * (SHARD_TP * R))
+    sharded = sharding.shard_tree(plain, merged, llama.param_pspecs(cut))
+    tl, prints = RING_TOKENS // R, {}
+    with torch.no_grad():
+        for name, striped in (("contiguous", False), ("striped", True)):
+            llama.forward(sharded, tokens, cut, sp_mesh=merged, ring_striped=striped)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = llama.forward(sharded, tokens, cut, sp_mesh=merged, ring_striped=striped)
+            torch.cuda.synchronize()
+            walls[f"llama_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            prints[name] = [fingerprint(torch, logits[:, s::R] if striped
+                                        else logits[:, s * tl:(s + 1) * tl]) for s in range(R)]
+            del logits
+        del sharded
+        gc_cuda(torch)
+        llama.forward(plain, tokens, cut)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = llama.forward(plain, tokens, cut)
+        torch.cuda.synchronize()
+        walls["llama_dense_ms"] = (time.perf_counter() - t0) * 1e3
+    gc_cuda(torch)
+    inputs = {"moe": {"params": moe_args["params"], "tokens": moe_args["tokens"],
+                      "ref": {"logits": mlogits, "aux": maux, "routes": routes}},
+              "llama": {"params": params, "cfg": cfg, "tokens": tokens,
+                        "ref": {"prints": prints, "dense": dense}}}
+    return inputs, walls
+
+
+def across_process_run(torch, dist, rank, params, cfg, t, moe_args, plain_args) -> dict:
+    """A worker of phase 12f: the three Llama meshes, the MoE, then the
+    plain params' MoE and Llama blocks."""
     out = {"meshes": {}}
     for name in ACROSS_MESHES:
         out["meshes"][name] = across_mesh(torch, dist, rank, name, params, cfg, t)
     out["moe"] = across_moe(torch, dist, rank, **moe_args)
+    gc_cuda(torch)
+    out["plain_moe"] = plain_moe_over_sp(torch, dist, rank, **plain_args["moe"])
+    gc_cuda(torch)
+    out["plain_llama"] = plain_llama_over_tp_sp(torch, dist, rank, **plain_args["llama"])
+    gc_cuda(torch)
     return out
 
 
@@ -5423,24 +5645,13 @@ def across_references(torch, params, cfg, p5, a12) -> tuple:
     mtokens = mtokens.to(dev)
     mmesh = mesh_mod.make_mesh(mesh_mod.MeshPlan(**SHARD_MOE_PLAN), [str(dev)] * 4)
     msharded = sharding.shard_tree(mparams, mmesh, moe.param_pspecs(mcfg))
-    route, routes = moe._route, []
-
-    def recording_route(x, router, c):
-        dispatch, combine, aux = route(x, router, c)
-        routes.append(routed_experts(dispatch))
-        return dispatch, combine, aux
-
-    moe._route = recording_route
-    try:
-        with torch.no_grad():
-            moe.forward(msharded, mtokens, mcfg)  # warm-up
-            routes.clear()
+    with torch.no_grad():
+        moe.forward(msharded, mtokens, mcfg)  # warm-up
+        with recorded_routes(torch, moe) as (routes, _):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             mlogits, maux = moe.forward(msharded, mtokens, mcfg)
             torch.cuda.synchronize()
-    finally:
-        moe._route = route
     walls["moe_ms"] = (time.perf_counter() - t0) * 1e3
     del msharded
     gc_cuda(torch)
@@ -5470,14 +5681,21 @@ def serving_across_processes(torch, params, cfg, p5, a12) -> dict:
     layers = cfg.n_layers
     t0 = time.perf_counter()
     t, moe_args, walls = across_references(torch, params, cfg, p5, a12)
+    plain_args, plain_walls = plain_references(torch, params, cfg, moe_args)
     print(f"  references in the parent ({time.perf_counter() - t0:.1f} s): the default fleet's "
           f"unsharded batch-2 prefill {walls['fleet_miss_ms']:.1f} ms and eager decode "
           f"{walls['fleet_decode_ms']:.2f} ms a step; 12e's single-controller MoE forward "
-          f"{walls['moe_ms']:.1f} ms", flush=True)
+          f"{walls['moe_ms']:.1f} ms; the MoE's one-process plain ring (sp {RING_SP}) "
+          f"{plain_walls['moe_ring_ms']:.1f} ms; the {PLAIN_LLAMA_LAYERS}-layer Llama's single "
+          f"controller on tp {SHARD_TP} x sp {PLAIN_LLAMA_MESH[1]['sp']}, contiguous "
+          f"{plain_walls['llama_contiguous_ms']:.1f} ms, striped "
+          f"{plain_walls['llama_striped_ms']:.1f} ms, dense forward "
+          f"{plain_walls['llama_dense_ms']:.1f} ms; {torch.cuda.memory_allocated() / 1e9:.2f} "
+          "GB allocated", flush=True)
     t0 = time.perf_counter()
     workers = spawn_group(torch, group_worker, ACROSS_WORLD,
                           ("across_process_run", ACROSS_GROUP_TIMEOUT_S,
-                           (params, cfg, t, moe_args)),
+                           (params, cfg, t, moe_args, plain_args)),
                           timeout=ACROSS_GROUP_TIMEOUT_S + 120)
     torch.cuda.ipc_collect()  # the workers have exited: release what they shared
     print(f"  {ACROSS_WORLD} processes on cuda:0 (gloo over loopback, CUDA tensors staged through "
@@ -5571,8 +5789,121 @@ def serving_across_processes(torch, params, cfg, p5, a12) -> dict:
     out["launches_by_path"] = across_launches_by_path(
         {**{name: m["launches_per_process"] for name, m in out["meshes"].items()},
          "moe": out["moe"]["launches_per_process"]})
-    del t, moe_args
+    out["plain"] = check_plain(workers, plain_args, plain_walls)
+    out["launches_by_path"]["ring_partial"] = out["plain"].pop("launches_by_path")
+    del t, moe_args, plain_args
     gc_cuda(torch)
+    return out
+
+
+def plain_text(row: dict) -> str:
+    """A plain block's process: the share, transfers and peak memory."""
+    share = row["share"]
+    return (f"share of the plain tree ({share['plain_bytes'] / 1e9:.2f} GB): "
+            f"{share['view_bytes'] / 1e9:.2f} GB of views, {share['copied_bytes'] / 1e9:.2f} GB "
+            f"copied, {share['allocated_bytes'] / 1e9:.2f} GB allocated by it; peak memory "
+            f"{row['peak_bytes'] / 1e9:.2f} GB above the block's start")
+
+
+def check_plain(workers, plain_args, walls) -> dict:
+    """12f's plain blocks, from each worker's rows: the MoE's logits and
+    aux bit for bit the one-process plain ring's, its picks the same and
+    its launches ``plain_ring_launches`` a process; the Llama's chunks
+    bit for bit the single controller's (fingerprints), within the
+    model-level limit of the dense forward with its next token, and its
+    launches likewise.  Prints and returns what held, and the partial's
+    launches by path."""
+    out = {"launches_by_path": {}}
+    L = port("models.moe").MoEConfig().n_layers
+    rows = [w["plain_moe"] for w in workers]
+    print(f"  plain MoE params over sp across processes: mesh {rows[0]['mesh']}, crossing "
+          f"{rows[0]['crossing']}, contiguous", flush=True)
+    for r, row in enumerate(rows):
+        gaps = row["logits"]
+        print(f"    process {r} (sp ranks {row['ranks']['sp']}): forward {row['wall_ms']:.1f} ms "
+              f"(the one-process plain ring {walls['moe_ring_ms']:.1f}); logits bit-equal "
+              f"{ {s: g['bit_equal'] for s, g in gaps.items()} } (max_abs_err "
+              f"{max(g['max_abs_err'] for g in gaps.values()):.6g}); aux {row['aux']!r}, equal "
+              f"{row['aux_equal']}; tokens routed otherwise {row['routed_otherwise']}; first "
+              f"layer whose routing input differs {row['first_layer_input_differs']}; transfers "
+              f"{transfers_text(row['transfers'])}; idle share {row['idle_share']:.3f} "
+              f"({row['device_ms']:.1f} / {row['profiled_wall_ms']:.1f}); {plain_text(row)}",
+              flush=True)
+        if row["share"]["copied_bytes"] or row["share"]["allocated_bytes"]:
+            raise AssertionError(f"12f plain MoE, process {r}: the share copied {row['share']}")
+        if not (all(g["bit_equal"] for g in gaps.values()) and row["aux_equal"]
+                and row["routed_otherwise"] == 0):
+            raise AssertionError(
+                f"12f plain MoE, process {r}: off the one-process plain ring (first layer whose "
+                f"routing input differs: {row['first_layer_input_differs']}): {gaps}, aux "
+                f"{row['aux']}, routed otherwise {row['routed_otherwise']}")
+    held = rows[0]["held"]
+    print(f"    process 0: {held['calls']} partial launches held against the plain version "
+          f"(offsets {held['offsets']}): max_abs_err {held['max_abs_err']:.6g}, worst err/limit "
+          f"{held['worst_err_over_limit']:.4g} (limit {held['limit']})", flush=True)
+    got = [row["launches"] for row in rows]
+    want = [plain_ring_launches(row["ranks"]["sp"], RING_SP, False, 1, L) for row in rows]
+    print(f"    partial launches a process {got} (expected {want}; over the processes "
+          f"{L * ring_steps(RING_SP, False)}, phase 11's ring)", flush=True)
+    if got != want or sum(got) != L * ring_steps(RING_SP, False):
+        raise AssertionError(f"12f plain MoE: launches {got}, expected {want}")
+    out["launches_by_path"]["moe_ring_processes_plain_sp"] = sum(got)
+    out["moe"] = {"mesh": rows[0]["mesh"], "wall_ms": max(row["wall_ms"] for row in rows),
+                  "reference_ms": walls["moe_ring_ms"], "launches_per_process": got,
+                  "bit_equal": True, "aux": rows[0]["aux"],
+                  "idle_share": [row["idle_share"] for row in rows],
+                  "transfers": [row["transfers"] for row in rows],
+                  "share": [row["share"] for row in rows],
+                  "peak_bytes": [row["peak_bytes"] for row in rows], "held": held}
+    rows = [w["plain_llama"] for w in workers]
+    dense = plain_args["llama"]["ref"]["dense"]
+    R, layers = PLAIN_LLAMA_MESH[1]["sp"], PLAIN_LLAMA_LAYERS
+    print(f"  plain Llama params ({layers} of 32 layers) over tp x sp across processes: mesh "
+          f"{rows[0]['mesh']}, crossing {rows[0]['crossing']}", flush=True)
+    for r, row in enumerate(rows):
+        print(f"    process {r} (sp ranks {row['ranks']['sp']}, tp ranks {row['ranks']['tp']}): "
+              f"{plain_text(row)}", flush=True)
+    out["llama"] = {"mesh": rows[0]["mesh"], "share": [row["share"] for row in rows],
+                    "peak_bytes": [row["peak_bytes"] for row in rows], "layouts": {}}
+    for name, striped in (("contiguous", False), ("striped", True)):
+        per = [row["layouts"][name] for row in rows]
+        chunks = [c for p in per for c in p["chunks"].values()]
+        equal = [all(c["bit_equal"] for c in p["chunks"].values()) for p in per]
+        worst = max(c["dense"]["max_abs_err"] for c in chunks)
+        tol = min(c["dense"]["tol"] for c in chunks)
+        print(f"    {name}: wall {max(p['wall_ms'] for p in per):.1f} ms (slowest process; single "
+              f"controller {walls[f'llama_{name}_ms']:.1f}, dense {walls['llama_dense_ms']:.1f}); "
+              f"chunks bit-equal to the single controller's (fingerprints) per process {equal}; "
+              f"max_abs_err against the dense forward {worst:.6g} (tolerance {tol:.4g})",
+              flush=True)
+        for r, p in enumerate(per):
+            print(f"    {name}, process {r}: transfers {transfers_text(p['transfers'])}; idle "
+                  f"share {p['idle_share']:.3f} ({p['device_ms']:.1f} / "
+                  f"{p['profiled_wall_ms']:.1f})", flush=True)
+        if not all(equal) or not all(gap_held(c["dense"], False) for c in chunks):
+            raise AssertionError(f"12f plain Llama {name}: bit-equal {equal}, against the dense "
+                                 f"forward {worst} (tolerance {tol})")
+        token = next(p["token"] for p in per if "token" in p)
+        check_next_token(f"12f plain Llama {name} next token", token, dense[0, -1], worst)
+        held = per[0]["held"]
+        print(f"    {name}, process 0: {held['calls']} partial launches held against the plain "
+              f"version (offsets {held['offsets']}): max_abs_err {held['max_abs_err']:.6g}, "
+              f"worst err/limit {held['worst_err_over_limit']:.4g}", flush=True)
+        got = [p["launches"] for p in per]
+        want = [plain_ring_launches(row["ranks"]["sp"], R, striped, len(row["ranks"]["tp"]),
+                                    layers) for row in rows]
+        total = shard_launches(ring_steps(R, striped), SHARD_TP, layers)
+        print(f"    {name}: partial launches a process {got} (expected {want}, {total} over the "
+              "processes)", flush=True)
+        if got != want or sum(got) != total:
+            raise AssertionError(f"12f plain Llama {name}: launches {got}, expected {want}")
+        out["launches_by_path"][f"llama_ring_processes_plain_tp_sp_{name}"] = sum(got)
+        out["llama"]["layouts"][name] = {
+            "wall_ms": max(p["wall_ms"] for p in per), "reference_ms": walls[f"llama_{name}_ms"],
+            "dense_ms": walls["llama_dense_ms"], "launches_per_process": got,
+            "bit_equal": all(equal), "max_abs_err_vs_dense": worst,
+            "idle_share": [p["idle_share"] for p in per],
+            "transfers": [p["transfers"] for p in per], "held": held}
     return out
 
 
@@ -7323,7 +7654,8 @@ def main() -> int:
     tp_ring = sharded_ring(torch, params, cfg, ring)
     gc_cuda(torch)
     phase(f"12f. serving across processes: phase 5's requests over {ACROSS_WORLD} processes on "
-          f"one card (tp, pp and dp across them), the MoE over ep across them, gloo")
+          f"one card (tp, pp and dp across them), the MoE over ep across them, then plain "
+          f"params: the MoE over sp and {PLAIN_LLAMA_LAYERS} Llama layers over tp x sp, gloo")
     across = serving_across_processes(torch, params, cfg, sharded_inputs, across_inputs)
     del params, sharded_inputs, across_inputs
     gc_cuda(torch)
@@ -7447,7 +7779,8 @@ def main() -> int:
             launches=(sum(n["ring_partial"] for n in ring["launches"].values())
                       + sum(ring_processes["launches"].values())
                       + moe_run["launches"]["ring_partial"]
-                      + sum(n["ring_partial"] for n in tp_ring["launches"].values())),
+                      + sum(n["ring_partial"] for n in tp_ring["launches"].values())
+                      + sum(across["launches_by_path"]["ring_partial"].values())),
             launches_by_layout={k: n["ring_partial"] for k, n in ring["launches"].items()},
             launches_by_path={**{f"llama_ring_{k}": n["ring_partial"]
                                  for k, n in ring["launches"].items()},
@@ -7455,7 +7788,8 @@ def main() -> int:
                                  for k, n in ring_processes["launches"].items()},
                               "moe_ring_contiguous": moe_run["launches"]["ring_partial"],
                               **{f"llama_ring_tp_sp_{k}": n["ring_partial"]
-                                 for k, n in tp_ring["launches"].items()}},
+                                 for k, n in tp_ring["launches"].items()},
+                              **across["launches_by_path"]["ring_partial"]},
             launches_per_process=ring_processes["launches_per_process"],
             **{k: ring_serving[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms", "eager_ms", "tflops",

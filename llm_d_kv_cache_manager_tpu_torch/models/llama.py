@@ -43,7 +43,11 @@ processes (``make_hybrid_mesh``) the serving entry points run in every
 process, each computing its own ranks, and return this process's
 logits as a ``Sharded``; ``loss_fn`` and ``train_step`` train there on
 any layout, their gradients carried back through the cross-process
-transfers (see the "training" section below).
+transfers (see the "training" section below).  Plain params take that
+path too under ``forward(sp_mesh=...)`` over such a mesh with an axis
+besides ``sp`` in use: they are shared onto it
+(``parallel.sharding.share_tree``, views of the plain leaves where it
+can).
 
 The reference's arrays are immutable; here ``prefill_*`` and
 ``decode_step`` write the new K/V into ``kv_pool`` IN PLACE and return
@@ -92,6 +96,7 @@ from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import (
     all_reduce_over,
     distinct_locals,
     ranks_over,
+    share_tree,
     sum_over_processes,
     sync_replica_grads,
     tree_leaves,
@@ -360,19 +365,26 @@ def forward(
     ``"auto"`` (the partial kernel on CUDA, the einsum body on the
     CPU), ``"flash"`` or ``"einsum"``.
 
-    An ``sp_mesh`` over several processes (``make_hybrid_mesh``; every
-    other axis of degree 1) takes plain params, the same in every
-    process, and the same tokens in every process: each process embeds,
-    projects and runs the MLP only for its own ranks' positions, only
-    attention communicates (:func:`_ring_forward_local`), and the result
-    is this process's logits as a
+    An ``sp_mesh`` over several processes (``make_hybrid_mesh``) takes
+    plain params, the same in every process, and the same tokens in every
+    process, and gives this process's logits as a
     :class:`~llm_d_kv_cache_manager_tpu_torch.parallel.sharding.Sharded`
-    of the [B, T, V] logits over ``sp`` (``P(None, "sp")``) in the layout
-    the ring ran: with ``ring_striped``, the stripe order, which
-    :func:`unstripe` of the joined chunks puts back.  Params sharded over
-    a mesh of several processes (with or without ``sp_mesh``, which is
-    then their mesh) give this process's logits likewise, over ``P("dp",
-    "sp", None)``, the ring's stripe order kept.
+    of the [B, T, V] logits in the layout the ring ran: with
+    ``ring_striped``, the stripe order, which :func:`unstripe` of the
+    joined chunks puts back.  Over ``sp`` alone each process embeds,
+    projects and runs the MLP only for its own ranks' positions and only
+    attention communicates (:func:`_ring_forward_local`; ``P(None, "sp",
+    None)``).  Where ``dp``, ``tp``, ``pp`` or ``ep`` has degree > 1 as
+    well (the reference's ring routes the batch over ``dp`` and the heads
+    over ``tp``), the params are shared onto the mesh by
+    :func:`param_pspecs` (``sharding.share_tree``: views wherever a
+    rank's slice is contiguous) and run the sharded path (``P("dp", "sp",
+    None)``).  Params sharded over a mesh of several processes (with or
+    without ``sp_mesh``, which is then their mesh) give this process's
+    logits likewise, the ring's stripe order kept.  The ring's K/V moves
+    between processes carry no gradient, so over an ``sp_mesh`` of
+    several processes a leaf that requires grad raises outside
+    ``torch.no_grad()``.
     """
     B, T = tokens.shape
     if sp_mesh is not None and positions is not None:
@@ -381,6 +393,11 @@ def forward(
             "(its causal mask is derived from ring chunk indices); "
             "custom positions would be RoPE-rotated but mis-masked"
         )
+    if sp_mesh is not None and sp_mesh.multi_process:
+        _refuse_ring_grad(params)
+        if not is_sharded(params) and any(
+                sp_mesh.size(axis) > 1 for axis in sp_mesh.axis_names if axis != AXIS_SP):
+            params = share_tree(params, sp_mesh, param_pspecs(cfg))
     if is_sharded(params):
         grid = _grid(params, cfg)
         xs, striped = _sharded_run(params, tokens, cfg, grid, positions=positions,
@@ -426,12 +443,8 @@ def _ring_forward_local(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, 
     """:func:`forward` over an ``sp_mesh`` of several processes: this
     process's ring ranks' chunks of the sequence (striped or contiguous,
     positions cut with them) through every layer, the ring's K/V moves
-    between processes through their group; returns their logits."""
-    for axis in sp_mesh.axis_names:
-        if axis != AXIS_SP and sp_mesh.size(axis) > 1:
-            raise NotImplementedError(
-                f"forward over a mesh of several processes runs the ring over sp alone; "
-                f"{axis}={sp_mesh.size(axis)}")
+    between processes through their group; returns their logits.  Every
+    axis but ``sp`` has degree 1."""
     B, T = tokens.shape
     R = sp_mesh.size(AXIS_SP)
     if T % R:
@@ -464,6 +477,18 @@ def _ring_forward_local(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, 
         locals_[coords[r]] = _logits(xs[r], params)
     return Sharded(sp_mesh, P(None, AXIS_SP, None), (B, T, cfg.vocab_size), torch.float32,
                    locals_)
+
+
+def _refuse_ring_grad(params: Params) -> None:
+    """Raise where autograd would record a forward over an ``sp_mesh`` of
+    several processes: the ring moves K/V between processes with no
+    gradient, so the chunks another process attends to would give the
+    leaves no gradient, without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in distinct_locals(params)):
+        raise RuntimeError(
+            "forward over an sp_mesh of several processes is forward-only: the ring's K/V "
+            "moves between processes carry no gradient; call it under torch.no_grad(), or "
+            "train through loss_fn")
 
 
 def _scatter_kv_blocks(kv_layer, k, v, block_ids, block_size) -> None:

@@ -30,10 +30,12 @@ from every process along dp and sp, each process routes them alike and
 runs its own (ep, tp) ranks' experts, and the products are summed over
 tp and ep across processes in rank order; it returns this process's
 logits (a ``Sharded``, as ``llama.forward`` does) and the same aux loss
-in every process.  ``loss_fn`` and ``train_step`` train there on any
-layout: the gathers of the routing's tokens, the sums over tp and ep
-and the aux loss's gather along pp carry their gradients back across
-processes, and the loss counts the aux term once over the processes
+in every process.  Plain params over an ``sp_mesh`` of several
+processes are shared onto it (``sharding.share_tree``) and take that
+path.  ``loss_fn`` and ``train_step`` train there on any layout: the
+gathers of the routing's tokens, the sums over tp and ep and the aux
+loss's gather along pp carry their gradients back across processes,
+and the loss counts the aux term once over the processes
 (``llama._global_loss``).
 """
 
@@ -55,6 +57,7 @@ from llm_d_kv_cache_manager_tpu_torch.models.llama import (
     _normal,
     _prefill_attention,
     _qkv,
+    _refuse_ring_grad,
     _rms_norm,
     _sharded_nll,
     _sharded_run,
@@ -71,6 +74,7 @@ from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import (
     all_reduce,
     ranks_over,
     shard,
+    share_tree,
 )
 from llm_d_kv_cache_manager_tpu_torch.utils.device import (
     from_numpy,
@@ -383,16 +387,23 @@ def forward(
     overflow.  ``ring_impl`` as in ``llama.forward``.  Over sharded
     params (see the module's note) the logits come back whole on the
     first rank's device, or, over a mesh of several processes, as this
-    process's ``Sharded`` logits.  Plain params over an ``sp_mesh`` of
-    several processes raise."""
+    process's ``Sharded`` logits over ``P("dp", "sp", None)``, with the
+    same aux in every process.  Plain params over an ``sp_mesh`` of
+    several processes, the same in every process, give the same: they
+    are shared onto the mesh by :func:`param_pspecs`
+    (``sharding.share_tree``: views wherever a rank's slice is
+    contiguous) and run the sharded path, whose routing joins every
+    token of the batch.  There a leaf that requires grad raises outside
+    ``torch.no_grad()``: the ring's K/V moves between processes carry
+    no gradient."""
+    if sp_mesh is not None and sp_mesh.multi_process:
+        _refuse_ring_grad(params)
+        if not is_sharded(params):
+            params = share_tree(params, sp_mesh, param_pspecs(cfg))
     if is_sharded(params):
         grid = _grid(params, cfg)
         xs, aux = _sharded_forward(params, tokens, cfg, grid, use_flash, sp_mesh, ring_impl)
         return _logits_out(params, grid, xs, tokens.shape + (cfg.vocab_size,)), aux
-    if sp_mesh is not None and sp_mesh.multi_process:
-        raise NotImplementedError("the MoE forward with plain params over an sp_mesh of "
-                                  "several processes is not ported (its routing joins every "
-                                  "token of the batch): shard the params over the mesh")
     B, T = tokens.shape
     dev = params["embed"].device
     tokens = tokens.to(dev)

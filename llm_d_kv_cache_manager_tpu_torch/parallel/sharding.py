@@ -8,7 +8,10 @@ local tensor per mesh coordinate, each a contiguous copy on its rank's
 device (the kernels take contiguous, 16-byte-aligned inputs, and a head
 slice is a strided view).  Ranks that share a device and hold the same
 slice share one tensor, so a tp 2 x sp 4 mesh on one card holds the tp
-shards once, not four times.  A spec names, for each tensor axis, the
+shards once, not four times.  :func:`share_tree` cuts a plain tree the
+same way but views each slice that is contiguous in place of copying it
+(how plain params run the sharded path over a mesh of several
+processes).  A spec names, for each tensor axis, the
 mesh axis that cuts it or None; missing trailing entries are None, as in
 JAX.  A tensor axis cut over a mesh axis of degree n must divide by n.
 
@@ -211,6 +214,27 @@ def shard_tree(tree: Any, mesh: Mesh, specs: Any) -> Any:
             raise ValueError(f"spec tree keys {list(specs)} do not match {list(tree)}")
         return {k: shard_tree(v, mesh, specs[k]) for k, v in tree.items()}
     return shard(tree.detach(), mesh, specs)
+
+
+def share_tree(tree: Any, mesh: Mesh, specs: Any) -> Any:
+    """A params tree cut as :func:`shard_tree` cuts it, copying only what
+    it must: each distinct local is a view of ``tree``'s leaf where the
+    rank's slice is contiguous and on the leaf's device (a stage's
+    layers, a leaf that is not cut), and a contiguous copy where it is
+    not (a tp slice), so that the processes that share one card hold one
+    copy of the weights between them.  Only this process's entries are
+    filled.  The leaves are not detached: the locals keep autograd's
+    graph to ``tree``'s leaves."""
+    if isinstance(tree, dict):
+        if not isinstance(specs, dict) or specs.keys() != tree.keys():
+            raise ValueError(f"spec tree keys {list(specs)} do not match {list(tree)}")
+        return {k: share_tree(v, mesh, specs[k]) for k, v in tree.items()}
+
+    def make(shape, slices, device):
+        piece = tree[slices].to(device)
+        return piece if piece.is_contiguous() else piece.contiguous()
+
+    return _place(tuple(tree.shape), tree.dtype, mesh, specs, make)
 
 
 def unshard_tree(tree: Any, device: Optional[Union[str, torch.device]] = None) -> Any:

@@ -188,18 +188,44 @@ def train_dp(rank, n, tree, fields: dict, tokens):
     return dict(loss=loss, params=out, grads=grads, held=held, shape=dict(mesh.shape))
 
 
-def moe_plain_sp(rank, n, tokens, moe_fields: dict):
-    """The error of the MoE forward with plain params over an sp_mesh of
-    several processes (None if it ran)."""
-    moe = port("models.moe")
-    mcfg = moe.MoEConfig(**moe_fields)
-    mparams = moe.init_params(mcfg, torch.Generator().manual_seed(0), device="cpu")
-    try:
-        moe.forward(mparams, torch.from_numpy(tokens), mcfg, sp_mesh=_mesh(dict(dp=1),
-                                                                          dict(dp=1, sp=2), 1))
-    except NotImplementedError as exc:
-        return str(exc)
-    return None
+def plain_forward(rank, n, cases: dict, grad_cases: dict = None) -> dict:
+    """``forward(plain params, sp_mesh=ici x dcn)`` of each case ({name:
+    (family, ici, dcn, tree, fields, tokens, striped)}, ``ici``'s ranks a
+    process, all on "cpu"), under ``no_grad``: its logits locals, its aux
+    (MoE) and the coordinates this process owns.  Then each of
+    ``grad_cases`` (the same tuples) with every leaf requiring grad: the
+    error the forward raises with grad on (None if it ran), and whether
+    it runs under ``no_grad``."""
+    out = {}
+    for name, (family, ici, dcn, tree, fields, tokens, striped) in cases.items():
+        model, cfg = _family(family), _config(family, fields)
+        mesh = _mesh(ici, dcn, int(np.prod(list(ici.values()))))
+        params = model.params_from_numpy(tree, cfg, device="cpu")
+        kwargs = dict(ring_striped=striped) if family == "llama" else {}
+        with torch.no_grad():
+            got = model.forward(params, torch.from_numpy(tokens), cfg, sp_mesh=mesh, **kwargs)
+        logits, aux = got if family == "moe" else (got, None)
+        out[name] = {"logits": _locals(logits), "aux": None if aux is None else float(aux),
+                     "spec": tuple(logits.spec),
+                     "owned": [c for c in np.ndindex(mesh.devices.shape) if mesh.is_local(c)]}
+    for name, (family, ici, dcn, tree, fields, tokens, striped) in (grad_cases or {}).items():
+        model, cfg = _family(family), _config(family, fields)
+        mesh = _mesh(ici, dcn, int(np.prod(list(ici.values()))))
+        params = model.params_from_numpy(tree, cfg, device="cpu")
+        for leaf in port("parallel.sharding").tree_leaves(params):
+            leaf.requires_grad_()
+        tokens = torch.from_numpy(tokens)
+        try:
+            model.forward(params, tokens, cfg, sp_mesh=mesh)
+            error = None
+        except RuntimeError as exc:
+            error = str(exc)
+        with torch.no_grad():
+            got = model.forward(params, tokens, cfg, sp_mesh=mesh)
+        logits = got[0] if family == "moe" else got
+        out[name] = {"error": error, "no_grad_ran": all(
+            bool(t.isfinite().all()) for _, t in logits.distinct())}
+    return out
 
 
 def _named(tree, prefix=""):

@@ -11,7 +11,8 @@ faults of the sharded training check; phase 7b's helpers and the whole
 phase on CPU pools at a small configuration; phases 5c and 14d (the HTTP
 service) whole at a small size, with a planted fault for 14d; phase 6b's
 per-step transfer summary and its hold of a process's partial launches,
-which a planted fault must fail."""
+which a planted fault must fail; phase 12f's plain blocks' launch
+split, layer cut and gates, each with planted faults."""
 
 import inspect
 import json
@@ -1289,15 +1290,16 @@ def test_transfers_by_kind():
 
 
 def test_share_tree_views_contiguous_slices_and_copies_the_rest():
-    """A stage's layers and a leaf that is not cut are views of the
-    parent's tensor (no second copy on the card); a tp slice is a copy;
-    every local bit-equal to its slice, as shard_tree's."""
+    """Phase 12f's share (``sharding.share_tree``): a stage's layers and a
+    leaf that is not cut are views of the parent's tensor (no second
+    copy on the card); a tp slice is a copy; every local bit-equal to its
+    slice, as shard_tree's."""
     llama, mesh, sharding = port("models.llama"), port("parallel.mesh"), port("parallel.sharding")
     cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
                             d_ff=64, dtype="float32")
     params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     tmesh = mesh.make_mesh(mesh.MeshPlan(dp=1, pp=2, tp=2), ["cpu"] * 4)
-    shared = smoke["share_tree"](torch, sharding, params, tmesh, llama.param_pspecs(cfg))
+    shared = sharding.share_tree(params, tmesh, llama.param_pspecs(cfg))
     copied = sharding.shard_tree(params, tmesh, llama.param_pspecs(cfg))
     assert smoke["tree_shard_mismatches"](torch, shared, params) == {}
     for path, leaf in smoke["leaf_paths"](shared):
@@ -1342,6 +1344,121 @@ def test_check_pools_holds_each_mesh_to_its_gate(name, fault):
         near = _pool_rows(name, pool_gap={"bit_equal": False, "max_abs_err": 0.5, "tol": 1.0,
                                           "finite": True})
         assert smoke["check_pools"](name, near)["held"]
+
+
+def test_plain_ring_launches_split_ring_steps_over_processes():
+    """A process's partial launches are its ring ranks' share: contiguous
+    rank s launches s + 1 times a layer, striped sp times; over the
+    processes that is ``ring_steps`` a head shard."""
+    launches = smoke["plain_ring_launches"]
+    assert [launches(r, 4, False, 1, 8) for r in ([0, 1], [2, 3])] == [24, 56]
+    assert [launches(r, 2, False, 2, 8) for r in ([0], [1])] == [16, 32]
+    assert [launches(r, 2, True, 2, 8) for r in ([0], [1])] == [32, 32]
+    for sp, striped in ((4, False), (4, True), (2, False), (2, True)):
+        halves = (list(range(sp // 2)), list(range(sp // 2, sp)))
+        assert sum(launches(r, sp, striped, 3, 5) for r in halves) == (
+            smoke["ring_steps"](sp, striped) * 3 * 5)
+
+
+def test_first_layers_views_the_stacked_leaves():
+    llama = port("models.llama")
+    cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=4, n_heads=4, n_kv_heads=2,
+                            d_ff=64, dtype="float32")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cut = smoke["first_layers"](params, 2)
+    for key, leaf in params["layers"].items():
+        assert cut["layers"][key].shape[0] == 2
+        assert cut["layers"][key].data_ptr() == leaf.data_ptr()
+    assert cut["embed"] is params["embed"] and cut["ln_f"] is params["ln_f"]
+
+
+def _gap(**over):
+    gap = {"bit_equal": True, "max_abs_err": 0.0, "tol": 1.0, "finite": True}
+    gap.update(over)
+    return gap
+
+
+def _plain_workers(fault=None):
+    """Two workers' rows of 12f's plain blocks (a ring of 4 for the MoE,
+    tp 2 x sp 2 for the Llama), with ``fault`` planted in process 1."""
+    held = {"calls": 1, "offsets": {}, "max_abs_err": 0.0, "worst_err_over_limit": 0.0,
+            "limit": "x"}
+    workers = []
+    for r in range(2):
+        sp = [2 * r, 2 * r + 1]
+        moe = {"mesh": "m", "crossing": ["sp"], "ranks": {"sp": sp, "tp": [0]},
+               "share": {"plain_bytes": 8, "view_bytes": 8, "copied_bytes": 0,
+                         "allocated_bytes": 0},
+               "peak_bytes": 1, "wall_ms": 1.0, "logits": {s: _gap() for s in sp}, "aux": 1.0,
+               "aux_equal": True, "routed_otherwise": 0, "first_layer_input_differs": None,
+               "transfers": {}, "idle_share": 0.5, "device_ms": 1.0, "profiled_wall_ms": 2.0,
+               "launches": [24, 56][r], "held": held}
+        layouts = {}
+        for name, launches in (("contiguous", [16, 32][r]), ("striped", 32)):
+            layouts[name] = {"wall_ms": 1.0, "launches": launches, "transfers": {},
+                             "chunks": {r: {"bit_equal": True, "dense": _gap()}},
+                             "idle_share": 0.5, "device_ms": 1.0, "profiled_wall_ms": 2.0,
+                             "held": held}
+            if r == 1:
+                layouts[name]["token"] = 3
+        llama = {"mesh": "m", "crossing": ["sp"], "ranks": {"sp": [r], "tp": [0, 1]},
+                 "share": {"plain_bytes": 8, "view_bytes": 0, "copied_bytes": 8,
+                           "allocated_bytes": 8}, "peak_bytes": 1, "layouts": layouts}
+        workers.append({"plain_moe": moe, "plain_llama": llama})
+    if fault == "moe-bits":
+        workers[1]["plain_moe"]["logits"][3] = _gap(bit_equal=False, max_abs_err=1e-3)
+    elif fault == "moe-aux":
+        workers[1]["plain_moe"]["aux_equal"] = False
+    elif fault == "moe-routes":
+        workers[1]["plain_moe"]["routed_otherwise"] = 1
+    elif fault == "moe-copied":
+        workers[1]["plain_moe"]["share"]["copied_bytes"] = 4
+    elif fault == "moe-launches":
+        workers[1]["plain_moe"]["launches"] = 55
+    elif fault == "llama-bits":
+        workers[1]["plain_llama"]["layouts"]["striped"]["chunks"][1]["bit_equal"] = False
+    elif fault == "llama-dense":
+        workers[1]["plain_llama"]["layouts"]["contiguous"]["chunks"][1]["dense"] = _gap(
+            bit_equal=False, max_abs_err=2.0)
+    elif fault == "llama-token":
+        workers[1]["plain_llama"]["layouts"]["contiguous"]["token"] = 5
+    elif fault == "llama-launches":
+        workers[0]["plain_llama"]["layouts"]["contiguous"]["launches"] = 32
+    return workers
+
+
+PLAIN_FAULTS = {"moe-bits": "12f plain MoE, process 1: off the one-process plain ring",
+                "moe-aux": "12f plain MoE, process 1: off the one-process plain ring",
+                "moe-routes": "12f plain MoE, process 1: off the one-process plain ring",
+                "moe-copied": "12f plain MoE, process 1: the share copied",
+                "moe-launches": "12f plain MoE: launches",
+                "llama-bits": "12f plain Llama striped: bit-equal",
+                "llama-dense": "12f plain Llama contiguous: bit-equal",
+                "llama-token": "12f plain Llama contiguous next token",
+                "llama-launches": "12f plain Llama contiguous: launches"}
+
+
+@pytest.mark.parametrize("fault", [None] + list(PLAIN_FAULTS))
+def test_check_plain_holds_each_block_to_its_gate(fault):
+    """The MoE block: every chunk and the aux bit for bit, no token routed
+    otherwise, nothing copied by the share, launches a process its ring
+    ranks' share; the Llama block: every chunk bit for bit (fingerprints)
+    and within the model-level limit of the dense forward, its next
+    token, launches likewise.  Each planted fault fails the phase."""
+    dense = torch.zeros(1, 4, 8)
+    dense[0, -1, 3] = 1.0
+    plain_args = {"llama": {"ref": {"dense": dense}}}
+    walls = {"moe_ring_ms": 1.0, "llama_contiguous_ms": 1.0, "llama_striped_ms": 1.0,
+             "llama_dense_ms": 1.0}
+    if fault is None:
+        out = smoke["check_plain"](_plain_workers(), plain_args, walls)
+        assert out["launches_by_path"] == {"moe_ring_processes_plain_sp": 80,
+                                           "llama_ring_processes_plain_tp_sp_contiguous": 48,
+                                           "llama_ring_processes_plain_tp_sp_striped": 64}
+        assert out["moe"]["bit_equal"] and out["llama"]["layouts"]["striped"]["bit_equal"]
+        return
+    with pytest.raises(AssertionError, match=PLAIN_FAULTS[fault]):
+        smoke["check_plain"](_plain_workers(fault), plain_args, walls)
 
 
 def test_new_paths_import_without_a_gpu_and_build_nothing():

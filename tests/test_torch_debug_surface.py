@@ -278,10 +278,13 @@ class TestTraceparentSurface:
         n_threads, per_thread = 8, 5
         errors = []
 
+        # Not tests/test_debug_surface.py's ids: both files drive the
+        # reference's process-wide TRACER, and on one pytest worker that
+        # file's listing would count each shared id twice.
         def worker(worker_index):
             try:
                 for i in range(per_thread):
-                    seed = 0xA000_0000 + worker_index * 1000 + i
+                    seed = 0xC000_0000 + worker_index * 1000 + i
                     fleet.post(
                         "/score_completions",
                         {"prompt": SENTENCE * 4, "model": MODEL},
@@ -302,7 +305,7 @@ class TestTraceparentSurface:
         listing = fleet.get("/debug/traces?kind=recent&limit=1000")
         ids = [t["trace_id"] for t in listing["traces"]]
         expected = {
-            f"{0xA000_0000 + w * 1000 + i:032x}"
+            f"{0xC000_0000 + w * 1000 + i:032x}"
             for w in range(n_threads)
             for i in range(per_thread)
         }

@@ -15,10 +15,10 @@ gathers what the processes return here, in the test:
   default DCN plan) equals the single-controller dp 2 step and the JAX
   ``train_step`` on a dp 2 mesh of 2 devices in loss, every gradient and
   every updated parameter, within ``test_torch_training.py``'s
-  tolerances;
-- (d) the MoE forward with plain params over an ``sp_mesh`` of several
-  processes raises (training along every axis across processes:
-  ``tests/test_torch_training_processes.py``).
+  tolerances (training along every axis across processes:
+  ``tests/test_torch_training_processes.py``; plain params over every
+  layout of an ``sp_mesh`` across processes:
+  ``tests/test_torch_plain_params_processes.py``).
 
 Tolerances are those of ``test_torch_ring_attention.py`` (``TOL`` 1e-5
 for float32 attention, ``LOGITS`` 5e-4 for logits after two layers) and
@@ -259,19 +259,6 @@ def test_train_step_dp_across_processes_matches_single_controller_and_reference(
     # The two processes' replicas are the same bits.
     for name in results[0]["params"]:
         assert np.array_equal(results[0]["params"][name], results[1]["params"][name])
-
-
-# ------------------------------------------------------------------ (d)
-
-
-def test_moe_plain_params_over_processes_raise():
-    tokens = np.random.default_rng(80).integers(0, JAX_CFG.vocab_size, (2, 16)).astype(np.int32)
-    moe_fields = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64,
-                      n_experts=4, top_k=2, dtype="float32")
-    for error in torch_dist.run_group(torch_dist.moe_plain_sp, 2, tokens, moe_fields,
-                                      timeout=GROUP_S):
-        assert error is not None
-        assert "sp_mesh of several processes is not ported" in error
 
 
 # ------------------------------------------------------------ transport

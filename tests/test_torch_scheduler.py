@@ -3,7 +3,9 @@
 completions and chat bodies (tiny tokenizer, its chat template) to the
 reference's normalised scores; ``TTLCache`` fires the reference's expiry
 callbacks; ``tiering=True`` attaches a tiering ``PolicyEngine`` on the
-indexer's ledger, as the reference does, and scores as the reference."""
+indexer's ledger, as the reference does, and scores as the reference;
+``purge_index_on_expiry`` purges an expired pod's index entries on a
+thread of its own, the other pods' kept."""
 
 import time
 
@@ -241,3 +243,43 @@ def test_ttl_sweeper_thread_evicts_and_stops():
         time.sleep(0.01)
     cache.close()
     assert evicted == ["x"] and cache._sweeper is None
+
+
+def test_expired_pod_purged_from_index_off_thread(tmp_path):
+    """With ``purge_index_on_expiry``, a pod whose subscription ages out
+    loses its index entries and the other pod's survive.  The purge runs
+    on a thread the expiry starts, so the index is polled until the pod
+    is gone, within a deadline."""
+    m = mods("port")
+    tokenizer_dir = save_tokenizer_json(str(tmp_path), MODEL)
+    indexer = m["indexer"].Indexer(
+        m["indexer"].IndexerConfig(
+            token_processor_config=m["tp"].TokenProcessorConfig(block_size=BLOCK),
+            tokenizers_pool_config=m["tok_pool"].TokenizationPoolConfig(
+                workers=1, model_name=MODEL)),
+        tokenizer=m["tokenizers"].LocalFastTokenizer(tokenizer_dir))
+    s = m["scheduler"]
+    scorer = s.PrecisePrefixCacheScorer(
+        s.PrecisePrefixCacheScorerConfig(indexer_config=m["indexer"].IndexerConfig(),
+                                         subscription_ttl_seconds=0.1,
+                                         purge_index_on_expiry=True),
+        indexer=indexer)
+    try:
+        entry = port("kvcache.kvblock.index").PodEntry
+        index = indexer.kv_block_index
+        index.add([0x51, 0x52], [0x61, 0x62], [entry("10.0.0.1", "hbm"),
+                                               entry("10.0.0.2", "hbm")])
+        scorer._subscriptions.set("ns/pod-a", "10.0.0.1")
+        time.sleep(0.2)
+        scorer._subscriptions.sweep()
+        deadline = time.monotonic() + 5.0
+        while True:
+            survivors = {p.pod_identifier for pods in index.lookup([0x61, 0x62]).values()
+                         for p in pods}
+            if survivors == {"10.0.0.2"} or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        assert survivors == {"10.0.0.2"}
+        assert {k: len(v) for k, v in index.lookup([0x61, 0x62]).items()} == {0x61: 1, 0x62: 1}
+    finally:
+        scorer.shutdown()
