@@ -321,6 +321,13 @@ Phases (any failure exits non-zero):
      registered behind an Indexer built with ``uds_tokenizer_path``, which
      scores a sample of phase 13's requests as the word-tokenizer Indexer
      over the same index does;
+ 7d. the offload smoke (``hack/offload_smoke_torch.py``'s ``main``, in
+     this process) on the card at Llama-3-8B's KV geometry (32 layers,
+     8 KV heads, head_dim 128, blocks of 16, bf16: 2 MiB a block): the
+     store -> evict -> load round trip through the staged connector
+     bit-identical with the pinned staging path on, and the live score
+     following the demotions 1.0 -> 0.8 -> 0.5 a block; its store and
+     load walls and GB/s printed beside the card's name and power limit;
  15. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
@@ -342,6 +349,7 @@ import math
 import os
 import queue
 import re
+import runpy
 import shutil
 import statistics
 import struct
@@ -7459,6 +7467,43 @@ def grpc_phase(smi: str, fleet, traffic, http_cells=None, sample: int = GRPC_UDS
 
 
 
+# Phase 7d: hack/offload_smoke_torch.py in this process, at
+# Llama-3-8B's KV geometry on the card.
+OFFLOAD_SMOKE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hack",
+                             "offload_smoke_torch.py")
+OFFLOAD_SMOKE_LADDER = (1.0, 0.8, 0.5)  # a block's score at hbm, host, shared storage
+
+
+def offload_smoke_phase(smi: str, device: str = "cuda:0", geometry: str = "llama3_8b",
+                        after_load=None) -> dict:
+    """Phase 7d: the offload smoke's ``main`` on ``device`` at
+    ``geometry``.  It must report a bit-identical round trip, the score
+    ladder 1.0 -> 0.8 -> 0.5 a block and, on a CUDA pool, the pinned
+    staging path; returns its walls with their GB/s.  ``after_load``
+    goes to ``main`` (a planted fault)."""
+    smoke = runpy.run_path(OFFLOAD_SMOKE, run_name="offload_smoke_torch")
+    t0 = time.perf_counter()
+    result = smoke["main"](["--device", device, "--geometry", geometry], after_load=after_load)
+    seconds = time.perf_counter() - t0
+    if result["round_trip"] != "bit-identical":
+        raise RuntimeError(f"7d: the round trip came back {result['round_trip']}")
+    ladder = result["score_ladder"]
+    if len(ladder) != len(OFFLOAD_SMOKE_LADDER) or any(
+            abs(got - want) > 1e-9 for got, want in zip(ladder, OFFLOAD_SMOKE_LADDER)):
+        raise RuntimeError(f"7d: score ladder {ladder}, want {list(OFFLOAD_SMOKE_LADDER)}")
+    if device.startswith("cuda") and not result["uses_pinned"]:
+        raise RuntimeError("7d: the CUDA pool's staging did not take the pinned path")
+    nbytes = result["round_trip_bytes"]
+    out = dict(result, store_gbps=nbytes / result["store_s"] / 1e9,
+               load_gbps=nbytes / result["load_s"] / 1e9, seconds=round(seconds, 1), card=smi)
+    print(f"  {smi}: {geometry} pool on {device}, {result['block_nbytes']} B a block; round "
+          f"trip of {nbytes} B bit-identical, store {result['store_s'] * 1e3:.3f} ms "
+          f"({out['store_gbps']:.3f} GB/s), load {result['load_s'] * 1e3:.3f} ms "
+          f"({out['load_gbps']:.3f} GB/s); score ladder {ladder}; pinned staging "
+          f"{result['uses_pinned']}; {seconds:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7723,6 +7768,10 @@ def main() -> int:
     grpc_served = grpc_phase(smi, fleet, traffic, http_cells=serviced.get("sequential"))
     del fleet, traffic
 
+    phase("7d. the offload smoke: hack/offload_smoke_torch.py's main on the card at "
+          "Llama-3-8B's KV geometry")
+    offload_smoke = offload_smoke_phase(smi)
+
     phase("15. kernels")
     kernels = [
         dict(
@@ -7822,7 +7871,7 @@ def main() -> int:
                       "training_across_processes": across_training, "moe": moe_summary,
                       "sharded": sharded, "read_path": read, "write_path": write,
                       "persistence": persisted, "cluster": clustered, "service": serviced,
-                      "grpc": grpc_served,
+                      "grpc": grpc_served, "offload_smoke": offload_smoke,
                       "layers": LAYERS, "phase_seconds": PHASE_SECONDS,
                       "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)

@@ -46,6 +46,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 from torch.distributed.checkpoint.default_planner import (
     DefaultLoadPlanner,
@@ -281,14 +282,22 @@ def _pieces_at(tree: dict, path: Tuple[str, ...] = ()):
             yield path + (key,), value
 
 
-def save_checkpoint(path: str, state: Any, report: Optional[dict] = None) -> str:
+def save_checkpoint(path: str, state: Any, force: bool = True,
+                    report: Optional[dict] = None) -> str:
     """Write ``state`` (a nested dict of tensors and Python values) as a
-    checkpoint directory at ``path``, over any checkpoint already
-    there.  Returns the absolute path.  Where the state's sharded leaves
-    lie on a mesh of several processes, every process of the default
-    group calls it and writes only its own slices.  ``report``, a dict,
-    gets ``bytes``: the tensor bytes this process wrote."""
+    checkpoint directory at ``path``, over any checkpoint already there
+    (``force=False``: refuse one with the reference's ``ValueError``).
+    Returns the absolute path.  Where the state's sharded leaves lie on
+    a mesh of several processes, every process of the default group
+    calls it and writes only its own slices.  ``report``, a dict, gets
+    ``bytes``: the tensor bytes this process wrote."""
     path = os.path.abspath(path)
+    if not force:
+        exists = os.path.exists(path)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()  # every process looks before any of them writes
+        if exists:
+            raise ValueError(f"Destination {path} already exists.")
     planner = _SavePlanner()
     with _quiet():
         dcp.save(_detached(state), storage_writer=dcp.FileSystemWriter(path, overwrite=True),

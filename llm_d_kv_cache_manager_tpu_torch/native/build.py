@@ -1,6 +1,7 @@
 """Build the port's native I/O engine with g++ (no CUDA, no external deps).
 
-Usage: ``python -m llm_d_kv_cache_manager_tpu_torch.native.build``; with
+Usage: ``python -m llm_d_kv_cache_manager_tpu_torch.native.build``
+(``--force`` recompiles a library that is up to date); with
 ``--stress`` or ``--stress-tsan`` it builds and runs the stress harness
 (``src/stress_main.cpp``), plain or under ThreadSanitizer.
 
@@ -66,15 +67,16 @@ def needs_build() -> bool:
     return not lib_path().exists()
 
 
-def _compile(target: Path, flags, sources, what: str) -> Path:
-    """Compile ``sources`` into ``target`` unless it exists, under the
-    build lock, through a temporary file renamed into place."""
-    if target.exists():
+def _compile(target: Path, flags, sources, what: str, force: bool = False) -> Path:
+    """Compile ``sources`` into ``target`` unless it exists (``force``:
+    even then), under the build lock, through a temporary file renamed
+    into place."""
+    if target.exists() and not force:
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "native.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if target.exists():  # another build finished while we waited
+        if target.exists() and not force:  # another build finished while we waited
             return target
         fd, tmp = tempfile.mkstemp(suffix=target.suffix + ".tmp", dir=BUILD_DIR)
         os.close(fd)
@@ -91,10 +93,11 @@ def _compile(target: Path, flags, sources, what: str) -> Path:
     return target
 
 
-def build() -> Path:
-    """Compile the library unless it is built already; returns its path.
-    Raises ``RuntimeError`` when there is no compiler or it fails."""
-    return _compile(lib_path(), FLAGS, SOURCES, "native")
+def build(force: bool = False) -> Path:
+    """Compile the library unless it is built already (``force``: even
+    then); returns its path.  Raises ``RuntimeError`` when there is no
+    compiler or it fails."""
+    return _compile(lib_path(), FLAGS, SOURCES, "native", force=force)
 
 
 def build_stress(tsan: bool = False) -> Path:
@@ -120,7 +123,7 @@ if __name__ == "__main__":
     try:
         if "--stress" in sys.argv or "--stress-tsan" in sys.argv:
             sys.exit(_run_stress("--stress-tsan" in sys.argv))
-        print(f"built {build()}")
+        print(f"built {build(force='--force' in sys.argv)}")
     except RuntimeError as exc:
         print(exc, file=sys.stderr)
         sys.exit(1)

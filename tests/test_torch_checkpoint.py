@@ -191,3 +191,25 @@ def test_resumed_loss_matches_the_references_resume(tmp_path):
     ropt.load_state_dict(restored["opt"])
     got = llama.train_step(restored["params"], ropt, tokens, tcfg)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("side", ["ref", "port"])
+def test_force_false_refuses_an_existing_checkpoint_force_true_overwrites(tmp_path, side):
+    """Both packages: ``save_checkpoint(..., force=False)`` over an
+    existing checkpoint raises ``ValueError: Destination <path> already
+    exists.`` and leaves it as it was; ``force=True`` (the default)
+    writes the new state over it."""
+    if side == "ref":
+        save, restore, make = (jax_checkpoint.save_checkpoint, jax_checkpoint.restore_checkpoint,
+                               lambda v: jnp.asarray(v, jnp.float32))
+    else:
+        save, restore, make = (checkpoint.save_checkpoint, checkpoint.restore_checkpoint,
+                               lambda v: torch.tensor(v, dtype=torch.float32))
+    path = str(tmp_path / "ckpt")
+    save(path, {"w": make([1.0, 2.0])})
+    with pytest.raises(ValueError, match=r"^Destination .*ckpt already exists\.$") as refused:
+        save(path, {"w": make([3.0, 4.0])}, force=False)
+    assert str(refused.value) == f"Destination {path} already exists."
+    np.testing.assert_array_equal(np.asarray(restore(path)["w"]), [1.0, 2.0])
+    save(path, {"w": make([5.0, 6.0])}, force=True)
+    np.testing.assert_array_equal(np.asarray(restore(path)["w"]), [5.0, 6.0])

@@ -12,7 +12,9 @@ phase on CPU pools at a small configuration; phases 5c and 14d (the HTTP
 service) whole at a small size, with a planted fault for 14d; phase 6b's
 per-step transfer summary and its hold of a process's partial launches,
 which a planted fault must fail; phase 12f's plain blocks' launch
-split, layer cut and gates, each with planted faults."""
+split, layer cut and gates, each with planted faults; phase 7d (the
+offload smoke) whole on a CPU pool, with a byte flipped after the load
+as its planted fault."""
 
 import inspect
 import json
@@ -1553,3 +1555,29 @@ def test_rss_peak_sees_what_the_block_held():
         time.sleep(0.05)
         del held
     assert rss.peak >= before + (32 << 20)
+
+
+def test_offload_smoke_phase_at_tiny_on_a_cpu_pool(capsys):
+    """Phase 7d whole on a CPU pool at the reference's geometry: the
+    smoke's round trip, ladder and walls (no pinned path on the CPU)."""
+    out = smoke["offload_smoke_phase"]("cpu", device="cpu", geometry="tiny")
+    assert out["round_trip"] == "bit-identical"
+    assert out["score_ladder"] == pytest.approx([1.0, 0.8, 0.5], abs=1e-12)
+    assert out["uses_pinned"] is False
+    assert out["block_nbytes"] == 2 * 2 * 8 * 2 * 16 * 2
+    assert out["round_trip_bytes"] == 4 * out["block_nbytes"]
+    assert out["store_s"] > 0 and out["load_s"] > 0
+    assert out["store_gbps"] == pytest.approx(out["round_trip_bytes"] / out["store_s"] / 1e9)
+    printed = capsys.readouterr().out
+    assert "offload smoke completed successfully" in printed
+    assert "bit-identical, store" in printed and "GB/s" in printed
+
+
+def test_offload_smoke_phase_fails_on_a_byte_flipped_after_the_load():
+    """A planted fault: one byte of a loaded block flipped before the
+    comparison must fail the phase."""
+    def flip(pool):
+        pool.kv.view(torch.uint8)[0, 3, 0, 0, 0, 0] ^= 1
+
+    with pytest.raises(AssertionError, match="not equal"):
+        smoke["offload_smoke_phase"]("cpu", device="cpu", geometry="tiny", after_load=flip)

@@ -449,6 +449,7 @@ class TestEventPlaneTraceCrossesReplicaBoundary:
         pool = m.Pool(
             cluster.remote_index, processor, m.PoolConfig(concurrency=1)
         )
+        previous_rate = m.TRACER.config.sample_rate
         m.TRACER.configure(sample_rate=1.0)
         try:
             pool.start()
@@ -490,7 +491,7 @@ class TestEventPlaneTraceCrossesReplicaBoundary:
                 s for s in spans if s["name"] == "replica.apply"
             ], "server-side apply spans must ride the reply"
         finally:
-            m.TRACER.configure(sample_rate=0.0)
+            m.TRACER.configure(sample_rate=previous_rate)
             m.TRACER.reset()
             pool.shutdown()
             cluster.close()

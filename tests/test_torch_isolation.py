@@ -17,13 +17,28 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "llm_d_kv_cache_manager_tpu")
 
 
+# The port's demos and smokes: each reaches the port by name (``_port``).
+PORT_SCRIPTS = tuple(
+    [REPO / "examples" / f"{name}_torch.py" for name in (
+        "offline_demo", "online_demo", "index_service_demo", "valkey_demo", "vllm_demo")]
+    + [REPO / "hack" / f"{name}_torch.py" for name in (
+        "verify_observability", "events_smoke", "cluster_smoke", "slo_smoke", "replay_smoke",
+        "whatif_smoke", "profile_smoke", "cachestats_smoke", "tiering_smoke",
+        "transfer_smoke", "offload_smoke")]
+)
+
+
 def _port_sources():
-    return sorted((REPO / PACKAGE).rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / PACKAGE).rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + list(PORT_SCRIPTS))
 
 
 def test_importing_every_port_module_loads_no_jax():
-    """In a fresh interpreter, import every module of the port and the
-    chip smoke script; neither JAX nor the JAX package may be loaded."""
+    """In a fresh interpreter, import every module of the port, the chip
+    smoke script and the port's demos and smokes; neither JAX nor the
+    JAX package may be loaded.  (tests/test_torch_examples.py and
+    tests/test_torch_smokes_*.py run each script whole with both
+    blocked.)"""
     script = f"""
 import importlib, json, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -33,6 +48,8 @@ for name in names:
     importlib.import_module(name)
 import runpy
 runpy.run_path({str(REPO / "chip_smoke.py")!r}, run_name="chip_smoke_import")
+for path in {[str(p) for p in PORT_SCRIPTS]!r}:
+    runpy.run_path(path, run_name="port_script_import")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 print(json.dumps({{"modules": names, "loaded": loaded}}))
 """
@@ -776,6 +793,24 @@ def test_no_source_imports_jax_or_the_jax_package(path):
             names.append(node.module)
     bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+@pytest.mark.parametrize("path", PORT_SCRIPTS, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_script_looks_up_only_the_ports_modules(path):
+    """Every ``_port("name")`` of a port script, function bodies
+    included, names a module of the port, and ``_port`` looks names up
+    in the port's package."""
+    tree = ast.parse(path.read_text())
+    assigned = {node.targets[0].id: node.value.value for node in tree.body
+                if isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant)
+                and isinstance(node.targets[0], ast.Name)}
+    assert assigned["PACKAGE"] == PACKAGE
+    names = [node.args[0].value for node in ast.walk(tree)
+             if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "_port"]
+    assert names
+    for name in names:
+        base = REPO / PACKAGE / pathlib.Path(*name.split("."))
+        assert base.with_suffix(".py").is_file() or (base / "__init__.py").is_file(), name
 
 
 def _pool():

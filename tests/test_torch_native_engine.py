@@ -6,6 +6,9 @@ engine."""
 
 import ctypes
 import os
+import pathlib
+import subprocess
+import sys
 import threading
 import time
 
@@ -16,7 +19,9 @@ from llm_d_kv_cache_manager_tpu.native.engine import (
     JobStatus as JaxJobStatus,
     OffloadEngine as JaxOffloadEngine,
 )
-from tests.helpers.torch_port import port
+from tests.helpers.torch_port import PACKAGE, port
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 native = port("native")
 build_mod = port("native.build")
@@ -246,3 +251,33 @@ def test_concurrent_builds_compile_once(scratch_build):
     built = sorted(p.name for p in (scratch_build.parent / "build").iterdir())
     assert built == sorted([results[0].name, "native.lock"])
     ctypes.CDLL(str(results[0])).kvtpu_engine_create  # loads
+
+
+def test_forced_build_recompiles_an_up_to_date_library(scratch_build):
+    """``build()`` leaves a built library alone; ``build(force=True)``
+    compiles it again and renames the new file into place."""
+    for name in build_mod.SOURCES:  # empty units compile at once
+        (scratch_build / name).write_text("")
+    lib = build_mod.build()
+    first = os.stat(lib)
+    assert build_mod.build() == lib and os.stat(lib).st_ino == first.st_ino
+    assert build_mod.build(force=True) == lib
+    assert os.stat(lib).st_ino != first.st_ino
+
+
+def test_build_command_force_flag_rebuilds():
+    """``python -m llm_d_kv_cache_manager_tpu_torch.native.build`` keeps
+    an up-to-date library; with ``--force`` it builds a new one."""
+    lib = build_mod.build()
+
+    def command(*flags):
+        out = subprocess.run(
+            [sys.executable, "-m", f"{PACKAGE}.native.build", *flags], cwd=str(REPO),
+            capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == f"built {lib}"
+        return os.stat(lib).st_ino
+
+    before = os.stat(lib).st_ino
+    assert command() == before
+    assert command("--force") != before

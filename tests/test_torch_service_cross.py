@@ -36,6 +36,7 @@ from llm_d_kv_cache_manager_tpu.obs import capture as ref_capture
 from llm_d_kv_cache_manager_tpu.obs import profiler as ref_profiler
 from llm_d_kv_cache_manager_tpu.obs import replay as ref_replay
 from llm_d_kv_cache_manager_tpu.obs import slo as ref_slo
+from llm_d_kv_cache_manager_tpu.obs import trace as ref_trace
 from llm_d_kv_cache_manager_tpu.obs import timeline as ref_timeline
 from llm_d_kv_cache_manager_tpu.obs import whatif as ref_whatif
 from llm_d_kv_cache_manager_tpu.tokenization import tokenizers as ref_tokenizers
@@ -398,6 +399,12 @@ def services(monkeypatch):
     # service starts from an empty one.
     for whatif in (ref_whatif, port("obs.whatif")):
         monkeypatch.setattr(whatif, "REGISTRY", whatif.WhatIfRegistry())
+    # /healthz shows each package's process-wide tracer's sample rate,
+    # which other files of the worker may have left changed
+    # (tests/test_cluster_trace.py ends at 0.0): each service starts at
+    # its package's default.
+    for trace in (ref_trace, port("obs.trace")):
+        monkeypatch.setattr(trace.TRACER.config, "sample_rate", trace.DEFAULT_SAMPLE_RATE)
     booted = {}
     try:
         for side in SIDES:
