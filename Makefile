@@ -205,6 +205,20 @@ chart:
 		$(PYTHON) hack/render_chart.py deploy/chart; \
 	fi
 
+# The H100 serving-fleet chart over the PyTorch/CUDA package, rendered
+# the same way.
+.PHONY: chart-torch image-torch
+chart-torch:
+	@if command -v helm >/dev/null 2>&1; then \
+		helm template kvtpu deploy/chart_torch; \
+	else \
+		$(PYTHON) hack/render_chart.py deploy/chart_torch; \
+	fi
+
+# The PyTorch/CUDA package's indexer image (no jax, no torch inside).
+image-torch:
+	docker build -f Dockerfile_torch -t kv-cache-indexer-torch .
+
 # Build the native C++ engine in-tree.
 native:
 	$(PYTHON) -m llm_d_kv_cache_manager_tpu.native.build

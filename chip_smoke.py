@@ -328,6 +328,20 @@ Phases (any failure exits non-zero):
      bit-identical with the pinned staging path on, and the live score
      following the demotions 1.0 -> 0.8 -> 0.5 a block; its store and
      load walls and GB/s printed beside the card's name and power limit;
+ 7e. the connector as ``deploy/chart_torch`` deploys it: the chart's
+     rendered ``--kv-transfer-config`` (``CHART_KV_TRANSFER_CONFIG``)
+     resolved as vLLM's OffloadingConnector does (``spec_module_path``
+     imported, ``spec_name`` looked up on it), the spec built at the
+     chart's block size 16 and tensor-parallel size 1 with the extra
+     config verbatim but for ``shared_storage_path``, re-rooted from
+     ``/mnt/shared-kv`` into a temporary directory; pod-a's 8192-token
+     prefix stored from split-KV tensors on the card (vLLM
+     FlashAttention's layout, 512 blocks at Llama-3-8B's KV geometry,
+     1 GiB) as 32 files of 256 tokens under ``<root>/kv-cache/`` and
+     loaded into a second pod's fresh tensors at other block ids, byte
+     for byte; the spec's threads and staging cap the chart's 8 and
+     16 GB; a byte flipped after the load must fail the comparison; its
+     walls and GB/s beside the card's name and power limit;
  15. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
@@ -3012,33 +3026,37 @@ def walls_ms(seconds: dict) -> dict:
     return {f"{k[:-2]}_ms": v * 1e3 for k, v in seconds.items()}
 
 
-def vllm_store(spec_mod, config, caches, backend, block_ids, hashes, sync, copies=None):
+def vllm_store(spec_mod, config, caches, backend, block_ids, hashes, sync, copies=None,
+               spec_cls=None, tag: str = "7c"):
     """Store ``block_ids`` of ``caches`` through a fresh spec of
-    ``config`` (one vLLM worker's handlers), counting the transfer's
-    copies in ``copies`` (a ``ViewCopies``); returns the spec, its store
-    handler and the walls: the synchronous submit (every view's gather
-    and copy) and the file writes after it."""
-    spec = spec_mod.TPUSharedStorageOffloadingSpec(config, None)
+    ``config`` (one vLLM worker's handlers; ``spec_cls``, by default the
+    module's ``TPUSharedStorageOffloadingSpec``), counting the
+    transfer's copies in ``copies`` (a ``ViewCopies``); returns the
+    spec, its store handler and the walls: the synchronous submit (every
+    view's gather and copy) and the file writes after it."""
+    spec = (spec_cls or spec_mod.TPUSharedStorageOffloadingSpec)(config, None)
     (_, _, store), _ = spec.get_handlers(caches, {name: backend for name in caches})
     sync()
     with copies or contextlib.nullcontext():
         t0 = time.perf_counter()
         if not store.transfer_async(1, (spec_mod.GPULoadStoreSpec(block_ids),
                                         spec_mod.TPUSharedStorageLoadStoreSpec(hashes))):
-            raise AssertionError("7c: the store was refused by the staging budget")
+            raise AssertionError(f"{tag}: the store was refused by the staging budget")
         t1 = time.perf_counter()
         store.wait({1})
         t2 = time.perf_counter()
     return spec, store, {"submit_s": t1 - t0, "write_s": t2 - t1, "wall_s": t2 - t0}
 
 
-def vllm_load(spec_mod, config, caches, backend, block_ids, hashes, sync, copies=None):
+def vllm_load(spec_mod, config, caches, backend, block_ids, hashes, sync, copies=None,
+              spec_cls=None, tag: str = "7c"):
     """Look ``hashes`` up and load them into ``block_ids`` of ``caches``
-    through a fresh spec of ``config`` (the loading pod's worker),
-    counting the transfer's copies in ``copies``; returns the spec, the
-    lookup and the walls: the submit, and the file reads with the
-    scatter that runs at harvest."""
-    spec = spec_mod.TPUSharedStorageOffloadingSpec(config, None)
+    through a fresh spec of ``config`` (the loading pod's worker;
+    ``spec_cls`` as in :func:`vllm_store`), counting the transfer's
+    copies in ``copies``; returns the spec, the lookup and the walls:
+    the submit, and the file reads with the scatter that runs at
+    harvest."""
+    spec = (spec_cls or spec_mod.TPUSharedStorageOffloadingSpec)(config, None)
     _, (_, _, load) = spec.get_handlers(caches, {name: backend for name in caches})
     found = spec.get_manager().lookup(hashes)
     sync()
@@ -3046,7 +3064,7 @@ def vllm_load(spec_mod, config, caches, backend, block_ids, hashes, sync, copies
         t0 = time.perf_counter()
         if not load.transfer_async(2, (spec_mod.TPUSharedStorageLoadStoreSpec(hashes),
                                        spec_mod.GPULoadStoreSpec(block_ids))):
-            raise AssertionError("7c: the load was refused by the staging budget")
+            raise AssertionError(f"{tag}: the load was refused by the staging budget")
         t1 = time.perf_counter()
         load.wait({2})
         sync()
@@ -7504,6 +7522,178 @@ def offload_smoke_phase(smi: str, device: str = "cuda:0", geometry: str = "llama
     return out
 
 
+# Phase 7e: the vLLM connector as deploy/chart_torch deploys it.  The
+# chart's default-rendered --kv-transfer-config, verbatim: the machine
+# with the card may lack PyYAML, so tests/test_torch_chart.py pins this
+# string, and the chart values below, to the render.
+CHART_KV_TRANSFER_CONFIG = (
+    '{"kv_connector":"OffloadingConnector","kv_role":"kv_both",'
+    '"kv_connector_extra_config":{"spec_name":"TPUSharedStorageOffloadingSpec",'
+    '"spec_module_path":"llm_d_kv_cache_manager_tpu_torch.offload.vllm_spec",'
+    '"shared_storage_path":"/mnt/shared-kv/kv-cache","block_size":256,'
+    '"threads_per_chip":8,"max_staging_memory_gb":16}}')
+CHART_BLOCK_SIZE = 16  # blockSize: vLLM's --block-size
+CHART_TENSOR_PARALLEL = 1  # vllm.tensorParallelSize
+CHART_MODEL = "meta-llama/Llama-3.1-8B-Instruct"  # vllm.model.name
+CHART_STORAGE_MOUNT = "/mnt/shared-kv"  # sharedStorage.mountPath
+CHART_SEED = SEED + 70
+
+
+def resolve_chart_spec(transfer: dict):
+    """The spec module and class a ``--kv-transfer-config`` names, found
+    as vLLM's OffloadingConnector finds them: the module imported by its
+    ``spec_module_path``, the class looked up on it by ``spec_name``;
+    both must be the port's."""
+    if transfer.get("kv_connector") != "OffloadingConnector":
+        raise AssertionError(f"7e: kv_connector {transfer.get('kv_connector')!r}")
+    extra = transfer["kv_connector_extra_config"]
+    module = importlib.import_module(extra["spec_module_path"])
+    if module is not port("offload.vllm_spec"):
+        raise AssertionError(f"7e: the config names {module.__name__}, not the port's spec")
+    return module, getattr(module, extra["spec_name"])
+
+
+def differing_layers(torch, got: dict, want: dict, got_ids, want_ids) -> list:
+    """Names of the split-KV layers ``[2, N, bs, Hkv, D]`` whose blocks
+    ``got_ids`` of ``got`` differ in any byte from blocks ``want_ids`` of
+    ``want``."""
+    gi = torch.as_tensor(got_ids, device=next(iter(got.values())).device)
+    wi = torch.as_tensor(want_ids, device=next(iter(want.values())).device)
+    return [name for name in want
+            if not torch.equal(got[name][:, gi].view(torch.int16),
+                               want[name][:, wi].view(torch.int16))]
+
+
+def chart_connector_phase(smi: str, device: str = "cuda:0", kv_geometry=None,
+                          tokens: int = PREFIX_TOKENS, after_load=None) -> dict:
+    """Phase 7e: pod-a's ``tokens``-token prefix through the vLLM spec
+    that ``CHART_KV_TRANSFER_CONFIG`` names, built from the chart's own
+    settings, into a second pod's fresh tensors on ``device``.
+    ``kv_geometry`` is (layers, KV heads, head_dim), by default
+    ``LlamaConfig.llama3_8b()``'s; ``after_load(tensors)`` runs between
+    the load and the comparison (tests plant a fault there).  Raises on
+    any failed check; returns the walls with their GB/s."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    transfer = json.loads(CHART_KV_TRANSFER_CONFIG)
+    spec_mod, spec_cls = resolve_chart_spec(transfer)
+    extra = dict(transfer["kv_connector_extra_config"])
+    chart_root = extra["shared_storage_path"]
+    if not chart_root.startswith(CHART_STORAGE_MOUNT + "/"):
+        raise AssertionError(f"7e: shared_storage_path {chart_root} is not under "
+                             f"{CHART_STORAGE_MOUNT}")
+    if kv_geometry is None:
+        cfg = port("models.llama").LlamaConfig.llama3_8b()
+        kv_geometry = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
+    layers, kv_heads, head_dim = kv_geometry
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    bs, file_tokens = CHART_BLOCK_SIZE, int(extra["block_size"])
+    n_blocks, bpf = tokens // bs, file_tokens // bs
+    rng = np.random.default_rng(CHART_SEED)
+    prompt = rng.integers(0, READ_VOCAB, tokens).tolist()
+    hashes = group_file_hashes(engine_hashes(None, prompt, bs), bpf)
+    src_ids = list(range(n_blocks))
+    dst_ids = rng.permutation(n_blocks).tolist()  # the second pod's own block ids
+    names = [f"model.layers.{layer}.self_attn.attn" for layer in range(layers)]
+    shape = (2, n_blocks, bs, kv_heads, head_dim)
+    gen = torch.Generator(device=device).manual_seed(CHART_SEED)
+    src = {name: torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
+           for name in names}
+    dst = {name: torch.zeros(shape, device=device, dtype=torch.bfloat16) for name in names}
+    nbytes = sum(t.numel() * t.element_size() for t in src.values())
+    root = tempfile.mkdtemp(prefix="kv-chart-")
+    extra["shared_storage_path"] = root + chart_root[len(CHART_STORAGE_MOUNT):]
+    # Phase 7c's duck-typed vLLM config at the chart's settings.
+    config = vllm_config(root, SimpleNamespace(block_size=bs, dtype="bfloat16"), file_tokens)
+    config.model_config.model = CHART_MODEL
+    config.parallel_config.tensor_parallel_size = CHART_TENSOR_PARALLEL
+    config.kv_transfer_config.kv_connector_extra_config = extra
+    backend = FlashAttentionBackend
+    handlers = []
+    copies = ViewCopies(spec_mod.KVTensorView)
+    try:
+        spec, store, stored = vllm_store(spec_mod, config, src, backend, src_ids, hashes, sync,
+                                         copies, spec_cls=spec_cls, tag="7e")
+        handlers.append(store)
+        _, load, found, loaded = vllm_load(spec_mod, config, dst, backend, dst_ids, hashes, sync,
+                                           copies, spec_cls=spec_cls, tag="7e")
+        handlers.append(load)
+        if after_load is not None:
+            after_load(dst)
+        differ = differing_layers(torch, dst, src, dst_ids, src_ids)
+        # The gate must see one flipped byte: flip one in a loaded block,
+        # compare again, flip it back.
+        probe = dst[names[-1]].view(torch.uint8)
+        probe[1, dst_ids[-1], bs - 1, kv_heads - 1, -1] ^= 1
+        caught = names[-1] in differing_layers(torch, dst, src, dst_ids, src_ids)
+        probe[1, dst_ids[-1], bs - 1, kv_heads - 1, -1] ^= 1
+        files = sorted(read_tree(root))
+        kv_dir = os.path.relpath(extra["shared_storage_path"], root)
+        outside = [f for f in files if not f.startswith(kv_dir + os.sep)]
+        threads, budget = store.engine.n_threads, store.budget.max_bytes
+        sizes = {os.path.getsize(os.path.join(root, f)) for f in files}
+    finally:
+        for handler in handlers:
+            handler.engine.close()
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    out = {"config": transfer["kv_connector_extra_config"],
+           "spec": f"{spec_cls.__module__}.{spec_cls.__qualname__}",
+           "shared_storage_path": extra["shared_storage_path"], "bytes": nbytes,
+           "blocks": n_blocks, "files": len(files), "file_bytes": sorted(sizes),
+           "lookup": found, "threads_per_chip": spec.threads_per_chip, "threads": threads,
+           "max_staging_memory_gb": spec.max_staging_memory_gb, "staging_budget_bytes": budget,
+           "store": walls_ms(stored), "load": walls_ms(loaded),
+           "store_rate": rate(nbytes, stored["wall_s"], PCIE_GEN5_X16),
+           "load_rate": rate(nbytes, loaded["wall_s"], PCIE_GEN5_X16),
+           "copies": dict(copies.counts),
+           "copy_ms": {k: v * 1e3 for k, v in copies.seconds.items()},
+           "layers_differing": differ, "flip_caught": caught, "seconds": round(seconds, 1),
+           "card": smi}
+    print(f"  {smi}: {out['spec']} from the chart's --kv-transfer-config "
+          f"(threads_per_chip {spec.threads_per_chip}, max_staging_memory_gb "
+          f"{spec.max_staging_memory_gb:g}, {threads} I/O threads), block size {bs}, tp "
+          f"{CHART_TENSOR_PARALLEL}; {layers} split-KV tensors {list(shape)} on {device}",
+          flush=True)
+    print(f"  {smi}: {n_blocks} blocks ({nbytes} B) stored as {len(files)} files of "
+          f"{file_tokens} tokens under {extra['shared_storage_path']}: wall "
+          f"{out['store']['wall_ms']:.1f} ms ({out['store_rate']['gbps']:.3f} GB/s, "
+          f"{out['store_rate']['share_of_bound']:.4f} of PCIe Gen5 x16's 64 GB/s); loaded into "
+          f"a second pod's blocks: lookup {found} of {len(hashes)} files, wall "
+          f"{out['load']['wall_ms']:.1f} ms ({out['load_rate']['gbps']:.3f} GB/s, "
+          f"{out['load_rate']['share_of_bound']:.4f}); layers differing {len(differ)}; a "
+          f"flipped byte caught {caught}; {seconds:.1f} s", flush=True)
+    print(f"  {smi}: store submit {out['store']['submit_ms']:.1f} ms, of it "
+          f"{copies.counts['d2h']} device-to-host view copies {out['copy_ms']['d2h']:.1f} ms; "
+          f"file writes {out['store']['write_ms']:.1f} ms; load file reads and scatter "
+          f"{out['load']['read_scatter_ms']:.1f} ms, of it {copies.counts['h2d']} "
+          f"host-to-device view copies {out['copy_ms']['h2d']:.1f} ms", flush=True)
+    want_files = -(-tokens // file_tokens)
+    if differ:
+        raise AssertionError(f"7e: the loaded blocks are not byte-identical to the stored ones "
+                             f"in {len(differ)} layers, first {differ[0]}")
+    if not caught:
+        raise AssertionError("7e: a byte flipped after the load went unseen")
+    if len(files) != want_files or outside or found != want_files:
+        raise AssertionError(f"7e: {len(files)} files ({outside[:2]} outside {kv_dir}), lookup "
+                             f"{found}, want {want_files} under {kv_dir}")
+    views = 2 * layers * want_files  # K and V of each layer, for each file
+    if on_card and copies.counts != {"d2h": views, "h2d": views}:
+        raise AssertionError(f"7e: copies {copies.counts}, expected {views} each way")
+    if sizes != {bpf * nbytes // n_blocks}:
+        raise AssertionError(f"7e: file sizes {sorted(sizes)}, want {bpf * nbytes // n_blocks}")
+    if (spec.threads_per_chip, spec.max_staging_memory_gb, budget) != (
+            extra["threads_per_chip"], float(extra["max_staging_memory_gb"]),
+            int(extra["max_staging_memory_gb"]) << 30):
+        raise AssertionError(f"7e: the spec took threads_per_chip {spec.threads_per_chip}, "
+                             f"staging {spec.max_staging_memory_gb} GB ({budget} bytes)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7772,6 +7962,12 @@ def main() -> int:
           "Llama-3-8B's KV geometry")
     offload_smoke = offload_smoke_phase(smi)
 
+    phase("7e. the chart's connector: deploy/chart_torch's --kv-transfer-config resolved as "
+          "vLLM does, pod-a's prefix stored from split-KV tensors on the card and loaded into a "
+          "second pod's")
+    chart_connector = chart_connector_phase(smi)
+    torch.cuda.empty_cache()
+
     phase("15. kernels")
     kernels = [
         dict(
@@ -7872,6 +8068,7 @@ def main() -> int:
                       "sharded": sharded, "read_path": read, "write_path": write,
                       "persistence": persisted, "cluster": clustered, "service": serviced,
                       "grpc": grpc_served, "offload_smoke": offload_smoke,
+                      "chart_connector": chart_connector,
                       "layers": LAYERS, "phase_seconds": PHASE_SECONDS,
                       "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)

@@ -45,6 +45,16 @@ from llm_d_kv_cache_manager_tpu_torch.utils.device import (
 )
 
 
+def supports_pinned_host(device: Union[str, torch.device, None] = None) -> bool:
+    """Whether staging from ``device`` can use page-locked host memory:
+    True for a CUDA device (``None``: the current one) while CUDA is
+    available, False on the CPU or any other device.  The reference asks
+    its backend for a ``pinned_host`` memory space; here pinned host
+    memory is what CUDA's asynchronous copies need."""
+    kind = "cuda" if device is None else torch.device(device).type
+    return kind == "cuda" and torch.cuda.is_available()
+
+
 @dataclass
 class KVCachePoolConfig:
     num_layers: int
@@ -88,7 +98,7 @@ class KVCachePool:
         """Whether gathers can stage through pinned host memory: True on
         an unsharded CUDA pool, False on the CPU or a sharded pool (the
         staging engine's fast-path gate, as in the reference)."""
-        return not self.sharded and self.kv.is_cuda
+        return not self.sharded and supports_pinned_host(self.kv.device)
 
     @property
     def block_nbytes(self) -> int:

@@ -29,10 +29,10 @@ mask is a near-uniform band).  Two step bodies:
 
 ``impl="auto"`` follows the device of the mesh, not a backend probe:
 the flash body (the kernel) on CUDA, the einsum body on the CPU, as
-the reference's ``auto`` picks einsum off the TPU.  There is no
-VMEM-style length cap.  The reference's ``interpret`` (Pallas
-interpret mode) and its kernel tiling knobs ``q_block`` and
-``kv_chunk`` have no counterpart.
+the reference's ``auto`` picks einsum off the TPU
+(:func:`resolve_auto_impl`).  There is no VMEM-style length cap.  The
+reference's ``interpret`` (Pallas interpret mode) and its kernel tiling
+knobs ``q_block`` and ``kv_chunk`` have no counterpart.
 
 ``head_axis`` (``"tp"``) cuts the heads too, the reference's tp x sp
 composition: H and Hkv divide by the same degree, which keeps the GQA
@@ -59,6 +59,7 @@ from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash import (
     normalize_partial,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash_cuda import (
+    HEAD_DIMS,
     flash_partial_cuda,
 )
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP, Mesh
@@ -291,15 +292,51 @@ def ring_of(mesh: Mesh, coords: Sequence[Tuple[int, ...]]) -> Ring:
                 transport(mesh) if len(set(processes)) > 1 else None)
 
 
+def resolve_auto_impl(mesh_platform: str, local_kv_tokens: int, head_dim: int,
+                      dtype_bytes: int, interpret: bool = False) -> str:
+    """The step body ``impl="auto"`` resolves to, as a pure function of
+    the reference's arguments: ``"flash"`` where the partial kernel runs
+    (a ``"cuda"`` mesh), the reference's ``"einsum"`` elsewhere.
+
+    On CUDA a ``head_dim`` outside the kernel's ``HEAD_DIMS`` raises, as
+    the kernel does; it never gives way to the plain version.  The
+    kernel streams K/V from device memory, so no chunk length or element
+    width caps it: ``local_kv_tokens`` and ``dtype_bytes`` (the
+    reference's VMEM bound) do not enter.  ``interpret=True`` asks for
+    the flash body anywhere, as in the reference; on CPU tensors its
+    partials run the kernel's plain version."""
+    del local_kv_tokens, dtype_bytes
+    if interpret:
+        return "flash"
+    if mesh_platform != "cuda":
+        return "einsum"
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the ring partial kernel takes head_dim in {HEAD_DIMS}, not "
+                         f"{head_dim}")
+    return "flash"
+
+
+_BODIES = {"einsum": _ring_attention_local, "flash": _ring_attention_local_flash}
+
+
 def ring_body(impl: str, platform: str) -> Callable:
     """The step body ``(q_chunks, k_chunks, v_chunks, ring, striped)
     -> out_chunks`` that ``impl`` names on a mesh of ``platform``
-    (``"auto"``: the kernel's body on CUDA, the einsum body elsewhere);
-    the chunks are {local ring rank: tensor}."""
+    (``"auto"``: :func:`resolve_auto_impl` on the chunks' shape, the
+    kernel's body on CUDA, the einsum body elsewhere); the chunks are
+    {local ring rank: tensor}."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown ring impl {impl!r}")
-    resolved = impl if impl != "auto" else ("flash" if platform == "cuda" else "einsum")
-    return _ring_attention_local_flash if resolved == "flash" else _ring_attention_local
+    if impl != "auto":
+        return _BODIES[impl]
+
+    def auto(q_chunks: Chunks, k_chunks: Chunks, v_chunks: Chunks, ring: Ring,
+             striped: bool = False) -> Chunks:
+        k = k_chunks[ring.local[0]]
+        resolved = resolve_auto_impl(platform, k.shape[1], k.shape[-1], k.element_size())
+        return _BODIES[resolved](q_chunks, k_chunks, v_chunks, ring, striped=striped)
+
+    return auto
 
 
 def ring_attention_sharded(

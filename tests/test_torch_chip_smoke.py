@@ -14,7 +14,8 @@ per-step transfer summary and its hold of a process's partial launches,
 which a planted fault must fail; phase 12f's plain blocks' launch
 split, layer cut and gates, each with planted faults; phase 7d (the
 offload smoke) whole on a CPU pool, with a byte flipped after the load
-as its planted fault."""
+as its planted fault; phase 7e (the chart's connector) whole on CPU
+tensors at a tiny geometry, with the same planted fault."""
 
 import inspect
 import json
@@ -1581,3 +1582,39 @@ def test_offload_smoke_phase_fails_on_a_byte_flipped_after_the_load():
 
     with pytest.raises(AssertionError, match="not equal"):
         smoke["offload_smoke_phase"]("cpu", device="cpu", geometry="tiny", after_load=flip)
+
+
+def test_chart_connector_phase_at_a_tiny_geometry_on_a_cpu_pool(capsys):
+    """Phase 7e whole on CPU tensors at a tiny KV geometry: the spec
+    resolved from the chart's config, 64 blocks of 16 tokens stored as 4
+    files of 256 tokens under the re-rooted ``<root>/kv-cache`` and loaded
+    into a second pod's blocks byte for byte, the chart's threads and
+    staging cap taken, the in-phase flipped byte caught."""
+    out = smoke["chart_connector_phase"]("cpu", device="cpu", kv_geometry=(2, 2, 16),
+                                         tokens=1024)
+    assert out["spec"] == ("llm_d_kv_cache_manager_tpu_torch.offload.vllm_spec."
+                           "TPUSharedStorageOffloadingSpec")
+    assert out["config"]["shared_storage_path"] == "/mnt/shared-kv/kv-cache"
+    assert out["shared_storage_path"].endswith("/kv-cache")
+    assert not out["shared_storage_path"].startswith("/mnt/")
+    assert (out["blocks"], out["files"], out["lookup"]) == (64, 4, 4)
+    block_nbytes = 2 * 2 * 16 * 2 * 16 * 2  # layers x K/V x tokens x heads x dim x bf16
+    assert out["bytes"] == 64 * block_nbytes and out["file_bytes"] == [16 * block_nbytes]
+    assert (out["threads_per_chip"], out["max_staging_memory_gb"]) == (8, 16.0)
+    assert out["staging_budget_bytes"] == 16 << 30
+    assert out["layers_differing"] == [] and out["flip_caught"] is True
+    assert out["store_rate"]["gbps"] == pytest.approx(
+        out["bytes"] / out["store"]["wall_ms"] / 1e6)
+    printed = capsys.readouterr().out
+    assert "from the chart's --kv-transfer-config" in printed and "GB/s" in printed
+
+
+def test_chart_connector_phase_fails_on_a_byte_flipped_after_the_load():
+    """A planted fault: one byte of a loaded block flipped before the
+    comparison must fail the phase."""
+    def flip(tensors):
+        next(iter(tensors.values())).view(torch.uint8)[0, 5, 0, 0, 0] ^= 1
+
+    with pytest.raises(AssertionError, match="not byte-identical"):
+        smoke["chart_connector_phase"]("cpu", device="cpu", kv_geometry=(2, 2, 16),
+                                       tokens=1024, after_load=flip)
