@@ -45,7 +45,12 @@ Phases (any failure exits non-zero):
      and -1 at one rank's chunk of the ring prefill, small edge cases
      including the exact empty-row sentinel), likewise, on the
      normalized output acc/l and on m and l, the planted fault being
-     one key tile skipped;
+     one key tile skipped; phases 2-4 also hold each kernel at the
+     shapes other models give it (``SHAPE_*``: head dims 32 to 256,
+     groups up to 16, pool blocks of 8 to 128 tokens; timed at serving
+     length, ragged edges untimed, float32 at 32, 96 and 256), and a
+     head dim outside the set must raise ``ValueError`` from every
+     wrapper before any launch;
   5. serving: two simulated pods routed by the port's ``Indexer``
      (``get_pod_scores`` over the prompt's text; A misses with every pod
      at 0.0, B hits pod-a, its score over the blocks of the tokens the
@@ -84,6 +89,14 @@ Phases (any failure exits non-zero):
      ``/debug/traces/<id>`` holds the reference's span tree, the lookup
      counter on ``/metrics`` rises by the scoring requests made, and
      ``/healthz`` carries the event-plane block;
+ 5d. serving at pool block 64, right after 5c: phase 5's miss, hit and
+     8 decode steps (one captured graph) over a pool of 64-token
+     blocks, logits within the model-level limit of phase 5's and its
+     next tokens (``serving_block``);
+ 5e. the reference's own small configuration (``GRAFT_CFG``, a copy of
+     ``__graft_entry__._CFG``: head dim 32): ``forward`` on [2, 64]
+     tokens, ``prefill_paged`` and 4 decode steps, bf16 and float32,
+     each against ``forward(use_flash=False)`` on the card;
   6. ring prefill: the 8192-token prompt through the striped and the
      contiguous ring and through the dense forward; each ring must
      launch the partial kernel exactly 16 (striped) or 10 (contiguous)
@@ -328,6 +341,10 @@ Phases (any failure exits non-zero):
      bit-identical with the pinned staging path on, and the live score
      following the demotions 1.0 -> 0.8 -> 0.5 a block; its store and
      load walls and GB/s printed beside the card's name and power limit;
+     then ``StagingConfig(use_pinned=False)`` on a pool on the card at
+     that geometry: two files' groups stored through the plain slots and
+     through the pinned path, the two trees byte-identical and holding
+     the pool's bytes;
  7e. the connector as ``deploy/chart_torch`` deploys it: the chart's
      rendered ``--kv-transfer-config`` (``CHART_KV_TRANSFER_CONFIG``)
      resolved as vLLM's OffloadingConnector does (``spec_module_path``
@@ -542,6 +559,80 @@ LIMITS = {
 RING_M_ABS = 2.0**-12
 RING_L_REL = 2.0**-10
 
+# Phases 2-4's shapes beyond Llama-3-8B's: the kernels take every
+# head dim that is a multiple of 16 from 32 to 256, any group H / Hkv
+# (up to 16 for decode) and pool blocks of 8 to 128 tokens, as the
+# reference's Pallas kernels do.  Timed at serving length: (H, Hkv, D)
+# of prefill (Tq = Tk = 8448) and of the ring partial (one rank's 2048
+# rows, offset 0).
+SHAPE_PREFILL = ((8, 1, 256), (24, 8, 128), (32, 32, 96), (8, 4, 32))
+# Decode at phase 3's B=4 contexts: (H, Hkv, D, block size).
+SHAPE_DECODE_CTX = [8448, 1, 5000, 8447]
+SHAPE_DECODE = ((32, 8, 128, 8), (32, 8, 128, 32), (32, 8, 128, 64), (32, 8, 128, 128),
+                (8, 1, 256, 16), (28, 4, 128, 16), (128, 8, 128, 16))
+# Untimed: ragged lengths at head dims 48-256 and groups 3, 5 and 16, and
+# float32 at 32, 96 and 256; (B, Tq, Tk, H, Hkv, D, q_offset, dtype).
+SHAPE_PREFILL_EDGE = (
+    (2, 100, 100, 8, 2, 48, 0, "bfloat16"),
+    (1, 77, 300, 15, 5, 80, 223, "bfloat16"),  # G 3
+    (1, 192, 250, 10, 2, 112, 58, "bfloat16"),  # G 5
+    (1, 130, 400, 16, 1, 144, 270, "bfloat16"),  # G 16
+    (2, 200, 333, 4, 1, 256, 133, "bfloat16"),
+    (1, 1, 77, 32, 2, 256, 76, "bfloat16"),
+    (1, 100, 100, 8, 4, 32, 0, "float32"),
+    (1, 70, 90, 6, 2, 96, 20, "float32"),
+    (2, 50, 60, 4, 4, 256, 10, "float32"),
+    # head dims 160-240, each beside the compiled width that serves it
+    (1, 90, 150, 8, 2, 160, 60, "bfloat16"),
+    (1, 130, 130, 6, 6, 176, 0, "bfloat16"),
+    (2, 64, 200, 14, 2, 192, 136, "bfloat16"),  # G 7
+    (1, 150, 170, 16, 4, 208, 20, "bfloat16"),
+    (1, 1, 100, 8, 1, 224, 99, "bfloat16"),
+    (1, 200, 260, 12, 3, 240, 60, "bfloat16"),
+)
+# (B, H, Hkv, D, max_blocks, ctx, dtype, block size): contexts that end
+# mid-block and on a block's last token at blocks 8, 32 and 128.
+SHAPE_DECODE_EDGE = (
+    (3, 24, 8, 48, 20, [300, 17, 160], "bfloat16", 16),  # G 3
+    (2, 10, 2, 80, 40, [600, 333], "bfloat16", 16),  # G 5
+    (2, 16, 1, 112, 40, [500, 95], "bfloat16", 16),  # G 16
+    (2, 32, 2, 144, 30, [470, 1], "bfloat16", 16),
+    (2, 8, 4, 256, 12, [170, 96], "bfloat16", 16),
+    (2, 48, 3, 256, 12, [180, 33], "bfloat16", 16),
+    (3, 32, 8, 128, 40, [299, 320, 1], "bfloat16", 8),
+    (3, 32, 8, 128, 20, [433, 640, 32], "bfloat16", 32),
+    (3, 32, 8, 128, 6, [434, 768, 127], "bfloat16", 128),
+    (2, 8, 4, 32, 10, [150, 37], "float32", 16),
+    (2, 12, 4, 96, 24, [180, 5], "float32", 8),  # G 3
+    (2, 16, 1, 256, 6, [90, 33], "float32", 16),  # G 16: float32 sub-groups
+    # phase 5e's decode shape at its last step's contexts (65 to 68)
+    (2, 8, 4, 32, 5, [65, 68], "bfloat16", 16),
+    (2, 12, 4, 96, 20, [300, 17], "bfloat16", 16),  # G 3
+    (2, 8, 2, 160, 12, [170, 64], "bfloat16", 16),
+    (2, 8, 8, 176, 10, [150, 31], "bfloat16", 32),
+    (2, 14, 2, 192, 20, [150, 8], "bfloat16", 8),  # G 7
+    (2, 16, 4, 208, 12, [180, 100], "bfloat16", 16),
+    (2, 6, 2, 224, 4, [200, 128], "bfloat16", 64),
+    (2, 32, 2, 240, 3, [300, 129], "bfloat16", 128),  # G 16
+)
+# (B, Tq, Tk, H, Hkv, D, causal_offset, dtype)
+SHAPE_RING_EDGE = (
+    (1, 100, 300, 8, 2, 48, None, "bfloat16"),
+    (1, 77, 77, 15, 5, 80, -1, "bfloat16"),
+    (2, 130, 190, 10, 2, 112, 0, "bfloat16"),
+    (1, 200, 140, 16, 1, 144, -1, "bfloat16"),
+    (1, 150, 260, 4, 2, 256, 30, "bfloat16"),
+    (1, 100, 100, 8, 4, 32, -1, "float32"),
+    (1, 70, 90, 6, 2, 96, None, "float32"),
+    (1, 60, 60, 4, 1, 256, 0, "float32"),
+    (1, 100, 200, 8, 2, 160, None, "bfloat16"),
+    (1, 90, 90, 6, 6, 176, -1, "bfloat16"),
+    (2, 130, 150, 14, 2, 192, 0, "bfloat16"),  # G 7
+    (1, 80, 120, 16, 4, 208, 40, "bfloat16"),
+    (1, 140, 140, 8, 1, 224, -1, "bfloat16"),
+    (1, 64, 190, 12, 3, 240, None, "bfloat16"),
+)
+
 
 def port(name):
     """A module of the port, imported by name."""
@@ -558,7 +649,8 @@ def card_peaks(name: str):
 
 def kernel_name(mangled: str) -> str:
     """``name<int args>`` of a mangled kernel: the identifier whose
-    length prefix says it ends in ``_kernel``, then its template ints."""
+    length prefix says it ends in ``_kernel``, then its template ints
+    (a bool as 0 or 1)."""
     for match in re.finditer(r"\d+", mangled):
         # The digits may start with the tail of a file hash: try each
         # suffix of the run as the length.
@@ -567,7 +659,7 @@ def kernel_name(mangled: str) -> str:
             name = mangled[match.end():end]
             if name.endswith("_kernel"):
                 rest = mangled[end:]
-                args = (re.findall(r"L[ij](\d+)E", rest[:rest.find("EE") + 2])
+                args = (re.findall(r"L[ijb](\d+)E", rest[:rest.find("EE") + 2])
                         if rest[:1] == "I" else [])
                 return f"{name}<{','.join(args)}>"
     return mangled
@@ -800,65 +892,86 @@ def prefill_case(torch, peaks, B, Tq, Tk, H, Hkv, D, q_offset, dtype, timing):
 # --------------------------------------------------------------- phase 3
 
 
-def decode_items(torch, pc, B, H, Hkv, D, max_blocks, ctx, dtype):
+def decode_items(torch, pc, B, H, Hkv, D, max_blocks, ctx, dtype, block_size=16):
     """The pieces the decode kernel cuts this call into on this card:
-    the wrapper's grid and the mirror of the kernel's arithmetic."""
+    the wrapper's grid and the mirror of the kernel's arithmetic, over
+    its lines (KV heads, or float32 sub-groups of them)."""
     code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
-    resident = pc.RESIDENT_CTAS[torch.cuda.current_device(), D, H // Hkv, code]
+    heads, nsub = pc.head_split(H // Hkv, D, dtype)
+    resident = pc.RESIDENT_CTAS[torch.cuda.current_device(), D, heads, code, block_size]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return pc.work_items(ctx, Hkv, max_blocks, pc.split_plan(B, Hkv, max_blocks, sms, resident))
+    ctas = pc.split_plan(B, Hkv * nsub, max_blocks, sms, resident, block_size=block_size)
+    return pc.work_items(ctx, Hkv * nsub, max_blocks, ctas, block_size=block_size), heads
 
 
-def decode_case(torch, peaks, B, H, Hkv, D, max_blocks, ctx, dtype, timing):
+def repacked_decode(torch, pc, q, kv, table_row, tokens: int, drop):
+    """The decode kernel's output for one sequence whose K and V are the
+    first ``tokens`` of ``table_row``'s blocks in ``kv`` without token
+    range ``drop``, repacked into a pool of 16-token blocks: what a
+    kernel that skipped those tokens would give."""
+    bs = kv.shape[2]
+    n_blocks = -(-tokens // bs)
+    seq = kv[table_row[:n_blocks].long()]  # [n, 2, bs, Hkv, D]
+    seq = seq.permute(1, 0, 2, 3, 4).reshape(2, n_blocks * bs, *kv.shape[3:])[:, :tokens]
+    keep = torch.cat((seq[:, :drop[0]], seq[:, drop[1]:]), 1)
+    n = keep.shape[1]
+    pad = -n % 16
+    keep = torch.cat((keep, keep.new_zeros(2, pad, *keep.shape[2:])), 1)
+    pool = keep.reshape(2, -1, 16, *keep.shape[2:]).permute(1, 0, 2, 3, 4).contiguous()
+    table = torch.arange(pool.shape[0], dtype=torch.int32, device=kv.device)[None]
+    return pc.paged_decode_attention_cuda(
+        q, pool, table, torch.tensor([n], dtype=torch.int32, device=kv.device))
+
+
+def decode_case(torch, peaks, B, H, Hkv, D, max_blocks, ctx, dtype, timing, block_size=16):
     pc = port("ops.paged_decode_cuda")
+    bs = block_size
     g = torch.Generator(device="cuda").manual_seed(SEED + B + max_blocks)
     num_blocks = B * max_blocks + 7
-    kv = torch.randn(num_blocks, 2, 16, Hkv, D, generator=g, device="cuda").to(dtype)
+    kv = torch.randn(num_blocks, 2, bs, Hkv, D, generator=g, device="cuda").to(dtype)
     q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
     perm = torch.randperm(num_blocks, generator=torch.Generator().manual_seed(SEED))
     table = perm[: B * max_blocks].reshape(B, max_blocks).to(torch.int32).cuda()
     # Past each context the table holds junk the kernel must never read.
     for b, n in enumerate(ctx):
-        table[b, -(-n // 16):] = -12345
+        table[b, -(-n // bs):] = -12345
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
     safe = table.clamp(min=0)  # the plain gather reads every column
     got = pc.paged_decode_attention_cuda(q, kv, table, ctx_t)
     ref = pc.paged_decode_attention_plain(q, kv, safe, ctx_t)
     torch.cuda.synchronize()
     limits = LIMITS["decode", str(dtype)[6:]]
-    shape = f"B={B} H={H} Hkv={Hkv} D={D} max_blocks={max_blocks} ctx={ctx} {str(dtype)[6:]}"
+    shape = (f"B={B} H={H} Hkv={Hkv} D={D} block_size={bs} max_blocks={max_blocks} ctx={ctx} "
+             f"{str(dtype)[6:]}")
     result = check_close(f"decode {shape}", got, ref, *limits)
     if not timing:
         return {"shape": shape, **result}
     # Planted fault: a merge that drops one partial.  The kernel cuts the
-    # live blocks into runs, one a CTA (``work_items``); of the pieces
-    # that leave a partial, take the middle one of the longest sequence.
-    # The faulty output is this kernel's over that sequence's table
-    # without the piece's blocks, for the query heads of its KV head.
-    G = H // Hkv
-    items = decode_items(torch, pc, B, H, Hkv, D, max_blocks, ctx, dtype)
+    # live 16-token tiles into runs, one a CTA (``work_items``); of the
+    # pieces that leave a partial, take the middle one of the longest
+    # sequence.  The faulty output is this kernel's over that sequence
+    # without the piece's tokens, for the query heads of its line.
+    items, heads = decode_items(torch, pc, B, H, Hkv, D, max_blocks, ctx, dtype, bs)
     long_b = max(range(B), key=lambda b: ctx[b])
     live = -(-ctx[long_b] // 16)
     partial = [it for it in items if it[1] == long_b and (it[3], it[4]) != (0, live)]
     if not partial:
         raise AssertionError(f"decode {shape}: no piece leaves a partial to drop")
-    cta, _, kvh, lo, hi = partial[len(partial) // 2]
-    dropped = min(ctx[long_b], hi * 16) - lo * 16
-    table_b = table[long_b: long_b + 1]
+    cta, _, line, lo, hi = partial[len(partial) // 2]
+    drop = (lo * 16, min(ctx[long_b], hi * 16))
     faulty = got.clone()
-    faulty[long_b, kvh * G:(kvh + 1) * G] = pc.paged_decode_attention_cuda(
-        q[long_b: long_b + 1], kv, torch.cat((table_b[:, :lo], table_b[:, hi:]), 1).contiguous(),
-        torch.tensor([ctx[long_b] - dropped], dtype=torch.int32, device="cuda"),
-    )[0, kvh * G:(kvh + 1) * G]
+    faulty[long_b, line * heads:(line + 1) * heads] = repacked_decode(
+        torch, pc, q[long_b: long_b + 1], kv, safe[long_b], ctx[long_b], drop,
+    )[0, line * heads:(line + 1) * heads]
     planted = reject_fault(
-        f"partial of CTA {cta} (sequence {long_b}, KV head {kvh}, blocks {lo}-{hi - 1} of "
+        f"partial of CTA {cta} (sequence {long_b}, line {line}, tiles {lo}-{hi - 1} of "
         f"{live}; {len(partial)} partials in the sequence) dropped", faulty, ref, *limits)
     row = {"shape": shape, **result, "planted": planted}
     item = q.element_size()
     tokens = sum(ctx)
     flops = 4.0 * tokens * H * D
     nbytes = (2 * tokens * Hkv * D + 2 * B * H * D) * item + 4 * (
-        sum(-(-n // 16) for n in ctx) + B)
+        sum(len(range(0, n, bs)) for n in ctx) + B)
     t_ops = flops / (peaks[0] if dtype == torch.bfloat16 else peaks[1])
     t_bytes = nbytes / peaks[2]
     kernel = lambda: pc.paged_decode_attention_cuda(q, kv, table, ctx_t)  # noqa: E731
@@ -1013,6 +1126,43 @@ def ring_partial_case(torch, peaks, B, Tq, Tk, H, Hkv, D, offset, dtype, timing)
           f"{row['plain_ms']:.3f}  library_ms {row['library_ms']:.4f}  bound_ms "
           f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
     return add_rates(row, flops)
+
+
+def shape_guard_case(torch, head_dim: int = 40) -> dict:
+    """Each kernel wrapper refuses a head dim outside the set the kernels
+    take (every multiple of 16 from 32 to 256) on CUDA tensors, with a
+    ValueError naming the set, before any launch."""
+    fc, rc, pc = (port("ops.flash_cuda"), port("ops.ring_flash_cuda"),
+                  port("ops.paged_decode_cuda"))
+    bf16 = torch.bfloat16
+    q = torch.zeros(1, 16, 4, head_dim, dtype=bf16, device="cuda")
+    kv = torch.zeros(1, 16, 2, head_dim, dtype=bf16, device="cuda")
+    pool = torch.zeros(2, 2, 16, 2, head_dim, dtype=bf16, device="cuda")
+    table = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+    ctx = torch.tensor([5], dtype=torch.int32, device="cuda")
+    before = (fc.flash_gqa_attention_cuda.launches, rc.flash_partial_cuda.launches,
+              pc.paged_decode_attention_cuda.launches)
+    messages = {}
+    for name, call in (
+            ("flash_prefill", lambda: fc.flash_gqa_attention_cuda(q, kv, kv)),
+            ("ring_partial", lambda: rc.flash_partial_cuda(q, kv, kv, causal_offset=0)),
+            ("paged_decode", lambda: pc.paged_decode_attention_cuda(q[0, :1], pool, table,
+                                                                     ctx))):
+        try:
+            call()
+        except ValueError as exc:
+            messages[name] = str(exc)
+        else:
+            raise AssertionError(f"{name}: head_dim {head_dim} did not raise")
+        if "a multiple of 16 from 32 to 256" not in messages[name]:
+            raise AssertionError(f"{name}: the message does not name the set: {messages[name]}")
+    after = (fc.flash_gqa_attention_cuda.launches, rc.flash_partial_cuda.launches,
+             pc.paged_decode_attention_cuda.launches)
+    if after != before:
+        raise AssertionError("a refused call launched a kernel")
+    print(f"  head_dim {head_dim} on CUDA tensors: ValueError from every wrapper, no launch: "
+          f"{messages}", flush=True)
+    return {"shape": f"head_dim={head_dim} bfloat16, refused", "raised": messages}
 
 
 # ---------------------------------------------- KV events (phases 5, 13, 14)
@@ -2066,6 +2216,202 @@ def serving_http(torch, params, cfg, t) -> dict:
             "continuation_ms": (t_first - t_routed) * 1e3, "decode_ms_per_step": decode_ms,
             "in_process_route_hit_ms": t["route_hit_ms"], "spans": tree,
             "lookups": lookups, "decoded": generated, "held": held}
+
+
+# -------------------------------------------------------------- phase 5d
+
+
+SERVE_BLOCK = 64  # phase 5d's pool block: a fleet indexed at 64 tokens a block
+
+
+def serving_block(torch, params, cfg, ref, block_size: int = SERVE_BLOCK) -> dict:
+    """Phase 5d: phase 5's requests over a pool of ``block_size``-token
+    blocks (the engine's block size is the index's, so a fleet indexed at
+    64 serves at 64): A's prompt through ``prefill_paged`` (a miss), B's
+    suffix over the prefix A wrote through ``prefill_continue`` (a hit),
+    then phase 5's decode inputs at batch 2, replayed from one captured
+    graph.  Logits are held to phase 5's within the model-level limit,
+    next tokens to phase 5's (a tie within the measured error allowed,
+    as phase 5's own check does; ``tokens_equal`` says whether any was
+    one).  On CPU params (the tests' small size) the decode steps run
+    eagerly and no launch is counted."""
+    llama, pool_mod = port("models.llama"), port("models.kv_cache_pool")
+    fc, pc = port("ops.flash_cuda"), port("ops.paged_decode_cuda")
+    device = params["embed"].device
+    cuda = device.type == "cuda"
+    bs, layers = block_size, cfg.n_layers
+    cfg_b = dataclasses.replace(cfg, block_size=bs)
+    prompt_a, prompt_b, inputs = ref["prompt_a"], ref["prompt_b"], ref["decode_inputs"]
+    n_suffix = ref["logits_b"].shape[1]
+    prefix_len = len(prompt_b) - n_suffix
+    if len(prompt_a) % bs or prefix_len % bs or n_suffix % bs or len(inputs) > bs:
+        raise AssertionError(f"5d: phase 5's requests do not fall on {bs}-token blocks")
+    n_a, n_prefix, n_sfx = len(prompt_a) // bs, prefix_len // bs, n_suffix // bs
+    pool = pool_mod.KVCachePool(pool_mod.KVCachePoolConfig(
+        layers, n_a + n_sfx + 2, bs, cfg.n_kv_heads, cfg.head_dim, cfg.dtype), device=device)
+    ids_a = list(range(n_a))
+    ids_b = ids_a[:n_prefix] + list(range(n_a, n_a + n_sfx))
+    table = torch.tensor([ids_a + [n_a + n_sfx], ids_b + [n_a + n_sfx + 1]], dtype=torch.int32)
+    print(f"  one pool of {n_a + n_sfx + 2} blocks of {bs} tokens: A's {n_a}, B's {n_sfx} "
+          f"behind A's first {n_prefix}, one more a sequence for the decode steps", flush=True)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    fc.flash_gqa_attention_cuda.launches = 0
+    pc.paged_decode_attention_cuda.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    logits, _ = llama.prefill_paged(params, torch.tensor([prompt_a]), pool.kv,
+                                    torch.tensor([ids_a], dtype=torch.int32), cfg_b)
+    first_a = int(logits[0, -1].argmax())
+    miss_ms = (time.perf_counter() - t0) * 1e3
+    miss_tail = logits[:, -ref["miss_tail"].shape[1]:].clone()
+    del logits
+    sync()
+    t0 = time.perf_counter()
+    logits_b, _ = llama.prefill_continue(params, torch.tensor([prompt_b[prefix_len:]]), pool.kv,
+                                         torch.tensor([ids_b], dtype=torch.int32), prefix_len,
+                                         cfg_b)
+    first_b = int(logits_b[0, -1].argmax())
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = fc.flash_gqa_attention_cuda.launches
+    errs = {"miss_tail": check_logits(f"5d miss, last {miss_tail.shape[1]} positions, vs phase "
+                                      f"5's", miss_tail, ref["miss_tail"]),
+            "hit": check_logits("5d hit vs phase 5's", logits_b, ref["logits_b"])}
+    gaps = [check_next_token("5d miss next token", first_a, ref["miss_tail"][0, -1],
+                             errs["miss_tail"]),
+            check_next_token("5d hit next token", first_b, ref["logits_b"][0, -1], errs["hit"])]
+    want = [int(ref["miss_tail"][0, -1].argmax()), int(ref["logits_b"][0, -1].argmax())]
+    got_tokens = [first_a, first_b]
+    bit_equal = [torch.equal(miss_tail, ref["miss_tail"]), torch.equal(logits_b, ref["logits_b"])]
+    del miss_tail, logits_b
+
+    if cuda:
+        step = llama.make_decode_step(params, pool.kv, cfg_b, 2, table.shape[1])
+        step.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        step(inputs[0][0], table, inputs[0][1])  # captures; step 1 writes the same K/V again
+        step.replays = 0
+
+        def run(tokens, ctx):
+            return step(tokens, table, ctx).clone()
+    else:
+        def run(tokens, ctx):
+            return llama.decode_step(params, tokens, pool.kv, table, ctx, cfg_b)[0]
+    sync()
+    t0 = time.perf_counter()
+    steps = [run(tokens, ctx) for tokens, ctx in inputs]
+    sync()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
+    decode_errs = []
+    for i, (logits, want_logits) in enumerate(zip(steps, ref["step_logits"])):
+        decode_errs.append(check_logits(f"5d decode step {i + 1} vs phase 5's", logits,
+                                        want_logits))
+        bit_equal.append(torch.equal(logits, want_logits))
+        for row in range(2):
+            token = int(logits[row].argmax())
+            gaps.append(check_next_token(f"5d decode step {i + 1}, sequence {row}", token,
+                                         want_logits[row], decode_errs[-1]))
+            got_tokens.append(token)
+            want.append(int(want_logits[row].argmax()))
+    launches = {"flash_prefill": prefill_launches, "paged_decode": 0}
+    expected = dict(launches)
+    if cuda:
+        nodes = captured_kernel_nodes(step.graph, dict(KERNEL_GROUPS)["decode_attention"])
+        launches["paged_decode"] = step.replays * nodes
+        expected = {"flash_prefill": 2 * layers, "paged_decode": len(inputs) * layers}
+    print(f"  miss {miss_ms:.1f} ms, hit {hit_ms:.1f} ms; decode {len(inputs)} steps at batch 2 "
+          f"{'from one captured graph' if cuda else 'eager'}, {decode_ms:.2f} ms/step; next "
+          f"tokens {got_tokens}, phase 5's {want}: equal {got_tokens == want}; logits bit-equal "
+          f"to phase 5's (miss tail, hit, steps): {bit_equal}; kernel launches {launches}, "
+          f"expected {expected}", flush=True)
+    if launches != expected:
+        raise AssertionError(f"5d: launches {launches}, expected {expected}")
+    return {"block_size": bs, "launches": launches, "miss_ms": miss_ms, "hit_ms": hit_ms,
+            "decode_ms_per_step": decode_ms, "max_abs_err": dict(errs, decode=max(decode_errs)),
+            "token_gaps": gaps, "tokens": got_tokens, "tokens_equal": got_tokens == want,
+            "bit_equal": bit_equal}
+
+
+# -------------------------------------------------------------- phase 5e
+
+
+# The JAX reference's own small configuration, ``__graft_entry__._CFG``
+# (``__graft_entry__.py:29-37``): head dim 256 / 8 = 32, a group of 2.
+# Its ``entry()`` (``:40-49``) runs ``llama.forward`` on [2, 64] tokens.
+GRAFT_CFG = dict(vocab_size=2048, d_model=256, n_layers=4, n_heads=8, n_kv_heads=4, d_ff=704)
+GRAFT_TOKENS = (2, 64)
+GRAFT_DECODE_STEPS = 4
+
+
+def graft_config_phase(torch, device: str = "cuda", dtypes=("bfloat16", "float32")) -> dict:
+    """Phase 5e: the reference's small configuration on the port, in
+    each dtype: ``forward`` on [2, 64] tokens (entry()'s call; the
+    prefill kernel on CUDA), then ``prefill_paged`` and
+    GRAFT_DECODE_STEPS eager ``decode_step``s (the decode kernel), each
+    held within the model-level limit against the dense op,
+    ``forward(use_flash=False)`` on the same device, with its next
+    tokens (a tie within the measured error allowed)."""
+    llama, pool_mod = port("models.llama"), port("models.kv_cache_pool")
+    fc, pc = port("ops.flash_cuda"), port("ops.paged_decode_cuda")
+    out = {}
+    for dtype in dtypes:
+        cfg = llama.LlamaConfig(**GRAFT_CFG, dtype=dtype)
+        params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(SEED),
+                                   device=device)
+        B, T = GRAFT_TOKENS
+        tokens = torch.randint(1, cfg.vocab_size, (B, T),
+                               generator=torch.Generator().manual_seed(SEED)).to(device)
+        bs = cfg.block_size
+        n = -(-(T + GRAFT_DECODE_STEPS) // bs)
+        pool = pool_mod.KVCachePool(pool_mod.KVCachePoolConfig(
+            cfg.n_layers, B * n, bs, cfg.n_kv_heads, cfg.head_dim, dtype), device=device)
+        table = torch.arange(B * n, dtype=torch.int32).reshape(B, n)
+        fc.flash_gqa_attention_cuda.launches = 0
+        pc.paged_decode_attention_cuda.launches = 0
+        with torch.no_grad():
+            fwd = llama.forward(params, tokens, cfg)
+            dense = llama.forward(params, tokens, cfg, use_flash=False)
+            errs = {"forward": check_logits(f"5e {dtype}: forward vs dense", fwd, dense)}
+            gaps = [check_next_token(f"5e {dtype}: forward, sequence {b}, next token",
+                                     int(fwd[b, -1].argmax()), dense[b, -1], errs["forward"])
+                    for b in range(B)]
+            forward_launches = fc.flash_gqa_attention_cuda.launches
+            logits, _ = llama.prefill_paged(params, tokens, pool.kv, table[:, :T // bs], cfg)
+            errs["prefill_paged"] = check_logits(f"5e {dtype}: prefill_paged vs dense", logits,
+                                                 dense)
+            seq = tokens
+            step_errs = []
+            nxt = logits[:, -1].argmax(-1)
+            for i in range(GRAFT_DECODE_STEPS):
+                seq = torch.cat((seq, nxt[:, None]), 1)
+                ctx = torch.full((B,), seq.shape[1], dtype=torch.int32)
+                step, _ = llama.decode_step(params, nxt, pool.kv, table, ctx, cfg)
+                want = llama.forward(params, seq, cfg, use_flash=False)[:, -1]
+                step_errs.append(check_logits(f"5e {dtype}: decode step {i + 1} vs dense", step,
+                                              want))
+                gaps += [check_next_token(f"5e {dtype}: decode step {i + 1}, sequence {b}",
+                                          int(step[b].argmax()), want[b], step_errs[-1])
+                         for b in range(B)]
+                nxt = step.argmax(-1)
+        launches = {"flash_prefill": fc.flash_gqa_attention_cuda.launches,
+                    "paged_decode": pc.paged_decode_attention_cuda.launches}
+        expected = ({"flash_prefill": 2 * cfg.n_layers,
+                     "paged_decode": GRAFT_DECODE_STEPS * cfg.n_layers}
+                    if device != "cpu" else {"flash_prefill": 0, "paged_decode": 0})
+        print(f"  {dtype}: head_dim {cfg.head_dim}, group {cfg.n_heads // cfg.n_kv_heads}; "
+              f"forward ({forward_launches} prefill launches), prefill_paged and "
+              f"{GRAFT_DECODE_STEPS} decode steps within the limit of the dense op; tokens "
+              f"{seq[:, T:].tolist()}; kernel launches {launches}, expected {expected}",
+              flush=True)
+        if launches != expected:
+            raise AssertionError(f"5e {dtype}: launches {launches}, expected {expected}")
+        out[dtype] = {"launches": launches,
+                      "max_abs_err": dict(errs, decode=max(step_errs)),
+                      "token_gaps": gaps, "tokens": seq[:, T:].tolist()}
+        del params, pool
+    return out
 
 
 # --------------------------------------------------------------- phase 6
@@ -7511,8 +7857,11 @@ def offload_smoke_phase(smi: str, device: str = "cuda:0", geometry: str = "llama
         raise RuntimeError(f"7d: score ladder {ladder}, want {list(OFFLOAD_SMOKE_LADDER)}")
     if device.startswith("cuda") and not result["uses_pinned"]:
         raise RuntimeError("7d: the CUDA pool's staging did not take the pinned path")
+    import torch
+
+    plain = plain_slots_check(torch, smoke["geometry"](geometry), device)
     nbytes = result["round_trip_bytes"]
-    out = dict(result, store_gbps=nbytes / result["store_s"] / 1e9,
+    out = dict(result, plain_slots=plain, store_gbps=nbytes / result["store_s"] / 1e9,
                load_gbps=nbytes / result["load_s"] / 1e9, seconds=round(seconds, 1), card=smi)
     print(f"  {smi}: {geometry} pool on {device}, {result['block_nbytes']} B a block; round "
           f"trip of {nbytes} B bit-identical, store {result['store_s'] * 1e3:.3f} ms "
@@ -7520,6 +7869,63 @@ def offload_smoke_phase(smi: str, device: str = "cuda:0", geometry: str = "llama
           f"({out['load_gbps']:.3f} GB/s); score ladder {ladder}; pinned staging "
           f"{result['uses_pinned']}; {seconds:.1f} s", flush=True)
     return out
+
+
+def plain_slots_check(torch, pool_config, device: str, tamper=None) -> dict:
+    """Phase 7d's ``StagingConfig(use_pinned=...)`` check: random bytes in
+    a pool of ``pool_config`` on ``device``, two files' groups stored by a
+    staging engine that follows the pool (the pinned side-stream path on
+    a CUDA pool) and by one forced to plain slots (``use_pinned=False``);
+    the two file trees must be byte-identical and each file must hold
+    its blocks' bytes from the pool.  ``tamper(root)`` runs on the plain
+    tree before the comparison (a planted fault)."""
+    pool_mod = port("models.kv_cache_pool")
+    spec_mod, staging_mod = port("offload.spec"), port("offload.staging_engine")
+    job_status = port("native.engine").JobStatus
+    group_blocks = port("offload.worker").group_blocks_per_file
+    per_file = 4
+    pool = pool_mod.KVCachePool(dataclasses.replace(pool_config, num_blocks=4 * per_file),
+                                device=device)
+    gen = torch.Generator(device=pool.kv.device).manual_seed(SEED + 80)
+    pool.kv.copy_(torch.randn(pool.kv.shape, generator=gen, device=pool.kv.device)
+                  .to(pool.kv.dtype))
+    ids, hashes = [9, 2, 14, 5, 0, 11, 7], [0xD1, 0xD2]
+    trees, paths, uses = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="kvtpu-plain-slots-") as tmp:
+        for use_pinned in (None, False):
+            root = os.path.join(tmp, "plain" if use_pinned is False else "pool")
+            conn = spec_mod.TPUOffloadConnector(spec_mod.TPUOffloadSpec(
+                shared_storage_path=root, model_name="plain-slots",
+                device_block_size=pool.config.block_size,
+                offloaded_block_size=per_file * pool.config.block_size,
+                threads_per_chip=2, dtype=pool.config.dtype, staging_lanes=0), pool)
+            try:
+                staging = staging_mod.StagingEngine(
+                    pool, conn.engine, conn.file_mapper, per_file,
+                    staging_mod.StagingConfig(lanes_per_chip=1, use_pinned=use_pinned))
+                uses[use_pinned] = staging.uses_pinned
+                staging.store(1, group_blocks(hashes, ids, per_file))
+                if staging.wait(1) != job_status.SUCCEEDED:
+                    raise RuntimeError(f"7d: the store with use_pinned={use_pinned} failed")
+                paths[use_pinned] = [conn.file_mapper.get_file_name(h) for h in hashes]
+            finally:
+                conn.close()
+            if use_pinned is False and tamper is not None:
+                tamper(root)
+            trees[use_pinned] = [open(path, "rb").read() for path in paths[use_pinned]]
+    if uses[False] or uses[None] != pool.pinned_host:
+        raise AssertionError(f"7d: uses_pinned {uses}, the pool's pinned path "
+                             f"{pool.pinned_host}")
+    want = [pool.gather_block_major(ids[i:i + per_file]).tobytes()
+            for i in range(0, len(ids), per_file)]
+    for name, tree in (("plain slots", trees[False]), ("pool's path", trees[None])):
+        if tree != want:
+            raise AssertionError(f"7d: the {name}' files are not byte-identical to the pool")
+    nbytes = sum(len(b) for b in want)
+    print(f"  use_pinned=False on a pool on {device}: {len(want)} files, {nbytes} B, "
+          f"byte-identical to the pinned path's (uses_pinned {uses[None]}) and to the pool",
+          flush=True)
+    return {"files": len(want), "bytes": nbytes, "pool_path_pinned": uses[None]}
 
 
 # Phase 7e: the vLLM connector as deploy/chart_torch deploys it.  The
@@ -7751,6 +8157,12 @@ def main() -> int:
             (1, 40, 300, 8, 2, 64, 260, f32),
         ]
     ]
+    # Every head dim of the set and any group, as the Pallas kernel takes
+    # them: other models' shapes at serving length, then ragged edges.
+    prefill_shapes = [prefill_case(torch, peaks, 1, 8448, 8448, *case, 0, bf16, True)
+                      for case in SHAPE_PREFILL]
+    prefill_edge += [prefill_case(torch, peaks, *case[:7], getattr(torch, case[7]), False)
+                     for case in SHAPE_PREFILL_EDGE]
     torch.cuda.empty_cache()
 
     phase("3. decode kernel (csrc/paged_decode.cu) vs plain paged_attention")
@@ -7784,6 +8196,15 @@ def main() -> int:
             (2, 16, 4, 64, 80, [1200, 700], f32),  # float32 partials merged across CTAs
         ]
     ] + [decode_replay_case(torch)]
+    # Every pool block size, head dim and group the Pallas kernel takes:
+    # phase 3's B=4 row at other block sizes and widths, then ragged
+    # edges.
+    decode_shapes = [
+        decode_case(torch, peaks, 4, H, Hkv, D, -(-8448 // bs), SHAPE_DECODE_CTX, bf16, True,
+                    block_size=bs)
+        for H, Hkv, D, bs in SHAPE_DECODE]
+    decode_edge += [decode_case(torch, peaks, *case[:6], getattr(torch, case[6]), False,
+                                block_size=case[7]) for case in SHAPE_DECODE_EDGE]
     torch.cuda.empty_cache()
 
     phase("4. ring partial kernel (csrc/ring_partial.cu) vs plain partial")
@@ -7819,6 +8240,11 @@ def main() -> int:
             (2, 70, 90, 8, 2, 64, None, f32),
         ]
     ]
+    ring_shapes = [ring_partial_case(torch, peaks, 1, chunk, chunk, *case, 0, bf16, True)
+                   for case in SHAPE_PREFILL]
+    ring_edge += [ring_partial_case(torch, peaks, *case[:7], getattr(torch, case[7]), False)
+                  for case in SHAPE_RING_EDGE]
+    shape_guard = shape_guard_case(torch)
     torch.cuda.empty_cache()
 
     llama = port("models.llama")
@@ -7847,6 +8273,19 @@ def main() -> int:
         tiering_inputs["scorer"].shutdown()
         raise
     del http_inputs
+    torch.cuda.empty_cache()
+
+    try:
+        phase(f"5d. serving at pool block {SERVE_BLOCK}: phase 5's miss, hit and decode steps "
+              f"over a pool of {SERVE_BLOCK}-token blocks")
+        served_block = serving_block(torch, params, cfg, sharded_inputs)
+        torch.cuda.empty_cache()
+        phase("5e. the reference's small config (__graft_entry__._CFG, head dim 32): forward, "
+              "prefill_paged and decode steps against the dense op, bf16 and float32")
+        graft = graft_config_phase(torch)
+    except BaseException:
+        tiering_inputs["scorer"].shutdown()
+        raise
     torch.cuda.empty_cache()
 
     phase(f"6. ring prefill: forward(sp_mesh=sp {RING_SP} on one card) over "
@@ -7976,6 +8415,8 @@ def main() -> int:
             source="llm_d_kv_cache_manager_tpu_torch/csrc/flash_prefill.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/flash_pallas.py:49",
             launches=(serve["launches"]["flash_prefill"] + moe_run["launches"]["flash_prefill"]
+                      + served_block["launches"]["flash_prefill"]
+                      + sum(g["launches"]["flash_prefill"] for g in graft.values())
                       + tp_serving["launches"]["flash_prefill"]
                       + tp_moe["launches"]["flash_prefill"]
                       + tiered["launches"]["flash_prefill"]
@@ -7983,6 +8424,9 @@ def main() -> int:
                       + vllm["launches"]["flash_prefill"]
                       + sum(across["launches_by_path"]["flash_prefill"].values())),
             launches_by_path={"llama_serving": serve["launches"]["flash_prefill"],
+                              "llama_serving_block64": served_block["launches"]["flash_prefill"],
+                              **{f"llama_graft_cfg_{k}": g["launches"]["flash_prefill"]
+                                 for k, g in graft.items()},
                               "llama_serving_http": served_http["launches"]["flash_prefill"],
                               "llama_vllm_offload": vllm["launches"]["flash_prefill"],
                               "llama_tiering_transfer": tiered["launches"]["flash_prefill"],
@@ -7994,7 +8438,8 @@ def main() -> int:
                                             "bound_by", "library_ms", "eager_ms", "tflops",
                                             "library_ratio", "bound_share", "shape", "limit",
                                             "worst_err_over_limit", "planted")},
-            cases=[prefill_hit, prefill_moe] + prefill_tp + prefill_edge,
+            cases=[prefill_hit, prefill_moe] + prefill_tp + prefill_shapes + prefill_edge
+            + [shape_guard],
         ),
         dict(
             name="paged_decode",
@@ -8002,10 +8447,15 @@ def main() -> int:
             source="llm_d_kv_cache_manager_tpu_torch/csrc/paged_decode.cu",
             replaces="llm_d_kv_cache_manager_tpu/ops/paged_decode_pallas.py:40",
             launches=(serve["launches"]["paged_decode"] + tp_serving["launches"]["paged_decode"]
+                      + served_block["launches"]["paged_decode"]
+                      + sum(g["launches"]["paged_decode"] for g in graft.values())
                       + served_http["launches"]["paged_decode"]
                       + vllm["launches"]["paged_decode"]
                       + sum(across["launches_by_path"]["paged_decode"].values())),
             launches_by_path={"llama_serving": serve["launches"]["paged_decode"],
+                              "llama_serving_block64": served_block["launches"]["paged_decode"],
+                              **{f"llama_graft_cfg_{k}": g["launches"]["paged_decode"]
+                                 for k, g in graft.items()},
                               "llama_serving_http": served_http["launches"]["paged_decode"],
                               "llama_vllm_offload": vllm["launches"]["paged_decode"],
                               "llama_serving_tp": tp_serving["launches"]["paged_decode"],
@@ -8014,7 +8464,8 @@ def main() -> int:
                                               "bound_by", "library_ms", "eager_ms", "tflops",
                                               "library_ratio", "bound_share", "shape", "limit",
                                               "worst_err_over_limit", "planted")},
-            cases=[decode_b1, decode_b4, decode_b16, decode_tp] + decode_edge,
+            cases=[decode_b1, decode_b4, decode_b16, decode_tp] + decode_shapes + decode_edge
+            + [shape_guard],
         ),
         dict(
             name="ring_partial",
@@ -8042,7 +8493,7 @@ def main() -> int:
                                                "worst_err_over_limit", "planted",
                                                "m_max_abs_err", "l_worst_err_over_limit")},
             cases=([ring_serving[None], ring_serving[-1], ring_moe[0], ring_moe[None]]
-                   + list(ring_tp.values()) + ring_edge
+                   + list(ring_tp.values()) + ring_shapes + ring_edge + [shape_guard]
                    + [dict(row, where="phase 6b worker process")
                       for row in ring_processes["kernel_cases"]]),
         ),
@@ -8057,6 +8508,7 @@ def main() -> int:
     tiering_summary = {k: v for k, v in tiered.items() if k != "launches"}
     http_summary = {k: v for k, v in served_http.items() if k != "launches"}
     print(json.dumps({"serving": summary, "serving_http": http_summary,
+                      "serving_block64": served_block, "graft_config": graft,
                       "ring_prefill": ring_summary,
                       "ring_processes": {k: v for k, v in ring_processes.items()
                                          if k != "kernel_cases"},

@@ -117,7 +117,9 @@ def decode_section(torch, smoke) -> None:
         build.CSRC, build.NVCC_FLAGS = folder, base_flags + flags
         log = build._finish(source, *job)
         for kernel, line in smoke["ptxas_lines"](log):
-            if kernel == "paged_decode_bf16_kernel<128,8>":
+            # The checkout's serving kernel (blocks of 16 or more
+            # tokens) and the variants' one.
+            if kernel in ("paged_decode_bf16_kernel<128,8,0>", "paged_decode_bf16_kernel<128,8>"):
                 print(f"{tag} {' '.join(flags[2:])}: {kernel}: {line}", flush=True)
         build._LIBS.clear()
         libs[tag] = build.library(source)

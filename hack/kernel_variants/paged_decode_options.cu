@@ -743,7 +743,9 @@ const char* kernel_error_string(int rc) {
 
 // CTAs of a variant that one SM holds at once (dtype 0 = float32, 1 =
 // bfloat16), or minus the CUDA error.
-int paged_decode_ctas_per_sm(int D, int G, int dtype) {
+// The checkout's interface: block_size is 16 here.
+int paged_decode_ctas_per_sm(int D, int G, int block_size, int dtype) {
+  if (block_size != kBS) return -static_cast<int>(cudaErrorInvalidValue);
   int resident = 0;
   const int rc = with_variant(dtype, D, G, [&](auto kernel, auto tile) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -773,8 +775,9 @@ long paged_decode_scratch_bytes(int B, int Hkv, int G, int D, int ctas) {
 int paged_decode(const void* q, const void* kv, const void* table,
                  const void* context_len, void* scratch, void* out, int B,
                  int H, int Hkv, int D, int block_size, int num_blocks,
-                 int max_blocks, int ctas, int dtype, void* stream) {
-  if (block_size != kBS || Hkv <= 0 || H % Hkv != 0 || ctas <= 0) {
+                 int max_blocks, int ctas, int nsub, int dtype, void* stream) {
+  // The checkout's interface; this variant keeps each group whole.
+  if (block_size != kBS || Hkv <= 0 || H % Hkv != 0 || ctas <= 0 || nsub != 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

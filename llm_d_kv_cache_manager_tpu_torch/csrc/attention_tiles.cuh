@@ -18,15 +18,24 @@
 //   rounds and gridDim.x-1-c of odd ones.  The next item's loads then
 //   overlap this item's epilogue.
 // - Q (128 x D) stays in shared memory for the whole item; K and V go
-//   through a ring of kStages stages of 128 keys, K and V each with a
-//   full/empty mbarrier pair per stage.  TMA loads D in boxes of 64
-//   columns (128 bytes, the 128-byte swizzle's width) over 4-D maps
-//   [B, T, heads, D], so rows past T are zero-filled by the hardware
-//   and never read the next batch.
-// - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//   through a ring of kStages stages of BK keys (128, or 64 above a
+//   head dim of 128, where two stages of 128 would not fit beside Q),
+//   K and V each with a full/empty mbarrier pair per stage.  TMA loads
+//   D in boxes of 64 columns (128 bytes, the 128-byte swizzle's width)
+//   over 4-D maps [B, T, heads, head dim], so rows past T and columns
+//   past the head dim are zero-filled by the hardware and never read
+//   the next row or batch.
+// - Head dims.  A kernel is compiled for a width D, a multiple of 64
+//   (64, 128, 192, 256), and serves every head dim in (D - 64, D] that
+//   is a multiple of 16: the columns past the true head dim load as
+//   zeros, so they add nothing to Q K^T and give zero columns of O,
+//   which the epilogue does not write.  The scale is that of the true
+//   head dim, which the kernel is given.
+// - S = Q K^T is wgmma m64nBKk16 with both operands in shared memory
 //   (K-major); O += P V is wgmma with P in registers (the S accumulator
 //   of key columns 16j..16j+15, rounded to bf16, is the A fragment of
-//   k-step j) and V in shared memory, MN-major (transposed).
+//   k-step j) and V in shared memory, MN-major (transposed), in
+//   products of 128 columns of O (and one of 64 for D = 192).
 // - The softmax hides behind the products: a warpgroup issues S of
 //   tile j with P V of tile j-1 and runs the softmax of tile j while
 //   P V still runs (FlashAttention-3's intra-warpgroup overlap), and
@@ -60,7 +69,6 @@
 namespace {
 
 constexpr int kBQ = 128;        // query rows per work item (2 consumer warpgroups x 64)
-constexpr int kBK = 128;        // keys per K/V stage
 constexpr int kStages = 2;      // K/V stages in shared memory
 constexpr int kThreads = 384;   // producer warpgroup + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
@@ -72,13 +80,28 @@ constexpr int kRowsF32 = 8;     // float32 kernels: warps (= query rows) per CTA
 // Field order of a work item, as ops/tile_plan.py writes it.
 enum { kItB, kItH, kItQt, kItBegin, kItFullEnd, kItEnd, kItSplit };
 
+// Keys per K/V stage for compiled width D (ops/tile_plan.py:key_tile).
+template <int D>
+constexpr int key_tile() {
+  return D <= 128 ? 128 : 64;
+}
+
+// The compiled width that serves head dim d: the next multiple of 64.
+inline int compiled_width(int d) { return (d + 63) / 64 * 64; }
+
+// The head dims the kernels take: multiples of 16 from 32 to 256.
+inline bool head_dim_ok(int d) { return d >= 32 && d <= 256 && d % 16 == 0; }
+
 template <int D>
 struct TileBytes {
+  static constexpr int BK = key_tile<D>();
   static constexpr int q = kBQ * D * 2;
-  static constexpr int kv = kBK * D * 2;  // one of K or V, one stage
+  static constexpr int kv = BK * D * 2;  // one of K or V, one stage
   static constexpr int bars = 8 * (2 + 4 * kStages);
   // 1024 bytes of slack to align the tiles to the swizzle atom.
   static constexpr int smem = q + 2 * kStages * kv + bars + 1024;
+  static_assert(D % 64 == 0 && D <= 256, "compiled widths are 64, 128, 192, 256");
+  static_assert(smem <= 232448, "a CTA has 227 KB of shared memory");
 };
 
 // ------------------------------------------------------------ PTX helpers
@@ -193,6 +216,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[32] (+)= A(64x16, shared, K-major) * B(16x64, shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_ACC8(d, 0), WG_ACC8(d, 8), WG_ACC8(d, 16), WG_ACC8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64] += A(64x16, registers) * B(16x128, shared, MN-major).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
                                               uint64_t db) {
@@ -230,13 +269,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
 
 #undef WG_ACC8
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(o, a, db);
+// S (+)= Q K^T over one k-step, N = BK keys.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BK / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (BK == 128) {
+    wgmma_ss_n128(s, da, db, accumulate);
   } else {
-    wgmma_rs_n64(o, a, db);
+    wgmma_ss_n64(s, da, db, accumulate);
+  }
+}
+
+// O += P V over one k-step: products of 128 columns of O, then one of
+// 64 for a width that is an odd multiple of 64.  `v` is the shared
+// address of the step's 16 V rows in the first 64-column chunk; chunk
+// c lies c * `chunk_bytes` further on.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a, uint32_t v,
+                                         uint32_t chunk_bytes) {
+#pragma unroll
+  for (int c = 0; c < D / 128; ++c) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o + 64 * c), a,
+                  smem_desc(v + 2 * c * chunk_bytes, chunk_bytes, 1024));
+  }
+  if constexpr (D % 128 != 0) {
+    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(o + 64 * (D / 128)), a,
+                 smem_desc(v + 2 * (D / 128) * chunk_bytes, chunk_bytes, 1024));
   }
 }
 
@@ -345,6 +403,7 @@ __device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
                                              unsigned char* smem, RowEnd row_end,
                                              Epilogue epilogue) {
   using Bytes = TileBytes<D>;
+  constexpr int kBK = Bytes::BK;         // keys per K/V stage
   constexpr int kBoxes = D / kBox;       // TMA boxes (64-column chunks) per row
   constexpr int kQSteps = D / 16;        // k-steps of Q K^T over the head dim
   constexpr int kPSteps = kBK / 16;      // k-steps of P V over the keys
@@ -466,7 +525,7 @@ __device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
           const uint64_t da = smem_desc(sq_wg + (kk / 4) * kBQ * kRowBytes + col, 16, 1024);
           const uint64_t db =
               smem_desc(k_tile(ks) + (kk / 4) * kBK * kRowBytes + col, 16, 1024);
-          wgmma_ss_n128(s, da, db, kk > 0);
+          wgmma_qk<kBK>(s, da, db, kk > 0);
         }
         wgmma_commit();
       };
@@ -475,8 +534,7 @@ __device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
       auto issue_pv = [&](int vs) {
 #pragma unroll
         for (int kk = 0; kk < kPSteps; ++kk) {
-          wgmma_pv<D>(st.o, p + 4 * kk,
-                      smem_desc(v_tile(vs) + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
+          wgmma_pv<D>(st.o, p + 4 * kk, v_tile(vs) + kk * 16 * kRowBytes, kBK * kRowBytes);
         }
         wgmma_commit();
       };
@@ -622,20 +680,21 @@ __device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
 
 // The float32 online softmax of one query row over keys [0, end), one
 // warp per row, lanes splitting the head dimension (kDPL = D / 32
-// elements each): the unnormalized accumulator `o`, the row max `m`
-// (natural-log units of the scaled score; -inf when end == 0) and the
-// row sum `l`.
+// elements each, element i of lane l being column l + 32 i; columns at
+// or past the true head dim `dv` count as zeros): the unnormalized
+// accumulator `o`, the row max `m` (natural-log units of the scaled
+// score; -inf when end == 0) and the row sum `l`.
 template <int D>
 __device__ __forceinline__ void attend_row_f32(
     const float* __restrict__ qrow, const float* __restrict__ kb,
-    const float* __restrict__ vb, long kv_stride, int end, float scale,
+    const float* __restrict__ vb, long kv_stride, int end, int dv, float scale,
     float (&o)[D / 32], float& m, float& l) {
   constexpr int kDPL = D / 32;
   const int lane = threadIdx.x % 32;
   float qv[kDPL];
 #pragma unroll
   for (int i = 0; i < kDPL; ++i) {
-    qv[i] = qrow[lane + 32 * i] * scale;
+    qv[i] = lane + 32 * i < dv ? qrow[lane + 32 * i] * scale : 0.f;
     o[i] = 0.f;
   }
   m = -INFINITY;
@@ -643,7 +702,9 @@ __device__ __forceinline__ void attend_row_f32(
   for (int j = 0; j < end; ++j) {
     float dot = 0.f;
 #pragma unroll
-    for (int i = 0; i < kDPL; ++i) dot += qv[i] * kb[j * kv_stride + lane + 32 * i];
+    for (int i = 0; i < kDPL; ++i) {
+      if (lane + 32 * i < dv) dot += qv[i] * kb[j * kv_stride + lane + 32 * i];
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -654,7 +715,8 @@ __device__ __forceinline__ void attend_row_f32(
     l = l * corr + p;
 #pragma unroll
     for (int i = 0; i < kDPL; ++i) {
-      o[i] = o[i] * corr + p * vb[j * kv_stride + lane + 32 * i];
+      const float vv = lane + 32 * i < dv ? vb[j * kv_stride + lane + 32 * i] : 0.f;
+      o[i] = o[i] * corr + p * vv;
     }
     m = m_new;
   }

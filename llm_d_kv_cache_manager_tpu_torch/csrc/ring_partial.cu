@@ -33,6 +33,9 @@
 // nothing here caps Tk, and the offset is a runtime argument (any int;
 // `causal == 0` means no mask), so one build serves every ring step.
 //
+// Head dims: every multiple of 16 from 32 to 256, each served by the
+// kernel compiled for the next multiple of 64 (attention_tiles.cuh).
+//
 // The float32 variant (test and small-shape use) is a plain CUDA-core
 // kernel: one warp per query row, lanes splitting the head dimension.
 //
@@ -58,7 +61,8 @@ __device__ __forceinline__ int visible_end(long long row, int causal,
 
 // A persistent CTA walks `items` (ops/tile_plan.py).  Every row < Tq
 // of an item is written, also when its causal limit leaves no key (the
-// outputs come from torch.empty).
+// outputs come from torch.empty).  D is the compiled width, dv <= D the
+// true head dim.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     ring_partial_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -67,7 +71,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const int* __restrict__ items, int n_items,
                              float* __restrict__ acc, float* __restrict__ m_out,
                              float* __restrict__ l_out, int Tq, int Tk, int H,
-                             int Hkv, int causal, int offset, float scale_log2) {
+                             int Hkv, int dv, int causal, int offset, float scale_log2) {
   constexpr int kDBlocks = D / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int t = threadIdx.x % 4;
@@ -83,9 +87,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int row = hr ? row1 : row0;
           if (row >= Tq) continue;
           const long cell = (static_cast<long>(b) * Tq + row) * H + h;
-          float* po = acc + cell * D;
+          float* po = acc + cell * dv;
 #pragma unroll
           for (int j = 0; j < kDBlocks; ++j) {
+            if (j * 8 >= dv) break;
             *reinterpret_cast<float2*>(po + j * 8 + 2 * t) =
                 make_float2(st.o[4 * j + 2 * hr], st.o[4 * j + 2 * hr + 1]);
           }
@@ -105,7 +110,7 @@ __global__ void __launch_bounds__(kRowsF32 * 32)
                             const float* __restrict__ v,
                             float* __restrict__ acc, float* __restrict__ m_out,
                             float* __restrict__ l_out, int Tq, int Tk, int H,
-                            int Hkv, int causal, int offset, float scale) {
+                            int Hkv, int dv, int causal, int offset, float scale) {
   constexpr int kDPL = D / 32;  // head-dim elements per lane
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -114,16 +119,18 @@ __global__ void __launch_bounds__(kRowsF32 * 32)
   const int b = blockIdx.z;
   if (row >= Tq) return;
   const int kvh = h / (H / Hkv);
-  const long kv_stride = static_cast<long>(Hkv) * D;
+  const long kv_stride = static_cast<long>(Hkv) * dv;
   const long cell = (static_cast<long>(b) * Tq + row) * H + h;
-  const float* kb = k + static_cast<long>(b) * Tk * kv_stride + kvh * D;
-  const float* vb = v + static_cast<long>(b) * Tk * kv_stride + kvh * D;
+  const float* kb = k + static_cast<long>(b) * Tk * kv_stride + kvh * dv;
+  const float* vb = v + static_cast<long>(b) * Tk * kv_stride + kvh * dv;
 
   float o[kDPL], m, l;
-  attend_row_f32<D>(q + cell * D, kb, vb, kv_stride,
-                    visible_end(row, causal, offset, Tk), scale, o, m, l);
+  attend_row_f32<D>(q + cell * dv, kb, vb, kv_stride,
+                    visible_end(row, causal, offset, Tk), dv, scale, o, m, l);
 #pragma unroll
-  for (int i = 0; i < kDPL; ++i) acc[cell * D + lane + 32 * i] = o[i];
+  for (int i = 0; i < kDPL; ++i) {
+    if (lane + 32 * i < dv) acc[cell * dv + lane + 32 * i] = o[i];
+  }
   if (lane == 0) {
     m_out[cell] = m == -INFINITY ? kNegInf : m;
     l_out[cell] = l;
@@ -131,36 +138,33 @@ __global__ void __launch_bounds__(kRowsF32 * 32)
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, float* acc,
-                float* m, float* l, const int* items, int n_items, int ctas, int B,
-                int Tq, int Tk, int H, int Hkv, int causal, int offset,
-                cudaStream_t st) {
+int launch(int dtype, const void* q, const void* k, const void* v, float* acc, float* m,
+           float* l, const int* items, int n_items, int ctas, int B, int Tq, int Tk, int H,
+           int Hkv, int dv, int causal, int offset, cudaStream_t st) {
+  if (dtype == 0) {
+    const dim3 grid((Tq + kRowsF32 - 1) / kRowsF32, H, B);
+    ring_partial_f32_kernel<D><<<grid, kRowsF32 * 32, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), acc, m, l, Tq, Tk, H, Hkv, dv, causal, offset,
+        1.f / sqrtf(static_cast<float>(dv)));
+    return 0;
+  }
+  constexpr int kBK = TileBytes<D>::BK;
   CUtensorMap qmap, kmap, vmap;
-  int rc = make_tile_map(&qmap, q, B, Tq, H, D, kBQ);
-  if (rc == 0) rc = make_tile_map(&kmap, k, B, Tk, Hkv, D, kBK);
-  if (rc == 0) rc = make_tile_map(&vmap, v, B, Tk, Hkv, D, kBK);
+  int rc = make_tile_map(&qmap, q, B, Tq, H, dv, kBQ);
+  if (rc == 0) rc = make_tile_map(&kmap, k, B, Tk, Hkv, dv, kBK);
+  if (rc == 0) rc = make_tile_map(&vmap, v, B, Tk, Hkv, dv, kBK);
   if (rc != 0) return rc;
   constexpr int kSmem = TileBytes<D>::smem;
   const cudaError_t attr = cudaFuncSetAttribute(
       ring_partial_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(dv));
   ring_partial_bf16_kernel<D><<<n_items < ctas ? n_items : ctas, kThreads, kSmem, st>>>(
-      qmap, kmap, vmap, items, n_items, acc, m, l, Tq, Tk, H, Hkv, causal, offset,
+      qmap, kmap, vmap, items, n_items, acc, m, l, Tq, Tk, H, Hkv, dv, causal, offset,
       scale_log2);
   return 0;
-}
-
-template <int D>
-void launch_f32(const void* q, const void* k, const void* v, float* acc,
-                float* m, float* l, int B, int Tq, int Tk, int H, int Hkv,
-                int causal, int offset, cudaStream_t st) {
-  const dim3 grid((Tq + kRowsF32 - 1) / kRowsF32, H, B);
-  ring_partial_f32_kernel<D><<<grid, kRowsF32 * 32, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), acc, m, l, Tq, Tk, H, Hkv, causal, offset,
-      1.f / sqrtf(static_cast<float>(D)));
 }
 
 }  // namespace
@@ -172,16 +176,19 @@ const char* kernel_error_string(int rc) {
 }
 
 // q: [B, Tq, H, D], k/v: [B, Tk, Hkv, D] in one dtype (0 = float32,
-// 1 = bfloat16); acc: float32 [B, Tq, H, D]; m, l: float32 [B, Tq, H];
-// all contiguous.  `causal` 0: every key visible; 1: key <= row + offset.
-// bf16 only: `items` is the device work list of `n_items` items
-// (ops/tile_plan.py), walked by at most `ctas` persistent CTAs.
+// 1 = bfloat16), D a multiple of 16 from 32 to 256; acc: float32
+// [B, Tq, H, D]; m, l: float32 [B, Tq, H]; all contiguous.  `causal` 0:
+// every key visible; 1: key <= row + offset.  bf16 only: `items` is the
+// device work list of `n_items` items (ops/tile_plan.py, with key tiles
+// of key_tile<compiled_width(D)>() keys), walked by at most `ctas`
+// persistent CTAs.
 int ring_partial(const void* q, const void* k, const void* v, void* acc,
                  void* m, void* l, const void* items, int n_items, int ctas, int B,
                  int Tq, int Tk, int H, int Hkv, int D, int causal, int offset,
                  int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && (items == nullptr || n_items < 1 || ctas < 1)) {
+  if ((dtype == 1 && (items == nullptr || n_items < 1 || ctas < 1)) ||
+      (dtype != 0 && dtype != 1) || !head_dim_ok(D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* pa = static_cast<float*>(acc);
@@ -189,18 +196,23 @@ int ring_partial(const void* q, const void* k, const void* v, void* acc,
   auto* pl = static_cast<float*>(l);
   const auto* it = static_cast<const int*>(items);
   int rc = 0;
-  if (dtype == 1 && D == 128) {
-    rc = launch_bf16<128>(q, k, v, pa, pm, pl, it, n_items, ctas, B, Tq, Tk, H, Hkv,
-                          causal, offset, st);
-  } else if (dtype == 1 && D == 64) {
-    rc = launch_bf16<64>(q, k, v, pa, pm, pl, it, n_items, ctas, B, Tq, Tk, H, Hkv,
-                         causal, offset, st);
-  } else if (dtype == 0 && D == 128) {
-    launch_f32<128>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal, offset, st);
-  } else if (dtype == 0 && D == 64) {
-    launch_f32<64>(q, k, v, pa, pm, pl, B, Tq, Tk, H, Hkv, causal, offset, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (compiled_width(D)) {
+    case 64:
+      rc = launch<64>(dtype, q, k, v, pa, pm, pl, it, n_items, ctas, B, Tq, Tk, H, Hkv, D,
+                      causal, offset, st);
+      break;
+    case 128:
+      rc = launch<128>(dtype, q, k, v, pa, pm, pl, it, n_items, ctas, B, Tq, Tk, H, Hkv, D,
+                       causal, offset, st);
+      break;
+    case 192:
+      rc = launch<192>(dtype, q, k, v, pa, pm, pl, it, n_items, ctas, B, Tq, Tk, H, Hkv, D,
+                       causal, offset, st);
+      break;
+    default:
+      rc = launch<256>(dtype, q, k, v, pa, pm, pl, it, n_items, ctas, B, Tq, Tk, H, Hkv, D,
+                       causal, offset, st);
+      break;
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

@@ -128,6 +128,18 @@ class LlamaConfig:
     # the dense op to the tiled op (the reference's routing off the TPU).
     # CUDA tensors take the prefill kernel unless use_flash=False.
     flash_attention_min_len: int = 1024
+    # The reference's decode routing and Pallas tile settings, with its
+    # defaults: accepted and ignored, so that a config written for it
+    # constructs here.  No code of the port reads them.  On CUDA every
+    # decode step runs the decode kernel, and on the CPU its plain
+    # version, whatever ``decode_attention`` holds (the reference, too,
+    # takes any string and runs its gather for all but "pallas").
+    # ``decode_blocks_per_step`` and ``decode_mxu_native`` size the
+    # Pallas kernel's grid step and operand type; the CUDA kernel sets
+    # its own (csrc/paged_decode.cu).
+    decode_attention: str = "auto"
+    decode_blocks_per_step: int = 4
+    decode_mxu_native: bool = False
 
     @property
     def head_dim(self) -> int:

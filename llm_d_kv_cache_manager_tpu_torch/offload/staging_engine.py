@@ -106,12 +106,16 @@ class StagingConfig:
     ``lanes_per_chip`` bounds concurrent pipelines per GPU (one lane
     per in-flight transfer); ``slots_per_lane`` is the pipeline depth
     (2 = classic double buffering: one slot in the device copy while the
-    other is in file I/O).  The path follows the pool: pinned
-    side-stream copies on a CUDA pool, plain numpy slots on the CPU."""
+    other is in file I/O).  ``use_pinned=None`` follows the pool:
+    pinned side-stream copies on a CUDA pool, plain numpy slots on the
+    CPU.  ``False`` forces the plain slots on a CUDA pool too (the same
+    file bytes); ``True`` on a CPU pool raises, where the reference
+    drops to the plain path without a word."""
 
     lanes_per_chip: int = DEFAULT_LANES_PER_CHIP
     slots_per_lane: int = DEFAULT_SLOTS_PER_LANE
     lane_wait_s: float = DEFAULT_LANE_WAIT_S
+    use_pinned: Optional[bool] = None
 
     def __post_init__(self) -> None:
         if self.lanes_per_chip <= 0:
@@ -192,7 +196,13 @@ class StagingEngine:
         self.file_mapper = file_mapper
         self.blocks_per_file = blocks_per_file
         self.config = config or StagingConfig()
-        self._use_pinned = pool.pinned_host
+        if self.config.use_pinned and not pool.pinned_host:
+            raise ValueError(
+                "use_pinned=True needs a CUDA pool: a CPU pool has no pinned path"
+            )
+        self._use_pinned = (
+            pool.pinned_host if self.config.use_pinned is None else self.config.use_pinned
+        )
         self._lanes = [
             _Lane(i, self.config.slots_per_lane)
             for i in range(self.config.lanes_per_chip)

@@ -30,13 +30,15 @@ from llm_d_kv_cache_manager_tpu_torch.ops.flash_attention import (
     flash_gqa_attention,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.tile_plan import (  # noqa: F401
+    HEAD_DIMS,
     KV_TILE,
+    check_head_dim,
+    key_tile,
     split_plan,
     work_list,
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
 
 
 def flash_gqa_attention_plain(
@@ -76,7 +78,8 @@ def flash_gqa_attention_cuda(
     [B, Tq, H, D] in q's dtype.
 
     CUDA tensors run the kernel (bf16 or float32, contiguous, 16-byte
-    aligned, head dim 64 or 128; bf16 also at least one key) and every
+    aligned, head dim a multiple of 16 from 32 to 256, any H / Hkv; bf16
+    also at least one key; any other head dim raises ``ValueError``) and every
     launch adds one to ``flash_gqa_attention_cuda.launches``; CPU tensors
     run :func:`flash_gqa_attention_plain`.  The kernel is forward-only:
     on any other device, grad mode with an input that requires grad
@@ -92,8 +95,7 @@ def flash_gqa_attention_cuda(
         raise ValueError(f"kernel takes bf16 or float32, not {q.dtype}")
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, not {D}")
+    check_head_dim("the prefill kernel", D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -104,7 +106,8 @@ def flash_gqa_attention_cuda(
     if q.dtype == torch.bfloat16:
         if Tk == 0:
             raise ValueError("the bf16 kernel needs at least one key")
-        plan = work_list(B, H, Tq, Tk, q_offset, q.device, split_keys=True)
+        plan = work_list(B, H, Tq, Tk, q_offset, q.device, split_keys=True,
+                         kv_tile=key_tile(D))
         items, n_items, ctas, splits = plan.items, len(plan.items), plan.ctas, plan.splits
     part_o = part_ml = None
     if splits > 1:

@@ -6,9 +6,9 @@ Replaces the reference's Pallas TPU kernel ``_decode_kernel``
 ``csrc/paged_decode.cu``, is CUDA C++ for ``sm_90a``; its header note
 says what bounds it on an H100 and what its design does about that.
 The TPU kernel carries its online softmax along a sequential grid axis;
-here one wave of CTAs cuts the live blocks of all sequences and KV heads
-into equal runs on the device (:func:`work_items` mirrors that
-arithmetic for the tests), streams them through shared-memory rings,
+here one wave of CTAs cuts the live 16-token key tiles of all sequences
+and KV heads into equal runs on the device (:func:`work_items` mirrors
+that arithmetic for the tests), streams them through shared-memory rings,
 and the last CTA of a (sequence, KV head) to arrive merges its partials
 by log-sum-exp inside the same kernel.  The kernel reads the block table
 itself and never reads an entry at or past
@@ -36,13 +36,21 @@ from llm_d_kv_cache_manager_tpu_torch.ops import _build
 from llm_d_kv_cache_manager_tpu_torch.ops.paged_attention import (
     paged_attention,
 )
+from llm_d_kv_cache_manager_tpu_torch.ops.tile_plan import (
+    HEAD_DIMS,
+    HEAD_DIMS_TEXT,
+    compiled_width,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
-BLOCK_SIZES = (16,)
-GROUPS = (1, 2, 4, 8)
+# The shapes the kernel takes, as the reference's Pallas kernel does:
+# any head dim of HEAD_DIMS, group H / Hkv and pool block size below.
+BLOCK_SIZES = (8, 16, 32, 64, 128)
+GROUPS = tuple(range(1, 17))
+TILE_TOKENS = 16  # tokens a unit of work: one m16n8k16 key tile
 # CTAs of each kernel variant that one SM holds, asked of the library
-# once: {(device index, head_dim, group, dtype code): CTAs}.
+# once: {(device index, head_dim, heads a line, dtype code, block size):
+# CTAs}.
 RESIDENT_CTAS = {}
 
 
@@ -56,25 +64,50 @@ def paged_decode_attention_plain(
     return paged_attention(q, kv_layer, block_table, context_len)
 
 
+def head_split(group: int, head_dim: int, dtype: torch.dtype):
+    """(heads a line, lines a KV head): how the kernel cuts each group
+    of query heads.  bf16 keeps the group whole (up to 16 heads are the
+    rows of one tensor-core tile); the float32 engine holds at most
+    ``1024 // compiled_width(head_dim)`` heads' state a lane, so a larger
+    group is cut into equal sub-groups, each a line of its own over the
+    same K and V (``kSimtHeads`` in csrc/paged_decode.cu)."""
+    if dtype != torch.float32:
+        return group, 1
+    most = 1024 // compiled_width(head_dim)
+    heads = max(d for d in range(1, min(group, most) + 1) if group % d == 0)
+    return heads, group // heads
+
+
+def max_tiles(max_blocks: int, block_size: int) -> int:
+    """Key tiles a table row of ``max_blocks`` pool blocks holds."""
+    return -(-max_blocks * block_size // TILE_TOKENS)
+
+
 def split_plan(batch: int, kv_heads: int, max_blocks: int, sms: int,
-               ctas_per_sm: int) -> int:
+               ctas_per_sm: int, *, block_size: int = 16) -> int:
     """The grid: one wave of CTAs (``sms * ctas_per_sm``), or one CTA per
-    (sequence, KV head, block) where the table has fewer.  From shapes
-    alone; the kernel cuts the work among them from the lengths."""
-    return max(1, min(sms * ctas_per_sm, batch * kv_heads * max_blocks))
+    (sequence, line, key tile) where the table has fewer; ``kv_heads``
+    counts lines (KV heads times :func:`head_split`'s lines).  From
+    shapes alone; the kernel cuts the work among them from the lengths."""
+    return max(1, min(sms * ctas_per_sm,
+                      batch * kv_heads * max_tiles(max_blocks, block_size)))
 
 
-def work_items(context_len, kv_heads: int, max_blocks: int, ctas: int):
-    """The kernel's split of one call, as ``(cta, b, kv_head, first
-    block, end block)`` pieces.  The live blocks of every (KV head,
-    sequence), in that order, form one line of units; CTA ``c`` takes units
+def work_items(context_len, kv_heads: int, max_blocks: int, ctas: int, *,
+               block_size: int = 16):
+    """The kernel's split of one call, as ``(cta, b, line, first tile,
+    end tile)`` pieces, a tile being 16 tokens (``TILE_TOKENS``): tile
+    ``j`` of a sequence holds its tokens ``[16 j, 16 j + 16)``, inside
+    one pool block of 16 or more tokens, over two blocks of 8.  A
+    sequence's live tiles cover ``min(context_len, max_blocks *
+    block_size)`` tokens.  The live tiles of every (line, sequence), in
+    that order, form one line of units; CTA ``c`` takes units
     ``[c * per, (c + 1) * per)`` with ``per = ceil(units / ctas)``, and
-    each stretch of its run inside one (sequence, KV head) is a piece.
-    A piece that is not the whole pair leaves a partial that the pair's
-    last CTA merges."""
-    block_size, = BLOCK_SIZES
-    live = [0 if n <= 0 else min(-(-int(n) // block_size), max_blocks)
-            for n in context_len]
+    each stretch of its run inside one (sequence, line) is a piece.  A
+    piece that is not the whole pair leaves a partial that the pair's
+    last CTA merges.  At block size 16 a tile is a pool block."""
+    cap = max_blocks * block_size
+    live = [0 if n <= 0 else -(-min(int(n), cap) // TILE_TOKENS) for n in context_len]
     per_head = sum(live)
     total = kv_heads * per_head
     per = -(-total // ctas)
@@ -91,6 +124,16 @@ def work_items(context_len, kv_heads: int, max_blocks: int, ctas: int):
                     at = stop
                 seg_start += nb
     return items
+
+
+def check_shape(head_dim: int, block_size: int, group: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes this head dim, pool
+    block size and group H / Hkv."""
+    if head_dim not in HEAD_DIMS or block_size not in BLOCK_SIZES or group not in GROUPS:
+        raise ValueError(
+            f"the decode kernel takes head_dim {HEAD_DIMS_TEXT}, block_size in "
+            f"{BLOCK_SIZES} and H/Hkv from 1 to 16; got {head_dim}, {block_size}, {group}"
+        )
 
 
 def _check(q, kv_layer, block_table, context_len):
@@ -118,9 +161,9 @@ def _check(q, kv_layer, block_table, context_len):
 
 
 def _bind(lib) -> None:
-    lib.paged_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.paged_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.paged_decode.restype = ctypes.c_int
-    lib.paged_decode_ctas_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.paged_decode_ctas_per_sm.argtypes = [ctypes.c_int] * 4
     lib.paged_decode_ctas_per_sm.restype = ctypes.c_int
     lib.paged_decode_scratch_bytes.argtypes = [ctypes.c_int] * 5
     lib.paged_decode_scratch_bytes.restype = ctypes.c_long
@@ -137,8 +180,9 @@ def paged_decode_attention_cuda(
     in q's dtype.
 
     CUDA tensors run the kernel (bf16 or float32, contiguous, block size
-    16, head dim 64 or 128, H/Hkv in 1, 2, 4, 8, int32 table and
-    lengths) and every launch adds one to
+    8, 16, 32, 64 or 128, head dim a multiple of 16 from 32 to 256, H/Hkv
+    from 1 to 16, int32 table and lengths; any other shape raises
+    ``ValueError``) and every launch adds one to
     ``paged_decode_attention_cuda.launches``; CPU tensors run
     :func:`paged_decode_attention_plain`.  The kernel is forward-only:
     on any other device, grad mode with an input that requires grad
@@ -154,12 +198,7 @@ def paged_decode_attention_cuda(
     max_blocks = block_table.shape[1]
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel takes bf16 or float32, not {q.dtype}")
-    if D not in HEAD_DIMS or block_size not in BLOCK_SIZES or H // Hkv not in GROUPS:
-        raise ValueError(
-            f"kernel takes head_dim in {HEAD_DIMS}, block_size in "
-            f"{BLOCK_SIZES} and H/Hkv in {GROUPS}; got {D}, {block_size}, "
-            f"{H // Hkv}"
-        )
+    check_shape(D, block_size, H // Hkv)
     if block_table.dtype != torch.int32 or context_len.dtype != torch.int32:
         raise ValueError("block_table and context_len must be int32")
     for name, t in (("q", q), ("kv_layer", kv_layer), ("block_table", block_table),
@@ -171,25 +210,27 @@ def paged_decode_attention_cuda(
         return out.zero_()
     lib = _build.library("paged_decode")
     _bind(lib)
-    code, group = _DTYPE_CODES[q.dtype], H // Hkv
-    key = (q.device.index, D, group, code)
+    code = _DTYPE_CODES[q.dtype]
+    heads, nsub = head_split(H // Hkv, D, q.dtype)
+    key = (q.device.index, D, heads, code, block_size)
     if key not in RESIDENT_CTAS:
         with torch.cuda.device(q.device):
-            resident = lib.paged_decode_ctas_per_sm(D, group, code)
+            resident = lib.paged_decode_ctas_per_sm(D, heads, block_size, code)
         if resident <= 0:
             _build.check(lib, "paged_decode occupancy", -resident or 1)
         RESIDENT_CTAS[key] = resident
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    ctas = split_plan(B, Hkv, max_blocks, sms, RESIDENT_CTAS[key])
+    lines = Hkv * nsub
+    ctas = split_plan(B, lines, max_blocks, sms, RESIDENT_CTAS[key], block_size=block_size)
     scratch = torch.empty(
-        lib.paged_decode_scratch_bytes(B, Hkv, group, D, ctas),
+        lib.paged_decode_scratch_bytes(B, lines, heads, D, ctas),
         dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.paged_decode(
             q.data_ptr(), kv_layer.data_ptr(), block_table.data_ptr(),
             context_len.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            B, H, Hkv, D, block_size, num_blocks, max_blocks, ctas, code, stream,
+            B, H, Hkv, D, block_size, num_blocks, max_blocks, ctas, nsub, code, stream,
         )
     _build.check(lib, "paged_decode launch", rc)
     paged_decode_attention_cuda.launches += 1

@@ -58,10 +58,8 @@ from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash import (
     neutral_partial,
     normalize_partial,
 )
-from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash_cuda import (
-    HEAD_DIMS,
-    flash_partial_cuda,
-)
+from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash_cuda import flash_partial_cuda
+from llm_d_kv_cache_manager_tpu_torch.ops.tile_plan import check_head_dim
 from llm_d_kv_cache_manager_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP, Mesh
 from llm_d_kv_cache_manager_tpu_torch.parallel.process_group import MeshTransport, transport
 from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import P, Sharded
@@ -298,7 +296,8 @@ def resolve_auto_impl(mesh_platform: str, local_kv_tokens: int, head_dim: int,
     the reference's arguments: ``"flash"`` where the partial kernel runs
     (a ``"cuda"`` mesh), the reference's ``"einsum"`` elsewhere.
 
-    On CUDA a ``head_dim`` outside the kernel's ``HEAD_DIMS`` raises, as
+    On CUDA a ``head_dim`` outside the kernel's ``HEAD_DIMS`` (a multiple
+    of 16 from 32 to 256, ``ops/tile_plan.py``) raises, as
     the kernel does; it never gives way to the plain version.  The
     kernel streams K/V from device memory, so no chunk length or element
     width caps it: ``local_kv_tokens`` and ``dtype_bytes`` (the
@@ -310,9 +309,7 @@ def resolve_auto_impl(mesh_platform: str, local_kv_tokens: int, head_dim: int,
         return "flash"
     if mesh_platform != "cuda":
         return "einsum"
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the ring partial kernel takes head_dim in {HEAD_DIMS}, not "
-                         f"{head_dim}")
+    check_head_dim("the ring partial kernel", head_dim)
     return "flash"
 
 

@@ -32,12 +32,14 @@ from llm_d_kv_cache_manager_tpu_torch.ops.ring_flash import (
     flash_partial_plain,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.tile_plan import (  # noqa: F401
+    HEAD_DIMS,
     KV_TILE,
+    check_head_dim,
+    key_tile,
     work_list,
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
 # The kernel computes row + offset + 1 in 64 bits; the C interface
 # carries the offset as an int.
 _OFFSET_RANGE = (-(2**31), 2**31 - 1)
@@ -79,7 +81,8 @@ def flash_partial_cuda(
     :func:`flash_partial_plain` does.
 
     CUDA tensors run the kernel (bf16 or float32, contiguous, 16-byte
-    aligned, head dim 64 or 128; bf16 also at least one key) and every
+    aligned, head dim a multiple of 16 from 32 to 256, any H / Hkv; bf16
+    also at least one key; any other head dim raises ``ValueError``) and every
     launch adds one to ``flash_partial_cuda.launches``; CPU tensors
     run :func:`flash_partial_plain`.  The kernel is forward-only: on any
     other device, grad mode with an input that requires grad raises
@@ -96,8 +99,7 @@ def flash_partial_cuda(
         raise ValueError(f"kernel takes bf16 or float32, not {q.dtype}")
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, not {D}")
+    check_head_dim("the ring partial kernel", D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -110,7 +112,7 @@ def flash_partial_cuda(
     if q.dtype == torch.bfloat16:
         if Tk == 0:
             raise ValueError("the bf16 kernel needs at least one key")
-        plan = work_list(B, H, Tq, Tk, causal_offset, q.device)
+        plan = work_list(B, H, Tq, Tk, causal_offset, q.device, kv_tile=key_tile(D))
         items, n_items, ctas = plan.items, len(plan.items), plan.ctas
     lib = _build.library("ring_partial")
     fn = lib.ring_partial

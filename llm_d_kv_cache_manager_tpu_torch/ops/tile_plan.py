@@ -28,7 +28,13 @@ import torch
 from llm_d_kv_cache_manager_tpu_torch.utils.lru import LRUCache
 
 Q_TILE = 128  # query rows per work item: two consumer warpgroups of 64
-KV_TILE = 128  # keys per shared-memory K/V stage
+KV_TILE = 128  # keys per shared-memory K/V stage, up to a head dim of 128
+# The head dims the three attention kernels take: every multiple of 16
+# from 32 to 256, as the reference's Pallas kernels do (they tile the
+# whole head dim).  Each is served by the kernel compiled for the next
+# multiple of 64 (``compiled_width``), its extra columns zeros.
+HEAD_DIMS = tuple(range(32, 257, 16))
+HEAD_DIMS_TEXT = "a multiple of 16 from 32 to 256"
 # CTAs per SM the persistent grid launches (one fills an SM's shared
 # memory); a key split aims at CTAS_PER_SM * SMs items.
 CTAS_PER_SM = 1
@@ -44,6 +50,26 @@ class WorkList(NamedTuple):
     items: torch.Tensor
     ctas: int
     splits: int
+
+
+def compiled_width(head_dim: int) -> int:
+    """The width of the kernel that serves ``head_dim``: the next
+    multiple of 64 (``compiled_width`` in csrc/attention_tiles.cuh)."""
+    return -(-head_dim // 64) * 64
+
+
+def key_tile(head_dim: int) -> int:
+    """Keys per K/V stage of the bf16 kernels at ``head_dim``: 128, or
+    64 above a compiled width of 128, where two stages of 128 keys would
+    not fit in shared memory beside Q (``key_tile`` in
+    csrc/attention_tiles.cuh)."""
+    return KV_TILE if compiled_width(head_dim) <= 128 else KV_TILE // 2
+
+
+def check_head_dim(what: str, head_dim: int) -> None:
+    """Raise ``ValueError`` for a head dim outside ``HEAD_DIMS``."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{what} takes head_dim {HEAD_DIMS_TEXT}, not {head_dim}")
 
 
 def row_end(row: int, Tk: int, offset: Optional[int]) -> int:
@@ -122,24 +148,25 @@ _DEVICE_PLANS: LRUCache = LRUCache(256)
 
 def work_list(
     B: int, H: int, Tq: int, Tk: int, offset: Optional[int], device: torch.device,
-    *, split_keys: bool = False, sms: Optional[int] = None,
+    *, split_keys: bool = False, sms: Optional[int] = None, kv_tile: int = KV_TILE,
 ) -> WorkList:
     """The work list of a bf16 launch on ``device``: the items of
-    :func:`tile_plan` as a cached int32 device tensor, a persistent grid
+    :func:`tile_plan` in key tiles of ``kv_tile`` keys (the kernel's,
+    :func:`key_tile`) as a cached int32 device tensor, a persistent grid
     of at most ``CTAS_PER_SM`` CTAs per SM, and, with ``split_keys``,
     the key split of :func:`split_plan` when the items are too few to
     fill the card.  ``sms`` defaults to the CUDA device's SM count."""
     if sms is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-    key = (B, H, Tq, Tk, offset, split_keys, sms, str(device))
+    key = (B, H, Tq, Tk, offset, split_keys, sms, kv_tile, str(device))
     cached = _DEVICE_PLANS.get(key)
     if cached is not None:
         return cached
     splits, per_split = 1, None
     if split_keys:
         splits, per_split = split_plan(
-            -(-Tq // Q_TILE) * H * B, key_tiles(Tq, Tk, offset), sms)
-    plan = tile_plan(B, H, Tq, Tk, offset, splits, per_split)
+            -(-Tq // Q_TILE) * H * B, key_tiles(Tq, Tk, offset, kv_tile), sms)
+    plan = tile_plan(B, H, Tq, Tk, offset, splits, per_split, kv_tile=kv_tile)
     result = WorkList(
         torch.from_numpy(plan).to(device),
         min(len(plan), CTAS_PER_SM * sms),

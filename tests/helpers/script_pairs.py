@@ -13,6 +13,11 @@ The mask, and nothing else:
 
 * logging records (a ``YYYY-MM-DD HH:MM:SS,mmm LEVEL`` line and the
   traceback lines under it) are dropped from both streams;
+* so are gRPC's C-core log records, which its absl logger writes to
+  stderr on its own schedule (a ``GOAWAY`` after the success line, on
+  either side, in some runs): the ``WARNING: All log messages before
+  absl::InitializeLog() ...`` preamble and ``[IWEF]NNNN hh:mm:ss.uuuuuu
+  <thread> file:line] ...`` lines;
 * temp paths become ``<tmp>``;
 * incident ids (``inc-YYYYMMDD-HHMMSS-NNNN``) become ``inc-<id>``;
 * ``*_created`` metric samples (creation timestamps, which only
@@ -58,6 +63,8 @@ _TEMP = re.compile(
 )
 _INCIDENT = re.compile(r"\binc-\d{8}-\d{6}-\d{4}\b")
 _CREATED = re.compile(r"^\s*kvtpu_\w+_created(\{[^}]*\})? ")
+_ABSL_PREAMBLE = re.compile(r"^WARNING: All log messages before absl::InitializeLog\(\)")
+_ABSL_RECORD = re.compile(r"^[IWEF]\d{4} \d\d:\d\d:\d+\.\d+ +\d+ [\w./-]+:\d+\] ")
 _RATE = re.compile(r"\b\d+(\.\d+)? msgs/s\b")
 
 
@@ -87,7 +94,7 @@ def masked(text: str) -> List[str]:
         if in_record and (not line or _TRACEBACK_TAIL.match(line)):
             continue
         in_record = False
-        if _CREATED.match(line):
+        if _CREATED.match(line) or _ABSL_PREAMBLE.match(line) or _ABSL_RECORD.match(line):
             continue
         line = _TEMP.sub("<tmp>", line)
         line = _INCIDENT.sub("inc-<id>", line)

@@ -15,10 +15,14 @@ which a planted fault must fail; phase 12f's plain blocks' launch
 split, layer cut and gates, each with planted faults; phase 7d (the
 offload smoke) whole on a CPU pool, with a byte flipped after the load
 as its planted fault; phase 7e (the chart's connector) whole on CPU
-tensors at a tiny geometry, with the same planted fault."""
+tensors at a tiny geometry, with the same planted fault; phases 2-4's
+shape cases against the kernels' set, the decode fault's repacked
+reference, and phases 5d and 5e whole on CPU params, each with a
+planted fault."""
 
 import inspect
 import json
+import os
 import pathlib
 import runpy
 import threading
@@ -1569,9 +1573,53 @@ def test_offload_smoke_phase_at_tiny_on_a_cpu_pool(capsys):
     assert out["round_trip_bytes"] == 4 * out["block_nbytes"]
     assert out["store_s"] > 0 and out["load_s"] > 0
     assert out["store_gbps"] == pytest.approx(out["round_trip_bytes"] / out["store_s"] / 1e9)
+    assert out["plain_slots"] == {"files": 2, "bytes": 7 * out["block_nbytes"],
+                                  "pool_path_pinned": False}
     printed = capsys.readouterr().out
     assert "offload smoke completed successfully" in printed
+    assert "use_pinned=False on a pool on cpu: 2 files" in printed
     assert "bit-identical, store" in printed and "GB/s" in printed
+
+
+def _tiny_pool_config():
+    return runpy.run_path(smoke["OFFLOAD_SMOKE"], run_name="offload_smoke_torch")["geometry"]("tiny")
+
+
+def test_plain_slots_check_against_a_pool_that_offers_the_pinned_path(monkeypatch):
+    """Phase 7d's use_pinned check where the pool offers the pinned path
+    (as a CUDA pool does; here its side-stream copy is a CPU gather):
+    the engine that follows the pool takes it, the forced one never
+    does, and their files agree with each other and with the pool."""
+    pool_mod = port("models.kv_cache_pool")
+    calls = []
+
+    class Event:
+        def synchronize(self):
+            pass
+
+    def stage_gather_pinned(self, ids):
+        calls.append(list(ids))
+        return self.kv[:, torch.as_tensor(ids)].movedim(1, 0).contiguous(), Event()
+
+    monkeypatch.setattr(pool_mod.KVCachePool, "pinned_host", property(lambda self: True))
+    monkeypatch.setattr(pool_mod.KVCachePool, "stage_gather_pinned", stage_gather_pinned)
+    out = smoke["plain_slots_check"](torch, _tiny_pool_config(), "cpu")
+    assert out == {"files": 2, "bytes": 7 * 2 * 2 * 8 * 2 * 16 * 2, "pool_path_pinned": True}
+    assert calls == [[9, 2, 14, 5], [0, 11, 7]]  # the pinned engine's groups only
+
+
+def test_plain_slots_check_fails_on_a_byte_flipped_in_a_plain_file():
+    """A planted fault: one byte of a plain-slot file flipped before the
+    comparison must fail the check."""
+    def flip(root):
+        path = next(os.path.join(d, f) for d, _, files in os.walk(root) for f in files)
+        with open(path, "r+b") as handle:
+            first = handle.read(1)
+            handle.seek(0)
+            handle.write(bytes([first[0] ^ 1]))
+
+    with pytest.raises(AssertionError, match="plain slots' files are not byte-identical"):
+        smoke["plain_slots_check"](torch, _tiny_pool_config(), "cpu", tamper=flip)
 
 
 def test_offload_smoke_phase_fails_on_a_byte_flipped_after_the_load():
@@ -1618,3 +1666,148 @@ def test_chart_connector_phase_fails_on_a_byte_flipped_after_the_load():
     with pytest.raises(AssertionError, match="not byte-identical"):
         smoke["chart_connector_phase"]("cpu", device="cpu", kv_geometry=(2, 2, 16),
                                        tokens=1024, after_load=flip)
+
+
+def test_shape_cases_cover_the_kernels_set():
+    """Phases 2-4's shape cases stay inside the shapes the kernels
+    take, and together reach what the issue names: every head dim of
+    the set on each of the three kernels in bf16 (phases 2-4's own cases
+    add 64 and 128 to each), groups 3, 5, 7 and 16, pool blocks 8-128,
+    float32 at 32, 96, 256; the guard's head dim lies outside."""
+    heads = port("ops.tile_plan").HEAD_DIMS
+    earlier = {64, 128}  # phases 2-4's Llama-3-8B and older edge cases
+    bf16 = {"prefill": set(earlier), "decode": set(earlier), "ring": set(earlier)}
+    f32, groups, blocks = set(), set(), set()
+    for H, Hkv, D in smoke["SHAPE_PREFILL"]:
+        bf16["prefill"].add(D), bf16["ring"].add(D)
+        groups.add(H // Hkv)
+    for H, Hkv, D, bs in smoke["SHAPE_DECODE"]:
+        bf16["decode"].add(D), groups.add(H // Hkv), blocks.add(bs)
+    for kernel, cases in (("prefill", smoke["SHAPE_PREFILL_EDGE"]),
+                          ("ring", smoke["SHAPE_RING_EDGE"])):
+        for B, Tq, Tk, H, Hkv, D, _, dtype in cases:
+            (f32 if dtype == "float32" else bf16[kernel]).add(D)
+            groups.add(H // Hkv)
+    for B, H, Hkv, D, mb, ctx, dtype, bs in smoke["SHAPE_DECODE_EDGE"]:
+        (f32 if dtype == "float32" else bf16["decode"]).add(D)
+        groups.add(H // Hkv), blocks.add(bs)
+        assert len(ctx) == B and max(ctx) <= mb * bs
+    for kernel, widths in bf16.items():
+        assert widths == set(heads), kernel
+    assert f32 <= set(heads) and {32, 96, 256} <= f32
+    assert {3, 5, 7, 16} <= groups and groups <= set(range(1, 17))
+    assert blocks == {8, 16, 32, 64, 128}
+    # Phase 5e's decode shape (group 2 of 4 KV heads at head dim 32,
+    # block 16) is held element by element beside its model-level check.
+    cfg = smoke["GRAFT_CFG"]
+    graft = (cfg["n_heads"], cfg["n_kv_heads"], cfg["d_model"] // cfg["n_heads"], "bfloat16", 16)
+    assert graft in {(H, Hkv, D, dtype, bs)
+                     for _, H, Hkv, D, _, _, dtype, bs in smoke["SHAPE_DECODE_EDGE"]}
+    assert inspect.signature(smoke["shape_guard_case"]).parameters["head_dim"].default not in heads
+
+
+def test_repacked_decode_drops_exactly_the_tokens_it_names():
+    """The decode planted fault's reference on CPU tensors: a sequence's
+    tokens repacked into 16-token blocks, less a token range, give the
+    plain decode over those tokens alone, at any pool block size."""
+    pc = port("ops.paged_decode_cuda")
+    rng = np.random.default_rng(4)
+    for bs in (8, 32):
+        kv = torch.from_numpy(rng.standard_normal((6, 2, bs, 2, 32)).astype(np.float32))
+        q = torch.from_numpy(rng.standard_normal((1, 4, 32)).astype(np.float32))
+        row = torch.tensor([4, 1, 5, 0, 2, 3], dtype=torch.int32)
+        tokens = 5 * bs - 3
+        full = pc.paged_decode_attention_plain(q, kv, row[None], torch.tensor([tokens]))
+        same = smoke["repacked_decode"](torch, pc, q, kv, row, tokens, (0, 0))
+        torch.testing.assert_close(same, full)
+        drop = (16, 40)
+        seq = kv[row.long()].permute(1, 0, 2, 3, 4).reshape(2, -1, 2, 32)[:, :tokens]
+        keep = torch.cat((seq[:, :drop[0]], seq[:, drop[1]:]), 1)
+        k, v = keep[0], keep[1]
+        scores = torch.einsum("hgd,thd->hgt", q[0].reshape(2, 2, 32), k) / 32 ** 0.5
+        want = torch.einsum("hgt,thd->hgd", scores.softmax(-1), v).reshape(1, 4, 32)
+        got = smoke["repacked_decode"](torch, pc, q, kv, row, tokens, drop)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _tiny_phase5(block_size=16):
+    """Phase 5's requests at a small size on CPU params: A's miss, B's
+    hit over A's prefix and three decode steps at batch 2 (the port's
+    own path at block 16), as ``sharded_inputs`` carries them."""
+    llama, pool_mod = port("models.llama"), port("models.kv_cache_pool")
+    cfg = llama.LlamaConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=96, dtype="float32", block_size=block_size)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(1)
+    prefix = [int(x) for x in rng.integers(1, 256, 64)]
+    prompt_a = prefix + [int(x) for x in rng.integers(1, 256, 32)]
+    prompt_b = prefix + [int(x) for x in rng.integers(1, 256, 32)]
+    bs = block_size
+    pool = pool_mod.KVCachePool(pool_mod.KVCachePoolConfig(2, 16, bs, 2, 16, "float32"),
+                                device="cpu")
+    ids_a = list(range(96 // bs))
+    ids_b = ids_a[:64 // bs] + list(range(96 // bs, 128 // bs))
+    logits_a, _ = llama.prefill_paged(params, torch.tensor([prompt_a]), pool.kv,
+                                      torch.tensor([ids_a], dtype=torch.int32), cfg)
+    logits_b, _ = llama.prefill_continue(params, torch.tensor([prompt_b[64:]]), pool.kv,
+                                         torch.tensor([ids_b], dtype=torch.int32), 64, cfg)
+    table = torch.tensor([ids_a + [14], ids_b + [15]], dtype=torch.int32)
+    tokens = torch.tensor([int(logits_a[0, -1].argmax()), int(logits_b[0, -1].argmax())])
+    inputs, steps = [], []
+    for i in range(3):
+        ctx = torch.full((2,), 97 + i, dtype=torch.int32)
+        inputs.append((tokens, ctx))
+        steps.append(llama.decode_step(params, tokens, pool.kv, table, ctx, cfg)[0])
+        tokens = steps[-1].argmax(-1)
+    ref = dict(prompt_a=prompt_a, prompt_b=prompt_b, miss_tail=logits_a[:, -16:].clone(),
+               logits_b=logits_b, decode_inputs=inputs, step_logits=steps)
+    return params, cfg, ref
+
+
+def test_serving_block_at_a_small_size():
+    """Phase 5d on CPU params: phase 5's requests over a pool of 32-token
+    blocks give phase 5's tokens, and logits within the model-level
+    limit (here equal to float32 rounding)."""
+    params, cfg, ref = _tiny_phase5()
+    out = smoke["serving_block"](torch, params, cfg, ref, block_size=32)
+    assert out["tokens_equal"] and len(out["tokens"]) == 2 + 2 * 3
+    assert out["launches"] == {"flash_prefill": 0, "paged_decode": 0}
+    assert max(out["max_abs_err"].values()) < 1e-4
+
+
+def test_serving_block_rejects_a_decode_that_drops_its_attention(monkeypatch):
+    """A planted fault: the decode wrapper the model calls returns 100
+    times its output; 5d's hold of the decode steps must reject it."""
+    params, cfg, ref = _tiny_phase5()
+    llama = port("models.llama")
+    wrapper = llama.paged_decode_attention_cuda
+    monkeypatch.setattr(llama, "paged_decode_attention_cuda", lambda *a: wrapper(*a) * 100)
+    with pytest.raises(AssertionError, match="5d decode step 1"):
+        smoke["serving_block"](torch, params, cfg, ref, block_size=32)
+
+
+def test_serving_block_refuses_requests_off_its_blocks():
+    params, cfg, ref = _tiny_phase5()
+    with pytest.raises(AssertionError, match="do not fall on 64-token blocks"):
+        smoke["serving_block"](torch, params, cfg, ref, block_size=64)
+
+
+def test_graft_config_phase_on_the_cpu(capsys):
+    """Phase 5e on CPU tensors, float32: the reference's small config
+    (head dim 32, a group of 2) through forward, prefill_paged and the
+    decode steps, each against the dense op; no launch counted."""
+    assert smoke["GRAFT_CFG"]["d_model"] // smoke["GRAFT_CFG"]["n_heads"] == 32
+    out = smoke["graft_config_phase"](torch, device="cpu", dtypes=("float32",))
+    got = out["float32"]
+    assert got["launches"] == {"flash_prefill": 0, "paged_decode": 0}
+    assert len(got["tokens"]) == 2 and len(got["tokens"][0]) == smoke["GRAFT_DECODE_STEPS"]
+    assert max(got["max_abs_err"].values()) < 1e-4
+    assert "head_dim 32, group 2" in capsys.readouterr().out
+
+
+def test_graft_config_phase_rejects_a_planted_fault(monkeypatch):
+    llama = port("models.llama")
+    wrapper = llama.paged_decode_attention_cuda
+    monkeypatch.setattr(llama, "paged_decode_attention_cuda", lambda *a: wrapper(*a) * 100)
+    with pytest.raises(AssertionError, match="5e float32: decode step 1"):
+        smoke["graft_config_phase"](torch, device="cpu", dtypes=("float32",))

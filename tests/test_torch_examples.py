@@ -4,7 +4,7 @@ equal result lines (``tests/helpers/script_pairs.py`` states the mask)."""
 
 import pytest
 
-from tests.helpers.script_pairs import run_pair, with_port_names
+from tests.helpers.script_pairs import masked, run_pair, with_port_names
 
 SUCCESS = "completed successfully"
 
@@ -39,3 +39,20 @@ def test_vllm_demo_prints_the_recipe_with_the_ports_names():
     ref, ours = run_pair("examples/vllm_demo.py", SUCCESS)
     assert any("llm_d_kv_cache_manager_tpu_torch.offload.vllm_spec" in ln for ln in ours)
     assert ours == with_port_names(ref, "examples/vllm_demo.py")
+
+
+def test_the_mask_drops_grpc_core_log_records():
+    """gRPC's C core logs through absl on its own schedule: a GOAWAY
+    record after the success line, in some runs of either script.  The
+    mask drops its preamble and its records, and leaves a result line
+    that merely looks alike."""
+    stderr = (
+        "WARNING: All log messages before absl::InitializeLog() is called are written to "
+        "STDERR\n"
+        "I0000 00:00:1760759558.123456   48213 chttp2_transport.cc:1182] ipv6:%5B::1%5D:50051: "
+        "Got goaway [2] err=UNAVAILABLE:GOAWAY received\n"
+        "E1018 04:12:33.000123 77 server.cc:12] shutting down\n"
+        "I0000 pod scores: {'pod-a': 2.0}\n"
+    )
+    assert masked(stderr) == ["I0000 pod scores: {'pod-a': 2.0}"]
+    assert masked(f"{SUCCESS}\n" + stderr) == [SUCCESS, "I0000 pod scores: {'pod-a': 2.0}"]

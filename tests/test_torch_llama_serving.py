@@ -282,3 +282,42 @@ def test_init_params_layout_on_cpu():
         assert tuple(params["layers"][key].shape) == shape
     logits = llama.forward(params, _t(_tokens(9, 1, 8)), cfg)
     assert logits.shape == (1, 8, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+
+
+class TestCpuFallback:
+    """The reference's decode keys (``decode_attention``,
+    ``decode_blocks_per_step``, ``decode_mxu_native``) construct on the
+    port with the reference's defaults, as ``StagingConfig(use_pinned=...)``
+    does (tests/test_staging_engine.py::TestCpuFallback).  They pick a
+    route and size a Pallas grid step in the reference; the port's decode
+    is one kernel (here its plain version) whatever they say."""
+
+    NAMES = ("decode_attention", "decode_blocks_per_step", "decode_mxu_native")
+
+    def test_defaults_are_the_references(self):
+        for name in self.NAMES:
+            assert getattr(llama.LlamaConfig(), name) == getattr(jax_llama.LlamaConfig(), name)
+
+    @pytest.mark.parametrize("route", ["auto", "pallas", "gather"])
+    def test_decode_is_the_same_whatever_the_keys_say(self, jax_params, torch_params, route):
+        jcfg, tcfg = _cfgs()
+        keyed = dataclasses.replace(tcfg, decode_attention=route, decode_blocks_per_step=2,
+                                    decode_mxu_native=True)
+        B, T, max_blocks = 2, 8, 4
+        tokens = _tokens(21, B, T)
+        table = np.arange(B * max_blocks, dtype=np.int32).reshape(B, max_blocks)
+        jpool, _ = _pools(32)
+        jlog, jpool = jax_llama.prefill_paged(jax_params, jnp.asarray(tokens), jpool,
+                                              jnp.asarray(table[:, :2]), jcfg)
+        nxt = np.asarray(jnp.argmax(jlog[:, -1], -1)).astype(np.int32)
+        ctx = np.full((B,), T + 1, np.int32)
+        jlog, _ = jax_llama.decode_step(jax_params, jnp.asarray(nxt), jpool, jnp.asarray(table),
+                                        jnp.asarray(ctx), jcfg)
+        logits = []
+        for cfg in (tcfg, keyed):
+            _, tpool = _pools(32)
+            llama.prefill_paged(torch_params, _t(tokens), tpool, _t(table[:, :2]), cfg)
+            logits.append(llama.decode_step(torch_params, _t(nxt), tpool, _t(table), _t(ctx),
+                                            cfg)[0])
+        assert torch.equal(logits[0], logits[1])
+        _close(logits[1], jlog, LOGITS)

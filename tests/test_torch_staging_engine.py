@@ -1,9 +1,10 @@
 """The port's staging engine on the CPU: the staged path held against
 the port's own one-shot path and against the JAX package's files, the
 plain path chosen up front on a CPU pool, lane backpressure
-(watchdog-armed), budget composition, write-side RTT stamping and
-atomic files.  Ports of ``TestStagedParity``, ``TestBackpressure``,
-``TestAtomicity`` and ``TestStoreRtt`` of ``tests/test_staging_engine.py``.
+(watchdog-armed), budget composition, write-side RTT stamping,
+atomic files and the ``use_pinned`` key.  Ports of ``TestStagedParity``,
+``TestBackpressure``, ``TestAtomicity``, ``TestStoreRtt`` and
+``TestCpuFallback`` of ``tests/test_staging_engine.py``.
 """
 
 import os
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 
 from llm_d_kv_cache_manager_tpu.native.engine import JobStatus as JaxJobStatus
+from llm_d_kv_cache_manager_tpu.offload import staging_engine as jax_staging_mod
 from tests.helpers.torch_port import port
 from tests.test_torch_offload import (
     BLOCKS_PER_FILE,
@@ -341,4 +343,65 @@ class TestAtomicity:
         assert conn.store_handler.wait(1) == JobStatus.SUCCEEDED
         names = [n for _, _, files in os.walk(tmp_path) for n in files]
         assert sorted(names) == ["0000000000000001.bin", "0000000000000002.bin"]
+        conn.close()
+
+
+class TestCpuFallback:
+    """``StagingConfig(use_pinned=...)``, the reference's key
+    (tests/test_staging_engine.py::TestCpuFallback): None follows the
+    pool, False forces the plain slots with the same file bytes, True
+    on a CPU pool raises where the reference drops to the plain path."""
+
+    def test_fallback_when_pinned_unsupported(self, tmp_path):
+        pool, reference = port_pool(), jax_pool()
+        blocks = random_blocks("bfloat16", 3, seed=9)
+        pool.scatter_from_host([0, 1, 2], blocks)
+        reference.scatter_from_host([0, 1, 2], blocks)
+        conn = port_connector(tmp_path / "port", pool)
+        staging = staging_engine(conn, pool, lanes_per_chip=1, use_pinned=False)
+        assert not staging.uses_pinned and staging.stats()["use_pinned"] is False
+        staging.store(1, group_blocks_per_file([0xA, 0xB], [0, 1, 2], 2))
+        assert staging.wait(1) == JobStatus.SUCCEEDED
+        ref_conn = jax_connector(tmp_path / "jax", reference)
+        ref_staging = jax_staging_mod.StagingEngine(
+            reference, ref_conn.engine, ref_conn.file_mapper, 2,
+            jax_staging_mod.StagingConfig(lanes_per_chip=1, use_pinned=False))
+        ref_staging.store(1, group_blocks_per_file([0xA, 0xB], [0, 1, 2], 2))
+        assert ref_staging.wait(1) == JaxJobStatus.SUCCEEDED
+        conn.close()
+        ref_conn.close()
+        got, want = read_tree(str(tmp_path / "port")), read_tree(str(tmp_path / "jax"))
+        assert got == want and len(got) == 2
+
+    def test_auto_probe_matches_pool(self, tmp_path):
+        pool = port_pool()
+        conn = port_connector(tmp_path, pool)
+        assert staging_engine(conn, pool).uses_pinned == pool.pinned_host is False
+        conn.close()
+
+    def test_forcing_pinned_on_a_cpu_pool_raises(self, tmp_path):
+        pool = port_pool()
+        conn = port_connector(tmp_path, pool)
+        with pytest.raises(ValueError, match="use_pinned=True needs a CUDA pool"):
+            staging_engine(conn, pool, use_pinned=True)
+        conn.close()
+
+    def test_false_forces_plain_slots_on_a_pinned_pool(self, tmp_path, monkeypatch):
+        """A pool that offers the pinned path (as a CUDA pool does) with
+        use_pinned=False: the engine takes the plain slots, never the
+        pinned copy, and the files hold the pool's bytes."""
+        pool = port_pool()
+        pool.scatter_from_host([0, 1, 2], random_blocks("bfloat16", 3, seed=10))
+        monkeypatch.setattr(type(pool), "pinned_host", property(lambda self: True))
+        monkeypatch.setattr(type(pool), "stage_gather_pinned", lambda self, ids: pytest.fail(
+            "use_pinned=False took the pinned path"))
+        conn = port_connector(tmp_path, pool)
+        assert staging_engine(conn, pool, use_pinned=None).uses_pinned
+        staging = staging_engine(conn, pool, lanes_per_chip=1, use_pinned=False)
+        assert not staging.uses_pinned
+        staging.store(1, group_blocks_per_file([0xA, 0xB], [0, 1, 2], 2))
+        assert staging.wait(1) == JobStatus.SUCCEEDED
+        for file_hash, ids in ((0xA, [0, 1]), (0xB, [2])):
+            with open(conn.file_mapper.get_file_name(file_hash), "rb") as handle:
+                assert handle.read() == pool.gather_block_major(ids).tobytes()
         conn.close()
