@@ -1,0 +1,12 @@
+"""The decode kernel's share of its roofline over the traced slice: the
+bounds of its calls there (``roofline.paged_decode``, the live rows'
+contexts, one call a layer of each step) over its kernels' device time,
+in percent."""
+
+from bench_port.mfu import roofline_share
+
+KERNELS = ("paged_decode_bf16_kernel",)
+
+
+def read(rec):
+    return roofline_share(rec, "decode", KERNELS)
