@@ -68,6 +68,7 @@ from llm_d_kv_cache_manager_tpu_torch.kvcache.scorer import (
 )
 from llm_d_kv_cache_manager_tpu_torch.obs.trace import (
     current_trace,
+    profiler_range,
     span as obs_span,
 )
 from llm_d_kv_cache_manager_tpu_torch.preprocessing.chat_templating import (
@@ -676,15 +677,16 @@ class Indexer:
         coefficient is set; omitted, scores are bit-identical to the
         load-blind path.
         """
-        if self._fast_lane:
-            scores = self._get_pod_scores_fast(
-                prompt, model_name, pod_identifiers, render_req
-            )
-        else:
-            scores = self._get_pod_scores_straight(
-                prompt, model_name, pod_identifiers, render_req
-            )
-        return self._blend_loads(scores, pod_loads)
+        with profiler_range("router.get_pod_scores"):
+            if self._fast_lane:
+                scores = self._get_pod_scores_fast(
+                    prompt, model_name, pod_identifiers, render_req
+                )
+            else:
+                scores = self._get_pod_scores_straight(
+                    prompt, model_name, pod_identifiers, render_req
+                )
+            return self._blend_loads(scores, pod_loads)
 
     def _get_pod_scores_straight(
         self,
@@ -949,51 +951,57 @@ class Indexer:
                         break
                     if in_flight:
                         speculated += 1
-                    chunk = next_chunk()
+                    with profiler_range("hash_blocks"):
+                        chunk = next_chunk()
                     # Dispatch counts as lookup time: an unarmed (or
                     # closed) router resolves the chunk inline right
                     # here, and that wall time must land in the
                     # index_lookup stage, not in an untracked gap
                     # (the slo smoke pins stage-sum ≈ end-to-end).
                     t_d = perf()
-                    handle = index.lookup_chain_async(chunk)
+                    with profiler_range("index_lookup"):
+                        handle = index.lookup_chain_async(chunk)
                     lookup_s += perf() - t_d
                     in_flight.append((chunk, handle))
                 key_chunk, handle = in_flight.popleft()
                 t_1 = perf()
-                pods_per_key = handle.result()
+                with profiler_range("index_lookup"):
+                    pods_per_key = handle.result()
             else:
-                key_chunk = next_chunk()
+                with profiler_range("hash_blocks"):
+                    key_chunk = next_chunk()
                 t_1 = perf()
-                pods_per_key = index.lookup_chain(key_chunk)
+                with profiler_range("index_lookup"):
+                    pods_per_key = index.lookup_chain(key_chunk)
             t_2 = perf()
             lookup_s += t_2 - t_1
-            keys_done.extend(key_chunk)
-            keys_hit += len(pods_per_key)
-            if memo_key is not None and pods_per_key:
-                touched_keys.extend(key_chunk[: len(pods_per_key)])
-            if record_lookup is not None:
-                # Tally over the FILTERED view (what the straight
-                # path's instrumented lookup counts): a non-candidate
-                # pod's residency must not move the hit metrics.  One
-                # knowing divergence: the tally covers only the chain
-                # actually driven, so residency past the point where
-                # the chain died for every candidate (which early exit
-                # never looks up, and which cannot move any score) is
-                # not counted, while the straight path's full lookup
-                # would count it (docs/performance.md).
-                for pods in pods_per_key:
-                    for entry in pods:
-                        pod_id = entry.pod_identifier
-                        if pod_set is not None and pod_id not in pod_set:
-                            continue
-                        hits_per_pod[pod_id] = (
-                            hits_per_pod.get(pod_id, 0) + 1
-                        )
-            alive = (
-                scorer.advance(chain, pods_per_key, pod_set)
-                and len(pods_per_key) == len(key_chunk)
-            )
+            with profiler_range("score"):
+                keys_done.extend(key_chunk)
+                keys_hit += len(pods_per_key)
+                if memo_key is not None and pods_per_key:
+                    touched_keys.extend(key_chunk[: len(pods_per_key)])
+                if record_lookup is not None:
+                    # Tally over the FILTERED view (what the straight
+                    # path's instrumented lookup counts): a non-candidate
+                    # pod's residency must not move the hit metrics.  One
+                    # knowing divergence: the tally covers only the chain
+                    # actually driven, so residency past the point where
+                    # the chain died for every candidate (which early exit
+                    # never looks up, and which cannot move any score) is
+                    # not counted, while the straight path's full lookup
+                    # would count it (docs/performance.md).
+                    for pods in pods_per_key:
+                        for entry in pods:
+                            pod_id = entry.pod_identifier
+                            if pod_set is not None and pod_id not in pod_set:
+                                continue
+                            hits_per_pod[pod_id] = (
+                                hits_per_pod.get(pod_id, 0) + 1
+                            )
+                alive = (
+                    scorer.advance(chain, pods_per_key, pod_set)
+                    and len(pods_per_key) == len(key_chunk)
+                )
             score_s += perf() - t_2
             position += len(key_chunk)
             if (
@@ -1117,11 +1125,13 @@ class Indexer:
             # One span per pipeline stage (the stage vocabulary the
             # metrics histogram and the debug surface share), durations
             # accumulated across chunks and emitted as contiguous
-            # intervals covering [walk_start, now].  lookup/score keep
-            # their measured durations; hash_blocks absorbs the walk's
-            # fixed bookkeeping (memo check + version capture up front,
-            # memo store / ledger / prefix attach at the tail) so the
-            # stage sum tracks the request's end-to-end latency.
+            # intervals covering [walk_start, now] (a recording torch
+            # profiler got real ranges of each chunk's stages above).
+            # lookup/score keep their measured durations; hash_blocks
+            # absorbs the walk's fixed bookkeeping (memo check + version
+            # capture up front, memo store / ledger / prefix attach at
+            # the tail) so the stage sum tracks the request's end-to-end
+            # latency.
             end = perf()
             span = tracer.add_completed(
                 "hash_blocks", walk_start,

@@ -61,7 +61,10 @@ bounds a per-worker LRU of digested request-key chains so repeated
 stores of the same block chain skip re-hashing (pure function of
 parent key + model + tokens, so no invalidation exists to get wrong).
 ``stage_stats()`` reports the cumulative decode/apply wall-time split
-for the bench's bottleneck attribution.
+for the bench's bottleneck attribution, and each applied frame's wait:
+``queue_s`` from the ``add_tasks`` hand-off until a worker takes its
+batch, ``lag_s`` from the hand-off until the batch is flushed into the
+index (both summed over the ``apply_msgs`` frames).
 
 **Resync commands**: the anti-entropy path (``kvevents/resync.py``)
 repairs a pod whose event stream gapped by enqueueing a
@@ -112,6 +115,7 @@ from llm_d_kv_cache_manager_tpu_torch.obs.trace import (
     TRACER,
     Trace,
     current_trace,
+    profiler_range,
     span as obs_span,
     use_trace,
 )
@@ -227,6 +231,9 @@ class Message:
     # Sampled ingestion trace (obs/trace.py) riding the shard queue:
     # explicit propagation across the pool's thread boundary.
     trace: Optional[Trace] = None
+    # Host clock of the hand-off (``add_tasks``, after its pre-decode,
+    # or ``enqueue_resync``), just before the shard put: stage_stats()'s
+    # queue_s and lag_s and a trace's queue_wait start here.
     enqueued_at: float = 0.0
     # Anti-entropy command (see module docstring): when set the worker
     # purges + re-applies instead of decoding ``payload``; such command
@@ -783,6 +790,8 @@ class Pool:
             "decode_msgs": 0,
             "apply_s": 0.0,
             "apply_msgs": 0,
+            "queue_s": 0.0,
+            "lag_s": 0.0,
         }
 
     def set_capture(self, capture) -> None:
@@ -932,10 +941,22 @@ class Pool:
             self._stage[f"{stage}_s"] += seconds
             self._stage[f"{stage}_msgs"] += msgs
 
+    def _frames_account(
+        self, apply_s: float, frames: int, queue_s: float, lag_s: float
+    ) -> None:
+        with self._stage_lock:
+            stage = self._stage
+            stage["apply_s"] += apply_s
+            stage["apply_msgs"] += frames
+            stage["queue_s"] += queue_s
+            stage["lag_s"] += lag_s
+
     def stage_stats(self) -> dict:
         """Cumulative decode vs apply wall-time split (seconds and
         message counts), wherever each stage ran — the bench's
-        bottleneck attribution (docs/event-plane.md)."""
+        bottleneck attribution (docs/event-plane.md) — and the applied
+        frames' summed ``queue_s`` (hand-off to a worker's take) and
+        ``lag_s`` (hand-off to the flush into the index)."""
         with self._stage_lock:
             return dict(self._stage)
 
@@ -969,8 +990,6 @@ class Pool:
                 tr.set_attr("topic", message.topic)
                 tr.set_attr("seq", message.seq)
                 message.trace = tr
-        if message.trace is not None:
-            message.enqueued_at = time.perf_counter()
 
     def _predecode(self, message: Message) -> None:
         """Lock-free decode stage: runs on the ENQUEUEING thread with
@@ -1017,6 +1036,10 @@ class Pool:
         """
         if not messages:
             return
+        with profiler_range("kvevents.add_tasks"):
+            self._add_tasks(messages)
+
+    def _add_tasks(self, messages: Sequence[Message]) -> None:
         per_shard: Dict[int, List[Message]] = {}
         # Input capture copies payload bytes BEFORE the lock-free
         # pre-decode stage releases them (zero-copy ZMQ frames must
@@ -1048,6 +1071,11 @@ class Pool:
                 )
         shed_map: Dict[int, Tuple[Message, str]] = {}
         for shard, batch in per_shard.items():
+            # The hand-off: after the caller's pre-decode, just before
+            # the put that lets a worker take the frames.
+            now = time.perf_counter()
+            for message in batch:
+                message.enqueued_at = now
             shed, depths = self._queues[shard].put_batch(batch)
             # Metrics + trace finishing OUTSIDE the shard lock.
             for dropped, reason in shed:
@@ -1127,9 +1155,8 @@ class Pool:
             model_name=job.model_name,
             trace=trace_,
             resync=job,
+            enqueued_at=time.perf_counter(),
         )
-        if message.trace is not None:
-            message.enqueued_at = time.perf_counter()
         shed, _depth = self._shard_for(job.pod_identifier).put(message)
         for dropped, reason in shed:
             # Only "shutdown" can reject a command message.
@@ -1177,6 +1204,7 @@ class Pool:
         worker_index: int,
         memo: Optional[OrderedDict] = None,
     ) -> None:
+        taken = time.perf_counter()
         METRICS.kvevents_batch_size.observe(len(batch))
         applier = _BatchApplier(self._index, self._journal)
         decoded: List[Optional[EventBatch]] = []
@@ -1227,6 +1255,7 @@ class Pool:
         pending_traces: List[Trace] = []
         apply_t0 = time.perf_counter()
         apply_n = 0
+        handed_off = 0.0  # sum of the applied frames' enqueued_at
         for message, events in zip(batch, decoded):
             tr = message.trace
             if message.resync is not None:
@@ -1245,6 +1274,7 @@ class Pool:
                 with use_trace(tr):
                     self._apply_events(message, events, applier, memo)
                 apply_n += 1
+                handed_off += message.enqueued_at
             except Exception as exc:
                 if tr is not None:
                     tr.set_error(repr(exc))
@@ -1265,8 +1295,12 @@ class Pool:
                 worker_index,
             )
         if apply_n:
-            self._stage_account(
-                "apply", time.perf_counter() - apply_t0, apply_n
+            flushed = time.perf_counter()
+            self._frames_account(
+                flushed - apply_t0,
+                apply_n,
+                apply_n * taken - handed_off,
+                apply_n * flushed - handed_off,
             )
         # Applied messages may be retained by the input-capture ring
         # (compact records hold the Message itself); dropping the

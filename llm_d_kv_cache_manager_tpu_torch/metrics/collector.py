@@ -820,6 +820,30 @@ class KVCacheMetrics:
                 0.025, 0.05, 0.1, 0.25, 1.0,
             ),
         )
+        # The port's device work built in this process; the reference has
+        # no such family, so docs/observability.md's inventory leaves it
+        # out and obs/DEVICE_TRACE.md documents both.
+        self.kernel_builds = Counter(  # kvlint: disable=KV007
+            f"{_NAMESPACE}_kernel_builds_total",
+            "Device work built in this process, by what: library (a "
+            "CUDA kernel's load, after its nvcc build where no built "
+            "file is found), plan (a bf16 attention "
+            "work list built and uploaded on a cache miss), graph (a "
+            "decode step's eager run and CUDA graph capture).",
+            ("what",),
+            registry=self.registry,
+        )
+        self.kernel_build_seconds = Histogram(  # kvlint: disable=KV007
+            f"{_NAMESPACE}_kernel_build_seconds",
+            "Host wall time of each build counted in "
+            "kvtpu_kernel_builds_total, by what.",
+            ("what",),
+            registry=self.registry,
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 1.0, 10.0, 100.0,
+            ),
+        )
         # Incident capture plane (obs/capture.py; docs/observability.md
         # "Incident capture & replay").
         self.build_info = Gauge(
@@ -969,6 +993,13 @@ def gauge_total(gauge: Gauge) -> float:
     return total
 
 
+def count_build(what: str, seconds: float) -> None:
+    """One build of device work (``library``, ``plan`` or ``graph``)
+    that took ``seconds`` of host wall time."""
+    METRICS.kernel_builds.labels(what=what).inc()
+    METRICS.kernel_build_seconds.labels(what=what).observe(seconds)
+
+
 # ------------------------ process runtime metrics ------------------------
 
 _PAGE_SIZE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
@@ -1007,13 +1038,25 @@ def update_process_metrics() -> dict:
 _gc_starts: dict = {}
 _gc_installed = False
 _gc_children: dict = {}
+# A pass's ``kvtpu.gc`` range on a recording torch profiler's timeline,
+# open from "start" to "stop" on the collecting thread;
+# ``obs.trace.profiler_range``, bound by install_gc_metrics (obs.trace
+# imports this module).
+_gc_ranges: dict = {}
+_gc_range = None
 
 
 def _gc_callback(phase: str, info: dict) -> None:
     gen = info.get("generation", 0)
     if phase == "start":
+        opened = _gc_range("gc")
+        opened.__enter__()
+        _gc_ranges[gen] = opened
         _gc_starts[gen] = time.perf_counter()
         return
+    opened = _gc_ranges.pop(gen, None)
+    if opened is not None:
+        opened.__exit__(None, None, None)
     start = _gc_starts.pop(gen, None)
     child = _gc_children.get(gen)
     if child is None:
@@ -1026,11 +1069,15 @@ def _gc_callback(phase: str, info: dict) -> None:
 
 def install_gc_metrics() -> bool:
     """Hook ``gc.callbacks`` so every collection pass lands in
-    ``kvtpu_gc_collections_total{gen}`` / ``kvtpu_gc_pause_seconds``.
-    Idempotent; returns True when (already) installed."""
-    global _gc_installed
+    ``kvtpu_gc_collections_total{gen}`` / ``kvtpu_gc_pause_seconds``,
+    and on a recording torch profiler's timeline as a ``kvtpu.gc``
+    range.  Idempotent; returns True when (already) installed."""
+    global _gc_installed, _gc_range
     if _gc_installed:
         return True
+    from llm_d_kv_cache_manager_tpu_torch.obs.trace import profiler_range
+
+    _gc_range = profiler_range
     gc.callbacks.append(_gc_callback)
     _gc_installed = True
     return True

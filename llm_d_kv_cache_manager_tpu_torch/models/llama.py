@@ -60,6 +60,7 @@ reference returns new params and optimizer state.
 from __future__ import annotations
 
 import math
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
@@ -68,6 +69,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from llm_d_kv_cache_manager_tpu_torch.metrics.collector import count_build
+from llm_d_kv_cache_manager_tpu_torch.obs.trace import profiler_range
 from llm_d_kv_cache_manager_tpu_torch.ops.attention import causal_gqa_attention
 from llm_d_kv_cache_manager_tpu_torch.ops.flash_attention import (
     flash_gqa_attention,
@@ -530,23 +533,29 @@ def prefill_paged(
     [L, num_blocks, 2, block_size, Hkv, Dh] (``KVCachePool.kv``);
     block_table: [B, T/block_size] pool block ids for each sequence.
     Returns (logits [B, T, V], kv_pool) — the same pool tensor, updated.
+    A ``model.prefill_paged`` profiler range (batch, new and prefix
+    tokens) around ``model.prefill.inputs``, ``.layers`` and ``.logits``.
     """
-    if is_sharded(params):
-        return _prefill_sharded(params, tokens, kv_pool, block_table, cfg, 0)
-    dev = _plain_pool(kv_pool).device
-    tokens, block_table = tokens.to(dev), block_table.to(dev)
     B, T = tokens.shape
-    positions = torch.arange(T, device=dev).expand(B, T)
-    x = _embed(params, tokens)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h = _rms_norm(x, lp["ln1"])
-        q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
-        attn = _prefill_attention(q, k, v, cfg)
-        x = x + _attn_out(attn, lp)
-        x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
-        _scatter_kv_blocks(kv_pool[i], k, v, block_table, cfg.block_size)
-    return _logits(x, params), kv_pool
+    with profiler_range("model.prefill_paged", {"batch": B, "new": T, "prefix": 0}):
+        if is_sharded(params):
+            return _prefill_sharded(params, tokens, kv_pool, block_table, cfg, 0)
+        dev = _plain_pool(kv_pool).device
+        with profiler_range("model.prefill.inputs"):
+            tokens, block_table = tokens.to(dev), block_table.to(dev)
+            positions = torch.arange(T, device=dev).expand(B, T)
+        with profiler_range("model.prefill.layers"):
+            x = _embed(params, tokens)
+            for i in range(cfg.n_layers):
+                lp = _layer(params, i)
+                h = _rms_norm(x, lp["ln1"])
+                q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
+                attn = _prefill_attention(q, k, v, cfg)
+                x = x + _attn_out(attn, lp)
+                x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
+                _scatter_kv_blocks(kv_pool[i], k, v, block_table, cfg.block_size)
+        with profiler_range("model.prefill.logits"):
+            return _logits(x, params), kv_pool
 
 
 def prefill_continue(
@@ -566,36 +575,43 @@ def prefill_continue(
     tokens: [B, Ts] suffix tokens, Ts % block_size == 0.
     block_table: [B, (prefix_len + Ts) / block_size] — prefix blocks
     first, then the blocks to write.  Returns (suffix logits
-    [B, Ts, V], kv_pool).
+    [B, Ts, V], kv_pool).  A ``model.prefill_continue`` profiler range
+    around ``model.prefill.inputs``, ``.layers`` and ``.logits``, as
+    :func:`prefill_paged` has.
     """
-    if is_sharded(params):
-        return _prefill_sharded(params, tokens, kv_pool, block_table, cfg, prefix_len)
-    dev = _plain_pool(kv_pool).device
-    tokens, block_table = tokens.to(dev), block_table.to(dev)
     B, Ts = tokens.shape
-    if prefix_len % cfg.block_size or Ts % cfg.block_size:
-        raise ValueError("prefix_len and Ts must be block_size multiples")
-    npre = prefix_len // cfg.block_size
-    nsuf = Ts // cfg.block_size
-    positions = (prefix_len + torch.arange(Ts, device=dev)).expand(B, Ts)
-    x = _embed(params, tokens)
-    prefix_ids = block_table[:, :npre].long()  # [B, npre]
-    suffix_ids = block_table[:, npre : npre + nsuf]
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        kv_layer = kv_pool[i]
-        h = _rms_norm(x, lp["ln1"])
-        q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
-        # Gather the prefix K/V: [B, npre, 2, block, Hkv, Dh].
-        pre = kv_layer[prefix_ids].permute(0, 2, 1, 3, 4, 5)
-        pre = pre.reshape(B, 2, prefix_len, k.shape[-2], k.shape[-1])
-        k_full = torch.cat((pre[:, 0].to(k.dtype), k), dim=1)
-        v_full = torch.cat((pre[:, 1].to(v.dtype), v), dim=1)
-        attn = _prefill_attention(q, k_full, v_full, cfg, q_offset=prefix_len)
-        x = x + _attn_out(attn, lp)
-        x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
-        _scatter_kv_blocks(kv_layer, k, v, suffix_ids, cfg.block_size)
-    return _logits(x, params), kv_pool
+    with profiler_range("model.prefill_continue",
+                        {"batch": B, "new": Ts, "prefix": prefix_len}):
+        if is_sharded(params):
+            return _prefill_sharded(params, tokens, kv_pool, block_table, cfg, prefix_len)
+        dev = _plain_pool(kv_pool).device
+        if prefix_len % cfg.block_size or Ts % cfg.block_size:
+            raise ValueError("prefix_len and Ts must be block_size multiples")
+        npre = prefix_len // cfg.block_size
+        nsuf = Ts // cfg.block_size
+        with profiler_range("model.prefill.inputs"):
+            tokens, block_table = tokens.to(dev), block_table.to(dev)
+            positions = (prefix_len + torch.arange(Ts, device=dev)).expand(B, Ts)
+        with profiler_range("model.prefill.layers"):
+            x = _embed(params, tokens)
+            prefix_ids = block_table[:, :npre].long()  # [B, npre]
+            suffix_ids = block_table[:, npre : npre + nsuf]
+            for i in range(cfg.n_layers):
+                lp = _layer(params, i)
+                kv_layer = kv_pool[i]
+                h = _rms_norm(x, lp["ln1"])
+                q, k, v = _qkv(h, lp, positions, cfg.rope_theta)
+                # Gather the prefix K/V: [B, npre, 2, block, Hkv, Dh].
+                pre = kv_layer[prefix_ids].permute(0, 2, 1, 3, 4, 5)
+                pre = pre.reshape(B, 2, prefix_len, k.shape[-2], k.shape[-1])
+                k_full = torch.cat((pre[:, 0].to(k.dtype), k), dim=1)
+                v_full = torch.cat((pre[:, 1].to(v.dtype), v), dim=1)
+                attn = _prefill_attention(q, k_full, v_full, cfg, q_offset=prefix_len)
+                x = x + _attn_out(attn, lp)
+                x = x + _mlp(_rms_norm(x, lp["ln2"]), lp)
+                _scatter_kv_blocks(kv_layer, k, v, suffix_ids, cfg.block_size)
+        with profiler_range("model.prefill.logits"):
+            return _logits(x, params), kv_pool
 
 
 def prefill_chunked(
@@ -744,6 +760,13 @@ class CapturedDecodeStep:
     and captured by the first call, so that a caller who wants to
     inspect the captured graph can replace it before that call with one
     that keeps it (``torch.cuda.CUDAGraph(keep_graph=True)``).
+
+    Each call is a ``model.decode_step`` profiler range (its batch
+    bucket) around ``model.decode.inputs`` (the three copies), then
+    ``model.decode.capture`` (the first call's eager run and capture,
+    counted in ``kvtpu_kernel_builds_total{what="graph"}``) and
+    ``model.decode.replay``, or ``model.decode.eager`` where nothing is
+    captured.
     """
 
     def __init__(self, params: Params, kv_pool: torch.Tensor, cfg: LlamaConfig,
@@ -753,6 +776,7 @@ class CapturedDecodeStep:
         self.params, self.kv_pool, self.cfg = params, kv_pool, cfg
         self.batch, self.max_blocks = batch, max_blocks
         self.replays = 0
+        self._range_attrs = {"batch": batch}
         if isinstance(kv_pool, Sharded):
             # One graph holds the step of every shard when all ranks
             # share one device; across devices or processes every call
@@ -775,13 +799,16 @@ class CapturedDecodeStep:
                            self.context_len, self.cfg)[0]
 
     def _capture(self) -> None:
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._run()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        with torch.cuda.graph(self.graph):
-            self.logits = self._run()
+        t0 = time.perf_counter()
+        with profiler_range("model.decode.capture"):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            with torch.cuda.graph(self.graph):
+                self.logits = self._run()
+        count_build("graph", time.perf_counter() - t0)
 
     def __call__(self, tokens: torch.Tensor, block_table: torch.Tensor,
                  context_len: torch.Tensor) -> torch.Tensor:
@@ -794,15 +821,19 @@ class CapturedDecodeStep:
                 f"{self.max_blocks} blocks wide; got tokens {tuple(tokens.shape)}, "
                 f"block_table {tuple(block_table.shape)}, context_len "
                 f"{tuple(context_len.shape)}")
-        self.tokens.copy_(tokens)
-        self.block_table[:, :width].copy_(block_table)
-        self.context_len.copy_(context_len)
-        if self.graph is None:
-            return self._run()
-        with torch.cuda.device(self.device):
-            if self.logits is None:
-                self._capture()
-            self.graph.replay()
+        with profiler_range("model.decode_step", self._range_attrs):
+            with profiler_range("model.decode.inputs"):
+                self.tokens.copy_(tokens)
+                self.block_table[:, :width].copy_(block_table)
+                self.context_len.copy_(context_len)
+            if self.graph is None:
+                with profiler_range("model.decode.eager"):
+                    return self._run()
+            with torch.cuda.device(self.device):
+                if self.logits is None:
+                    self._capture()
+                with profiler_range("model.decode.replay"):
+                    self.graph.replay()
         self.replays += 1
         return self.logits
 

@@ -4,8 +4,22 @@ Zero-hard-dependency span tracing for the scoring read path, the
 KV-event write path, and the offload pipelines.  Design constraints:
 
 * **Always-on cheap.**  The untraced path allocates nothing: ``span()``
-  returns a preallocated null context manager when no trace is active,
-  and an unsampled ``start_trace`` costs one counter increment.
+  returns a preallocated null context manager when no trace is active
+  and no torch profiler records, and an unsampled ``start_trace`` costs
+  one lock-free counter increment.
+* **One clock with the device.**  While a torch profiler records in
+  this process (``torch.profiler.profile``, ``emit_nvtx``,
+  ``emit_itt``), every span also opens a ``kvtpu.<name>`` range on the
+  profiler's timeline, whether or not a trace is active, so Kineto puts
+  the port's host work and the CUDA kernels on one timeline (and
+  ``emit_nvtx`` hands the ranges to Nsight Systems).
+  :func:`profiler_range` opens such a range alone, for work whose spans
+  a trace lays out otherwise or which has no request to belong to (the
+  model step, the event pool's hand-off, the kernel builds).  The
+  ranges are function-scope records, not user annotations, so the
+  profiler draws no device-side copy of them: its device rows stay the
+  kernels' own.  ``obs/DEVICE_TRACE.md`` lists the ranges and says how
+  to take such a trace.
 * **Explicit propagation.**  A ``contextvars.ContextVar`` carries the
   active trace within a thread; crossing the thread-pool boundaries we
   own (tokenization pool, kvevents shards, offload workers) is done by
@@ -34,9 +48,11 @@ Copied from the JAX reference's ``obs/trace.py``.
 from __future__ import annotations
 
 import contextvars
+import itertools
 import os
 import random
 import re
+import sys
 import threading
 import time
 from dataclasses import dataclass
@@ -180,6 +196,68 @@ class _NullSpanCtx:
 
 _NULL_SPAN = _NullSpan()
 _NULL_SPAN_CTX = _NullSpanCtx()
+
+
+# ------------------------ the torch profiler bridge ------------------------
+
+# Every range the port opens on a torch profiler's timeline is named
+# with this prefix, so a reader of the trace can tell the port's host
+# work from the caller's labels and from torch's own ops.
+RANGE_PREFIX = "kvtpu."
+_NO_INPUTS = ()
+
+
+def _profiler_record():
+    """torch's ``_RecordFunctionFast`` while a torch profiler records in
+    this process, else None: one dict lookup and one flag read.  The
+    flag is process-wide (``torch.autograd.profiler._is_profiler_enabled``);
+    a range opened on a thread the profiler does not follow records
+    nothing.  A process that never imported torch has no profiler to
+    feed, and this module does not import it."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return None
+    return sys.modules["torch"]._C._profiler._RecordFunctionFast
+
+
+def _open_range(record, name: str, attrs: Optional[Dict[str, Any]]):
+    # Attributes (ints, floats, strings, bools) reach the trace as the
+    # range's keyword inputs when the profiler records shapes.
+    if attrs:
+        return record(RANGE_PREFIX + name, _NO_INPUTS, attrs)
+    return record(RANGE_PREFIX + name)
+
+
+class _RangeCtx:
+    """A profiler range around a span context (a trace's, or the null
+    one): the range opens first and closes last."""
+
+    __slots__ = ("_range", "_inner")
+
+    def __init__(self, range_, inner) -> None:
+        self._range = range_
+        self._inner = inner
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self._inner.__enter__()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        try:
+            return self._inner.__exit__(exc_type, exc, tb)
+        finally:
+            self._range.__exit__(exc_type, exc, tb)
+
+
+def profiler_range(name: str, attrs: Optional[Dict[str, Any]] = None):
+    """A ``kvtpu.<name>`` range on the torch profiler's timeline while
+    one records, else the shared no-op context.  ``attrs`` (the call's
+    shape: ints, floats, strings, bools) ride on the range.  Records
+    nothing onto a request trace."""
+    record = _profiler_record()
+    if record is None:
+        return _NULL_SPAN_CTX
+    return _open_range(record, name, attrs)
 
 
 class Trace:
@@ -386,7 +464,11 @@ class Tracer:
         )
         self._lock = threading.Lock()
         self._sampled = 0  # guarded-by: _lock
-        self._dropped = 0  # guarded-by: _lock
+        # Unsampled starts, counted without the lock: ``next`` on an
+        # ``itertools.count`` is one C call, so no increment is lost.
+        # ``stats()`` draws one more number and subtracts its own draws.
+        self._unsampled = itertools.count()
+        self._unsampled_reads = 0  # guarded-by: _lock
 
     def start_trace(
         self,
@@ -406,8 +488,8 @@ class Tracer:
         if not force:
             rate = self.config.sample_rate
             if rate <= 0.0 or (rate < 1.0 and random.random() >= rate):
-                with self._lock:
-                    self._dropped += 1
+                # gil-atomic: itertools.count.__next__ is one C call
+                next(self._unsampled)
                 return None
         with self._lock:
             self._sampled += 1
@@ -443,7 +525,9 @@ class Tracer:
     def stats(self) -> dict:
         """Sampling + recorder health for /healthz."""
         with self._lock:
-            sampled, dropped = self._sampled, self._dropped
+            sampled = self._sampled
+            dropped = next(self._unsampled) - self._unsampled_reads
+            self._unsampled_reads += 1
         out = {
             "sample_rate": self.config.sample_rate,
             "traces_sampled": sampled,
@@ -456,7 +540,8 @@ class Tracer:
         """Clear recorder + counters (test isolation)."""
         with self._lock:
             self._sampled = 0
-            self._dropped = 0
+            self._unsampled = itertools.count()
+            self._unsampled_reads = 0
         # gil-atomic: delegates to the recorder's own internal lock
         self.recorder.clear()
 
@@ -494,11 +579,18 @@ class use_trace:
 
 
 def span(name: str, parent: Optional[str] = None):
-    """Span on the context's active trace; free no-op when untraced."""
+    """Span on the context's active trace, inside a ``kvtpu.<name>``
+    profiler range while a torch profiler records; a free no-op when
+    neither."""
     trace = _CURRENT.get()
+    record = _profiler_record()
     if trace is None:
-        return _NULL_SPAN_CTX
-    return trace.span(name, parent)
+        if record is None:
+            return _NULL_SPAN_CTX
+        return _RangeCtx(_open_range(record, name, None), _NULL_SPAN_CTX)
+    if record is None:
+        return trace.span(name, parent)
+    return _RangeCtx(_open_range(record, name, None), trace.span(name, parent))
 
 
 class shield_trace:

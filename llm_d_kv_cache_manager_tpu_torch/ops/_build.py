@@ -27,10 +27,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
 import torch
+
+from llm_d_kv_cache_manager_tpu_torch.metrics.collector import count_build
+from llm_d_kv_cache_manager_tpu_torch.obs.trace import profiler_range
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -122,12 +126,17 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded ``csrc/<name>.cu`` library, built on first use."""
+    """The loaded ``csrc/<name>.cu`` library, built on first use (an
+    ``ops.build`` profiler range, counted in
+    ``kvtpu_kernel_builds_total{what="library"}``)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build_all([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            t0 = time.perf_counter()
+            with profiler_range("ops.build", {"source": name}):
+                build_all([name])
+                lib = ctypes.CDLL(str(_target(name)))
+            count_build("library", time.perf_counter() - t0)
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

@@ -20,11 +20,14 @@ past ``kt_end * KV_TILE``.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from llm_d_kv_cache_manager_tpu_torch.metrics.collector import count_build
+from llm_d_kv_cache_manager_tpu_torch.obs.trace import profiler_range
 from llm_d_kv_cache_manager_tpu_torch.utils.lru import LRUCache
 
 Q_TILE = 128  # query rows per work item: two consumer warpgroups of 64
@@ -155,22 +158,27 @@ def work_list(
     :func:`key_tile`) as a cached int32 device tensor, a persistent grid
     of at most ``CTAS_PER_SM`` CTAs per SM, and, with ``split_keys``,
     the key split of :func:`split_plan` when the items are too few to
-    fill the card.  ``sms`` defaults to the CUDA device's SM count."""
+    fill the card.  ``sms`` defaults to the CUDA device's SM count.  A
+    miss (the plan's build and its upload) is an ``ops.plan_build``
+    profiler range and counts in ``kvtpu_kernel_builds_total{what="plan"}``."""
     if sms is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     key = (B, H, Tq, Tk, offset, split_keys, sms, kv_tile, str(device))
     cached = _DEVICE_PLANS.get(key)
     if cached is not None:
         return cached
-    splits, per_split = 1, None
-    if split_keys:
-        splits, per_split = split_plan(
-            -(-Tq // Q_TILE) * H * B, key_tiles(Tq, Tk, offset, kv_tile), sms)
-    plan = tile_plan(B, H, Tq, Tk, offset, splits, per_split, kv_tile=kv_tile)
-    result = WorkList(
-        torch.from_numpy(plan).to(device),
-        min(len(plan), CTAS_PER_SM * sms),
-        splits,
-    )
+    t0 = time.perf_counter()
+    with profiler_range("ops.plan_build", {"batch": B, "heads": H, "q": Tq, "k": Tk}):
+        splits, per_split = 1, None
+        if split_keys:
+            splits, per_split = split_plan(
+                -(-Tq // Q_TILE) * H * B, key_tiles(Tq, Tk, offset, kv_tile), sms)
+        plan = tile_plan(B, H, Tq, Tk, offset, splits, per_split, kv_tile=kv_tile)
+        result = WorkList(
+            torch.from_numpy(plan).to(device),
+            min(len(plan), CTAS_PER_SM * sms),
+            splits,
+        )
+    count_build("plan", time.perf_counter() - t0)
     _DEVICE_PLANS.put(key, result)
     return result

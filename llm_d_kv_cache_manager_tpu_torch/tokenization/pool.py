@@ -30,6 +30,7 @@ from llm_d_kv_cache_manager_tpu_torch.utils import lockorder
 from llm_d_kv_cache_manager_tpu_torch.obs.trace import (
     Trace,
     current_trace,
+    profiler_range,
     span as obs_span,
     use_trace,
 )
@@ -196,15 +197,18 @@ class TokenizationPool:
                 return served
             probed = True
         future: "Future[TokenizedPrompt]" = Future()
-        self._submit(
-            prompt,
-            model_name,
-            render_req,
-            future,
-            store_probed=probed,
-            key_space=key_space,
-        )
-        return future.result(timeout=timeout)
+        # The caller's wait for the pool (its queue and the worker's
+        # encode), on a recording torch profiler's timeline.
+        with profiler_range("tokenize.queue_wait"):
+            self._submit(
+                prompt,
+                model_name,
+                render_req,
+                future,
+                store_probed=probed,
+                key_space=key_space,
+            )
+            return future.result(timeout=timeout)
 
     def _try_prefix_fast_path(
         self,

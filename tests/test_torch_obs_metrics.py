@@ -317,21 +317,33 @@ def _drive(metrics, n):
                         target.observe(value)
 
 
+# The port's own families, which the reference has no counterpart for:
+# its CUDA device work built in the process (kernels, work lists, graphs).
+PORT_ONLY = {"kernel_builds": "kvtpu_kernel_builds",
+             "kernel_build_seconds": "kvtpu_kernel_build_seconds"}
+
+
+def _shared(samples):
+    return [s for s in samples if not s[0].startswith(tuple(PORT_ONLY.values()))]
+
+
 @pytest.mark.parametrize("n", [0, 1, 3])
 def test_metric_samples_match_reference(n):
     """Every series of ``KVCacheMetrics``: the same names, labels,
-    buckets and values in both expositions."""
+    buckets and values in both expositions, but for ``PORT_ONLY``."""
     ours, ref = collector.KVCacheMetrics(), jax_collector.KVCacheMetrics()
-    assert sorted(vars(ours)) == sorted(vars(ref))
+    assert sorted(vars(ours)) == sorted(set(vars(ref)) | set(PORT_ONLY))
     _drive(ours, n)
     _drive(ref, n)
     got, want = _samples(ours.exposition().decode()), _samples(ref.exposition().decode())
-    assert got == want
-    assert len(got) > 300 if n else len(got) > 100
+    assert _shared(got) == want
+    assert len(got) > len(_shared(got))
+    assert len(want) > 300 if n else len(want) > 100
     families = [{f.name: (f.type, f.documentation)
                  for f in text_string_to_metric_families(m.exposition().decode())
                  if not f.name.endswith("_created")} for m in (ours, ref)]
-    assert families[0] == families[1]
+    assert set(families[0]) - set(families[1]) == set(PORT_ONLY.values())
+    assert {k: v for k, v in families[0].items() if k not in PORT_ONLY.values()} == families[1]
 
 
 def test_metric_helpers_match_reference():
