@@ -13,8 +13,9 @@
 - Write path: frames the event pool dropped, limit 0.
 - Requests due in the window and never finished, limit 0.
 
-The control (``control.py``) reads the same gap for the token that the
-reference computed in float8 puts first.
+The reference is the configuration's family's (``families/<family>.py``:
+``reference_logits``).  The control (``control.py``) reads the same gap
+for the token that the reference computed in float8 puts first.
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-
-from bench_port.reference import model as ref_model
 
 
 def sample(lives, seed: int, tokens: int, max_requests: int,
@@ -63,9 +62,9 @@ def sequence(lv) -> np.ndarray:
     return np.concatenate([lv.req.prompt, np.asarray(lv.tokens[:-1], dtype=np.int32)])
 
 
-def ref_logits(params, config, lv, device, quant: Optional[str] = None) -> torch.Tensor:
+def ref_logits(family, params, config, lv, device, quant: Optional[str] = None) -> torch.Tensor:
     seq = torch.from_numpy(sequence(lv).astype(np.int64)).to(device)
-    return ref_model.logits(params, config, seq, len(lv.req.prompt) - 1, quant=quant)
+    return family.reference_logits(params, config, seq, len(lv.req.prompt) - 1, quant=quant)
 
 
 def gaps_of(ref: torch.Tensor, chosen: Sequence[int]) -> np.ndarray:
@@ -75,23 +74,23 @@ def gaps_of(ref: torch.Tensor, chosen: Sequence[int]) -> np.ndarray:
     return (best - ref.gather(1, idx[:, None])[:, 0]).cpu().numpy()
 
 
-def served_gap(params, config, picked, device) -> Dict:
+def served_gap(family, params, config, picked, device) -> Dict:
     """The widest gap of the served tokens of ``picked``."""
     widest, tokens = 0.0, 0
     for lv in picked:
-        gaps = gaps_of(ref_logits(params, config, lv, device), lv.tokens)
+        gaps = gaps_of(ref_logits(family, params, config, lv, device), lv.tokens)
         widest = max(widest, float(gaps.max()))
         tokens += len(gaps)
     return {"gap": widest, "tokens": tokens, "requests": len(picked)}
 
 
-def control_gap(params, config, picked, device) -> Dict:
+def control_gap(family, params, config, picked, device) -> Dict:
     """The widest gap of the tokens the float8 reference puts first, at
     the same positions of the same sequences."""
     widest = 0.0
     for lv in picked:
-        ref = ref_logits(params, config, lv, device)
-        low = ref_logits(params, config, lv, device, quant="fp8")
+        ref = ref_logits(family, params, config, lv, device)
+        low = ref_logits(family, params, config, lv, device, quant="fp8")
         widest = max(widest, float(gaps_of(ref, low.argmax(-1).tolist()).max()))
         del ref, low
     return {"gap": widest}

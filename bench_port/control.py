@@ -43,7 +43,8 @@ def main() -> int:
                               int(limits["max_requests"]), bench_run.busiest_rows(run))
         line = {"seed": seed, "program_gap": compared["served_logit_gap"]["value"],
                 "checks": {k: v["value"] for k, v in compared.items()},
-                "control_gap": check.control_gap(run.params, cell.config, picked, device)["gap"]}
+                "control_gap": check.control_gap(cell.family, run.params, cell.config, picked,
+                                                 device)["gap"]}
         print(json.dumps(line), flush=True)
         del run
         torch.cuda.empty_cache()

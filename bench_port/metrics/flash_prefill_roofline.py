@@ -1,6 +1,7 @@
 """The prefill kernel's share of its roofline over the traced slice:
-the bounds of its calls there (``roofline.prefill_attention``, one call a
-layer of each prefill) over its kernels' device time, in percent."""
+the bounds of its calls there (the family's ``prefill_attention_bound_s``,
+summed over the layers of each prefill) over its kernels' device time, in
+percent."""
 
 from bench_port.mfu import roofline_share
 

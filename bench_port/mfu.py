@@ -1,20 +1,20 @@
 """Arithmetic the per-layer readers share: model-FLOP utilisation over
 CUDA-event times, a kernel's roofline share over the traced slice, and
-the device's idle share.  Operations and bytes come from
-``roofline.py``, from shapes alone."""
+the device's idle share.  Operations and bytes come from the record's
+``shape``, the configuration's family's (``families/<family>.py``), from
+shapes alone."""
 
 from __future__ import annotations
 
 from typing import Optional
 
-from bench_port import roofline
 from bench_port.trace import kernel_seconds
 
 
 def _flops(rec, call) -> float:
     if call.kind == "prefill":
-        return roofline.prefill_model_flops(rec["shape"], call.prefix, call.new)
-    return roofline.decode_model_flops(rec["shape"], call.contexts)
+        return rec["shape"].prefill_flops(call.prefix, call.new)
+    return rec["shape"].decode_flops(call.contexts)
 
 
 def utilisation(rec, kind: str) -> Optional[float]:
@@ -27,14 +27,9 @@ def utilisation(rec, kind: str) -> Optional[float]:
 
 
 def _bound_s(rec, call) -> float:
-    s = rec["shape"]
     if call.kind == "prefill":
-        cost = roofline.prefill_attention(1, call.new, call.prefix + call.new, s.n_heads,
-                                          s.n_kv_heads, s.head_dim, call.prefix)
-    else:
-        cost = roofline.paged_decode(call.contexts, s.n_heads, s.n_kv_heads, s.head_dim,
-                                     kv_tokens=call.kv_tokens)
-    return s.n_layers * cost.bound_s(rec["peaks"])
+        return rec["shape"].prefill_attention_bound_s(call.prefix, call.new, rec["peaks"])
+    return rec["shape"].decode_attention_bound_s(call.contexts, call.kv_tokens, rec["peaks"])
 
 
 def roofline_share(rec, kind: str, kernels) -> Optional[float]:

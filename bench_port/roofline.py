@@ -1,9 +1,10 @@
 """Operations, bytes and bounds, computed from shapes alone.
 
 Every roofline share and every model-FLOP utilisation the benchmark
-reports is worked out here from the shapes of the work, never from what
-an implementation launches: a later kernel that does the same work is
-held to the same count.
+reports is worked out from the shapes of the work, here and in the
+model families built on it, never from what an implementation
+launches: a later kernel that does the same work is held to the same
+count.
 
 - A kernel's bound is the larger of its operations over the chip's peak
   rate and its bytes over the peak bandwidth.  Inputs are counted as
@@ -12,7 +13,8 @@ held to the same count.
 - Model FLOPs count each layer's matrix products and causal attention
   for every token computed, and the output head for the positions whose
   logits a server needs (the last one of a prefill, each row of a
-  decode step).
+  decode step).  A model family's shape (``families/<family>.py``) counts
+  them, and sums its layers' attention bounds, from these primitives.
 """
 
 from __future__ import annotations
@@ -87,49 +89,3 @@ def paged_decode(contexts, heads: int, kv_heads: int, head_dim: int, itemsize: i
     read = total if kv_tokens is None else kv_tokens
     elems = 2 * read * kv_heads * head_dim + 2 * len(contexts) * heads * head_dim
     return Cost(flops, float(elems * itemsize))
-
-
-@dataclass(frozen=True)
-class ModelShape:
-    d_model: int
-    n_layers: int
-    n_heads: int
-    n_kv_heads: int
-    head_dim: int
-    d_ff: int
-    vocab: int
-
-    @property
-    def matmul_flops_per_token(self) -> float:
-        """2 x the weights one token multiplies through, over all layers:
-        q, k, v, o and the three MLP matrices (no embedding lookup)."""
-        d, hd = self.d_model, self.head_dim
-        per_layer = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                     + self.n_heads * hd * d + 3 * d * self.d_ff)
-        return 2.0 * per_layer * self.n_layers
-
-    def attention_flops(self, keys: int) -> float:
-        """QK^T and PV for one query over ``keys`` keys, all layers."""
-        return 4.0 * self.n_heads * self.head_dim * keys * self.n_layers
-
-    @property
-    def head_flops(self) -> float:
-        return 2.0 * self.d_model * self.vocab
-
-
-def prefill_model_flops(shape: ModelShape, prefix: int, new: int) -> float:
-    """Model FLOPs of a prefill of ``new`` tokens after ``prefix`` cached
-    ones: every new token's matmuls and causal attention, and the output
-    head for the last position only."""
-    pairs = causal_pairs(new, prefix + new, prefix)
-    return (new * shape.matmul_flops_per_token + shape.attention_flops(pairs)
-            + shape.head_flops)
-
-
-def decode_model_flops(shape: ModelShape, contexts) -> float:
-    """Model FLOPs of one decode step over the live rows with the given
-    context lengths (the current token included); pad rows count
-    nothing."""
-    rows = len(contexts)
-    return (rows * (shape.matmul_flops_per_token + shape.head_flops)
-            + shape.attention_flops(sum(contexts)))

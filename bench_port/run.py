@@ -32,7 +32,6 @@ import torch  # noqa: E402
 
 from bench_port import check, roofline, serve, spec, trace  # noqa: E402
 from bench_port.reference import router as ref_router  # noqa: E402
-from bench_port.weights import make_weights, model_shape  # noqa: E402
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "llm_d_kv_cache_manager_tpu"}
 GIB = 1 << 30
@@ -78,26 +77,24 @@ def plan_for(cell: spec.Cell, seed: int, seconds: float):
                                                    cell.config["vocab_size"])
 
 
-def activation_reserve(cfg, params, plan, device) -> int:
+def activation_reserve(lm, params, plan, device) -> int:
     """Bytes a prefill of the plan's longest prompt takes beyond what is
     allocated, measured on a pool of its own; runs a continuation too, so
     that every kernel is built and cuBLAS has seen both paths.  The
     caching allocator keeps what they used, so that the window's prefills
     find it there and do not ask the device again."""
-    llama = serve.port("models.llama")
     reqs = plan.setup + plan.window + [r for q in plan.streams for r in q]
     longest = max(len(r.prompt) for r in reqs)
-    bs = cfg.block_size
-    pool = serve.kv_pool(cfg, longest // bs + 1, device)
+    bs = lm.block_size
+    pool = lm.pool(longest // bs + 1, device)
     table = torch.arange(1, longest // bs + 1, dtype=torch.int32)[None]
-    tokens = torch.randint(1, cfg.vocab_size, (1, longest))
+    tokens = torch.randint(1, lm.vocab_size, (1, longest))
     torch.cuda.synchronize(device)
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    llama.prefill_paged(params, tokens, pool.kv, table, cfg)
+    lm.prefill_paged(params, tokens, pool.kv, table)
     suffix = min(512, longest - bs)
-    llama.prefill_continue(params, tokens[:, longest - suffix:], pool.kv, table,
-                           longest - suffix, cfg)
+    lm.prefill_continue(params, tokens[:, longest - suffix:], pool.kv, table, longest - suffix)
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device) - base
     del pool
@@ -105,31 +102,22 @@ def activation_reserve(cfg, params, plan, device) -> int:
     return int(peak * 1.1) + (256 << 20)
 
 
-def graph_bytes(cfg, buckets) -> int:
-    """What the decode graphs' private pools will hold: each a float32
-    copy of the embedding, its logits, and room for the step's other
-    intermediates."""
-    per = cfg.vocab_size * cfg.d_model * 4 + (256 << 20)
-    return sum(per + b * cfg.vocab_size * 8 for b in buckets)
-
-
-def pool_blocks(cfg, params, plan, mix, device: torch.device) -> int:
+def pool_blocks(lm, params, plan, mix, device: torch.device) -> int:
     """The pool's blocks: on the card, what is left after the weights, the
     decode graphs, a measured activation reserve and a margin (at most
     the mix's ``pool_tokens`` where it names one); on the CPU,
     ``pool_tokens``."""
-    cap = 1 + int(mix["pool_tokens"]) // cfg.block_size if "pool_tokens" in mix else None
+    cap = 1 + int(mix["pool_tokens"]) // lm.block_size if "pool_tokens" in mix else None
     if device.type != "cuda":
         return cap
-    reserve = activation_reserve(cfg, params, plan, device)
-    block_bytes = 2 * cfg.n_layers * cfg.block_size * cfg.n_kv_heads * cfg.head_dim * 2
+    reserve = activation_reserve(lm, params, plan, device)
     free = torch.cuda.mem_get_info(device)[0]
     cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-    spare = (free - max(0, reserve - cached) - graph_bytes(cfg, mix["decode_buckets"])
+    spare = (free - max(0, reserve - cached) - lm.graph_bytes(mix["decode_buckets"])
              - MARGIN_BYTES)
     say(f"memory: {free / GIB:.2f} GiB free after the weights, activation reserve "
         f"{reserve / GIB:.2f} GiB")
-    blocks = int(spare // block_bytes)
+    blocks = int(spare // lm.block_bytes)
     return blocks if cap is None else min(blocks, cap)
 
 
@@ -173,14 +161,14 @@ def serve_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     mix = cell.traffic
     cuda = device.type == "cuda"
     plan = plan_for(cell, seed, seconds)
-    params = make_weights(cell.config, seed, device)
-    cfg = serve.port_config(cell.config, mix)
-    blocks = pool_blocks(cfg, params, plan, mix, device)
-    need = plan.pods * math.ceil(plan.max_context / cfg.block_size) + 1
+    params = cell.family.weights(cell.config, seed, device)
+    lm = cell.family.model(cell.config, mix)
+    blocks = pool_blocks(lm, params, plan, mix, device)
+    need = plan.pods * math.ceil(plan.max_context / lm.block_size) + 1
     if blocks < need:
         raise RuntimeError(f"a pool of {blocks} blocks cannot hold this cell ({need} needed)")
-    server = serve.Server(cell.config, mix, params, plan, blocks, device,
-                          cell.config["model_id"], timed_calls=traced)
+    server = serve.Server(lm, mix, params, plan, blocks, device, cell.config["model_id"],
+                          timed_calls=traced)
     try:
         server.capture()
         carried = server.serve_setup(plan.setup)
@@ -188,7 +176,7 @@ def serve_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         gc.collect()
         gc.freeze()  # set-up's objects out of the collector's way, as servers do after start-up
         setup_s = time.perf_counter() - T_START
-        say(f"set-up {setup_s:.2f} s: pool {blocks} blocks of {cfg.block_size} tokens, "
+        say(f"set-up {setup_s:.2f} s: pool {blocks} blocks of {lm.block_size} tokens, "
             f"{plan.pods} pods, {len(plan.setup)} set-up requests")
         slice_ = None
         if traced:
@@ -267,7 +255,8 @@ def record(run: Run) -> Dict[str, Any]:
     return {
         "lives": run.win.lives, "calls": run.calls, "slice_calls": run.slice_calls,
         "trace": run.trace, "stages": run.win.stages,
-        "shape": model_shape(run.cell.config), "block_size": int(run.cell.traffic["multiple"]),
+        "shape": run.cell.family.shape(run.cell.config),
+        "block_size": int(run.cell.traffic["multiple"]),
         "peaks": roofline.peaks_for(name) if name != "cpu" else roofline.PEAKS["H100 SXM"],
     }
 
@@ -297,7 +286,7 @@ def checks(run: Run, device: torch.device) -> Dict[str, Dict[str, float]]:
         say(f"router: first mismatch {first}")
     picked = check.sample(judged(run), run.seed, int(limits["tokens"]),
                           int(limits["max_requests"]), busiest_rows(run))
-    gap = check.served_gap(run.params, run.cell.config, picked, device)
+    gap = check.served_gap(run.cell.family, run.params, run.cell.config, picked, device)
     unfinished = sum(1 for lv in run.win.lives if not lv.done) if run.cell.traffic["kind"] == "open" else 0
     say(f"judged {gap['tokens']} served tokens of {gap['requests']} requests and "
         f"{len(run.router_scores)} router calls in {time.perf_counter() - t0:.1f} s")

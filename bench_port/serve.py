@@ -7,20 +7,21 @@ One host thread.  Each iteration:
    ``Indexer.get_pod_scores`` (with the pods' loads) and queued on the
    best-scoring pod.
 2. Prefill one waiting request, first come first served among those
-   whose pod has room: ``llama.prefill_continue`` over the uncached
+   whose pod has room: the model's ``prefill_continue`` over the uncached
    suffix where the pod's prefix cache holds a prefix of the prompt,
-   ``llama.prefill_paged`` over the whole prompt otherwise.  The first
-   token is the argmax of the last position's logits.
+   ``prefill_paged`` over the whole prompt otherwise.  The first token is
+   the argmax of the last position's logits.
 3. Publish the pod's KV events to the port's event pool, which applies
    them on its own threads; nothing waits for it.
 4. Decode one step of every running sequence, all pods at once, through
    the port's captured decode step for the smallest batch bucket that
    holds them; pad rows point at a scratch block.  Greedy, no end token.
 
-The pods are partitions of the block ids of one ``KVCachePool``
-(``pods.Pod``).  A request holds blocks for its prompt and its whole
-output from its prefill on, so a running sequence never waits for
-memory.
+The model is the configuration's family's (``families/<family>.py``:
+``model(config, mix)``): its entry points into the port and its KV pool.
+The pods are partitions of the pool's block ids (``pods.Pod``).  A
+request holds blocks for its prompt and its whole output from its
+prefill on, so a running sequence never waits for memory.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import torch
 
 from bench_port.pods import Pod, Publisher, Stored, chain_hashes
 from bench_port.traffic.plan import Plan, Request
-from bench_port.weights import model_shape
 
 PORT = "llm_d_kv_cache_manager_tpu_torch"
 MEDIUM = "gpu"  # the tier vLLM pods on GPUs publish their device blocks under
@@ -150,23 +150,6 @@ class Call:
     events: Optional[Tuple[Any, Any]] = None  # CUDA events around the call
 
 
-def port_config(config: Dict[str, Any], mix: Dict[str, Any]):
-    """The port's ``LlamaConfig`` for a configuration file, at the mix's
-    block size."""
-    s = model_shape(config)
-    return port("models.llama").LlamaConfig(
-        vocab_size=s.vocab, d_model=s.d_model, n_layers=s.n_layers, n_heads=s.n_heads,
-        n_kv_heads=s.n_kv_heads, d_ff=s.d_ff, rope_theta=float(config["rope_theta"]),
-        block_size=int(mix["multiple"]), dtype=config["torch_dtype"])
-
-
-def kv_pool(cfg, blocks: int, device: torch.device):
-    pool_mod = port("models.kv_cache_pool")
-    return pool_mod.KVCachePool(pool_mod.KVCachePoolConfig(
-        cfg.n_layers, blocks, cfg.block_size, cfg.n_kv_heads, cfg.head_dim, cfg.dtype),
-        device=device)
-
-
 def distinct_slots(table: np.ndarray, ctx: np.ndarray, bs: int) -> int:
     """Pool slots a decode step's rows read, each counted once: rows that
     share a cached prefix share its blocks."""
@@ -183,21 +166,18 @@ def distinct_slots(table: np.ndarray, ctx: np.ndarray, bs: int) -> int:
 class Server:
     """The port's serving stack over one pool, driven by the loop."""
 
-    def __init__(self, config: Dict[str, Any], mix: Dict[str, Any], params, plan: Plan,
-                 pool_blocks: int, device: torch.device, model_name: str,
-                 timed_calls: bool = False) -> None:
-        llama = port("models.llama")
+    def __init__(self, lm, mix: Dict[str, Any], params, plan: Plan, pool_blocks: int,
+                 device: torch.device, model_name: str, timed_calls: bool = False) -> None:
+        """``lm``: the family's model (``family.model(config, mix)``)."""
         indexer_mod = port("kvcache.indexer")
         tp_mod = port("kvcache.kvblock.token_processor")
         events_pool = port("kvevents.pool")
-        self.llama, self.events_mod = llama, port("kvevents.events")
+        self.lm, self.events_mod = lm, port("kvevents.events")
         self.subscriber = port("kvevents.zmq_subscriber")
         self.metrics = port("metrics.collector")
-        self.shape = model_shape(config)
-        self.cfg = port_config(config, mix)
-        bs = self.bs = self.cfg.block_size
+        bs = self.bs = lm.block_size
         self.params, self.device, self.model = params, device, model_name
-        self.pool = kv_pool(self.cfg, pool_blocks, device)
+        self.pool = lm.pool(pool_blocks, device)
         per = (pool_blocks - 1) // plan.pods  # block 0: the pad rows' scratch block
         self.pods = [Pod(f"pod-{i}", range(1 + i * per, 1 + (i + 1) * per))
                      for i in range(plan.pods)]
@@ -233,8 +213,7 @@ class Server:
     def capture(self) -> None:
         """Make and capture the decode step of every bucket, on pad rows."""
         for b in self.buckets:
-            self.steps[b] = self.llama.make_decode_step(self.params, self.pool.kv, self.cfg, b,
-                                                        self.width)
+            self.steps[b] = self.lm.make_decode_step(self.params, self.pool.kv, b, self.width)
             table = np.zeros((b, self.width), dtype=np.int32)
             for _ in range(2):  # the first call captures, the second replays
                 self.steps[b](torch.zeros(b, dtype=torch.long), torch.from_numpy(table),
@@ -336,11 +315,11 @@ class Server:
         tokens = torch.from_numpy(req.prompt[None, prefix:].astype(np.int64))
         with self.phase("loop.prefill"):
             if cached:
-                run = lambda: self.llama.prefill_continue(  # noqa: E731
-                    self.params, tokens, self.pool.kv, table, prefix, self.cfg)[0]
+                run = lambda: self.lm.prefill_continue(  # noqa: E731
+                    self.params, tokens, self.pool.kv, table, prefix)[0]
             else:
-                run = lambda: self.llama.prefill_paged(  # noqa: E731
-                    self.params, tokens, self.pool.kv, table, self.cfg)[0]
+                run = lambda: self.lm.prefill_paged(  # noqa: E731
+                    self.params, tokens, self.pool.kv, table)[0]
             logits, call = self._timed("prefill", run, prefix=prefix,
                                        new=len(req.prompt) - prefix)
             first = int(logits[0, -1].argmax())

@@ -1,9 +1,9 @@
 """What a run reads: its cell from ``BENCHMARK.json``, the cell's
 configuration and traffic mix, and the files found by name under this
-folder (traffic kinds, per-layer metric readers).
+folder (model families, traffic kinds, per-layer metric readers).
 
-A later change adds a cell, a mix, a configuration or a metric by adding
-files and entries only: nothing here names one.
+A later change adds a cell, a mix, a configuration, a model family or a
+metric by adding files and entries only: nothing here names one.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
@@ -29,6 +30,7 @@ class Cell:
     chips: int
     end_to_end: List[Dict[str, Any]]
     per_layer: List[Dict[str, Any]]
+    family: ModuleType  # families/<config["family"]>.py
 
 
 def _applies(metric: Dict[str, Any], cell: str) -> bool:
@@ -56,6 +58,7 @@ def load_cell(benchmark_path: Path, name: str) -> Cell:
         chips=int(cell["chips"]),
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
+        family=family_of(config, entry["file"]),
     )
 
 
@@ -67,8 +70,27 @@ def _module(path: Path) -> ModuleType:
     name = re.sub(r"\W", "_", f"bench_port_{path.parent.name}_{path.stem}")
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # where a dataclass of the file looks its module up
     spec.loader.exec_module(module)
     return module
+
+
+def family(name: str, folder: Path = HERE / "families") -> ModuleType:
+    """Everything the harness knows about a model's block:
+    ``families/<name>.py``, whose contract ``families/__init__.py`` gives."""
+    return _module(folder / f"{name}.py")
+
+
+def family_of(config: Dict[str, Any], where: str = "the configuration",
+              folder: Path = HERE / "families") -> ModuleType:
+    """The family a configuration names under ``"family"``; refuses one
+    that names none, or one with no file in ``folder``."""
+    found = sorted(p.stem for p in folder.glob("*.py") if p.stem != "__init__")
+    name = config.get("family")
+    if name not in found:
+        raise ValueError(f'{where} must name its model family under the key "family" '
+                         f"(it has {name!r}); families found: {', '.join(found) or 'none'}")
+    return family(name, folder)
 
 
 def traffic_kind(kind: str, folder: Path = HERE / "traffic" / "kinds") -> ModuleType:

@@ -25,6 +25,8 @@ for name in ("models.llama", "models.kv_cache_pool", "kvcache.indexer", "kvevent
 for kind in ("open", "closed"):
     spec.traffic_kind(kind)
 bench = json.load(open("BENCHMARK.json"))
+for c in bench["configs"]:
+    spec.family_of(json.load(open(c["file"])))
 for m in bench["per_layer"]:
     spec.metric_reader(m["name"])
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))

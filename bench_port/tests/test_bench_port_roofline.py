@@ -1,10 +1,9 @@
 """The bounds of the port's kernel table, rebuilt from shapes alone, and
-the model-FLOP count both ``mfu`` metrics share."""
+the model-FLOP count both ``mfu`` metrics share (the llama family's)."""
 
 import pytest
 
-from bench_port import roofline
-from bench_port.roofline import ModelShape
+from bench_port import roofline, spec
 
 PEAKS = roofline.PEAKS["H100 SXM"]
 
@@ -43,21 +42,21 @@ def test_continuation_counts_only_the_new_rows():
     assert cont.flops < whole.flops
 
 
-MISTRAL = ModelShape(d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8, head_dim=128,
-                     d_ff=14336, vocab=32768)
+MISTRAL = spec.family("llama").Shape(d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                                     head_dim=128, d_ff=14336, vocab=32768)
 
 
 def test_model_flops():
     # 2 x the layer weights a token multiplies through: 6.98 B of 7.25 B parameters.
     assert MISTRAL.matmul_flops_per_token == pytest.approx(2 * 32 * 218103808)
-    one = roofline.prefill_model_flops(MISTRAL, 0, 1)
+    one = MISTRAL.prefill_flops(0, 1)
     assert one == MISTRAL.matmul_flops_per_token + MISTRAL.attention_flops(1) + MISTRAL.head_flops
     # A continuation costs its rows' matmuls and their attention over the prefix.
-    cont = roofline.prefill_model_flops(MISTRAL, 100, 16)
+    cont = MISTRAL.prefill_flops(100, 16)
     assert cont == pytest.approx(16 * MISTRAL.matmul_flops_per_token
                                  + MISTRAL.attention_flops(sum(101 + i for i in range(16)))
                                  + MISTRAL.head_flops)
-    step = roofline.decode_model_flops(MISTRAL, (10, 20))
+    step = MISTRAL.decode_flops((10, 20))
     assert step == pytest.approx(2 * (MISTRAL.matmul_flops_per_token + MISTRAL.head_flops)
                                  + MISTRAL.attention_flops(30))
 

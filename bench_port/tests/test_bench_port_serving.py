@@ -11,7 +11,7 @@ import torch
 from bench_port import run as bench_run
 from bench_port import serve, spec
 
-TINY = {"model_id": "tiny", "hidden_size": 128, "intermediate_size": 256,
+TINY = {"model_id": "tiny", "family": "llama", "hidden_size": 128, "intermediate_size": 256,
         "num_attention_heads": 4, "num_key_value_heads": 2, "num_hidden_layers": 2,
         "vocab_size": 512, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
         "torch_dtype": "bfloat16"}
@@ -33,7 +33,7 @@ def tiny_cell(kind: str) -> spec.Cell:
                    prompt={"unique_tokens": [16, 32]}, output_tokens=[16, 48],
                    decode_buckets=[3])
     mix["check"] = {"served_logit_gap": GAP_LIMIT, "tokens": 48, "max_requests": 12}
-    return spec.Cell(f"tiny.{kind}", "tiny", TINY, kind, mix, 1, [], [])
+    return spec.Cell(f"tiny.{kind}", "tiny", TINY, kind, mix, 1, [], [], spec.family_of(TINY))
 
 
 def served(cell, seed=2**31 + 99):
@@ -180,7 +180,7 @@ def test_the_float8_control_is_not_correct():
 
     run, compared = served(tiny_cell("open"))
     picked = check.sample(bench_run.judged(run), run.seed, 48, 12, bench_run.busiest_rows(run))
-    control = check.control_gap(run.params, run.cell.config, picked, CPU)
+    control = check.control_gap(run.cell.family, run.params, run.cell.config, picked, CPU)
     assert compared["served_logit_gap"]["value"] < GAP_LIMIT < control["gap"], (
         compared["served_logit_gap"], control)
 
