@@ -127,6 +127,16 @@ Phases (any failure exits non-zero):
      CUDA graph and back to back, beside the bytes bound (phase 15's
      ``kernels`` line carries them, with each kernel's launches on every
      main path: 5, 5c, 5d, 5e, 7b, 7c, and 0 on 12a's tp path);
+ 4c. Mellum2-12B-A2.5B's kernels at the ``mellum2.repo-agent`` cell's
+     shapes (``python3 chip_smoke.py 4c`` runs this phase alone after the
+     build): the windowed prefill and decode kernels, the YaRN RoPE
+     kernel and the routed experts at decode (grouped) and at a prefill
+     of 16,384 tokens (per-expert products; held beside the float64
+     value of their routing), each with a planted fault; the grouped
+     kernels and the products timed from 64 to 16,384 tokens; then the
+     block's main path at its widths and 4 layers (a prefill, a captured
+     decode step's replays, an eager step), every launch and the expert
+     layer's device counters held to their counts;
   7. offload: pod-a's 512 prefix blocks (1 GiB) stored through the
      offload connector, one-shot and staged (pinned lanes), on the native
      I/O engine, as 128 files that must equal each other and the pool's
@@ -373,7 +383,7 @@ Phases (any failure exits non-zero):
  15. one JSON line listing each kernel's numbers;
   last line: {"ok": true, "device": {...}}.
 
-Usage, from the repository root:  python3 chip_smoke.py
+Usage, from the repository root:  python3 chip_smoke.py [4c]
 """
 
 from __future__ import annotations
@@ -1274,6 +1284,405 @@ def layer_fused_phase(torch, peaks) -> list:
     print(f"  launches: rms_norm {lf.rms_norm_fused.launches}, rope_kv "
           f"{lf.rope_kv_fused.launches}, silu_mul {lf.silu_mul_fused.launches}", flush=True)
     return rows
+
+
+# --------------------------------------------------------------- phase 4c
+
+# Mellum2-12B-A2.5B's widths (bench_port/configs/mellum2-12b-a2.5b.json)
+# and the mellum2.repo-agent cell's shapes: prompts of 8-20k tokens,
+# decode batches of 24 rows at contexts of 8-24k.
+MELLUM_WINDOW = 1024
+MELLUM_ATTN = (32, 4, 128)  # query heads, KV heads, head dim
+MELLUM_EXPERTS = (2304, 64, 8, 896)  # d_model, experts, top k, expert width
+MELLUM_VOCAB = 98304
+MELLUM_YARN = (16.0, 8192, 32.0, 1.0)  # factor, original positions, beta fast, slow
+MELLUM_SCALE = 1.2772588722239782  # YaRN's attention factor
+MELLUM_THETA = 5e5
+MELLUM_ROWS = 24
+MELLUM_PROMPT = 16368  # the main path's prompt: 1023 pool blocks of 16
+MELLUM_LAYERS = 4  # the main path: one period of the layer pattern, 3 windowed + 1 full
+MELLUM_STEPS = 32  # its decode steps replayed from the graph
+# Routed-expert MLP against its plain version: |got - ref| <= rel |ref|
+# + floor rms(row).  Both round each routed row's SiLU(gate) * up and its
+# down product to bf16 once, from float32 sums in another order, so a
+# hidden element may land one bf16 ulp apart (2^-8 of it), spreading
+# through the down product's 896 terms as ~2^-8 / sqrt(896) of the row's
+# rms; the output's last rounding is the rel term.  Over millions of
+# elements (a prefill's 16,384 tokens) a few such flips line up past it:
+# there the kernels are held to the float64 value of their own routing
+# (``routed_experts_exact``), no farther past it than the plain version.
+MOE_LIMITS = (2.0**-6, 2.0**-9)
+MOE_WITNESS_SLACK = 1.25
+# Tokens at which the grouped kernels and the per-expert products are
+# timed against each other (routed rows: 8 a token).
+MOE_CROSSOVER_TOKENS = (64, 128, 512, 2048, 16384)
+MELLUM_TITLE = "4c. Mellum2's kernels at the mellum2.repo-agent cell's shapes, then its main path"
+
+
+def mellum_attention_rows(torch, peaks) -> list:
+    """The windowed prefill and decode kernels at Mellum's heads: a whole
+    16,384-token prefill and a 256-token continuation after 16,128, and
+    decode of 24 rows at 2k to 24k of context, each within ``LIMITS`` of
+    its plain version, a window wider by one tile rejected, timed with
+    and without the window."""
+    fc, pc = port("ops.flash_cuda"), port("ops.paged_decode_cuda")
+    H, Hkv, D = MELLUM_ATTN
+    W = MELLUM_WINDOW
+    bf16, dev = torch.bfloat16, "cuda"
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+    rows = []
+    for T, off in ((16384, 0), (256, 16128)):
+        q, k, v = rnd(1, T, H, D), rnd(1, off + T, Hkv, D), rnd(1, off + T, Hkv, D)
+        what = f"flash_prefill window {W}: Tq {T} q_offset {off} H {H} Hkv {Hkv} D {D}"
+        got = fc.flash_gqa_attention_cuda(q, k, v, q_offset=off, window=W)
+        ref = fc.flash_gqa_attention_plain(q, k, v, q_offset=off, window=W)
+        row = dict(what=what, **check_close(what, got, ref, *LIMITS["prefill", "bfloat16"]))
+        row["fault"] = reject_fault(f"{what}, window {W + 64}", fc.flash_gqa_attention_cuda(
+            q, k, v, q_offset=off, window=W + 64), ref, *LIMITS["prefill", "bfloat16"])
+        pairs = sum(min(off + i + 1, W) for i in range(T))
+        keys = off + T - max(0, off + 1 - W)
+        flops, nbytes = 4.0 * H * D * pairs, (2 * T * H + 2 * keys * Hkv) * D * 2
+        row.update(ms=timed_ms(torch, lambda: fc.flash_gqa_attention_cuda(
+            q, k, v, q_offset=off, window=W), 10),
+            ms_no_window=timed_ms(torch, lambda: fc.flash_gqa_attention_cuda(
+                q, k, v, q_offset=off), 10),
+            plain_ms=eager_ms(torch, lambda: fc.flash_gqa_attention_plain(
+                q, k, v, q_offset=off, window=W), 1),
+            bound_ms=1e3 * max(flops / peaks[0], nbytes / peaks[2]),
+            bound_by="operations" if flops / peaks[0] > nbytes / peaks[2] else "bytes")
+        print(f"  {what}: kernel {row['ms']:.4f} ms (no window {row['ms_no_window']:.4f}), "
+              f"plain {row['plain_ms']:.2f}, bound {row['bound_ms']:.4f}", flush=True)
+        rows.append(row)
+        del q, k, v, got, ref
+    B, bs = MELLUM_ROWS, 16
+    width = 24576 // bs
+    kv = rnd(B * width + 1, 2, bs, Hkv, D)
+    table = (1 + torch.arange(B * width, device=dev, dtype=torch.int32)).view(B, width)
+    q = rnd(B, H, D)
+    ragged = [8192 + (i * 12289) % 16384 for i in range(B)]
+    for name, ctx in [("ragged 8k-24k", ragged)] + [(f"all {n}", [n] * B)
+                                                   for n in (2048, 8192, 16384, 24576)]:
+        c = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        what = f"paged_decode window {W}: B {B} ctx {name} H {H} Hkv {Hkv} D {D}"
+        got = pc.paged_decode_attention_cuda(q, kv, table, c, window=W)
+        ref = pc.paged_decode_attention_plain(q, kv, table, c, window=W)
+        row = dict(what=what, **check_close(what, got, ref, *LIMITS["decode", "bfloat16"]))
+        row["fault"] = reject_fault(f"{what}, window {W + 16}", pc.paged_decode_attention_cuda(
+            q, kv, table, c, window=W + 16), ref, *LIMITS["decode", "bfloat16"])
+        slots = sum(min(n, W) for n in ctx)
+        row.update(ms=timed_ms(torch, lambda: pc.paged_decode_attention_cuda(
+            q, kv, table, c, window=W), 20),
+            ms_no_window=timed_ms(torch, lambda: pc.paged_decode_attention_cuda(
+                q, kv, table, c), 20),
+            plain_ms=eager_ms(torch, lambda: pc.paged_decode_attention_plain(
+                q, kv, table, c, window=W), 1),
+            bound_ms=1e3 * (2 * slots * Hkv * D + 2 * B * H * D) * 2 / peaks[2],
+            bound_ms_no_window=1e3 * (2 * sum(ctx) * Hkv * D + 2 * B * H * D) * 2 / peaks[2],
+            bound_by="bytes")
+        print(f"  {what}: kernel {row['ms']:.4f} ms (no window {row['ms_no_window']:.4f}), "
+              f"plain {row['plain_ms']:.3f}, bound {row['bound_ms']:.4f}", flush=True)
+        rows.append(row)
+    del kv
+    return rows
+
+
+def mellum_rope_row(torch) -> dict:
+    """The RoPE kernel with YaRN frequencies and the attention factor, a
+    4096-token chunk at positions 20,000-24,095: bit for bit against its
+    plain version; the same kernel without the factor must differ."""
+    lf = port("ops.layer_fused")
+    H, Hkv, D = MELLUM_ATTN
+    T, dev = 4096, "cuda"
+    gen = torch.Generator(device=dev).manual_seed(42)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = rnd(1, T, H, D), rnd(1, T, Hkv, D), rnd(1, T, Hkv, D)
+    pools = [rnd(T // 16 + 2, 2, 16, Hkv, D) for _ in range(3)]
+    pools[1].copy_(pools[0])
+    pools[2].copy_(pools[0])
+    slots = (16 + torch.arange(T, device=dev))[None]
+    positions = (20000 + torch.arange(T, device=dev))[None]
+    freqs = lf.yarn_freqs(D, MELLUM_THETA, *MELLUM_YARN).to(dev)
+    got = lf.rope_kv_fused(q, k, v, positions, freqs, pools[0], slots, scale=MELLUM_SCALE)
+    want = lf.rope_kv_plain(q, k, v, positions, freqs, pools[1], slots, scale=MELLUM_SCALE)
+    what = f"rope_kv YaRN, attention factor {MELLUM_SCALE}: T {T}, positions 20000-24095"
+    if not (torch.equal(got, want) and torch.equal(pools[0], pools[1])):
+        raise AssertionError(f"{what}: not bit-equal to the plain version")
+    faulty = lf.rope_kv_fused(q, k, v, positions, freqs, pools[2], slots)
+    if torch.equal(faulty, got):
+        raise AssertionError(f"the limit does not reject the planted fault: {what}, no factor")
+    print(f"  {what}: bit for bit; without the factor rejected", flush=True)
+    return dict(what=what, max_abs_err=0.0, worst_err_over_limit=0.0, limit="bit for bit",
+                fault={"fault": "attention factor left out", "rejected": True})
+
+
+# A token whose kernel and plain routes differ must do so at a near-tie:
+# its two experts' router logits within this of each other in float64
+# (float32 sums over d_model terms in two orders).
+ROUTE_TIE = 1e-4
+
+
+def route_ties(torch, ids, want_ids, h, wr) -> dict:
+    """Tokens whose kernel route differs from the plain version's, and
+    whether each lies at a float64 near-tie (``ROUTE_TIE``)."""
+    differ = (ids.sort(-1).values != want_ids.sort(-1).values).any(-1)
+    gaps = []
+    for t in torch.nonzero(differ).flatten().tolist():
+        logits = (h[t].double() @ wr.double())
+        a, b = set(ids[t].tolist()), set(want_ids[t].tolist())
+        gaps.append(float((logits[sorted(a - b)] - logits[sorted(b - a)]).abs().max()))
+    return {"rows": len(gaps), "widest_gap": max(gaps, default=0.0),
+            "at_ties": all(g <= ROUTE_TIE for g in gaps), "same": ~differ}
+
+
+def witness(torch, moe, got, plain, args, same) -> dict:
+    """``got`` and the plain version against the float64 value of the
+    kernels' own routing (err/limit by ``MOE_LIMITS``), over the tokens
+    whose routes agree (``same``)."""
+    x, h, wr, wg, wu, wd = args
+    ids, wts = moe.moe_route_cuda(h, wr, MELLUM_EXPERTS[2], True)
+    exact = moe.routed_experts_exact(x, h, wg, wu, wd, ids, wts)
+    _, got_worst = err_over_limit(got[same], exact[same], *MOE_LIMITS)
+    _, plain_worst = err_over_limit(plain[same], exact[same], *MOE_LIMITS)
+    del exact
+    return {"vs_float64": got_worst, "plain_vs_float64": plain_worst,
+            "held": got_worst <= max(1.0, MOE_WITNESS_SLACK * plain_worst)}
+
+
+def mellum_expert_rows(torch, peaks) -> list:
+    """The routed-expert MLP at Mellum's widths: decode's 24 tokens (the
+    grouped kernels, from a CUDA graph) and a 16,384-token prefill (the
+    per-expert products), each against its plain version, the float64
+    value beside it, a routed row left out rejected; then the grouped
+    kernels and the products timed against each other from 64 to 16,384
+    tokens (the grouped kernels forced by a graph capture)."""
+    moe = port("ops.moe_experts")
+    D, E, K, F = MELLUM_EXPERTS
+    bf16, dev = torch.bfloat16, "cuda"
+    gen = torch.Generator(device=dev).manual_seed(43)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(bf16)
+    weights = (rnd(D, E, scale=D ** -0.5), rnd(E, D, F, scale=D ** -0.5),
+               rnd(E, D, F, scale=D ** -0.5), rnd(E, F, D, scale=F ** -0.5))
+    expert_bytes = 3 * D * F * 2
+    rows = []
+    for N in (MELLUM_ROWS, 16384):
+        x, h = rnd(N, D), rnd(N, D)
+        args = (x, h) + weights
+        ids, wts = moe.moe_route_cuda(h, weights[0], K, True)
+        want_ids, _ = moe.route_plain(h, weights[0], K, True)
+        counts = torch.zeros(4, dtype=torch.int64, device=dev)
+        got = moe.routed_experts_fused(*args, K, True, counts)
+        plain = moe.routed_experts_plain(*args, K, True)
+        path = "grouped" if N * K <= moe.GROUPED_MAX_ROWS else "products"
+        what = f"routed experts ({path}): N {N} D {D} F {F} E {E} top {K}"
+        offsets, perm, pos = moe.moe_group_cuda(ids, E)
+        y = (moe.moe_experts_cuda(h, *weights[1:], offsets, perm, K) if path == "grouped"
+             else moe._experts_by_products(h, *weights[1:], offsets, perm, K))
+        dropped = wts.clone()
+        dropped[N // 2, K - 1] = 0
+        faulty = moe.moe_combine_cuda(x, y, pos, dropped)
+        distinct = int((torch.bincount(ids.flatten().long(), minlength=E) > 0).sum())
+        ties = route_ties(torch, ids, want_ids, h, weights[0])
+        same = ties.pop("same")
+        err, worst = err_over_limit(got[same], plain[same], *MOE_LIMITS)
+        row = dict(what=what, max_abs_err=err, worst_err_over_limit=worst,
+                   limit=limit_text(*MOE_LIMITS), routing_differs=ties,
+                   distinct_experts=distinct,
+                   counters=dict(zip(moe.COUNTER_FIELDS, counts.tolist())),
+                   witness=witness(torch, moe, got, plain, args, same))
+        row["fault"] = reject_fault(f"{what}, one routed row left out", faulty, plain,
+                                    *MOE_LIMITS)
+        print(f"  {what}: worst err/limit {worst:.4g} against the plain version; against "
+              f"float64 {row['witness']['vs_float64']:.4g} (the plain version "
+              f"{row['witness']['plain_vs_float64']:.4g}); routing differs in "
+              f"{ties['rows']} tokens (widest float64 gap {ties['widest_gap']:.3g}); counters "
+              f"{row['counters']}", flush=True)
+        if not (worst <= 1.0 or row["witness"]["held"]) or not ties["at_ties"]:
+            raise AssertionError(f"{what}: an element is past its limit ({worst}) and the "
+                                 f"float64 witness does not hold it ({row['witness']}), or the "
+                                 f"routing differs off a near-tie ({ties})")
+        if counts.tolist()[0] != N * K or counts.tolist()[2] != 0:
+            raise AssertionError(f"{what}: counters {counts.tolist()}")
+        flops, nbytes = 2.0 * N * K * 3 * D * F, distinct * expert_bytes
+        row.update(bound_ms=1e3 * max(flops / peaks[0], nbytes / peaks[2]),
+                   bound_by="operations" if flops / peaks[0] > nbytes / peaks[2] else "bytes",
+                   plain_ms=eager_ms(torch, lambda: moe.routed_experts_plain(*args, K, True), 1))
+        if path == "grouped":
+            row.update(ms=timed_ms(torch, lambda: moe.routed_experts_fused(*args, K, True), 20),
+                       experts_ms=timed_ms(torch, lambda: moe.moe_experts_cuda(
+                           h, *weights[1:], offsets, perm, K), 20),
+                       experts_bound_ms=1e3 * nbytes / peaks[2],
+                       route_group_ms=timed_ms(torch, lambda: moe.moe_group_cuda(
+                           moe.moe_route_cuda(h, weights[0], K, True)[0], E), 20))
+        else:
+            row["ms"] = eager_ms(torch, lambda: moe.routed_experts_fused(*args, K, True), 3)
+        print(f"  {what}: {row['ms']:.4f} ms, plain {row['plain_ms']:.3f}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+        rows.append(row)
+        del x, h, got, plain, faulty, y
+        torch.cuda.empty_cache()
+    # The crossover: the grouped kernels (captured, as under a decode
+    # graph) against the per-expert products (eager: the host reads the
+    # offsets), device time of one layer's experts at each size.
+    crossover = []
+    for N in MOE_CROSSOVER_TOKENS:
+        x, h = rnd(N, D), rnd(N, D)
+        ids, _ = moe.moe_route_cuda(h, weights[0], K, True)
+        offsets, perm, _ = moe.moe_group_cuda(ids, E)
+        reps = 3 if N >= 2048 else 10
+        grouped = timed_ms(torch, lambda: moe.moe_experts_cuda(h, *weights[1:], offsets, perm,
+                                                               K), reps)
+        products = eager_ms(torch, lambda: moe._experts_by_products(h, *weights[1:], offsets,
+                                                                    perm, K), reps)
+        crossover.append({"tokens": N, "routed_rows": N * K, "grouped_ms": grouped,
+                          "products_ms": products})
+        print(f"  experts of one layer at {N} tokens ({N * K} routed rows): grouped kernels "
+              f"{grouped:.4f} ms, per-expert products {products:.4f} ms", flush=True)
+        del x, h
+    rows[0]["crossover"] = crossover
+    return rows
+
+
+def mellum_main_path(torch) -> dict:
+    """Mellum's block at its widths, one period of its layer pattern
+    (three windowed layers and a full one) at MELLUM_LAYERS layers,
+    through the serving entry points: a prefill of MELLUM_PROMPT tokens,
+    then MELLUM_ROWS rows over it decoding MELLUM_STEPS steps from one
+    captured graph, and one eager ``decode_step`` on the last step's
+    inputs.  Every kernel's counter is zeroed first and read after: the
+    launches of this run, by path (eager counts; the graph's kernel nodes
+    times its replays), and the expert layer's device counters."""
+    llama, pool_mod = port("models.llama"), port("models.kv_cache_pool")
+    fc, pc = port("ops.flash_cuda"), port("ops.paged_decode_cuda")
+    moe = port("ops.moe_experts")
+    H, Hkv, Dh = MELLUM_ATTN
+    D, E, K, F = MELLUM_EXPERTS
+    L, T, B, S, bs = MELLUM_LAYERS, MELLUM_PROMPT, MELLUM_ROWS, MELLUM_STEPS, 16
+    yarn = llama.AttentionKind(rope_theta=MELLUM_THETA, yarn=MELLUM_YARN,
+                               rope_scale=MELLUM_SCALE)
+    windowed = llama.AttentionKind(window=MELLUM_WINDOW, rope_theta=MELLUM_THETA)
+    cfg = llama.MixedLlamaConfig(
+        vocab_size=MELLUM_VOCAB, d_model=D, n_layers=L, n_heads=H, n_kv_heads=Hkv, d_ff=7168,
+        rope_theta=MELLUM_THETA, block_size=bs, head_dim=Dh,
+        attention_kinds=(windowed,) * 3 + (yarn,), n_experts=E, experts_per_token=K,
+        d_expert=F, norm_topk_prob=True, tie_embeddings=False)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                               device="cuda")
+    own = -(-(S + 1) // bs)  # each row's blocks past the shared prompt
+    pool = pool_mod.KVCachePool(pool_mod.KVCachePoolConfig(
+        L, 1 + T // bs + B * own, bs, Hkv, Dh, "bfloat16"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(1, MELLUM_VOCAB, (1, T), generator=gen, device="cuda")
+    shared = torch.arange(1, 1 + T // bs, dtype=torch.int32, device="cuda")
+    wrappers = [(fc, "flash_gqa_attention_cuda"), (pc, "paged_decode_attention_cuda")] + [
+        (moe, f"moe_{name}_cuda") for name in ("route", "group", "experts", "combine")]
+    for mod, name in wrappers:
+        getattr(mod, name).launches = 0
+    zero_layer_launches()
+    for path in ("prefill", "decode"):
+        moe.counters(path, torch.device("cuda", torch.cuda.current_device())).zero_()
+
+    def counts() -> dict:
+        return {**{name.removesuffix("_cuda"): getattr(mod, name).launches
+                   for mod, name in wrappers}, **layer_launches()}
+    t0 = time.perf_counter()
+    logits, _ = llama.prefill_paged(params, prompt, pool.kv, shared[None], cfg)
+    first = logits[0, -1].float().clone()
+    del logits
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill = counts()
+    table = torch.cat([shared.expand(B, -1), (1 + T // bs + torch.arange(
+        B * own, device="cuda", dtype=torch.int32)).view(B, own)], dim=1)
+    step = llama.make_decode_step(params, pool.kv, cfg, B, table.shape[1])
+    step.graph = torch.cuda.CUDAGraph(keep_graph=True)
+    tokens = torch.randint(1, MELLUM_VOCAB, (B,), generator=gen, device="cuda")
+    ctx = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(S):
+        ctx = ctx + 1
+        if i == 1:
+            start.record()
+        out = step(tokens, table, ctx)
+        last = (tokens, ctx)
+        tokens = out.argmax(-1)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / (S - 1)
+    replayed = step.replays
+    graph_logits = out.float().clone()
+    eager, _ = llama.decode_step(params, last[0], pool.kv, table, last[1], cfg)
+    eager_err = float((eager.float() - graph_logits).abs().max())
+    total = counts()
+    fragments = {"paged_decode": ("paged_decode",), "moe_route": ("moe_route_kernel",),
+                 "moe_group": ("moe_group_kernel",), "moe_experts": ("moe_rows_kernel",),
+                 "moe_combine": ("moe_combine_kernel",)}
+    nodes = {name: captured_kernel_nodes(step.graph, frag) for name, frag in fragments.items()}
+    graph_layer = layer_launches(step.graph, replayed)
+    device_counters = {path: moe.read_counters(path) for path in ("prefill", "decode")}
+    # The host counts each wrapper call: the prefill, the capture's eager
+    # run and its captured run, and the eager step; a replay runs the
+    # graph's nodes, two moe_rows_kernel nodes a layer.
+    eager_passes = 3
+    want = {"flash_gqa_attention": L, "paged_decode_attention": eager_passes * L,
+            "moe_route": (1 + eager_passes) * L, "moe_group": (1 + eager_passes) * L,
+            "moe_experts": eager_passes * L, "moe_combine": (1 + eager_passes) * L,
+            "rms_norm": (1 + eager_passes) * (2 * L + 1), "rope_kv": (1 + eager_passes) * L,
+            "silu_mul": L}
+    want_nodes = {"paged_decode": L, "moe_route": L, "moe_group": L, "moe_experts": 2 * L,
+                  "moe_combine": L}
+    # The device counters: the capture's run adds nothing (captured, not
+    # run); the eager runs before and after it and every replay add one
+    # call a layer.
+    calls = L * (2 + replayed)
+    want_counters = {"prefill": {"routed_rows": L * T * K, "dropped_rows": 0, "calls": L},
+                     "decode": {"routed_rows": B * K * calls, "dropped_rows": 0, "calls": calls}}
+    got_counters = {p: {k: c[k] for k in ("routed_rows", "dropped_rows", "calls")}
+                    for p, c in device_counters.items()}
+    # Kernel launches: a moe_experts call is two moe_rows_kernel launches.
+    launches = {name: total[name] * (2 if name == "moe_experts" else 1)
+                + replayed * nodes.get(name.removesuffix("_attention"), 0) for name in total}
+    for name in ("rms_norm", "rope_kv", "silu_mul"):
+        launches[name] = total[name] + graph_layer[name]
+    print(f"  Mellum widths, {L} layers: prefill of {T} tokens {prefill_s:.2f} s (with the "
+          f"first call's cuBLAS set-up); decode of {B} rows {step_ms:.3f} ms a step from the "
+          f"graph ({replayed} replays); the eager step against the graph's last logits: "
+          f"max_abs_err {eager_err:.4g}", flush=True)
+    print(f"  launches (host): {total} (prefill alone {prefill}); graph nodes {nodes}, "
+          f"layer kernels in the graph {graph_layer}; device counters {device_counters}",
+          flush=True)
+    if total != want or nodes != want_nodes or got_counters != want_counters:
+        raise AssertionError(f"main path: launches {total} (want {want}), graph nodes {nodes} "
+                             f"(want {want_nodes}), counters {got_counters} (want "
+                             f"{want_counters})")
+    if replayed != S or not bool(first.isfinite().all()):
+        raise AssertionError(f"main path: {replayed} replays of {S}, or the prefill's "
+                             "logits are not finite")
+    check_logits("the eager decode step against the graph's", eager, graph_logits)
+    distinct = device_counters["decode"]["distinct_experts"] / calls
+    del params, pool, step
+    torch.cuda.empty_cache()
+    return {"layers": L, "prompt": T, "rows": B, "replays": replayed, "step_ms": step_ms,
+            "prefill_s": prefill_s, "eager_vs_graph_max_abs_err": eager_err,
+            "launches": launches, "host_launches": total, "graph_nodes": nodes,
+            "device_counters": device_counters, "distinct_experts_a_call": distinct}
+
+
+def mellum_phase(torch, peaks) -> dict:
+    """Phase 4c: the kernels that serve Mellum2's block at the
+    mellum2.repo-agent cell's shapes, then its main path."""
+    attention = mellum_attention_rows(torch, peaks)
+    torch.cuda.empty_cache()
+    rope = mellum_rope_row(torch)
+    experts = mellum_expert_rows(torch, peaks)
+    return {"attention": attention, "rope": rope, "experts": experts,
+            "main_path": mellum_main_path(torch)}
 
 
 # ---------------------------------------------- KV events (phases 5, 13, 14)
@@ -8348,9 +8757,13 @@ def chart_connector_phase(smi: str, device: str = "cuda:0", kv_geometry=None,
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    only = sys.argv[1:] if argv is None else argv
+    if only not in ([], ["4c"]):
+        print("usage: python3 chip_smoke.py [4c]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -8381,6 +8794,14 @@ def main() -> int:
     for src, log in logs.items():
         for kernel, line in ptxas_lines(log):
             print(f"  {src}: {kernel}: {line}", flush=True)
+
+    if only:  # phase 4c alone, after the build
+        phase(MELLUM_TITLE)
+        mellum = mellum_phase(torch, peaks)
+        phase()
+        print(json.dumps({"mellum": mellum, "phase_seconds": PHASE_SECONDS}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name}}), flush=True)
+        return 0
 
     phase("2. prefill kernel (csrc/flash_prefill.cu) vs plain tiled op")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -8497,6 +8918,10 @@ def main() -> int:
 
     phase("4b. layer kernels (csrc/layer_fused.cu) vs their plain chains")
     layer_fused = layer_fused_phase(torch, peaks)
+    torch.cuda.empty_cache()
+
+    phase(MELLUM_TITLE)
+    mellum = mellum_phase(torch, peaks)
     torch.cuda.empty_cache()
 
     llama = port("models.llama")
@@ -8672,7 +9097,8 @@ def main() -> int:
                    "llama_serving_http": served_http["launches"][name],
                    "llama_vllm_offload": vllm["launches"][name],
                    "llama_tiering_transfer": tiered["launches"][name],
-                   "llama_serving_tp": tp_serving["launches"][name]}
+                   "llama_serving_tp": tp_serving["launches"][name],
+                   "mellum_serving": mellum_launches[name]}
         return dict(name=name, route="cuda",
                     source="llm_d_kv_cache_manager_tpu_torch/csrc/layer_fused.cu",
                     replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
@@ -8680,8 +9106,9 @@ def main() -> int:
                     **{k: rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "eager_ms", "plain_eager_ms", "limit",
                                                "worst_err_over_limit", "fault")},
-                    cases=rows)
+                    cases=rows + ([mellum["rope"]] if name == "rope_kv" else []))
 
+    mellum_launches = mellum["main_path"]["launches"]
     kernels = [
         dict(
             name="flash_prefill",
@@ -8696,6 +9123,7 @@ def main() -> int:
                       + tiered["launches"]["flash_prefill"]
                       + served_http["launches"]["flash_prefill"]
                       + vllm["launches"]["flash_prefill"]
+                      + mellum_launches["flash_gqa_attention"]
                       + sum(across["launches_by_path"]["flash_prefill"].values())),
             launches_by_path={"llama_serving": serve["launches"]["flash_prefill"],
                               "llama_serving_block64": served_block["launches"]["flash_prefill"],
@@ -8707,13 +9135,14 @@ def main() -> int:
                               "moe_forward": moe_run["launches"]["flash_prefill"],
                               "llama_serving_tp": tp_serving["launches"]["flash_prefill"],
                               "moe_forward_ep_tp": tp_moe["launches"]["flash_prefill"],
+                              "mellum_serving": mellum_launches["flash_gqa_attention"],
                               **across["launches_by_path"]["flash_prefill"]},
             **{k: prefill_full[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", "eager_ms", "tflops",
                                             "library_ratio", "bound_share", "shape", "limit",
                                             "worst_err_over_limit", "planted")},
             cases=[prefill_hit, prefill_moe] + prefill_tp + prefill_shapes + prefill_edge
-            + [shape_guard],
+            + [shape_guard] + [r for r in mellum["attention"] if "flash" in r["what"]],
         ),
         dict(
             name="paged_decode",
@@ -8725,6 +9154,7 @@ def main() -> int:
                       + sum(g["launches"]["paged_decode"] for g in graft.values())
                       + served_http["launches"]["paged_decode"]
                       + vllm["launches"]["paged_decode"]
+                      + mellum_launches["paged_decode_attention"]
                       + sum(across["launches_by_path"]["paged_decode"].values())),
             launches_by_path={"llama_serving": serve["launches"]["paged_decode"],
                               "llama_serving_block64": served_block["launches"]["paged_decode"],
@@ -8733,13 +9163,14 @@ def main() -> int:
                               "llama_serving_http": served_http["launches"]["paged_decode"],
                               "llama_vllm_offload": vllm["launches"]["paged_decode"],
                               "llama_serving_tp": tp_serving["launches"]["paged_decode"],
+                              "mellum_serving": mellum_launches["paged_decode_attention"],
                               **across["launches_by_path"]["paged_decode"]},
             **{k: decode_serving[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms", "eager_ms", "tflops",
                                               "library_ratio", "bound_share", "shape", "limit",
                                               "worst_err_over_limit", "planted")},
             cases=[decode_b1, decode_b4, decode_b16, decode_tp] + decode_shapes + decode_edge
-            + [shape_guard],
+            + [shape_guard] + [r for r in mellum["attention"] if "decode" in r["what"]],
         ),
         dict(
             name="ring_partial",
@@ -8776,6 +9207,22 @@ def main() -> int:
         layer_kernel("rope_kv", "llm_d_kv_cache_manager_tpu/models/llama.py:158 (_rope), :304 "
                      "(_scatter_kv_blocks), :555 (decode_step's slot write)"),
         layer_kernel("silu_mul", "llm_d_kv_cache_manager_tpu/models/llama.py:174 (_mlp's gate)"),
+        # No TPU kernel: the reference's MoE dispatches one-hot, with a
+        # capacity, through XLA.
+        dict(name="moe_experts", route="cuda",
+             source="llm_d_kv_cache_manager_tpu_torch/csrc/moe_experts.cu",
+             replaces="llm_d_kv_cache_manager_tpu/models/moe.py (_route's capacity dispatch)",
+             launches=sum(mellum_launches[k] for k in ("moe_route", "moe_group", "moe_experts",
+                                                       "moe_combine")),
+             launches_by_kernel={k: mellum_launches[k] for k in (
+                 "moe_route", "moe_group", "moe_experts", "moe_combine")},
+             launches_by_path={"mellum_serving": sum(mellum_launches[k] for k in (
+                 "moe_route", "moe_group", "moe_experts", "moe_combine"))},
+             shape=mellum["experts"][0]["what"],
+             **{k: mellum["experts"][0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "limit",
+                                                     "worst_err_over_limit", "fault")},
+             cases=mellum["experts"]),
     ]
     phase()
     print(f"  seconds a phase: {PHASE_SECONDS}", flush=True)
@@ -8800,6 +9247,7 @@ def main() -> int:
                       "persistence": persisted, "cluster": clustered, "service": serviced,
                       "grpc": grpc_served, "offload_smoke": offload_smoke,
                       "chart_connector": chart_connector,
+                      "mellum_serving": mellum["main_path"],
                       "layers": LAYERS, "phase_seconds": PHASE_SECONDS,
                       "seconds": round(time.perf_counter() - t_all, 1)}),
           flush=True)

@@ -771,13 +771,14 @@ long paged_decode_scratch_bytes(int B, int Hkv, int G, int D, int ctas) {
 // paged_decode_scratch_bytes, 16-byte aligned; out: [B, H, D]; all
 // contiguous.  dtype 0 = float32, 1 = bfloat16.  Block size 16 only.
 // `ctas` is the grid: a whole number of waves of
-// paged_decode_ctas_per_sm.
+// paged_decode_ctas_per_sm.  No sliding window: `window` must be 0.
 int paged_decode(const void* q, const void* kv, const void* table,
                  const void* context_len, void* scratch, void* out, int B,
                  int H, int Hkv, int D, int block_size, int num_blocks,
-                 int max_blocks, int ctas, int nsub, int dtype, void* stream) {
+                 int max_blocks, int ctas, int nsub, int window, int dtype, void* stream) {
   // The checkout's interface; this variant keeps each group whole.
-  if (block_size != kBS || Hkv <= 0 || H % Hkv != 0 || ctas <= 0 || nsub != 1) {
+  if (block_size != kBS || Hkv <= 0 || H % Hkv != 0 || ctas <= 0 || nsub != 1 ||
+      window != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

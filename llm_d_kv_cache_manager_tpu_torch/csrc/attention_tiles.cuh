@@ -44,12 +44,16 @@
 //   (named barriers that make the warpgroups take turns issuing),
 //   measured on top of this, made the continuation 4% faster and the
 //   other serving shapes up to 1.5% slower (PERF.md), so it is not here.
-// - Only the tiles that straddle a row's key end are masked, element by
-//   element; the tiles below every row's end skip the compare.
+// - Only the tiles that straddle a row's key end, or under a sliding
+//   window a row's key begin, are masked, element by element; the tiles
+//   inside every row's range skip the compare, and tiles below every
+//   row's begin are not in the item's key range, so never loaded.
 //
 // A key is visible to a row while it is below the row's end (`row_end`,
 // given by each kernel): causal prefill gives min(q_offset + row + 1,
-// Tk), a ring step clamp(row + offset + 1, 0, Tk) or Tk unmasked.  The
+// Tk), a ring step clamp(row + offset + 1, 0, Tk) or Tk unmasked; and at
+// or above the row's begin (`row_begin`): 0, or under a window of W keys
+// max(row_end - W, 0) (flash_prefill.cu's windowed layers).  The
 // running max is kept in raw score units and written in log2 units of
 // the scaled score (scale_log2 = log2(e) / sqrt(D)).
 //
@@ -78,7 +82,7 @@ constexpr int kItemInts = 8;    // ints per work item (ops/tile_plan.py ITEM_FIE
 constexpr int kRowsF32 = 8;     // float32 kernels: warps (= query rows) per CTA
 
 // Field order of a work item, as ops/tile_plan.py writes it.
-enum { kItB, kItH, kItQt, kItBegin, kItFullEnd, kItEnd, kItSplit };
+enum { kItB, kItH, kItQt, kItBegin, kItFullEnd, kItEnd, kItSplit, kItFullBegin };
 
 // Keys per K/V stage for compiled width D (ops/tile_plan.py:key_tile).
 template <int D>
@@ -385,8 +389,9 @@ __device__ __forceinline__ int item_index(int r) {
 // The whole body of a bf16 attention kernel: walks this CTA's items
 // and calls `epilogue(b, h, split, rows, row0, row1)` on each consumer
 // thread once per item, row0 and row0 + 8 being its rows (which may lie
-// past Tq).  `row_end(row)` is a row's key end.  `smem` is the kernel's
-// dynamic shared memory, TileBytes<D>::smem bytes.
+// past Tq).  `row_end(row)` is a row's key end and `row_begin(row)` its
+// first visible key.  `smem` is the kernel's dynamic shared memory,
+// TileBytes<D>::smem bytes.
 //
 // A consumer warpgroup's loop over the key tiles of an item overlaps
 // its own work: with S_j = Q K_j^T and P_j its probabilities, one
@@ -394,14 +399,14 @@ __device__ __forceinline__ int item_index(int r) {
 // softmax of S_j runs while the second product is still in flight.  K
 // and V have their own full/empty barriers: K_j is released as soon as
 // S_j is done, V_j after its product.
-template <int D, class RowEnd, class Epilogue>
-__device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
-                                             const CUtensorMap* kmap,
-                                             const CUtensorMap* vmap,
-                                             const int* __restrict__ items, int n_items,
-                                             int group, float scale_log2,
-                                             unsigned char* smem, RowEnd row_end,
-                                             Epilogue epilogue) {
+template <int D, class RowEnd, class RowBegin, class Epilogue>
+__device__ __forceinline__ void attend_items_in(const CUtensorMap* qmap,
+                                                const CUtensorMap* kmap,
+                                                const CUtensorMap* vmap,
+                                                const int* __restrict__ items, int n_items,
+                                                int group, float scale_log2,
+                                                unsigned char* smem, RowEnd row_end,
+                                                RowBegin row_begin, Epilogue epilogue) {
   using Bytes = TileBytes<D>;
   constexpr int kBK = Bytes::BK;         // keys per K/V stage
   constexpr int kBoxes = D / kBox;       // TMA boxes (64-column chunks) per row
@@ -497,7 +502,7 @@ __device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
     const int* it = items + i * kItemInts;
     const int b = it[kItB], h = it[kItH], qt = it[kItQt];
     const int kt_begin = it[kItBegin], kt_full_end = it[kItFullEnd];
-    const int kt_end = it[kItEnd];
+    const int kt_end = it[kItEnd], kt_full_begin = it[kItFullBegin];
     const int row0 = qt * kBQ + wg * 64 + warp * 16 + g;
     const int row1 = row0 + 8;
 
@@ -509,6 +514,7 @@ __device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
 
     if (kt_begin < kt_end) {
       const int end0 = row_end(row0), end1 = row_end(row1);
+      const int beg0 = row_begin(row0), beg1 = row_begin(row1);
       uint32_t p[kBK / 4];  // P_{j-1}, bf16 pairs: registers 4kk.. are k-step kk's A
       float corr0 = 1.f, corr1 = 1.f;
 
@@ -539,19 +545,19 @@ __device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
         wgmma_commit();
       };
       // The online softmax of S (tile kt), in place: masks S if the tile
-      // straddles a row's end, moves the running max, sets corr (the
-      // factor for O and l so far), turns S into probabilities and adds
-      // their row sums to l.
+      // straddles a row's end or begin, moves the running max, sets corr
+      // (the factor for O and l so far), turns S into probabilities and
+      // adds their row sums to l.
       auto softmax = [&](float (&s)[kBK / 2], int kt) {
-        if (kt >= kt_full_end) {
+        if (kt >= kt_full_end || kt < kt_full_begin) {
           const int k0 = kt * kBK + 2 * t;
 #pragma unroll
           for (int j = 0; j < kKeyBlocks; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int kpos = k0 + j * 8 + e;
-              if (kpos >= end0) s[4 * j + e] = -INFINITY;
-              if (kpos >= end1) s[4 * j + 2 + e] = -INFINITY;
+              if (kpos >= end0 || kpos < beg0) s[4 * j + e] = -INFINITY;
+              if (kpos >= end1 || kpos < beg1) s[4 * j + 2 + e] = -INFINITY;
             }
           }
         }
@@ -678,17 +684,29 @@ __device__ __forceinline__ void attend_items(const CUtensorMap* qmap,
   }
 }
 
-// The float32 online softmax of one query row over keys [0, end), one
-// warp per row, lanes splitting the head dimension (kDPL = D / 32
+// attend_items_in with every key from 0 on visible below the row's end.
+template <int D, class RowEnd, class Epilogue>
+__device__ __forceinline__ void attend_items(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                             const CUtensorMap* vmap,
+                                             const int* __restrict__ items, int n_items,
+                                             int group, float scale_log2,
+                                             unsigned char* smem, RowEnd row_end,
+                                             Epilogue epilogue) {
+  attend_items_in<D>(qmap, kmap, vmap, items, n_items, group, scale_log2, smem, row_end,
+                     [](int) { return 0; }, epilogue);
+}
+
+// The float32 online softmax of one query row over keys [begin, end),
+// one warp per row, lanes splitting the head dimension (kDPL = D / 32
 // elements each, element i of lane l being column l + 32 i; columns at
 // or past the true head dim `dv` count as zeros): the unnormalized
 // accumulator `o`, the row max `m` (natural-log units of the scaled
-// score; -inf when end == 0) and the row sum `l`.
+// score; -inf when the range is empty) and the row sum `l`.
 template <int D>
 __device__ __forceinline__ void attend_row_f32(
     const float* __restrict__ qrow, const float* __restrict__ kb,
     const float* __restrict__ vb, long kv_stride, int end, int dv, float scale,
-    float (&o)[D / 32], float& m, float& l) {
+    float (&o)[D / 32], float& m, float& l, int begin = 0) {
   constexpr int kDPL = D / 32;
   const int lane = threadIdx.x % 32;
   float qv[kDPL];
@@ -699,7 +717,7 @@ __device__ __forceinline__ void attend_row_f32(
   }
   m = -INFINITY;
   l = 0.f;
-  for (int j = 0; j < end; ++j) {
+  for (int j = begin; j < end; ++j) {
     float dot = 0.f;
 #pragma unroll
     for (int i = 0; i < kDPL; ++i) {

@@ -4,7 +4,13 @@
 // (llm_d_kv_cache_manager_tpu/ops/flash_pallas.py, reached through
 // `flash_gqa_attention_pallas`).  Same function: softmax(q k^T * D^-0.5)
 // v over keys at positions <= q_offset + row, with the running max, sum
-// and accumulator in float32, rows whose sum is 0 written as 0.
+// and accumulator in float32, rows whose sum is 0 written as 0.  A
+// sliding window of W keys (`window` > 0, a runtime argument; 0 is none)
+// also hides the keys at or below q_offset + row - W, as the windowed
+// layers of a mixed model (Mellum's) need; the work list
+// (ops/tile_plan.py) leaves the key tiles below every row's window out
+// of each item, so they are never loaded, and masks the tiles that
+// straddle a row's window begin.  The reference has no window.
 //
 // What bounds it on an H100: at the serving shapes (8448-token prefill,
 // 256-token continuation over an 8192-token prefix) the work is the two
@@ -54,15 +60,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                       __nv_bfloat16* __restrict__ out,
                       float* __restrict__ part_o, float* __restrict__ part_ml,
                       int B, int Tq, int Tk, int H, int Hkv, int dv, int q_offset,
-                      float scale_log2) {
+                      int window, float scale_log2) {
   constexpr int kDBlocks = D / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int t = threadIdx.x % 4;
   const long q_stride = static_cast<long>(H) * dv;
 
-  attend_items<D>(
+  attend_items_in<D>(
       &qmap, &kmap, &vmap, items, n_items, H / Hkv, scale_log2, smem_raw,
       [=](int row) { return min(q_offset + row + 1, Tk); },
+      [=](int row) {
+        return window > 0 ? max(min(q_offset + row + 1, Tk) - window, 0) : 0;
+      },
       [&](int b, int h, int split, const TileRows<D>& st, int row0, int row1) {
         if (part_o != nullptr) {
           const long base = (static_cast<long>(split) * B + b) * Tq;
@@ -135,7 +144,7 @@ __global__ void __launch_bounds__(kRowsF32 * 32)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      int Tq, int Tk, int H, int Hkv, int dv, int q_offset,
-                     float scale) {
+                     int window, float scale) {
   constexpr int kDPL = D / 32;  // head-dim elements per lane
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -150,8 +159,9 @@ __global__ void __launch_bounds__(kRowsF32 * 32)
   const float* vb = v + static_cast<long>(b) * Tk * kv_stride + kvh * dv;
 
   float acc[kDPL], m, l;
-  attend_row_f32<D>(q + q_index, kb, vb, kv_stride, min(q_offset + row + 1, Tk), dv,
-                    scale, acc, m, l);
+  const int end = min(q_offset + row + 1, Tk);
+  attend_row_f32<D>(q + q_index, kb, vb, kv_stride, end, dv, scale, acc, m, l,
+                    window > 0 ? max(end - window, 0) : 0);
   const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
   for (int i = 0; i < kDPL; ++i) {
@@ -163,7 +173,7 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* part_o, float* part_ml, const int* items, int n_items,
                 int ctas, int B, int Tq, int Tk, int H, int Hkv, int dv, int q_offset,
-                int n_split, cudaStream_t st) {
+                int window, int n_split, cudaStream_t st) {
   constexpr int kBK = TileBytes<D>::BK;
   CUtensorMap qmap, kmap, vmap;
   int rc = make_tile_map(&qmap, q, B, Tq, H, dv, kBQ);
@@ -178,7 +188,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   auto* op = static_cast<__nv_bfloat16*>(out);
   flash_bf16_kernel<D><<<n_items < ctas ? n_items : ctas, kThreads, kSmem, st>>>(
       qmap, kmap, vmap, items, n_items, op, n_split > 1 ? part_o : nullptr, part_ml,
-      B, Tq, Tk, H, Hkv, dv, q_offset, scale_log2);
+      B, Tq, Tk, H, Hkv, dv, q_offset, window, scale_log2);
   if (n_split > 1) {
     const long cells = static_cast<long>(B) * Tq * H;
     flash_merge_kernel<<<cells, dv, 0, st>>>(part_o, part_ml, op, cells, n_split, dv);
@@ -188,24 +198,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 template <int D>
 void launch_f32(const void* q, const void* k, const void* v, void* out,
-                int B, int Tq, int Tk, int H, int Hkv, int dv, int q_offset,
+                int B, int Tq, int Tk, int H, int Hkv, int dv, int q_offset, int window,
                 cudaStream_t st) {
   const dim3 grid((Tq + kRowsF32 - 1) / kRowsF32, H, B);
   flash_f32_kernel<D><<<grid, kRowsF32 * 32, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Tq, Tk, H, Hkv, dv,
-      q_offset, 1.f / sqrtf(static_cast<float>(dv)));
+      q_offset, window, 1.f / sqrtf(static_cast<float>(dv)));
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out, float* po,
            float* pm, const int* it, int n_items, int ctas, int B, int Tq, int Tk, int H,
-           int Hkv, int dv, int q_offset, int n_split, cudaStream_t st) {
+           int Hkv, int dv, int q_offset, int window, int n_split, cudaStream_t st) {
   if (dtype == 1) {
     return launch_bf16<D>(q, k, v, out, po, pm, it, n_items, ctas, B, Tq, Tk, H, Hkv, dv,
-                          q_offset, n_split, st);
+                          q_offset, window, n_split, st);
   }
-  launch_f32<D>(q, k, v, out, B, Tq, Tk, H, Hkv, dv, q_offset, st);
+  launch_f32<D>(q, k, v, out, B, Tq, Tk, H, Hkv, dv, q_offset, window, st);
   return 0;
 }
 
@@ -224,13 +234,14 @@ const char* kernel_error_string(int rc) {
 // key_tile<compiled_width(D)>() keys), walked by at most `ctas`
 // persistent CTAs; with n_split > 1 its items are key splits, written
 // through the float32 scratch part_o [n_split, B, Tq, H, D] and part_ml
-// [n_split, B, Tq, H, 2] and merged.
+// [n_split, B, Tq, H, 2] and merged.  `window` > 0: a sliding window of
+// that many keys (the items built with the same window); 0: none.
 int flash_prefill(const void* q, const void* k, const void* v, void* out,
                   void* part_o, void* part_ml, const void* items, int n_items,
                   int ctas, int B, int Tq, int Tk, int H, int Hkv, int D,
-                  int q_offset, int n_split, int dtype, void* stream) {
+                  int q_offset, int window, int n_split, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_split < 1 || (n_split > 1 && (dtype != 1 || !part_o || !part_ml)) ||
+  if (n_split < 1 || window < 0 || (n_split > 1 && (dtype != 1 || !part_o || !part_ml)) ||
       (dtype == 1 && (items == nullptr || n_items < 1 || ctas < 1)) ||
       (dtype != 0 && dtype != 1) || !head_dim_ok(D)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -242,19 +253,19 @@ int flash_prefill(const void* q, const void* k, const void* v, void* out,
   switch (compiled_width(D)) {
     case 64:
       rc = launch<64>(dtype, q, k, v, out, po, pm, it, n_items, ctas, B, Tq, Tk, H, Hkv, D,
-                      q_offset, n_split, st);
+                      q_offset, window, n_split, st);
       break;
     case 128:
       rc = launch<128>(dtype, q, k, v, out, po, pm, it, n_items, ctas, B, Tq, Tk, H, Hkv, D,
-                       q_offset, n_split, st);
+                       q_offset, window, n_split, st);
       break;
     case 192:
       rc = launch<192>(dtype, q, k, v, out, po, pm, it, n_items, ctas, B, Tq, Tk, H, Hkv, D,
-                       q_offset, n_split, st);
+                       q_offset, window, n_split, st);
       break;
     default:
       rc = launch<256>(dtype, q, k, v, out, po, pm, it, n_items, ctas, B, Tq, Tk, H, Hkv, D,
-                       q_offset, n_split, st);
+                       q_offset, window, n_split, st);
       break;
   }
   if (rc != 0) return rc;

@@ -35,7 +35,9 @@
 // Numbers: the same as the plain PyTorch chains on the card.  RoPE's
 // angle is float(position) * freq, freq being the float32 tensor the
 // plain path computes, and accurate cosf/sinf (no fast math: at positions
-// of 12k the __sinf intrinsic drifts); each product and sum is rounded as
+// of 12k the __sinf intrinsic drifts), each multiplied by `scale` (YaRN's
+// attention factor on a model's full-attention layers, as Hugging Face's
+// rotary embedding multiplies cos and sin; 1 elsewhere, exact); each product and sum is rounded as
 // the plain ops round it (__fmul_rn, __fadd_rn, __fsub_rn: no fused
 // multiply-add), so a rotated element is bit-equal to `_rope`'s.  SiLU is
 // g / (1 + expf(-g)) in float32, rounded to the working type, then
@@ -134,7 +136,8 @@ __global__ void __launch_bounds__(kRopeWarps * 32)
                    const long long* __restrict__ positions, const float* __restrict__ freqs,
                    const long long* __restrict__ slots, T* __restrict__ q_out,
                    PT* __restrict__ kv_layer, T* __restrict__ k_out, T* __restrict__ v_out,
-                   int T_len, int H, int Hkv, int Dh, int block_size, long long out_bstride) {
+                   int T_len, int H, int Hkv, int Dh, int block_size, long long out_bstride,
+                   float scale) {
   __shared__ float cs[kMaxHalf];
   __shared__ float sn[kMaxHalf];
   const long long tok = blockIdx.x;
@@ -142,8 +145,8 @@ __global__ void __launch_bounds__(kRopeWarps * 32)
   const float pos = static_cast<float>(positions[tok]);
   for (int j = threadIdx.x; j < half; j += blockDim.x) {
     const float a = __fmul_rn(pos, freqs[j]);
-    cs[j] = cosf(a);
-    sn[j] = sinf(a);
+    cs[j] = __fmul_rn(cosf(a), scale);
+    sn[j] = __fmul_rn(sinf(a), scale);
   }
   __syncthreads();
 
@@ -245,7 +248,8 @@ template <typename T, typename PT>
 int launch_rope_kv(const void* q, const void* k, const void* v, const void* positions,
                    const void* freqs, const void* slots, void* q_out, void* kv_layer,
                    void* k_out, void* v_out, long long tokens, int T_len, int H, int Hkv,
-                   int Dh, int block_size, long long out_bstride, cudaStream_t st) {
+                   int Dh, int block_size, long long out_bstride, float scale,
+                   cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>(tokens),
                   static_cast<unsigned>((H + 2 * Hkv + kRopeHeads - 1) / kRopeHeads));
   rope_kv_kernel<T, PT><<<grid, kRopeWarps * 32, 0, st>>>(
@@ -253,7 +257,7 @@ int launch_rope_kv(const void* q, const void* k, const void* v, const void* posi
       static_cast<const long long*>(positions), static_cast<const float*>(freqs),
       static_cast<const long long*>(slots), static_cast<T*>(q_out), static_cast<PT*>(kv_layer),
       static_cast<T*>(k_out), static_cast<T*>(v_out), T_len, H, Hkv, Dh, block_size,
-      out_bstride);
+      out_bstride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -303,10 +307,11 @@ int rms_norm(const void* x, const void* w, void* out, long long rows, int D, flo
 // q; kv_layer: [num_blocks, 2, block_size, Hkv, Dh] in `pool_dtype`;
 // k_out, v_out: null or [B, T_len, Hkv, Dh] with batch stride
 // `out_bstride` elements, tokens = B * T_len.  Dh even, at most 256.
+// cos and sin are multiplied by `scale`.
 int rope_kv(const void* q, const void* k, const void* v, const void* positions,
             const void* freqs, const void* slots, void* q_out, void* kv_layer, void* k_out,
             void* v_out, long long tokens, int T_len, int H, int Hkv, int Dh, int block_size,
-            long long out_bstride, int dtype, int pool_dtype, void* stream) {
+            long long out_bstride, float scale, int dtype, int pool_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tokens < 1 || tokens > 0x7fffffffLL || T_len < 1 || tokens % T_len || H < 1 ||
       Hkv < 1 || Dh < 2 || Dh % 2 || Dh / 2 > kMaxHalf || block_size < 1) {
@@ -314,7 +319,8 @@ int rope_kv(const void* q, const void* k, const void* v, const void* positions,
   }
 #define KVTPU_ROPE(T, PT)                                                                    \
   return launch_rope_kv<T, PT>(q, k, v, positions, freqs, slots, q_out, kv_layer, k_out,    \
-                               v_out, tokens, T_len, H, Hkv, Dh, block_size, out_bstride, st)
+                               v_out, tokens, T_len, H, Hkv, Dh, block_size, out_bstride,    \
+                               scale, st)
   if (dtype == 0 && pool_dtype == 0) KVTPU_ROPE(float, float);
   if (dtype == 0 && pool_dtype == 1) KVTPU_ROPE(float, __nv_bfloat16);
   if (dtype == 1 && pool_dtype == 0) KVTPU_ROPE(__nv_bfloat16, float);

@@ -95,6 +95,16 @@
 // anything.  Block ids are clamped into the pool.  context_len 0 gives
 // 0, as the TPU kernel does.
 //
+// A sliding window of W positions (`window` > 0, a runtime argument; 0
+// is none), for the windowed layers of a mixed model (Mellum's): a row
+// attends to positions [ctx - W, ctx) alone.  Its units then start at
+// the tile that holds position ctx - W, so the tiles below it are not in
+// the line of units at all: never read, and no table entry of theirs is
+// read either (with blocks of 8, the first tile's lower block is skipped
+// when it lies wholly below the window).  The tokens of that first tile
+// below ctx - W are masked as the ones past the context are.  The
+// reference has no window.
+//
 // C interface for ctypes; every entry returns cudaGetLastError().
 
 #include "attention_tiles.cuh"  // smem_u32
@@ -183,14 +193,18 @@ __device__ __forceinline__ void load_tile(uint32_t stage, const char* lo, const 
   }
 }
 
-// Zero V's rows from `valid` on: a slot past the context may hold
-// anything, and 0 * NaN is no 0.
+// Zero V's rows outside [lo, valid): a slot past the context, or one
+// below the window that was not loaded, may hold anything, and 0 * NaN
+// is no 0.
 template <typename T, int D>
-__device__ __forceinline__ void zero_stale_rows(char* stage, int valid, int lane) {
+__device__ __forceinline__ void zero_stale_rows(char* stage, int lo, int valid, int lane) {
   using Tl = Tile<T, D>;
-  for (int idx = valid * Tl::chunks + lane; idx < kTok * Tl::chunks; idx += 32) {
-    *reinterpret_cast<uint4*>(stage + Tl::offset(1, idx / Tl::chunks, idx % Tl::chunks)) =
-        make_uint4(0, 0, 0, 0);
+  for (int idx = lane; idx < kTok * Tl::chunks; idx += 32) {
+    const int t = idx / Tl::chunks;
+    if (t < lo || t >= valid) {
+      *reinterpret_cast<uint4*>(stage + Tl::offset(1, t, idx % Tl::chunks)) =
+          make_uint4(0, 0, 0, 0);
+    }
   }
 }
 
@@ -310,9 +324,9 @@ struct MmaEngine {
     }
   }
 
-  // One tile of `valid` live tokens from a stage; scores are kept in
-  // log2 units (scale_log2 = dv^-0.5 * log2 e).
-  __device__ __forceinline__ void block(char* stage, int valid,
+  // One tile whose tokens [start, valid) are live, from a stage; scores
+  // are kept in log2 units (scale_log2 = dv^-0.5 * log2 e).
+  __device__ __forceinline__ void block(char* stage, int start, int valid,
                                         float scale_log2, int lane) {
     const uint32_t base = smem_u32(stage);
     const int mat = lane >> 3, r = lane & 7;
@@ -347,7 +361,8 @@ struct MmaEngine {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           float& x = s[n][2 * h + i];
-          x = 8 * n + 2 * c + i < valid ? x * scale_log2 : -INFINITY;
+          const int tok = 8 * n + 2 * c + i;
+          x = tok >= start && tok < valid ? x * scale_log2 : -INFINITY;
           mx = fmaxf(mx, x);
         }
       }
@@ -445,9 +460,11 @@ struct SimtEngine {
     }
   }
 
-  __device__ __forceinline__ void block(char* stage, int valid,
+  __device__ __forceinline__ void block(char* stage, int start, int valid,
                                         float scale_log2, int lane) {
-    for (int t0 = 0; t0 < valid; t0 += 4) {
+    // From the group of 4 that holds token start: every group then has a
+    // live token, so the running max is finite.
+    for (int t0 = start & ~3; t0 < valid; t0 += 4) {
       float s[kHeads][4];
 #pragma unroll
       for (int tt = 0; tt < 4; ++tt) {
@@ -470,7 +487,7 @@ struct SimtEngine {
           for (int off = 16; off > 0; off >>= 1) {
             s[g][tt] += __shfl_xor_sync(0xffffffffu, s[g][tt], off);
           }
-          s[g][tt] = t0 + tt < valid ? s[g][tt] * scale_log2 : -INFINITY;
+          s[g][tt] = t0 + tt >= start && t0 + tt < valid ? s[g][tt] * scale_log2 : -INFINITY;
           mx = fmaxf(mx, s[g][tt]);
         }
         const float corr = exp2f(m[g] - mx);  // 0 on the first tile
@@ -537,6 +554,7 @@ struct Args {
   int dv;      // the true head dim
   int dchunks;  // its 16-byte chunks a row
   int bs, lg_bs;  // pool block size and its log2
+  int window;     // sliding window in positions; 0: none
   float scale_log2;
 };
 
@@ -545,9 +563,17 @@ __device__ __forceinline__ int context_of(const Args& a, int b) {
   return min(a.context_len[b], a.max_blocks * a.bs);
 }
 
+// The first position sequence b attends to: 0, or under a window the
+// first of the window's.
+__device__ __forceinline__ int window_start(const Args& a, int ctx) {
+  return a.window > 0 ? max(ctx - a.window, 0) : 0;
+}
+
+// Tiles of sequence b the kernel reads: from the one that holds its
+// window's start to the one that holds its last position.
 __device__ __forceinline__ int live_tiles(const Args& a, int b) {
   const int ctx = context_of(a, b);
-  return ctx <= 0 ? 0 : (ctx + kTok - 1) / kTok;
+  return ctx <= 0 ? 0 : (ctx + kTok - 1) / kTok - window_start(a, ctx) / kTok;
 }
 
 // Tiles [j0, j1) of sequence b and line `line`, whose units are
@@ -568,6 +594,8 @@ __device__ __forceinline__ void piece(const Args& a, char* smem, int b, int line
   const int H = a.lines * G;
   const int kvh = a.nsub == 1 ? line : line / a.nsub;
   const int ctx = context_of(a, b);
+  const int win_lo = window_start(a, ctx);  // positions below it are not attended
+  const int tile0 = win_lo / kTok;          // the sequence's unit 0
   char* ring = smem + warp * kStages * Tl::stage_bytes;
   const uint32_t ring_addr = smem_u32(ring);
   if (a.dchunks < Tl::chunks) {
@@ -579,9 +607,10 @@ __device__ __forceinline__ void piece(const Args& a, char* smem, int b, int line
   eng.init(static_cast<const T*>(a.q) + (static_cast<long>(b) * H + line * G) * dv, G, dv,
            lane);
 
-  // This warp takes tiles j0 + warp, j0 + warp + kWarps, ...
-  const int first = j0 + warp;
-  const int n = first < j1 ? (j1 - first + kWarps - 1) / kWarps : 0;
+  // This warp takes tiles j0 + warp, j0 + warp + kWarps, ... (units of
+  // the sequence, tile0 + j being tile j's position / 16).
+  const int first = tile0 + j0 + warp, end = tile0 + j1;
+  const int n = first < end ? (end - first + kWarps - 1) / kWarps : 0;
   const int* trow = a.table + static_cast<long>(b) * a.max_blocks;
   const long tok_bytes = static_cast<long>(a.Hkv) * dv * sizeof(T);
   const long v_off = a.bs * tok_bytes;  // a token's V row after its K row
@@ -592,8 +621,12 @@ __device__ __forceinline__ void piece(const Args& a, char* smem, int b, int line
   // fetch ahead.
   auto ids = [&](int i, int& lo, int& hi) {
     const int p = (first + i * kWarps) * kTok;
-    lo = trow[p >> a.lg_bs];
-    if constexpr (kHalves) hi = p + 8 < ctx ? trow[(p >> a.lg_bs) + 1] : 0;
+    if constexpr (kHalves) {
+      lo = p + 8 > win_lo ? trow[p >> a.lg_bs] : 0;
+      hi = p + 8 < ctx ? trow[(p >> a.lg_bs) + 1] : 0;
+    } else {
+      lo = trow[p >> a.lg_bs];
+    }
   };
   int next_lo = 0, next_hi = 0;
   if (n > 0) ids(0, next_lo, next_hi);
@@ -604,7 +637,7 @@ __device__ __forceinline__ void piece(const Args& a, char* smem, int b, int line
     const uint32_t stage = ring_addr + (i % kStages) * Tl::stage_bytes;
     if (i + 1 < n) ids(i + 1, next_lo, next_hi);
     if constexpr (kHalves) {
-      load_tile<T, D, true>(stage, head + lo * blk_bytes,
+      load_tile<T, D, true>(stage, p + 8 <= win_lo ? nullptr : head + lo * blk_bytes,
                             p + 8 >= ctx ? nullptr : head + hi * blk_bytes, tok_bytes, v_off,
                             a.dchunks, lane);
     } else {
@@ -628,12 +661,14 @@ __device__ __forceinline__ void piece(const Args& a, char* smem, int b, int line
     if (i + kStages - 1 < n) fetch(i + kStages - 1);
     cp_async_commit();
     char* stage = ring + s * Tl::stage_bytes;
-    const int valid = min(kTok, ctx - (first + i * kWarps) * kTok);
-    if (valid < kTok) {
-      zero_stale_rows<T, D>(stage, valid, lane);
+    const int p = (first + i * kWarps) * kTok;
+    const int valid = min(kTok, ctx - p);
+    const int lo = max(win_lo - p, 0);
+    if (valid < kTok || lo > 0) {
+      zero_stale_rows<T, D>(stage, lo, valid, lane);
       __syncwarp();
     }
-    eng.block(stage, valid, a.scale_log2, lane);
+    eng.block(stage, lo, valid, a.scale_log2, lane);
   }
   cp_async_wait<0>();
   __syncwarp();
@@ -842,12 +877,14 @@ long paged_decode_scratch_bytes(int B, int lines, int G, int D, int ctas) {
 // 16; block_size 8, 16, 32, 64 or 128.  `nsub` cuts each group into
 // that many lines of equal size (1 for bfloat16; for float32 a line
 // has at most kSimtHeads<compiled_width(D)> heads).  `ctas` is the
-// grid: a whole number of waves of paged_decode_ctas_per_sm.
+// grid: a whole number of waves of paged_decode_ctas_per_sm.  `window`
+// > 0: each row attends to its last `window` positions alone; 0: all.
 int paged_decode(const void* q, const void* kv, const void* table,
                  const void* context_len, void* scratch, void* out, int B,
                  int H, int Hkv, int D, int block_size, int num_blocks,
-                 int max_blocks, int ctas, int nsub, int dtype, void* stream) {
+                 int max_blocks, int ctas, int nsub, int window, int dtype, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || ctas <= 0 || nsub <= 0 || (H / Hkv) % nsub != 0 ||
+      window < 0 ||
       (dtype == 1 && nsub != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -881,6 +918,7 @@ int paged_decode(const void* q, const void* kv, const void* table,
   a.dchunks = D * (dtype == 1 ? 2 : 4) / 16;
   a.bs = block_size;
   a.lg_bs = lg_bs;
+  a.window = window;
   a.scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
   const int rc = with_variant(dtype, D, G, block_size, [&](auto kernel, auto tile) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -49,6 +49,29 @@ besides ``sp`` in use: they are shared onto it
 (``parallel.sharding.share_tree``, views of the plain leaves where it
 can).
 
+Mixed blocks (Mellum's): the serving entry points (``prefill_paged``,
+``prefill_continue``, ``prefill_chunked``, ``decode_step``, hence
+``CapturedDecodeStep``) also serve a :class:`MixedLlamaConfig`: a
+stated ``head_dim``, an untied output head (a ``head`` leaf [V, D]
+beside ``embed``), a per-layer :class:`AttentionKind` (a sliding window
+or none; RoPE's theta, YaRN frequencies and the attention factor that
+multiplies cos and sin) and routed experts in place of the dense MLP
+(``n_experts``: leaves ``w_router`` [L, D, E], ``e_gate``, ``e_up`` [L,
+E, D, F] and ``e_down`` [L, E, F, D]).  A layer is then::
+
+    n1 = RMSNorm1(x)
+    h  = x + W_o Attn_kind(RoPE_kind(W_q n1), RoPE_kind(W_k n1), W_v n1)
+    n2 = RMSNorm2(h)
+    p  = softmax(W_router n2)                  (float32, all E experts)
+    x' = h + sum_{e in topk(p)} p_e / sum_topk(p) * W_down,e(SiLU(W_gate,e n2) * W_up,e n2)
+
+attention scaled by head_dim^-0.5, causal, and on a windowed layer over
+keys q - window < j <= q; logits ``W_head RMSNorm_f(x)``.  The experts are
+``ops/moe_experts.py``'s dropless kernels, inside the decode graph too.
+A :class:`LlamaConfig` is the dense Llama block, its launches and graphs
+unchanged.  ``forward``, training and the sharded paths take the dense
+block alone and refuse a mixed one.
+
 The reference's arrays are immutable; here ``prefill_*`` and
 ``decode_step`` write the new K/V into ``kv_pool`` IN PLACE and return
 ``(logits, kv_pool)`` with that same tensor, so callers that compare
@@ -59,6 +82,7 @@ reference returns new params and optimizer state.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from contextlib import contextmanager
@@ -86,6 +110,11 @@ from llm_d_kv_cache_manager_tpu_torch.ops.layer_fused import (
     silu_mul_fused,
     silu_mul_plain,
     write_kv_slots,
+    yarn_freqs,
+)
+from llm_d_kv_cache_manager_tpu_torch.ops.moe_experts import (
+    counters as moe_counters,
+    routed_experts_fused,
 )
 from llm_d_kv_cache_manager_tpu_torch.ops.paged_decode_cuda import (
     paged_decode_attention_cuda,
@@ -125,6 +154,21 @@ Params = Dict[str, Any]
 _LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+@dataclass(frozen=True)
+class AttentionKind:
+    """One layer's attention: ``window`` (a sliding window of that many
+    positions, a query at q seeing keys q - window < j <= q; None: every
+    earlier key) and its RoPE: theta, YaRN's ``(factor, original max
+    positions, beta_fast, beta_slow)`` where ``yarn`` is set
+    (``ops/layer_fused.py:yarn_freqs``), and ``rope_scale``, the factor
+    that multiplies cos and sin (YaRN's attention factor)."""
+
+    window: Optional[int] = None
+    rope_theta: float = 500000.0
+    yarn: Optional[Tuple[float, int, float, float]] = None
+    rope_scale: float = 1.0
+
+
 @dataclass
 class LlamaConfig:
     vocab_size: int = 32000
@@ -157,6 +201,10 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    def kind(self, layer: int) -> AttentionKind:
+        """Layer ``layer``'s attention kind: causal, RoPE at rope_theta."""
+        return AttentionKind(rope_theta=self.rope_theta)
+
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
         return LlamaConfig(
@@ -169,6 +217,34 @@ class LlamaConfig:
         )
 
 
+@dataclass
+class MixedLlamaConfig(LlamaConfig):
+    """A :class:`LlamaConfig` whose block is mixed (see the module note),
+    served by the serving entry points alone."""
+
+    # The head dim, stated apart from d_model / n_heads (None: derived).
+    head_dim: Optional[int] = None
+    # Each layer's attention kind, n_layers of them (None: every layer
+    # causal, RoPE at rope_theta).
+    attention_kinds: Optional[Tuple[AttentionKind, ...]] = None
+    # Routed experts as every layer's MLP (0: the dense SwiGLU of d_ff).
+    n_experts: int = 0
+    experts_per_token: int = 0
+    d_expert: int = 0
+    norm_topk_prob: bool = False
+    # False: the output head is its own leaf, params["head"] [V, D].
+    tie_embeddings: bool = True
+
+    def __post_init__(self) -> None:
+        if self.head_dim is None:
+            self.head_dim = self.d_model // self.n_heads
+
+    def kind(self, layer: int) -> AttentionKind:
+        if self.attention_kinds is None:
+            return AttentionKind(rope_theta=self.rope_theta)
+        return self.attention_kinds[layer]
+
+
 def _param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
     """{layer key: (shape, fan_in)} of the stacked weight tensors."""
     L, D, H, Hkv, Dh, F_ = (
@@ -179,11 +255,21 @@ def _param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
         cfg.head_dim,
         cfg.d_ff,
     )
-    return {
+    attention = {
         "wq": ((L, D, H, Dh), D),
         "wk": ((L, D, Hkv, Dh), D),
         "wv": ((L, D, Hkv, Dh), D),
         "wo": ((L, H, Dh, D), H * Dh),
+    }
+    if _mixed(cfg) and cfg.n_experts:
+        E, Fe = cfg.n_experts, cfg.d_expert
+        return {**attention,
+                "w_router": ((L, D, E), D),
+                "e_gate": ((L, E, D, Fe), D),
+                "e_up": ((L, E, D, Fe), D),
+                "e_down": ((L, E, Fe, D), Fe)}
+    return {
+        **attention,
         "w_gate": ((L, D, F_), D),
         "w_up": ((L, D, F_), D),
         "w_down": ((L, F_, D), F_),
@@ -230,11 +316,14 @@ def init_params(
     }
     for key, (shape, fan_in) in _param_shapes(cfg).items():
         layers[key] = normal(shape, fan_in)
-    return {
+    params = {
         "embed": normal((cfg.vocab_size, D), D),
         "layers": layers,
         "ln_f": torch.ones((D,), dtype=dtype, device=dev),
     }
+    if _mixed(cfg) and not cfg.tie_embeddings:
+        params["head"] = normal((cfg.vocab_size, D), D)
+    return params
 
 
 def params_from_numpy(
@@ -291,7 +380,19 @@ def param_pspecs(cfg: LlamaConfig) -> Params:
 
 
 def _layer(params: Params, i: int) -> Params:
-    return {key: params["layers"][key][i] for key in _LAYER_KEYS}
+    return {key: leaf[i] for key, leaf in params["layers"].items()}
+
+
+def _mixed(cfg: LlamaConfig) -> bool:
+    return isinstance(cfg, MixedLlamaConfig)
+
+
+def _dense_only(cfg: LlamaConfig, what: str) -> None:
+    """Raise where a path that serves the dense block alone is given a
+    mixed one."""
+    if _mixed(cfg):
+        raise ValueError(f"{what} takes the dense Llama block; a MixedLlamaConfig is served "
+                         "by prefill_paged, prefill_continue, prefill_chunked and decode_step")
 
 
 _rms_norm = rms_norm_plain
@@ -326,20 +427,28 @@ def _attn_out(attn: torch.Tensor, lp: Params) -> torch.Tensor:
     return torch.einsum("bthk,hkd->btd", attn, lp["wo"])
 
 
-def _prefill_attention(q, k, v, cfg: LlamaConfig, q_offset: int = 0, use_flash=True):
+def _prefill_attention(q, k, v, cfg: LlamaConfig, q_offset: int = 0, use_flash=True,
+                       window: Optional[int] = None):
     """Prefill attention.  ``use_flash=False`` forces the dense op on
     every device, as in the reference: neither the kernel nor the tiled
     op has a backward, so training differentiates through the dense op.
     Otherwise routed by device: the prefill kernel on CUDA; on the CPU
     dense below ``flash_attention_min_len`` keys and the tiled op at or
-    above it."""
+    above it.  ``window``: a windowed layer's (see AttentionKind)."""
+    kw = _windowed(window)
     if not use_flash:
-        return causal_gqa_attention(q, k, v, q_offset=q_offset)
+        return causal_gqa_attention(q, k, v, q_offset=q_offset, **kw)
     if q.is_cuda:
-        return flash_gqa_attention_cuda(q, k, v, q_offset=q_offset)
+        return flash_gqa_attention_cuda(q, k, v, q_offset=q_offset, **kw)
     if k.shape[1] >= cfg.flash_attention_min_len:
-        return flash_gqa_attention(q, k, v, q_offset=q_offset)
-    return causal_gqa_attention(q, k, v, q_offset=q_offset)
+        return flash_gqa_attention(q, k, v, q_offset=q_offset, **kw)
+    return causal_gqa_attention(q, k, v, q_offset=q_offset, **kw)
+
+
+def _windowed(window: Optional[int]) -> Dict[str, int]:
+    """The attention ops' keyword for a layer's window: none for a full
+    layer, so that the dense block's calls are the ones they were."""
+    return {} if window is None else {"window": window}
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -375,38 +484,85 @@ def _rope_slots(block_table: torch.Tensor, block_size: int) -> torch.Tensor:
         block_table.shape[0], -1)
 
 
+@functools.lru_cache(maxsize=64)
+def _kind_freqs(kind: AttentionKind, head_dim: int, device: torch.device) -> torch.Tensor:
+    """The float32 RoPE frequencies of a layer kind on ``device``."""
+    if kind.yarn is None:
+        return rope_freqs(head_dim, kind.rope_theta, device)
+    return yarn_freqs(head_dim, kind.rope_theta, *kind.yarn).to(device)
+
+
 def _attn_in(x: torch.Tensor, lp: Params, cfg: LlamaConfig, positions: torch.Tensor,
-             slots: torch.Tensor, kv_layer: torch.Tensor, k_out=None, v_out=None):
+             slots: torch.Tensor, kv_layer: torch.Tensor, kind: AttentionKind, k_out=None,
+             v_out=None):
     """ln1, the q/k/v projections, RoPE and the pool write of one layer,
     fused: x [B, T, D] -> (q rotated [B, T, H, Dh], k, v projected [B, T,
     Hkv, Dh]); k and v go rotated into their ``slots`` of ``kv_layer``
-    and, where given, into ``k_out`` / ``v_out`` (see rope_kv_fused)."""
+    and, where given, into ``k_out`` / ``v_out`` (see rope_kv_fused).
+    RoPE is the layer ``kind``'s."""
     B, T = x.shape[:2]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm_fused(x, lp["ln1"])
     q = _mm(h, lp["wq"]).view(B, T, H, Dh)
     k = _mm(h, lp["wk"]).view(B, T, Hkv, Dh)
     v = _mm(h, lp["wv"]).view(B, T, Hkv, Dh)
-    freqs = rope_freqs(Dh, cfg.rope_theta, x.device)
-    q = rope_kv_fused(q, k, v, positions, freqs, kv_layer, slots, k_out, v_out)
-    return q, k, v
+    freqs = _kind_freqs(kind, Dh, x.device)
+    return rope_kv_fused(q, k, v, positions, freqs, kv_layer, slots, k_out, v_out,
+                         kind.rope_scale), k, v
 
 
-def _layer_out(x: torch.Tensor, attn: torch.Tensor, lp: Params) -> torch.Tensor:
+def _layer_out(x: torch.Tensor, attn: torch.Tensor, lp: Params, cfg: LlamaConfig,
+               path: str = "prefill") -> torch.Tensor:
     """The rest of a layer after attention, fused: x + attn @ wo, then
-    the MLP block (ln2, SiLU(gate) * up, w_down) added.  x: [..., D];
-    attn: [..., H, Dh] over the same leading axes."""
+    the MLP block (ln2, SiLU(gate) * up, w_down) added, or where the
+    layer has a router the routed experts (a ``model.moe`` profiler range;
+    ``path`` names the device counters they add to).  x: [..., D]; attn:
+    [..., H, Dh] over the same leading axes."""
     x = x + _mm(attn.flatten(-2), lp["wo"]).view(x.shape)
     h = rms_norm_fused(x, lp["ln2"])
+    if "w_router" in lp:
+        with profiler_range("model.moe", {"tokens": h.numel() // h.shape[-1]}):
+            counts = moe_counters(path, x.device) if x.is_cuda else None
+            out = routed_experts_fused(
+                x.reshape(-1, x.shape[-1]), h.reshape(-1, h.shape[-1]), lp["w_router"],
+                lp["e_gate"], lp["e_up"], lp["e_down"], cfg.experts_per_token,
+                cfg.norm_topk_prob, counts)
+            return out.view(x.shape)
     hidden = silu_mul_fused(_mm(h, lp["w_gate"]), _mm(h, lp["w_up"]))
     return x + _mm(hidden, lp["w_down"]).view(x.shape)
 
 
-def _logits_fused(x: torch.Tensor, params: Params) -> torch.Tensor:
+def _head(params: Params) -> torch.Tensor:
+    """The output head, [V, D]: its own leaf where untied, else the
+    embedding."""
+    return params["head"] if "head" in params else params["embed"]
+
+
+def _logits_fused(x: torch.Tensor, params: Params,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`_logits` with the fused final norm; the head is the same
-    float32 product."""
+    float32 product, written into ``out`` where given (see
+    :func:`_logits_buffer`)."""
     x = rms_norm_fused(x, params["ln_f"])
-    return torch.einsum("...d,vd->...v", x.float(), params["embed"].float())
+    if out is None:
+        return torch.einsum("...d,vd->...v", x.float(), _head(params).float())
+    torch.mm(x.reshape(-1, x.shape[-1]).float(), _head(params).float().t(),
+             out=out.view(-1, out.shape[-1]))
+    return out
+
+
+def _logits_buffer(cfg: LlamaConfig, B: int, T: int, dev) -> Optional[torch.Tensor]:
+    """A mixed block's prefill logits, float32 [B, T, V], taken before
+    its layers run: the largest tensor a prefill makes then finds the
+    caching allocator's largest free block whole, where after the layers
+    a leftover activation may have split it.  None for the dense block,
+    whose head product allocates its own output after its layers as it
+    always has: taken first, the buffer would stay live through them and
+    add to its prefills' peak (on an H100, Mistral-7B's measured
+    activation reserve at its cell's longest prompt 3.20 -> 3.64 GiB)."""
+    if not _mixed(cfg):
+        return None
+    return torch.empty((B, T, cfg.vocab_size), dtype=torch.float32, device=dev)
 
 
 def forward(
@@ -460,6 +616,7 @@ def forward(
     ``torch.no_grad()``.
     """
     B, T = tokens.shape
+    _dense_only(cfg, "forward")
     if sp_mesh is not None and positions is not None:
         raise ValueError(
             "sp_mesh ring attention assumes default positions 0..T-1 "
@@ -603,16 +760,19 @@ def prefill_paged(
             tokens, block_table = tokens.to(dev), block_table.to(dev)
             positions = torch.arange(T, device=dev).expand(B, T)
             slots = _rope_slots(block_table, cfg.block_size)
+        logits = _logits_buffer(cfg, B, T, dev)
         with profiler_range("model.prefill.layers"):
             x = _embed(params, tokens)
             for i in range(cfg.n_layers):
-                lp = _layer(params, i)
+                lp, kind = _layer(params, i), cfg.kind(i)
                 k_rot = torch.empty((B, T, cfg.n_kv_heads, cfg.head_dim), dtype=x.dtype,
                                     device=dev)
-                q, _, v = _attn_in(x, lp, cfg, positions, slots, kv_pool[i], k_out=k_rot)
-                x = _layer_out(x, _prefill_attention(q, k_rot, v, cfg), lp)
+                q, _, v = _attn_in(x, lp, cfg, positions, slots, kv_pool[i], k_out=k_rot,
+                                   kind=kind)
+                attn = _prefill_attention(q, k_rot, v, cfg, window=kind.window)
+                x = _layer_out(x, attn, lp, cfg)
         with profiler_range("model.prefill.logits"):
-            return _logits_fused(x, params), kv_pool
+            return _logits_fused(x, params, logits), kv_pool
 
 
 def prefill_continue(
@@ -656,12 +816,13 @@ def prefill_continue(
             tokens, block_table = tokens.to(dev), block_table.to(dev)
             positions = (prefix_len + torch.arange(Ts, device=dev)).expand(B, Ts)
             slots = _rope_slots(block_table[:, npre : npre + nsuf], cfg.block_size)
+        logits = _logits_buffer(cfg, B, Ts, dev)
         with profiler_range("model.prefill.layers"):
             x = _embed(params, tokens)
             prefix_ids = block_table[:, :npre].long()  # [B, npre]
             Hkv, Dh, bs = cfg.n_kv_heads, cfg.head_dim, cfg.block_size
             for i in range(cfg.n_layers):
-                lp = _layer(params, i)
+                lp, kind = _layer(params, i), cfg.kind(i)
                 kv_layer = kv_pool[i]
                 # The layer's prefix + suffix K/V, [B, prefix_len + Ts, Hkv,
                 # Dh]: the prefix gathered from the pool, the suffix
@@ -669,16 +830,18 @@ def prefill_continue(
                 k_full, v_full = (torch.empty((B, prefix_len + Ts, Hkv, Dh), dtype=x.dtype,
                                               device=dev) for _ in range(2))
                 q, _, _ = _attn_in(x, lp, cfg, positions, slots, kv_layer,
-                                   k_out=k_full[:, prefix_len:], v_out=v_full[:, prefix_len:])
+                                   k_out=k_full[:, prefix_len:], v_out=v_full[:, prefix_len:],
+                                   kind=kind)
                 # Gathered after the projections' weights have streamed
                 # through L2, so that the attention finds the prefix there.
                 pre = kv_layer[prefix_ids]  # [B, npre, 2, block, Hkv, Dh]
                 k_full[:, :prefix_len].view(B, npre, bs, Hkv, Dh).copy_(pre[:, :, 0])
                 v_full[:, :prefix_len].view(B, npre, bs, Hkv, Dh).copy_(pre[:, :, 1])
-                attn = _prefill_attention(q, k_full, v_full, cfg, q_offset=prefix_len)
-                x = _layer_out(x, attn, lp)
+                attn = _prefill_attention(q, k_full, v_full, cfg, q_offset=prefix_len,
+                                          window=kind.window)
+                x = _layer_out(x, attn, lp, cfg)
         with profiler_range("model.prefill.logits"):
-            return _logits_fused(x, params), kv_pool
+            return _logits_fused(x, params, logits), kv_pool
 
 
 def prefill_chunked(
@@ -733,14 +896,15 @@ def prefill_chunked(
         slots = _rope_slots(
             block_table[:, c * blocks_per_chunk : (c + 1) * blocks_per_chunk], cfg.block_size)
         for i in range(cfg.n_layers):
-            lp = _layer(params, i)
+            lp, kind = _layer(params, i), cfg.kind(i)
             kv_layer = kv_pool[i]
-            q, k, v = _attn_in(x, lp, cfg, positions, slots, kv_layer)
+            q, k, v = _attn_in(x, lp, cfg, positions, slots, kv_layer, kind=kind)
             full = kv_layer[table]  # [B, nb, 2, bs, Hkv, Dh]
             k_full = full[:, :, 0].reshape(B, T, Hkv, Dh).to(k.dtype)
             v_full = full[:, :, 1].reshape(B, T, Hkv, Dh).to(v.dtype)
-            attn = flash_gqa_attention_cuda(q, k_full, v_full, q_offset=start)
-            x = _layer_out(x, attn, lp)
+            attn = flash_gqa_attention_cuda(q, k_full, v_full, q_offset=start,
+                                            **_windowed(kind.window))
+            x = _layer_out(x, attn, lp, cfg)
         in_chunk = (last_pos // C) == c  # [B]
         offset = torch.clamp(last_pos - start, 0, C - 1)
         picked = x[torch.arange(B, device=dev), offset]
@@ -783,11 +947,12 @@ def decode_step(
     block_ids = torch.gather(block_table.long(), 1, pos // cfg.block_size)
     slots = block_ids * cfg.block_size + pos % cfg.block_size  # [B, 1]
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+        lp, kind = _layer(params, i), cfg.kind(i)
         kv_layer = kv_pool[i]
-        q, _, _ = _attn_in(x, lp, cfg, pos, slots, kv_layer)
-        attn = paged_decode_attention_cuda(q[:, 0], kv_layer, block_table, context_len)
-        x = _layer_out(x, attn[:, None], lp)
+        q, _, _ = _attn_in(x, lp, cfg, pos, slots, kv_layer, kind=kind)
+        attn = paged_decode_attention_cuda(q[:, 0], kv_layer, block_table, context_len,
+                                           **_windowed(kind.window))
+        x = _layer_out(x, attn[:, None], lp, cfg, path="decode")
     return _logits_fused(x[:, 0], params), kv_pool
 
 
@@ -829,7 +994,10 @@ class CapturedDecodeStep:
 
     The graph holds :func:`decode_step`'s fused stages (three launches
     of ``ops/layer_fused.py`` and the decode kernel a layer besides the
-    GEMMs and residual adds), so a replay runs 15 to 20 kernels a layer.
+    GEMMs and residual adds), so a replay runs 15 to 20 kernels a layer;
+    with routed experts, the five launches of ``ops/moe_experts.py``'s
+    grouped path in place of the dense MLP's, adding to the "decode"
+    device counters at every replay.
 
     Each call is a ``model.decode_step`` profiler range (its batch
     bucket) around ``model.decode.inputs`` (the three copies), then
@@ -1421,6 +1589,7 @@ def _prefill_sharded(params, tokens, kv_pool, block_table, cfg, prefix_len: int)
     sharded params and pool: each chunk attends over the cached prefix,
     read from its rank's pool slice, and the chunks up to its own; then
     every chunk's K/V goes into every copy of its head slice."""
+    _dense_only(cfg, "a sharded prefill")
     grid = _grid(params, cfg, kv_pool)
     out = grid.home
     tokens, table = tokens.to(out), block_table.to(out).long()
@@ -1471,6 +1640,7 @@ def _decode_sharded(params, tokens, kv_pool, block_table, context_len, cfg):
     """``decode_step`` over sharded params and pool (dp x pp x tp): each
     head shard writes its K/V into every copy of its pool slice and runs
     the decode kernel on its own."""
+    _dense_only(cfg, "a sharded decode step")
     grid = _grid(params, cfg, kv_pool)
     if grid.sp > 1:
         raise ValueError(f"a decode step has one token a sequence; sp={grid.sp} cuts nothing")

@@ -41,7 +41,7 @@ from llm_d_kv_cache_manager_tpu_torch.obs.trace import profiler_range
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 # Every kernel source: csrc/<name>.cu, each its own library.
-SOURCES = ("flash_prefill", "paged_decode", "ring_partial", "layer_fused")
+SOURCES = ("flash_prefill", "paged_decode", "ring_partial", "layer_fused", "moe_experts")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode",

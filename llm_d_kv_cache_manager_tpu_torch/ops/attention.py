@@ -22,13 +22,16 @@ def causal_gqa_attention(
     *,
     q_offset: int = 0,
     kv_len: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal attention with grouped KV heads.
 
     q: [B, Tq, H, D]; k/v: [B, Tk, Hkv, D] with H % Hkv == 0.
     ``q_offset`` is the absolute position of q[0] within the key axis.
     ``kv_len`` ([B]) masks padded keys beyond each sequence's length.
-    Returns [B, Tq, H, D] in q.dtype.
+    ``window``: a sliding window, the row at position p seeing keys
+    ``p - window < j <= p`` (the port's windowed layers; the reference
+    has none).  Returns [B, Tq, H, D] in q.dtype.
     """
     B, Tq, H, D = q.shape
     _, Tk, Hkv, _ = k.shape
@@ -41,6 +44,8 @@ def causal_gqa_attention(
     q_pos = torch.arange(Tq, device=q.device)[:, None] + q_offset
     k_pos = torch.arange(Tk, device=q.device)[None, :]
     mask = k_pos <= q_pos  # [Tq, Tk]
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
     if kv_len is not None:
         mask = mask[None] & (k_pos[None] < kv_len[:, None, None])
         mask = mask[:, None, None]  # [B,1,1,Tq,Tk]

@@ -32,9 +32,12 @@ def flash_gqa_attention(
     kv_len: Optional[torch.Tensor] = None,
     q_block: int = 256,
     kv_block: int = 256,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal GQA attention, tiled.  q: [B, Tq, H, D]; k/v:
-    [B, Tk, Hkv, D]; returns [B, Tq, H, D] in q.dtype."""
+    [B, Tk, Hkv, D]; returns [B, Tq, H, D] in q.dtype.  ``window``: a
+    sliding window, as ``ops/attention.py`` takes it; key chunks below
+    every row's window are skipped."""
     B, Tq, H, D = q.shape
     _, Tk, Hkv, _ = k.shape
     groups = H // Hkv
@@ -80,11 +83,16 @@ def flash_gqa_attention(
                 break
             if k_start >= max_limit:
                 break
+            if window is not None and k_start + kv_block <= q_offset + qi * q_block - window + 1:
+                continue
             k_pos = k_start + torch.arange(kv_block, device=dev)
             s = torch.einsum(
                 "bqhgd,bkhd->bqhgk", q_tile, ks[:, ki].float()
             )  # [B, q_block, Hkv, G, kv_block]
-            mask = (k_pos[None, :] <= q_pos[:, None])[None] & (
+            visible = k_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                visible = visible & (k_pos[None, :] > q_pos[:, None] - window)
+            mask = visible[None] & (
                 k_pos[None, None, :] < k_limit[:, None, None]
             )  # [B, q_block, kv_block]
             s = torch.where(mask[:, :, None, None], s, NEG_INF)

@@ -22,6 +22,7 @@ is no fallback: on a CUDA tensor it launches or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -42,15 +43,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_gqa_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version the kernel is held against: the tiled
     online-softmax op (same result as dense attention, without its
     [Tq, Tk] score matrix)."""
-    return flash_gqa_attention(q, k, v, q_offset=q_offset)
+    return flash_gqa_attention(q, k, v, q_offset=q_offset, window=window)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int):
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+           window: Optional[int] = None):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"expected q [B,Tq,H,D] and k/v [B,Tk,Hkv,D], got "
@@ -68,14 +71,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int):
         raise ValueError("q, k and v must have one dtype")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
 def flash_gqa_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int = 0,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal GQA attention.  q: [B, Tq, H, D]; k/v: [B, Tk, Hkv, D];
     query row i sits at key position ``q_offset + i``.  Returns
-    [B, Tq, H, D] in q's dtype.
+    [B, Tq, H, D] in q's dtype.  ``window``: a sliding window, row i
+    seeing keys ``q_offset + i - window < j <= q_offset + i`` (None:
+    causal alone); the key tiles below every row of a q tile's window
+    are left out of its work item, never loaded.
 
     CUDA tensors run the kernel (bf16 or float32, contiguous, 16-byte
     aligned, head dim a multiple of 16 from 32 to 256, any H / Hkv; bf16
@@ -85,9 +94,10 @@ def flash_gqa_attention_cuda(
     on any other device, grad mode with an input that requires grad
     raises ``RuntimeError`` before the launch."""
     q_offset = int(q_offset)
-    _check(q, k, v, q_offset)
+    window = None if window is None else int(window)
+    _check(q, k, v, q_offset, window)
     if q.device.type == "cpu":
-        return flash_gqa_attention_plain(q, k, v, q_offset=q_offset)
+        return flash_gqa_attention_plain(q, k, v, q_offset=q_offset, window=window)
     _build.refuse_grad("flash_gqa_attention_cuda", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -107,7 +117,7 @@ def flash_gqa_attention_cuda(
         if Tk == 0:
             raise ValueError("the bf16 kernel needs at least one key")
         plan = work_list(B, H, Tq, Tk, q_offset, q.device, split_keys=True,
-                         kv_tile=key_tile(D))
+                         kv_tile=key_tile(D), window=window)
         items, n_items, ctas, splits = plan.items, len(plan.items), plan.ctas, plan.splits
     part_o = part_ml = None
     if splits > 1:
@@ -115,7 +125,7 @@ def flash_gqa_attention_cuda(
         part_ml = torch.empty((splits, B, Tq, H, 2), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_prefill")
     fn = lib.flash_prefill
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -124,7 +134,8 @@ def flash_gqa_attention_cuda(
             None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             None if items is None else items.data_ptr(), n_items, ctas,
-            B, Tq, Tk, H, Hkv, D, q_offset, splits, _DTYPE_CODES[q.dtype], stream,
+            B, Tq, Tk, H, Hkv, D, q_offset, window or 0, splits, _DTYPE_CODES[q.dtype],
+            stream,
         )
     _build.check(lib, "flash_prefill launch", rc)
     flash_gqa_attention_cuda.launches += 1

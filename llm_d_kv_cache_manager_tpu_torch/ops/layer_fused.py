@@ -11,6 +11,9 @@ module's plain versions (:func:`rms_norm_plain`, :func:`rope_plain`,
 - :func:`rms_norm_fused`: RMSNorm with eps :data:`EPS`, float32 inside;
 - :func:`rope_kv_fused`: RoPE of q and k, and k and v written into
   their pool slots (and, where asked, out contiguously for attention);
+  its frequencies are :func:`rope_freqs`'s or, on a model's YaRN layers,
+  :func:`yarn_freqs`', and ``scale`` multiplies cos and sin (YaRN's
+  attention factor);
 - :func:`silu_mul_fused`: ``silu(gate)`` rounded, times ``up``.
 
 They replace no TPU kernel (the reference leaves these chains to XLA,
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -47,7 +51,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("layer_fused")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.rms_norm.argtypes = [ptr] * 3 + [i64, i32, ctypes.c_float, i32, ptr]
-    lib.rope_kv.argtypes = [ptr] * 10 + [i64] + [i32] * 5 + [i64, i32, i32, ptr]
+    lib.rope_kv.argtypes = [ptr] * 10 + [i64] + [i32] * 5 + [i64, ctypes.c_float, i32, i32,
+                                                               ptr]
     lib.silu_mul.argtypes = [ptr] * 3 + [i64, i32, ptr]
     for fn in (lib.rms_norm, lib.rope_kv, lib.silu_mul):
         fn.restype = ctypes.c_int
@@ -124,17 +129,49 @@ def rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tenso
     return theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
 
 
+def yarn_freqs(head_dim: int, theta: float, factor: float, original_max_positions: int,
+               beta_fast: float, beta_slow: float) -> torch.Tensor:
+    """YaRN's float32 frequencies, as Hugging Face's
+    ``_compute_yarn_parameters`` makes them: the interpolated frequencies
+    (``rope_freqs`` / ``factor``) below the dims that turn fewer than
+    ``beta_slow`` times over ``original_max_positions``, the original ones
+    above the dims that turn more than ``beta_fast`` times, and a linear
+    ramp between (the correction range, floor and ceiling).  On the CPU;
+    callers move it once.  The attention factor is the caller's
+    ``scale``."""
+
+    def dim_of(turns: float) -> float:
+        return (head_dim * math.log(original_max_positions / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(dim_of(beta_fast)), 0)
+    high = min(math.ceil(dim_of(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    half = head_dim // 2
+    pos_freqs = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim)
+    extrapolation = 1.0 / pos_freqs
+    interpolation = 1.0 / (factor * pos_freqs)
+    ramp = torch.clamp((torch.arange(half, dtype=torch.float32) - low) / (high - low), 0, 1)
+    keep = 1 - ramp  # the share of the original frequency
+    return interpolation * (1 - keep) + extrapolation * keep
+
+
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1).to(x.dtype)
 
 
-def rope_plain(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+def rope_plain(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor,
+               scale: float = 1.0) -> torch.Tensor:
     """RoPE of ``x`` ([B, T, H, D]) at ``positions`` ([B, T]): the angles
-    ``float(position) * freqs`` in float32, x rotated in float32 and cast
-    back to its dtype."""
+    ``float(position) * freqs`` in float32, cos and sin times ``scale``,
+    x rotated in float32 and cast back to its dtype."""
     angles = positions[..., None].float() * freqs  # [B, T, D/2]
-    return _rotate(x, torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :])
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
+    return _rotate(x, cos[:, :, None, :], sin[:, :, None, :])
 
 
 def write_kv_slots(kv_layer: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,9 +186,11 @@ def write_kv_slots(kv_layer: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_layer[blk, 1, at] = v.reshape((-1,) + v.shape[2:]).to(kv_layer.dtype)
 
 
-def rope_kv_plain(q, k, v, positions, freqs, kv_layer, slots, k_out=None, v_out=None):
+def rope_kv_plain(q, k, v, positions, freqs, kv_layer, slots, k_out=None, v_out=None,
+                  scale: float = 1.0):
     """The plain PyTorch version of :func:`rope_kv_fused`."""
-    q_rot, k_rot = rope_plain(q, positions, freqs), rope_plain(k, positions, freqs)
+    q_rot = rope_plain(q, positions, freqs, scale)
+    k_rot = rope_plain(k, positions, freqs, scale)
     write_kv_slots(kv_layer, k_rot, v, slots)
     if k_out is not None:
         k_out.copy_(k_rot)
@@ -204,6 +243,7 @@ def rope_kv_fused(
     slots: torch.Tensor,
     k_out: Optional[torch.Tensor] = None,
     v_out: Optional[torch.Tensor] = None,
+    scale: float = 1.0,
 ) -> torch.Tensor:
     """RoPE of q and k and the pool write of k and v, in one launch.
 
@@ -216,7 +256,7 @@ def rope_kv_fused(
     ``v_out`` ([B, T, Hkv, Dh] in q's dtype: each sequence's rows
     contiguous, so the tail of a longer K/V tensor will do).  The angles
     are ``float(position) * freqs`` in float32, rounded as the plain ops
-    round them.
+    round them; cos and sin are multiplied by ``scale`` (1: exact).
 
     CUDA tensors run one launch (bf16 or float32, contiguous inputs, the
     attention kernels' head dims: a multiple of 16 from 32 to 256; any
@@ -224,7 +264,7 @@ def rope_kv_fused(
     CPU tensors run :func:`rope_kv_plain`."""
     _check_rope(q, k, v, positions, freqs, kv_layer, slots, k_out, v_out)
     if q.device.type == "cpu":
-        return rope_kv_plain(q, k, v, positions, freqs, kv_layer, slots, k_out, v_out)
+        return rope_kv_plain(q, k, v, positions, freqs, kv_layer, slots, k_out, v_out, scale)
     _launch_checks("rope_kv_fused", q, k, v, freqs, kv_layer)
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("rope_kv_fused: q, k and v must have one dtype")
@@ -254,7 +294,7 @@ def rope_kv_fused(
             slots.data_ptr(), q_out.data_ptr(), kv_layer.data_ptr(),
             None if k_out is None else k_out.data_ptr(),
             None if v_out is None else v_out.data_ptr(),
-            B * T, T, H, Hkv, Dh, kv_layer.shape[2], stride,
+            B * T, T, H, Hkv, Dh, kv_layer.shape[2], stride, float(scale),
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[kv_layer.dtype], _stream(q.device))
     _build.check(lib, "rope_kv launch", rc)
     rope_kv_fused.launches += 1

@@ -17,6 +17,8 @@ decode always has a context of at least one token.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
@@ -27,10 +29,13 @@ def paged_attention(
     kv_layer: torch.Tensor,
     block_table: torch.Tensor,
     context_len: torch.Tensor,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """q: [B, H, D]; kv_layer: [num_blocks, 2, block_size, Hkv, D];
     block_table: [B, max_blocks] int (pad with any valid id);
-    context_len: [B] int.  Returns [B, H, D] in q.dtype."""
+    context_len: [B] int.  ``window``: a sliding window, the last
+    ``window`` positions of each context alone (None: all of it).
+    Returns [B, H, D] in q.dtype."""
     B, H, D = q.shape
     _, _, block_size, Hkv, _ = kv_layer.shape
     groups = H // Hkv
@@ -45,7 +50,10 @@ def paged_attention(
     qf = q.float().reshape(B, Hkv, groups, D) * (D**-0.5)
     scores = torch.einsum("bhgd,bkhd->bhgk", qf, k.float())
     positions = torch.arange(T, device=q.device)[None, :]
-    mask = positions < context_len.to(q.device)[:, None]  # [B, T]
+    ctx = context_len.to(q.device)[:, None]
+    mask = positions < ctx  # [B, T]
+    if window is not None:
+        mask = mask & (positions >= ctx - window)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
 
     weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True))

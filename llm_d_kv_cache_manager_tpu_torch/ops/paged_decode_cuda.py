@@ -12,7 +12,9 @@ that arithmetic for the tests), streams them through shared-memory rings,
 and the last CTA of a (sequence, KV head) to arrive merges its partials
 by log-sum-exp inside the same kernel.  The kernel reads the block table
 itself and never reads an entry at or past
-``ceil(context_len / block_size)``.  The host plan (:func:`split_plan`)
+``ceil(context_len / block_size)``; under a sliding window of ``W``
+positions (``window``) it reads only the key tiles that hold positions at
+or above ``context_len - W``, and no table entry below them.  The host plan (:func:`split_plan`)
 reads shapes only and the wrapper never waits for the device, so a call
 can be captured in a CUDA graph.
 
@@ -29,6 +31,7 @@ empty context.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -59,9 +62,10 @@ def paged_decode_attention_plain(
     kv_layer: torch.Tensor,
     block_table: torch.Tensor,
     context_len: torch.Tensor,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version the kernel is held against."""
-    return paged_attention(q, kv_layer, block_table, context_len)
+    return paged_attention(q, kv_layer, block_table, context_len, window)
 
 
 def head_split(group: int, head_dim: int, dtype: torch.dtype):
@@ -93,8 +97,14 @@ def split_plan(batch: int, kv_heads: int, max_blocks: int, sms: int,
                       batch * kv_heads * max_tiles(max_blocks, block_size)))
 
 
+def first_tile(n: int, window: Optional[int]) -> int:
+    """The first key tile a sequence of ``n`` live tokens reads: 0, or
+    under a window the tile of its first position in the window."""
+    return 0 if window is None else max(0, n - window) // TILE_TOKENS
+
+
 def work_items(context_len, kv_heads: int, max_blocks: int, ctas: int, *,
-               block_size: int = 16):
+               block_size: int = 16, window: Optional[int] = None):
     """The kernel's split of one call, as ``(cta, b, line, first tile,
     end tile)`` pieces, a tile being 16 tokens (``TILE_TOKENS``): tile
     ``j`` of a sequence holds its tokens ``[16 j, 16 j + 16)``, inside
@@ -105,9 +115,12 @@ def work_items(context_len, kv_heads: int, max_blocks: int, ctas: int, *,
     ``[c * per, (c + 1) * per)`` with ``per = ceil(units / ctas)``, and
     each stretch of its run inside one (sequence, line) is a piece.  A
     piece that is not the whole pair leaves a partial that the pair's
-    last CTA merges.  At block size 16 a tile is a pool block."""
+    last CTA merges.  At block size 16 a tile is a pool block.  Under a
+    ``window`` a sequence's tiles start at :func:`first_tile`, and its
+    pieces count from there."""
     cap = max_blocks * block_size
-    live = [0 if n <= 0 else -(-min(int(n), cap) // TILE_TOKENS) for n in context_len]
+    live = [0 if n <= 0 else -(-min(int(n), cap) // TILE_TOKENS)
+            - first_tile(min(int(n), cap), window) for n in context_len]
     per_head = sum(live)
     total = kv_heads * per_head
     per = -(-total // ctas)
@@ -161,7 +174,7 @@ def _check(q, kv_layer, block_table, context_len):
 
 
 def _bind(lib) -> None:
-    lib.paged_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.paged_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.paged_decode.restype = ctypes.c_int
     lib.paged_decode_ctas_per_sm.argtypes = [ctypes.c_int] * 4
     lib.paged_decode_ctas_per_sm.restype = ctypes.c_int
@@ -174,10 +187,13 @@ def paged_decode_attention_cuda(
     kv_layer: torch.Tensor,
     block_table: torch.Tensor,
     context_len: torch.Tensor,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """q: [B, H, D]; kv_layer: [num_blocks, 2, block_size, Hkv, D];
     block_table: [B, max_blocks]; context_len: [B].  Returns [B, H, D]
-    in q's dtype.
+    in q's dtype.  ``window``: a sliding window, each row attending to
+    the last ``window`` positions of its context (None: all of them);
+    the kernel reads only the tiles that hold them.
 
     CUDA tensors run the kernel (bf16 or float32, contiguous, block size
     8, 16, 32, 64 or 128, head dim a multiple of 16 from 32 to 256, H/Hkv
@@ -188,8 +204,10 @@ def paged_decode_attention_cuda(
     on any other device, grad mode with an input that requires grad
     raises ``RuntimeError`` before the launch."""
     _check(q, kv_layer, block_table, context_len)
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, kv_layer, block_table, context_len)
+        return paged_decode_attention_plain(q, kv_layer, block_table, context_len, window)
     _build.refuse_grad("paged_decode_attention_cuda", q, kv_layer)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -230,7 +248,8 @@ def paged_decode_attention_cuda(
         rc = lib.paged_decode(
             q.data_ptr(), kv_layer.data_ptr(), block_table.data_ptr(),
             context_len.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            B, H, Hkv, D, block_size, num_blocks, max_blocks, ctas, nsub, code, stream,
+            B, H, Hkv, D, block_size, num_blocks, max_blocks, ctas, nsub,
+            0 if window is None else int(window), code, stream,
         )
     _build.check(lib, "paged_decode launch", rc)
     paged_decode_attention_cuda.launches += 1
